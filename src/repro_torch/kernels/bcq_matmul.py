@@ -1,0 +1,147 @@
+"""Wrappers of the dequant-fused binary-coded GEMM/GEMV kernels
+(csrc/bcq_matmul.cu), replacing the reference's Pallas
+`kernels/bcq_matmul.py:bcq_matmul` and `bcq_gemv`.
+
+Same interface as the reference: x (M, K) with K = 32 * codes.shape[1]
+(the caller zero-pads x to the packed K); codes (bits, K/32, N) words;
+alphas (G, N, bits) and betas (G, N), fp32 or bf16, with G == 1 or G
+dividing K into groups whose size is a multiple of 32. Returns (M, N)
+in x.dtype, accumulated in fp32, with W rounded to x.dtype before the
+product as the reference kernel rounds its expanded tile.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+plain version `_bcq_matmul_plain` below, which is the same math in
+PyTorch ops. `LAUNCHES` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.hw import GEMV_ROWS, WARP, WORD
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import dequant_ref
+
+LAUNCHES = {"bcq_gemv": 0, "bcq_matmul": 0}
+MAX_BITS = 8
+# split-K target for the GEMV: about this many blocks in flight per SM
+GEMV_BLOCKS_PER_SM = 4
+GEMV_MIN_WORDS_PER_SPLIT = 16
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# bcq_gemv_launch(x, codes, alphas, betas, y, partial, M, KW, N, bits,
+#                 plane_stride, words_per_group, splits, x_bf16,
+#                 scale_bf16, stream)
+_GEMV_ARGS = [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P]
+# bcq_gemm_launch(x, codes, alphas, betas, y, M, KW, N, bits,
+#                 plane_stride, words_per_group, x_bf16, scale_bf16, stream)
+_GEMM_ARGS = [_P] * 5 + [_I] * 4 + [_L] + [_I] * 3 + [_P]
+_SMS: dict = {}
+
+
+def _check(x, codes, alphas, betas):
+    if x.dim() != 2 or codes.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)} must be (M, K) and codes "
+                         f"{tuple(codes.shape)} (bits, K/32, N)")
+    M, K = x.shape
+    bits, KW, N = codes.shape
+    if KW * WORD != K:
+        raise ValueError(f"x has K={K} but codes pack {KW * WORD} rows; "
+                         f"zero-pad x to the packed K")
+    G = alphas.shape[0]
+    nb = alphas.shape[-1]
+    if tuple(alphas.shape) != (G, N, nb) or not 1 <= nb <= bits:
+        raise ValueError(f"alphas {tuple(alphas.shape)} do not match codes "
+                         f"{tuple(codes.shape)}")
+    if tuple(betas.shape) != (G, N):
+        raise ValueError(f"betas {tuple(betas.shape)} != ({G}, {N})")
+    if G > 1 and (K % G or (K // G) % WORD):
+        raise ValueError(f"G={G} groups of K={K}: the kernel needs G == 1 "
+                         f"or a group size that is a multiple of {WORD}")
+    if codes.dtype != torch.int32:
+        raise TypeError(f"codes must be int32 words, got {codes.dtype}")
+    return M, K, nb, KW, N, G
+
+
+def _bcq_matmul_plain(x, codes, alphas, betas):
+    """The kernels' plain version: dequantize the active planes over the
+    packed K in fp32, round W to x.dtype, multiply in fp32."""
+    K = x.shape[1]
+    nb = alphas.shape[-1]
+    w = dequant_ref(codes[:nb], alphas, betas, K).to(x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def _launch_args(x, codes, alphas, betas):
+    M, K, nb, KW, N, G = _check(x, codes, alphas, betas)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"x on {dev}: the kernel runs on CUDA tensors")
+    if M < 1:
+        raise ValueError("x has no rows")
+    for name, t in (("codes", codes), ("alphas", alphas), ("betas", betas)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, x on {dev}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype}: the kernel takes fp32 or bf16")
+    if alphas.dtype != betas.dtype or alphas.dtype not in (torch.float32,
+                                                           torch.bfloat16):
+        raise TypeError(f"scales {alphas.dtype}/{betas.dtype}: the kernel "
+                        f"takes fp32 or bf16, one dtype for both")
+    if nb > MAX_BITS:
+        raise ValueError(f"{nb} active bits > {MAX_BITS}")
+    if not (x.is_contiguous() and alphas.is_contiguous()
+            and betas.is_contiguous() and codes[0].is_contiguous()):
+        raise ValueError("x, alphas, betas and each code plane must be "
+                         "contiguous")
+    wpg = 0 if G == 1 else (K // G) // WORD
+    return M, nb, KW, N, wpg
+
+
+def bcq_gemv(x, codes, alphas, betas):
+    """Decode-shaped entry: M <= GEMV_ROWS rows."""
+    _check(x, codes, alphas, betas)
+    if x.device.type == "cpu":
+        return _bcq_matmul_plain(x, codes, alphas, betas)
+    M, nb, KW, N, wpg = _launch_args(x, codes, alphas, betas)
+    if not 1 <= M <= GEMV_ROWS:
+        raise ValueError(f"bcq_gemv takes 1..{GEMV_ROWS} rows, got {M}")
+    sms = _SMS.get(x.device)
+    if sms is None:
+        sms = _SMS[x.device] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+    col_blocks = -(-N // WARP)          # a warp owns 32 output columns
+    splits = max(1, min(-(-GEMV_BLOCKS_PER_SM * sms // col_blocks),
+                        KW // GEMV_MIN_WORDS_PER_SPLIT))
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else y)
+    fn = build.function("bcq_matmul", "bcq_gemv_launch", _GEMV_ARGS)
+    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
+                betas.data_ptr(), y.data_ptr(), partial.data_ptr(), M, KW, N,
+                nb, codes.stride(0), wpg, splits,
+                int(x.dtype == torch.bfloat16),
+                int(alphas.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "bcq_gemv")
+    LAUNCHES["bcq_gemv"] += 1
+    return y
+
+
+def bcq_matmul(x, codes, alphas, betas):
+    """GEMM entry (any M; the dispatcher sends M > GEMV_ROWS here)."""
+    _check(x, codes, alphas, betas)
+    if x.device.type == "cpu":
+        return _bcq_matmul_plain(x, codes, alphas, betas)
+    M, nb, KW, N, wpg = _launch_args(x, codes, alphas, betas)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    fn = build.function("bcq_matmul", "bcq_gemm_launch", _GEMM_ARGS)
+    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
+                betas.data_ptr(), y.data_ptr(), M, KW, N, nb,
+                codes.stride(0), wpg, int(x.dtype == torch.bfloat16),
+                int(alphas.dtype == torch.bfloat16),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "bcq_matmul")
+    LAUNCHES["bcq_matmul"] += 1
+    return y

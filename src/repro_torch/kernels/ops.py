@@ -1,0 +1,63 @@
+"""Dispatch for the binary-coded matmul (the reference's
+`kernels/ops.py:bcq_apply`).
+
+`bcq_apply(x, qt)` is what `layers.linear` calls for QuantizedTensor
+weights. It zero-pads x to the packed K (the pad bits are -1 signs and
+cancel only against zeros), then sends at most `GEMV_ROWS` rows to the
+decode-shaped kernel and more rows to the GEMM — on a CUDA tensor the
+hand-written kernels, on a CPU tensor their plain versions. Groupings
+the kernels do not take (a group size that is not a multiple of the
+32-bit word, the reference's `_kernel_groups_ok`) go through the plain
+dequantize-then-matmul path on any device, as the reference sends them
+to its jnp path; `PLAIN_CALLS` counts them. Expert stacks belong to the
+MoE slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.hw import GEMV_ROWS, WORD
+from repro_torch.kernels import ref
+from repro_torch.kernels.bcq_matmul import bcq_gemv, bcq_matmul
+
+PLAIN_CALLS = {"bcq_plain": 0}
+
+
+def _kernel_groups_ok(qt) -> bool:
+    """G > 1 runs the fused kernel iff groups tile the packed K axis:
+    group_size divides k_in AND is a multiple of the 32-bit pack word,
+    which together mean k_in is already word-aligned."""
+    G = qt.alphas.shape[-3]
+    if G == 1:
+        return True
+    return qt.k_in % G == 0 and (qt.k_in // G) % WORD == 0
+
+
+def _active_codes(qt):
+    """Code planes the tensor's scales actually weight (a leading-plane
+    view when fewer alphas than stored planes; no copy)."""
+    if qt.bits == qt.stored_bits:
+        return qt.codes
+    return qt.codes[..., : qt.bits, :, :]
+
+
+def bcq_apply(x, qt):
+    """x (..., k_in) @ QuantizedTensor -> (..., n_out)."""
+    codes = _active_codes(qt)
+    if codes.dim() > 3:
+        raise NotImplementedError(
+            "stacked (expert) QuantizedTensors are served by the MoE slice "
+            "(ROADMAP Queue 1 item 9, bcq_expert_matmul)")
+    if not _kernel_groups_ok(qt):
+        PLAIN_CALLS["bcq_plain"] += 1
+        w = ref.dequant_ref(codes, qt.alphas, qt.betas, qt.k_in,
+                            dtype=x.dtype)
+        return x @ w
+    xm = x.reshape(-1, qt.k_in)
+    kp = codes.shape[-2] * WORD
+    if kp != qt.k_in:
+        xm = torch.nn.functional.pad(xm, (0, kp - qt.k_in))
+    xm = xm.contiguous()
+    fn = bcq_gemv if xm.shape[0] <= GEMV_ROWS else bcq_matmul
+    y = fn(xm, codes, qt.alphas, qt.betas)
+    return y.reshape(*x.shape[:-1], qt.n_out)

@@ -1,0 +1,172 @@
+"""Regenerate the reference fixture of the PyTorch port's parity tests.
+
+    PYTHONPATH=src python tests/data/torch_port/make_fixture.py [OUT_DIR]
+
+OUT_DIR defaults to this script's directory. Everything is written by
+the JAX package (`repro`) itself:
+
+  w3_pc/        packed artifact: seeded 2-layer tiny-lm, GPTQT w3
+                per-channel, fp32 scales (ckpt/packed.py:save_packed)
+  w3_g64_bf16/  the same model at w3 group_size=64, scales stored bf16
+  reference.json
+      per artifact: fixed prompts, the reference paged engine's greedy
+      tokens (prefix_sharing=False), the prefill logits and the
+      teacher-forced decode logits along each greedy path, and the
+      smallest top-1/top-2 logit gap on that path; plus the launcher's
+      demo prompts and the reference's greedy tokens for them.
+
+Only prompts whose smallest gap is at least GAP_FACTOR times the logits
+tolerance (LOGITS_RTOL * max|logit|) are kept, so greedy equality of the
+port with the reference cannot hinge on a near-tie.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+from pathlib import Path
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+jax.config.update("jax_default_matmul_precision", "highest")
+
+from repro.ckpt.packed import load_packed, save_packed  # noqa: E402
+from repro.configs import get_config  # noqa: E402
+from repro.core import quantize_model  # noqa: E402
+from repro.data import ByteTokenizer  # noqa: E402
+from repro.models import init_params  # noqa: E402
+from repro.models.model import decode_step, prefill  # noqa: E402
+from repro.quant import QuantSpec  # noqa: E402
+from repro.serve import Request, ServeEngine  # noqa: E402
+
+SEED = 0
+N_LAYERS = 2
+MAX_NEW = 8
+N_PROMPTS = 4
+LOGITS_RTOL = 1e-4
+GAP_FACTOR = 10.0
+ARTIFACTS = {"w3_pc": (0, None), "w3_g64_bf16": (64, "bfloat16")}
+LAUNCHER_SEEDS = ["the ancient city", "a famous museum", "this railway",
+                  "the council", "another region", "the early dynasty"]
+LAUNCHER_MAX_NEW = 24
+# every greedy path runs in one fixed-size cache (prompt + new tokens fit)
+CACHE_LEN = 64
+
+
+def config():
+    return get_config("tiny-lm").replace(dtype="float32", n_layers=N_LAYERS)
+
+
+def _round(a) -> list:
+    return [float(f"{v:.7g}") for v in np.asarray(a, np.float64).ravel()]
+
+
+def greedy_path(cfg, params, prompt, max_new):
+    """Reference greedy decode through the model functions: tokens, the
+    prefill logits and the decode logits (each step fed the previous
+    greedy token), and the smallest top-1/top-2 gap relative to the
+    logits tolerance. The prompt is padded to CACHE_LEN (its logits row
+    picked by last_pos) so every path reuses one compilation."""
+    L = len(prompt)
+    padded = np.zeros((1, CACHE_LEN), np.int32)
+    padded[0, :L] = prompt
+    logits, cache = _prefill(cfg)(params, jnp.asarray(padded),
+                                  jnp.asarray([L - 1], jnp.int32))
+    steps = [np.asarray(logits[0])]
+    toks = [int(np.argmax(steps[0]))]
+    for t in range(max_new - 1):
+        logits, cache = _decode(cfg)(params, cache,
+                                     jnp.asarray([[toks[-1]]], jnp.int32),
+                                     jnp.asarray([L + t], jnp.int32))
+        steps.append(np.asarray(logits[0]))
+        toks.append(int(np.argmax(steps[-1])))
+    ratio = min(float(np.diff(np.sort(s)[-2:])[0])
+                / (LOGITS_RTOL * float(np.abs(s).max())) for s in steps)
+    return toks, steps, ratio
+
+
+_JIT: dict = {}
+
+
+def _prefill(cfg):
+    if "prefill" not in _JIT:
+        _JIT["prefill"] = jax.jit(lambda p, t, lp: prefill(
+            cfg, p, t, CACHE_LEN, last_pos=lp))
+    return _JIT["prefill"]
+
+
+def _decode(cfg):
+    if "decode" not in _JIT:
+        _JIT["decode"] = jax.jit(lambda p, c, t, s: decode_step(
+            cfg, p, c, t, s))
+    return _JIT["decode"]
+
+
+def build(out: Path) -> dict:
+    cfg = config()
+    key = jax.random.PRNGKey(SEED)
+    p = init_params(cfg, key)
+    calib = [jax.random.randint(jax.random.fold_in(key, i), (2, 48), 0,
+                                cfg.vocab_size) for i in range(2)]
+    rng = np.random.default_rng(SEED)
+    candidates = [rng.integers(0, 256, n).astype(np.int32)
+                  for n in (5, 9, 12, 17, 23, 31, 40, 7, 14, 26, 35, 44)]
+    doc = {"generator": "tests/data/torch_port/make_fixture.py",
+           "seed": SEED, "arch": "tiny-lm", "n_layers": N_LAYERS,
+           "max_new": MAX_NEW, "logits_rtol": LOGITS_RTOL,
+           "gap_factor": GAP_FACTOR, "artifacts": {}}
+    for name, (gs, scale_dtype) in ARTIFACTS.items():
+        spec = QuantSpec.from_config(cfg.quant, method="gptqt",
+                                     mode="packed", group_size=gs)
+        qp, _ = quantize_model(cfg, p, calib, spec=spec)
+        save_packed(out / name, qp, spec=spec,
+                    meta={"arch": "tiny-lm", "n_layers": N_LAYERS},
+                    scale_dtype=scale_dtype)
+        lp, _, _ = load_packed(out / name)
+        kept = []
+        for prompt in candidates:
+            toks, steps, ratio = greedy_path(cfg, lp, prompt, MAX_NEW)
+            if ratio >= GAP_FACTOR:
+                kept.append((prompt, toks, steps, ratio))
+            if len(kept) == N_PROMPTS:
+                break
+        if len(kept) < N_PROMPTS:
+            raise RuntimeError(f"{name}: only {len(kept)} prompts clear the "
+                               f"greedy gap filter")
+        eng = ServeEngine(cfg, lp, batch_size=2, max_len=64,
+                          dtype="float32", cache_kind="paged", page_size=16,
+                          prefix_sharing=False)
+        reqs = [Request(prompt=k[0], max_new_tokens=MAX_NEW) for k in kept]
+        eng.run(reqs)
+        for r, k in zip(reqs, kept):
+            if r.out != k[1]:
+                raise RuntimeError(f"{name}: engine and model-function "
+                                   f"greedy paths differ")
+        doc["artifacts"][name] = {
+            "group_size": gs, "scale_dtype": scale_dtype or "float32",
+            "prompts": [k[0].tolist() for k in kept],
+            "tokens": [r.out for r in reqs],
+            "gap_ratio": [k[3] for k in kept],
+            "prefill_logits": [_round(k[2][0]) for k in kept],
+            "decode_logits": [[_round(s) for s in k[2][1:]] for k in kept]}
+    # the launcher's demo prompts on the per-channel artifact (greedy
+    # paths of the model functions, which the engine run above matches)
+    lp, _, _ = load_packed(out / "w3_pc")
+    tok = ByteTokenizer()
+    paths = [greedy_path(cfg, lp, tok.encode(s), LAUNCHER_MAX_NEW)
+             for s in LAUNCHER_SEEDS]
+    doc["launcher"] = {
+        "artifact": "w3_pc", "max_new": LAUNCHER_MAX_NEW,
+        "prompts": LAUNCHER_SEEDS, "tokens": [t for t, _, _ in paths],
+        "gap_ratio": [r for _, _, r in paths]}
+    (out / "reference.json").write_text(
+        json.dumps(doc, separators=(",", ":")) + "\n")
+    return doc
+
+
+if __name__ == "__main__":
+    build(Path(sys.argv[1]) if len(sys.argv) > 1 else Path(__file__).parent)

@@ -1,0 +1,208 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device: it skips with that reason
+without one (the kernels have no CPU mode) and fails instead under
+REQUIRE_CUDA=1. The file imports no JAX, so it runs where the card is:
+
+    REQUIRE_CUDA=1 PYTHONPATH=src python -m pytest --noconftest -m cuda \\
+        tests/test_torch_cuda.py
+
+(--noconftest because tests/conftest.py configures JAX.)
+
+Tolerances: fp32 outputs rtol 1e-5 with atol 1e-5 * max|y| (fp32 sums in
+another order); bf16 outputs atol 2^-7 * max|y| (both sides round W to
+bf16 and multiply exactly in fp32, so they differ by the final bf16
+rounding of the output, one ulp = 2^-8 relative).
+"""
+import json
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import bcq_matmul as tbm
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.quant import QuantizedTensor, codes_from_numpy
+
+FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port"
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device, or a skip (a failure under REQUIRE_CUDA=1)."""
+    if torch.cuda.is_available():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return torch.device("cuda")
+    if os.environ.get("REQUIRE_CUDA") == "1":
+        pytest.fail("REQUIRE_CUDA=1 but no CUDA device is available")
+    pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+def close(got, want, bf16=False):
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    scale = float(np.abs(want).max())
+    if bf16:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -7 * scale)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def test_kernels_build_from_the_sources(cuda):
+    out = build.build_all()
+    assert {p.name for p in out.glob("lib*.so")} == {
+        f"lib{n}.so" for n in build.SOURCES}
+
+
+# ---------------------------------------------------------------------------
+# BCQ GEMV / GEMM
+# ---------------------------------------------------------------------------
+
+def make_qt(seed, M, k_in, N, G, bits, stored, scale_dtype):
+    rng = np.random.default_rng(seed)
+    KW = -(-k_in // 32)
+    codes = rng.integers(0, 2 ** 32, (stored, KW, N), dtype=np.uint32)
+    alphas = torch.from_numpy(
+        (rng.random((G, N, bits)) * 0.2 + 0.01).astype(np.float32))
+    betas = torch.from_numpy(
+        (rng.standard_normal((G, N)) * 0.05).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, k_in)).astype(np.float32))
+    qt = QuantizedTensor(codes_from_numpy(codes), alphas.to(scale_dtype),
+                         betas.to(scale_dtype), k_in, "float32")
+    return x, qt
+
+
+BCQ_CASES = [
+    # (M, k_in, N, G, bits, stored)
+    (1, 256, 96, 1, 3, 3), (3, 250, 130, 1, 3, 3),     # pad bits, ragged N
+    (8, 256, 130, 4, 2, 4),                            # active < stored
+    (9, 256, 96, 2, 3, 3), (100, 512, 200, 4, 3, 3),
+    (64, 4096, 256, 32, 3, 3),                         # gs 128
+    (5, 11008, 72, 86, 3, 3),                          # gs 128 at K=11008
+    (2, 256, 64, 1, 5, 5),                             # generic bit count
+]
+
+
+@pytest.mark.parametrize("M,k_in,N,G,bits,stored", BCQ_CASES)
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_bcq_kernels_match_plain(cuda, M, k_in, N, G, bits, stored,
+                                 scale_dtype, x_dtype):
+    x, qt = make_qt(M + k_in + N, M, k_in, N, G, bits, stored, scale_dtype)
+    x = x.to(x_dtype)
+    want = ops.bcq_apply(x, qt)                       # plain, on the CPU
+    name = "bcq_gemv" if M <= 8 else "bcq_matmul"
+    before = tbm.LAUNCHES[name]
+    got = ops.bcq_apply(x.to(cuda), qt.to(cuda))
+    torch.cuda.synchronize()
+    assert tbm.LAUNCHES[name] == before + 1
+    assert got.is_cuda and got.dtype == x_dtype
+    close(got, want, bf16=x_dtype == torch.bfloat16)
+
+
+def test_bcq_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    x, qt = make_qt(0, 9, 256, 64, 1, 3, 3, torch.float32)
+    x, qt = x.to(cuda), qt.to(cuda)
+    c, a, b = qt.codes, qt.alphas, qt.betas
+    with pytest.raises(ValueError, match="rows"):
+        tbm.bcq_gemv(x, c, a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbm.bcq_matmul(x.t().contiguous().t(), c, a, b)
+    with pytest.raises(TypeError, match="one dtype"):
+        tbm.bcq_matmul(x, c, a, b.bfloat16())
+    with pytest.raises(ValueError, match="on cpu"):
+        tbm.bcq_matmul(x, c.cpu(), a, b)
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+def make_pages(seed, page, ctx, Hkv, rep, hd, inactive):
+    rng = np.random.default_rng(seed)
+    B = len(ctx)
+    need = [0 if b in inactive else -(-c // page) for b, c in enumerate(ctx)]
+    T = max(-(-c // page) for c in ctx) + 2
+    P = sum(need) + 1
+    ids = rng.permutation(np.arange(1, P))
+    bt = np.zeros((B, T), np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = ids[used:used + n]
+        used += n
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return (f(B, Hkv, rep, hd), f(P, page, Hkv, hd), f(P, page, Hkv, hd),
+            torch.from_numpy(bt), torch.tensor(ctx, dtype=torch.int32))
+
+
+PAGED_CASES = [
+    # (page, ctx, Hkv, rep, hd, window, cap, inactive)
+    (4, [1, 7, 16, 13], 2, 1, 64, None, None, ()),
+    (16, [16, 32, 5, 48], 2, 1, 64, None, None, ()),
+    (64, [17, 64, 100, 160], 32, 1, 128, None, None, ()),   # llama2-7b
+    (16, [40, 23, 9], 3, 2, 64, 8, None, ()),              # GQA + window
+    (4, [40, 23, 9], 3, 2, 64, None, 5.0, ()),             # cap
+    (16, [50, 17, 33], 2, 4, 32, 20, 30.0, ()),
+    (16, [30, 40, 12], 2, 2, 64, None, None, (1,)),         # inactive row
+    (4, [9, 77], 1, 8, 256, 16, None, (0,)),
+]
+
+
+@pytest.mark.parametrize("page,ctx,Hkv,rep,hd,window,cap,inactive",
+                         PAGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_matches_plain(cuda, page, ctx, Hkv, rep, hd,
+                                       window, cap, inactive, dtype):
+    q, kp, vp, bt, cl = make_pages(page + sum(ctx), page, ctx, Hkv, rep,
+                                   hd, inactive)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    want = paged_attention_ref(q, kp, vp, bt, cl, window=window, cap=cap)
+    before = tpa.LAUNCHES["paged_attention"]
+    got = tpa.paged_attention(*(t.to(cuda) for t in (q, kp, vp, bt, cl)),
+                              window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["paged_attention"] == before + 1
+    assert got.dtype == dtype
+    close(got, want, bf16=dtype == torch.bfloat16)
+
+
+def test_paged_attention_refuses_unsupported_geometry(cuda):
+    q, kp, vp, bt, cl = make_pages(0, 16, [5], 1, 1, 48, ())
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_attention(*(t.to(cuda) for t in (q, kp, vp, bt, cl)))
+    q, kp, vp, bt, cl = make_pages(0, 16, [5], 1, 1, 64, ())
+    with pytest.raises(TypeError, match="int32"):
+        tpa.paged_attention(*(t.to(cuda) for t in (q, kp, vp)),
+                            bt.long().to(cuda), cl.to(cuda))
+
+
+# ---------------------------------------------------------------------------
+# the fixture served on the card
+# ---------------------------------------------------------------------------
+
+def test_fixture_serves_on_the_card_like_the_reference(cuda):
+    from repro_torch.ckpt import load_packed
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request, ServeEngine
+    ref = json.loads((FIXTURE / "reference.json").read_text())
+    for name, art in ref["artifacts"].items():
+        params, _, meta = load_packed(FIXTURE / name)
+        cfg = get_config(meta["arch"]).replace(
+            dtype="float32", n_layers=len(params["layers"]))
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          dtype="float32", cache_kind="paged", page_size=16)
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=ref["max_new"])
+                for p in art["prompts"]]
+        reset_launch_counts()
+        eng.run(reqs)
+        counts = launch_counts()
+        assert [r.out for r in reqs] == art["tokens"]
+        assert counts["bcq_gemv"] and counts["bcq_matmul"]
+        assert counts["paged_attention"] and not counts["bcq_plain"]

@@ -1,0 +1,104 @@
+"""The port's paged-attention decode (repro_torch/kernels/
+paged_attention.py) against the reference's Pallas `paged_attention`
+in interpret mode and its `paged_attention_ref` oracle, on the same
+numpy inputs: page sizes 4/16/64, ragged contexts and contexts on a
+page boundary, GQA (the tiny-lm-wide geometry), window and cap, tables
+padded with the null page 0, and an inactive row that names only the
+null page.
+
+On the CPU the wrapper runs its plain version; the CUDA kernel is held
+against it in tests/test_torch_cuda.py. Tolerance: fp32 rtol 1e-5 and
+atol 1e-5 * max|out| (online vs one-pass softmax and another summation
+order).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.ref import paged_attention_ref as jax_paged_ref
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels.ref import paged_attention_ref
+
+
+def make(seed, page, ctx, Hkv=2, rep=1, hd=64, inactive=(), spare=2):
+    """Pool with distinct pages per sequence (shuffled ids 1..), tables
+    padded with 0, and `inactive` rows pointing at the null page only
+    (their ctx is an arbitrary pos + 1, as the engine leaves it)."""
+    rng = np.random.default_rng(seed)
+    B = len(ctx)
+    need = [0 if b in inactive else -(-c // page) for b, c in enumerate(ctx)]
+    T = max(max(-(-c // page) for c in ctx), 1) + spare
+    P = sum(need) + 1
+    ids = rng.permutation(np.arange(1, P))
+    bt = np.zeros((B, T), np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        bt[b, :n] = ids[used:used + n]
+        used += n
+    q = rng.standard_normal((B, Hkv, rep, hd)).astype(np.float32)
+    kp = rng.standard_normal((P, page, Hkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((P, page, Hkv, hd)).astype(np.float32)
+    return q, kp, vp, bt, np.asarray(ctx, np.int32)
+
+
+CASES = [
+    # (page, ctx, Hkv, rep, hd, window, cap, inactive)
+    (4, [1, 7, 16, 13], 2, 1, 64, None, None, ()),
+    (16, [16, 32, 5, 48], 2, 1, 64, None, None, ()),     # page boundaries
+    (64, [1, 64, 65, 130], 2, 1, 128, None, None, ()),
+    (16, [40, 23, 9], 3, 2, 64, None, None, ()),         # tiny-lm-wide GQA
+    (16, [40, 23, 9], 3, 2, 64, 8, None, ()),
+    (4, [40, 23, 9], 3, 2, 64, None, 5.0, ()),
+    (16, [50, 17, 33], 2, 4, 32, 20, 30.0, ()),
+    (16, [30, 40, 12], 2, 2, 64, None, None, (1,)),       # inactive row
+    (4, [9, 77], 1, 8, 64, 16, None, (0,)),
+]
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def close(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("page,ctx,Hkv,rep,hd,window,cap,inactive", CASES)
+def test_matches_reference_kernel(page, ctx, Hkv, rep, hd, window, cap,
+                                  inactive):
+    q, kp, vp, bt, cl = make(page + sum(ctx), page, ctx, Hkv, rep, hd,
+                             inactive)
+    want = jax_paged(*(jnp.asarray(a) for a in (q, kp, vp, bt, cl)),
+                     window=window, cap=cap, interpret=True)
+    oracle = jax_paged_ref(*(jnp.asarray(a) for a in (q, kp, vp, bt, cl)),
+                           window=window, cap=cap)
+    before = dict(tpa.LAUNCHES)
+    got = tpa.paged_attention(*_torch(q, kp, vp, bt, cl), window=window,
+                              cap=cap)
+    assert tpa.LAUNCHES == before
+    assert got.dtype == torch.float32 and tuple(got.shape) == q.shape
+    close(got.numpy(), np.asarray(want))
+    close(paged_attention_ref(*_torch(q, kp, vp, bt, cl), window=window,
+                              cap=cap).numpy(), np.asarray(oracle))
+
+
+def test_repeated_null_page_rows():
+    """A row whose table names page 0 everywhere, with a context spanning
+    several copies of it (inactive rows in the engine), reads the same
+    page repeatedly and still matches the reference."""
+    q, kp, vp, bt, _ = make(3, 4, [10, 6], inactive=(0, 1), spare=4)
+    cl = np.array([17, 6], np.int32)
+    want = jax_paged(*(jnp.asarray(a) for a in (q, kp, vp, bt, cl)),
+                     interpret=True)
+    got = tpa.paged_attention(*_torch(q, kp, vp, bt, cl))
+    close(got.numpy(), np.asarray(want))
+
+
+def test_rejects_bad_window_and_cap():
+    q, kp, vp, bt, cl = make(0, 16, [5])
+    with pytest.raises(ValueError, match="window"):
+        tpa.paged_attention(*_torch(q, kp, vp, bt, cl), window=0)

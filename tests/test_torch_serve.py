@@ -1,0 +1,240 @@
+"""The port's serving stack (repro_torch/serve/, launch/serve.py) on the
+CPU: greedy tokens of its paged engine equal those the reference's paged
+engine (prefix_sharing=False) recorded on the committed fixture
+artifacts, its paged and dense engines agree, pages drain back to the
+pool, the allocator keeps its invariants under preemption, and the
+launcher serves the fixture with --device cpu."""
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serve.engine import bucket_len as jax_bucket_len
+from repro_torch.ckpt import load_packed
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import main as launch_main
+from repro_torch.serve import (OutOfPages, PagedKVCache, Request,
+                               ServeEngine, bucket_len)
+
+ROOT = Path(__file__).resolve().parents[1]
+FIXTURE = ROOT / "tests" / "data" / "torch_port"
+REF = json.loads((FIXTURE / "reference.json").read_text())
+ARTIFACTS = ["w3_pc", "w3_g64_bf16"]
+
+
+def _model(name):
+    params, _, meta = load_packed(FIXTURE / name, device="cpu")
+    cfg = get_config(meta["arch"]).replace(dtype="float32",
+                                           n_layers=len(params["layers"]))
+    return cfg, params
+
+
+def _serve(cfg, params, prompts, max_new, **kw):
+    kw = {"batch_size": 2, "max_len": 64, "dtype": "float32",
+          "page_size": 16, "device": "cpu", **kw}
+    eng = ServeEngine(cfg, params, **kw)
+    reqs = [Request(prompt=np.asarray(p, np.int32), max_new_tokens=max_new)
+            for p in prompts]
+    eng.run(reqs)
+    return eng, [r.out for r in reqs]
+
+
+def check_drained(kv):
+    assert kv.free_page_count == kv.usable_pages
+    assert kv.live_pages == 0 and not kv.active_slots()
+    assert not kv.block_tables.any()
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_paged_engine_matches_reference_greedy_tokens(name):
+    art = REF["artifacts"][name]
+    cfg, params = _model(name)
+    eng, outs = _serve(cfg, params, art["prompts"], REF["max_new"],
+                       cache_kind="paged")
+    assert outs == art["tokens"]
+    assert eng.stats["n_done"] == len(outs)
+    assert eng.stats["kv_high_water_pages"] > 0
+    check_drained(eng.kv)
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_paged_equals_dense(name):
+    art = REF["artifacts"][name]
+    cfg, params = _model(name)
+    _, paged = _serve(cfg, params, art["prompts"], 12, cache_kind="paged",
+                      batch_size=3)
+    _, dense = _serve(cfg, params, art["prompts"], 12, cache_kind="dense",
+                      batch_size=3)
+    assert paged == dense
+
+
+def test_preemption_keeps_greedy_output():
+    """A pool too small for every sequence's growth forces evictions;
+    recompute-on-resume is exact under greedy decoding."""
+    art = REF["artifacts"]["w3_pc"]
+    cfg, params = _model("w3_pc")
+    _, roomy = _serve(cfg, params, art["prompts"], 16, cache_kind="paged",
+                      page_size=4, batch_size=3)
+    eng, tight = _serve(cfg, params, art["prompts"], 16, cache_kind="paged",
+                        page_size=4, batch_size=3, n_pages=13)
+    assert eng.sched.preemptions > 0
+    assert tight == roomy
+    check_drained(eng.kv)
+
+
+def test_allocator_invariants_under_random_traffic():
+    cfg = get_config("tiny-lm").replace(n_layers=1)
+    kv = PagedKVCache(cfg, n_pages=9, page_size=4, max_seqs=3,
+                      max_pages_per_seq=4, create_pool=False)
+    rng = np.random.default_rng(0)
+    lens = {}
+    for _ in range(400):
+        op = rng.integers(0, 4)
+        if op == 0:
+            s = kv.alloc_slot()
+            if s is not None:
+                lens[s] = 0
+        elif op == 1 and lens:
+            s = int(rng.choice(list(lens)))
+            n = lens[s] + int(rng.integers(1, 6))
+            try:
+                kv.ensure(s, n)
+                lens[s] = n
+            except OutOfPages:
+                pass
+        elif op == 2 and any(lens.values()):
+            s = int(rng.choice([s for s in lens if lens[s]]))
+            lens[s] = int(rng.integers(1, lens[s] + 1))
+            kv.truncate(s, lens[s])
+        elif op == 3 and lens:
+            s = int(rng.choice(list(lens)))
+            kv.release(s)
+            del lens[s]
+        owners = np.zeros(kv.n_pages, np.int32)
+        for s in range(kv.max_seqs):
+            own = kv.owned_pages(s)
+            assert list(kv.block_tables[s, :len(own)]) == own
+            assert not kv.block_tables[s, len(own):].any()
+            owners[own] += 1
+        assert kv.free_page_count + kv.live_pages == kv.usable_pages
+        assert (owners == kv._refcount).all() and kv.refcount(0) == 0
+    for s in list(lens):
+        kv.release(s)
+    check_drained(kv)
+
+
+def test_cow_forks_a_shared_page():
+    cfg = get_config("tiny-lm").replace(n_layers=1)
+    kv = PagedKVCache(cfg, n_pages=6, page_size=4, max_seqs=2,
+                      create_pool=False)
+    s = kv.alloc_slot()
+    kv.ensure(s, 8)
+    shared = kv.owned_pages(s)[1]
+    kv._refcount[shared] += 1            # a second reader of page 1
+    v = kv.bt_version[s]
+    copies = kv.cow_for_write(s, 5, 6)
+    assert copies == [(shared, kv.owned_pages(s)[1])]
+    assert kv.refcount(shared) == 1 and kv.bt_version[s] == v + 1
+    assert kv.cow_for_write(s, 0, 8) == []
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 100, 1000])
+def test_prompt_buckets_match_reference(n):
+    assert bucket_len(n, 512) == jax_bucket_len(n, 512)
+
+
+def test_launcher_serves_fixture_on_cpu(capsys):
+    lref = REF["launcher"]
+    _, reqs = launch_main(["--load-quantized", str(FIXTURE / "w3_pc"),
+                           "--device", "cpu", "--cache", "paged",
+                           "--requests", "3", "--batch-size", "3",
+                           "--max-new", str(lref["max_new"])])
+    assert [r.out for r in reqs] == lref["tokens"][:3]
+    assert "served 3 requests" in capsys.readouterr().out
+
+
+def test_launcher_module_entry_point():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--load-quantized", str(FIXTURE / "w3_g64_bf16"),
+                        "--device", "cpu", "--requests", "2",
+                        "--max-new", "4"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "served 2 requests, 6 tokens" in r.stdout
+
+
+@pytest.mark.parametrize("kw,slice_name", [
+    ({"prefix_sharing": True}, "prefix-cache"),
+    ({"prefill_chunk": 16}, "chunked-prefill"),
+    ({"kv_bits": 4}, "quantized-KV"),
+    ({"speculate": 2}, "speculative"),
+    ({"mesh": object()}, "multi-GPU")])
+def test_later_slices_raise(kw, slice_name):
+    cfg, params = _model("w3_pc")
+    with pytest.raises(NotImplementedError, match=slice_name):
+        ServeEngine(cfg, params, cache_kind="paged", device="cpu", **kw)
+
+
+def test_engine_runs_on_cuda_unless_told_otherwise():
+    cfg, params = _model("w3_pc")
+    if torch.cuda.is_available():
+        eng = ServeEngine(cfg, params, cache_kind="paged")
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(cfg, params, cache_kind="paged")
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py: its refusals, and its control flow rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+def _chip_smoke(monkeypatch):
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    return cs
+
+
+def test_chip_smoke_refuses_without_sources_or_cuda(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    runs = [subprocess.run([sys.executable, str(alone)], cwd=str(tmp_path),
+                           capture_output=True, text=True, timeout=300)]
+    if not torch.cuda.is_available():
+        runs.append(subprocess.run([sys.executable, "chip_smoke.py"],
+                                   cwd=str(ROOT), capture_output=True,
+                                   text=True, timeout=300))
+    for r in runs:
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
+    """Every phase runs end to end with the plain versions on the CPU at
+    tiny size; only the launch-count requirements (no kernel launches on
+    the CPU) are unmet."""
+    cs = _chip_smoke(monkeypatch)
+    unmet = []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    gen = torch.Generator().manual_seed(0)
+    worst, n_checks = cs.check_bcq(gen, [(256, 96)])
+    assert n_checks == {"bcq_gemv": 16, "bcq_matmul": 12}
+    assert worst["bcq_gemv"] <= cs.TOL_FP32
+    assert cs.check_paged(gen) <= cs.TOL_FP32
+    cs.phase_fixture()
+    counts, row = cs.phase_main_path(0, "tiny-lm")
+    assert row["decode_tokens"] == 4 * 31 and row["model"] == "tiny-lm"
+    assert unmet == [f"main path: {k} was never launched"
+                     for k in ("bcq_gemv", "bcq_matmul", "paged_attention")]
