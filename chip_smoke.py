@@ -2,34 +2,46 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-three phases; any failure is a non-zero exit.
+five phases; any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
-     card at the llama2-7b main-path shapes (BCQ GEMV M in {1,4,8} and
-     GEMM M in {9,128} on 4096x4096, 4096x11008, 11008x4096, w3
-     per-channel and group 128, fp32 and bf16 scales; paged attention at
-     B=4, Hkv=32, hd=128, page 64, ragged contexts), with times.
-  2. reference fixture: the committed tiny-lm artifacts
-     (tests/data/torch_port/) served on the card through the launcher and
-     the paged ServeEngine; logits and greedy tokens are held against
-     those the JAX reference recorded.
+     card at the main-path shapes (BCQ GEMV M in {1,4,8} and GEMM M in
+     {9,128} on 4096x4096, 4096x11008, 11008x4096, w3 per-channel and
+     group 128, fp32 and bf16 scales; the batched-expert GEMM at E=128,
+     M in {4,16}, 4096x1536 and 1536x4096, also bit for bit against the
+     single-matrix kernels expert by expert; paged attention over fp and
+     2/3/4-bit binary-coded pages at the llama2-7b (Hkv 32, rep 1) and
+     Qwen3-MoE (Hkv 4, rep 16) geometries, page 64, ragged contexts,
+     window and cap), with times.
+  2. reference fixture: the committed artifacts (tests/data/torch_port/:
+     tiny-lm w3, tiny-moe w3, and tiny-lm with 4-bit KV pages) served on
+     the card through the launcher and the paged ServeEngine; logits and
+     greedy tokens are held against those the JAX reference recorded.
   3. main path at full width: seeded synthetic w3 per-channel packed
      llama2-7b (32 layers) served by the paged engine, 4 requests with
      16-100 token prompts and 32 new tokens each, with per-kernel launch
      counts.
+  4. binary-coded KV at full width: phase 3's model and requests with
+     4-bit KV pages (one group per head vector).
+  5. MoE at full width: seeded synthetic w3 per-channel qwen3-moe-235b-a22b
+     (128 experts top-8), cut to 16 of its 94 layers, 4 requests, 32 new
+     tokens each, fp KV pages.
 
-The line before the last is {"kernels": [...]} (one entry per ported
-kernel: launches on the main path, error against the plain version,
-time, bound, plain and library times); the last line is
-{"ok": true, "device": {...}}. It exits non-zero without a result when
-no CUDA device is available or the port's sources are missing.
+Each path (phases 3-5) is driven with every launch count set to 0 just
+before it and read just after. The line before the last is
+{"kernels": [...]} (one entry per ported kernel: launches on the paths,
+error against the plain version, time, bound, plain and library
+times); the last line is {"ok": true, "device": {...}}. It exits
+non-zero without a result when no CUDA device is available or the
+port's sources are missing.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -53,9 +65,16 @@ KERNEL_ROWS = {
                  "src/repro/kernels/bcq_matmul.py:218"),
     "bcq_matmul": ("src/repro_torch/csrc/bcq_matmul.cu",
                    "src/repro/kernels/bcq_matmul.py:162"),
+    "bcq_expert_matmul": ("src/repro_torch/csrc/bcq_matmul.cu",
+                          "src/repro/kernels/bcq_matmul.py:229"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:145"),
+    "paged_attention_quant": ("src/repro_torch/csrc/paged_attention.cu",
+                              "src/repro/kernels/paged_attention.py:188"),
 }
+# the Qwen3-MoE depth served in phase 5: at w3 its 94 layers hold ~85 GB
+# of expert codes, more than the card's 80 GB; 16 layers hold ~14.5 GB
+MOE_LAYERS = 16
 
 
 # the card; rehearsals of the control flow set this to "cpu"
@@ -137,25 +156,30 @@ def bound_ms(n_bytes: float, flops: float):
 # phase 1: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-def random_qt(gen, K, N, gs, scale_dtype, bits=3, beta_scale=0.1):
-    """Seeded random packed weight on the card: uniform code words,
-    alphas (4,2,1)/sqrt(21) * K^-0.5 (so W has std ~K^-0.5), small
-    random betas."""
+def random_qt(gen, K, N, gs, scale_dtype, bits=3, beta_scale=0.1, E=None):
+    """Seeded random packed weight on the card (a stack of E experts when
+    E is given): uniform code words, alphas (4,2,1)/sqrt(21) * K^-0.5
+    with 10 % jitter (so W has std ~K^-0.5), small random betas."""
     import torch
     from repro_torch.quant import QuantizedTensor
+    lead = () if E is None else (E,)
     G = 1 if gs == 0 else K // gs
-    codes = torch.randint(-2 ** 31, 2 ** 31, (bits, K // 32, N),
+    codes = torch.randint(-2 ** 31, 2 ** 31, (*lead, bits, K // 32, N),
                           dtype=torch.int32, generator=gen, device=DEV)
     base = torch.tensor([4.0, 2.0, 1.0][:bits], device=DEV)
     base = base / base.square().sum().sqrt() * K ** -0.5
-    jitter = 1 + 0.1 * torch.rand((G, N, bits), generator=gen, device=DEV)
+    jitter = 1 + 0.1 * torch.rand((*lead, G, N, bits), generator=gen,
+                                  device=DEV)
     alphas = (base * jitter).to(scale_dtype).contiguous()
-    betas = (torch.randn((G, N), generator=gen, device=DEV)
+    betas = (torch.randn((*lead, G, N), generator=gen, device=DEV)
              * beta_scale * K ** -0.5).to(scale_dtype)
     return QuantizedTensor(codes, alphas, betas, K, "float32")
 
 
 LLAMA_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096)]
+# (Hkv, rep, hd) of the binary-coded decode: llama2-7b, Qwen3-MoE
+QUANT_GEOMS = ((32, 1, 128), (4, 16, 128))
+PAGED_CTX = [50, 80, 110, 131]
 
 
 def check_bcq(gen, shapes):
@@ -290,6 +314,9 @@ def check_paged(gen):
         # GQA, window and cap, a row on the null page only (inactive)
         dict(B=3, Hkv=3, rep=2, hd=64, page=16, ctx=[40, 1, 33],
              window=8, cap=30.0),
+        # Qwen3-MoE decode: 64 query heads over 4 KV heads (rep 16)
+        dict(B=4, Hkv=4, rep=16, hd=128, page=64, ctx=[50, 80, 110, 131],
+             window=None, cap=None),
     ]
     worst = 0.0
     for c in cases:
@@ -316,13 +343,14 @@ def check_paged(gen):
     return worst
 
 
-def summarize_paged(gen):
+def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX):
+    """The kernel's line at a decode shape (default: phase 3's llama2-7b):
+    time, bound, plain, and SDPA on the gathered K/V."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    B, Hkv, rep, hd, page = 4, 32, 1, 128, 64
-    ctx = [50, 80, 110, 131]
+    B = len(ctx)
     q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
                                    torch.float32)
     y = paged_attention(q, kp, vp, bt, cl)
@@ -339,7 +367,7 @@ def summarize_paged(gen):
             < cl[:, None])[:, None, None, :]
     qs = q.reshape(B, Hkv * rep, 1, hd)
     lib_ms = best_ms(kernel_ms(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=mask), 200))
+        qs, k, v, attn_mask=mask, enable_gqa=True), 200))
     tokens = sum(ctx)
     n_bytes = (2 * tokens * Hkv * hd * 4 + 2 * q.numel() * 4
                + bt.numel() * 4 + cl.numel() * 4)
@@ -350,6 +378,171 @@ def summarize_paged(gen):
             "timing": "profiler" if t["device_ms"] else "cuda_events",
             "shape": f"B={B} Hkv={Hkv} rep={rep} hd={hd} page={page} "
                      f"ctx={ctx} fp32"}
+
+
+def quant_pages(kp, vp, bits, gs):
+    """Binary-coded K/V pools (quant/kv.py layout) of fp pools."""
+    from repro_torch.quant.kv import kv_quantize
+    return (*kv_quantize(kp, bits, gs), *kv_quantize(vp, bits, gs))
+
+
+
+
+def check_paged_quant(gen, geoms=QUANT_GEOMS, page=64, ctx=PAGED_CTX):
+    """paged_attention_quant against its plain version: bits 2/3/4, one
+    group per head vector and groups of 32, with and without window and
+    cap, at each (Hkv, rep, hd)."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention_quant
+    from repro_torch.kernels.ref import paged_attention_quant_ref
+    worst = 0.0
+    for Hkv, rep, hd in geoms:
+        for bits in (2, 3, 4):
+            for gs in (0, 32):
+                for window, cap in ((None, None), (40, 30.0)):
+                    q, kp, vp, bt, cl = paged_case(gen, len(ctx), Hkv, rep,
+                                                   hd, page, ctx,
+                                                   torch.float32)
+                    pool = quant_pages(kp, vp, bits, gs)
+                    y = paged_attention_quant(q, *pool, bt, cl,
+                                              window=window, cap=cap)
+                    ref = paged_attention_quant_ref(q, *pool, bt, cl,
+                                                    window=window, cap=cap)
+                    sync()
+                    err = float((y - ref).abs().max())
+                    rel = err / float(ref.abs().max())
+                    emit({"check": "paged_attention_quant", "Hkv": Hkv,
+                          "rep": rep, "hd": hd, "page": page, "ctx": ctx,
+                          "bits": bits, "kv_group_size": gs,
+                          "window": window, "cap": cap,
+                          "max_abs_err": err, "rel_err": rel,
+                          "tol": TOL_FP32})
+                    require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                            f"paged_attention_quant Hkv={Hkv} rep={rep} "
+                            f"bits={bits} gs={gs} window={window}: rel err "
+                            f"{rel:.3g}")
+                    worst = max(worst, rel)
+    return worst
+
+
+def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
+                          ctx=PAGED_CTX):
+    """The kernel's line at the phase-4 decode shape: time, bound, plain,
+    and the library yardstick: SDPA on K/V gathered and expanded to fp32
+    before the call (it gets its operand already expanded)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_attention_quant
+    from repro_torch.kernels.ref import paged_attention_quant_ref
+    from repro_torch.quant.kv import kv_bytes_per_token_head, kv_dequantize
+    B = len(ctx)
+    q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
+                                   torch.float32)
+    pool = quant_pages(kp, vp, bits, 0)
+    y = paged_attention_quant(q, *pool, bt, cl)
+    ref = paged_attention_quant_ref(q, *pool, bt, cl)
+    err = float((y - ref).abs().max())
+    t = kernel_ms(lambda: paged_attention_quant(q, *pool, bt, cl), 200)
+    plain_ms = best_ms(kernel_ms(
+        lambda: paged_attention_quant_ref(q, *pool, bt, cl), 20))
+    T = bt.shape[1]
+    k = kv_dequantize(*pool[:3])[bt.long()].reshape(
+        B, T * page, Hkv, hd).transpose(1, 2)
+    v = kv_dequantize(*pool[3:])[bt.long()].reshape(
+        B, T * page, Hkv, hd).transpose(1, 2)
+    mask = (torch.arange(T * page, device=DEV)[None, :]
+            < cl[:, None])[:, None, None, :]
+    qs = q.reshape(B, Hkv * rep, 1, hd)
+    lib_ms = best_ms(kernel_ms(lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, enable_gqa=True), 200))
+    tokens = sum(ctx)
+    n_bytes = (2 * tokens * Hkv * kv_bytes_per_token_head(hd, bits)
+               + 2 * q.numel() * 4 + bt.numel() * 4 + cl.numel() * 4)
+    b, by = bound_ms(n_bytes, 4.0 * tokens * Hkv * rep * hd)
+    return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "library_gets": "K/V gathered and expanded to fp32 beforehand",
+            "event_ms": t["event_ms"],
+            "timing": "profiler" if t["device_ms"] else "cuda_events",
+            "shape": f"B={B} Hkv={Hkv} rep={rep} hd={hd} page={page} "
+                     f"ctx={ctx} {bits}-bit G=1, fp32 q"}
+
+
+# the Qwen3-MoE expert matrices: wg/wu (4096 x 1536) and wd (1536 x 4096)
+EXPERT_SHAPES = ((4096, 1536), (1536, 4096))
+
+
+def check_expert(gen, E=128, shapes=EXPERT_SHAPES, Ms=(4, 16)):
+    """bcq_expert_matmul against its plain version (w3 per-channel fp32
+    scales and group 128 bf16 scales), and each expert's slice against
+    the single-matrix kernel on that expert alone, bit for bit."""
+    import torch
+    from repro_torch.kernels.bcq_matmul import (_bcq_expert_plain,
+                                                bcq_expert_matmul, bcq_gemv,
+                                                bcq_matmul)
+    from repro_torch.hw import GEMV_ROWS
+    worst, n_exact = 0.0, 0
+    for K, N in shapes:
+        for gs, sdt in ((0, torch.float32), (128, torch.bfloat16)):
+            qt = random_qt(gen, K, N, gs, sdt, E=E)
+            c, a, b = qt.codes, qt.alphas, qt.betas
+            for M in Ms:
+                x = torch.randn((E, M, K), generator=gen, device=DEV)
+                y = bcq_expert_matmul(x, c, a, b)
+                ref = _bcq_expert_plain(x, c, a, b)
+                dense = bcq_gemv if M <= GEMV_ROWS else bcq_matmul
+                exact = all(torch.equal(y[e], dense(x[e], c[e], a[e], b[e]))
+                            for e in range(E))
+                sync()
+                err = float((y - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                t = kernel_ms(lambda: bcq_expert_matmul(x, c, a, b), 10)
+                emit({"check": "bcq_expert_matmul", "E": E, "M": M, "K": K,
+                      "N": N, "group_size": gs,
+                      "scale_dtype": str(sdt).removeprefix("torch."),
+                      "max_abs_err": err, "rel_err": rel, "tol": TOL_FP32,
+                      "equals_single_matrix_kernels": exact,
+                      "ms": best_ms(t), "event_ms": t["event_ms"]})
+                require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                        f"bcq_expert_matmul M={M} K={K} N={N} gs={gs}: rel "
+                        f"err {rel:.3g}")
+                require(exact, f"bcq_expert_matmul M={M} K={K} N={N} "
+                               f"gs={gs}: an expert differs from the "
+                               f"single-matrix kernel")
+                worst = max(worst, rel)
+                n_exact += E
+            del qt, c, a, b
+    return worst, n_exact
+
+
+def summarize_expert(gen, E=128, M=4, K=4096, N=1536):
+    """The kernel's line at the phase-5 decode shape (wg/wu, C = 4 rows
+    per expert), w3 per-channel fp32: time, bound, plain, and the library
+    yardstick: torch.bmm on the stack dequantized to fp32 beforehand (it
+    gets its operand already expanded)."""
+    import torch
+    from repro_torch.kernels.bcq_matmul import (_bcq_expert_plain,
+                                                bcq_expert_matmul)
+    qt = random_qt(gen, K, N, 0, torch.float32, E=E)
+    c, a, b = qt.codes, qt.alphas, qt.betas
+    x = torch.randn((E, M, K), generator=gen, device=DEV)
+    y = bcq_expert_matmul(x, c, a, b)
+    ref = _bcq_expert_plain(x, c, a, b)
+    err = float((y - ref).abs().max())
+    t = kernel_ms(lambda: bcq_expert_matmul(x, c, a, b), 50)
+    plain_ms = best_ms(kernel_ms(lambda: _bcq_expert_plain(x, c, a, b), 2))
+    w = qt.dequant(torch.float32)                      # (E, K, N) fp32
+    lib_ms = best_ms(kernel_ms(lambda: torch.bmm(x, w), 20))
+    del w
+    n_bytes = qt.packed_bytes() + 4 * E * M * K + 4 * E * M * N
+    bd, by = bound_ms(n_bytes, 2.0 * E * M * K * N)
+    return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
+            "bound_ms": bd, "bound_by": by, "library_ms": lib_ms,
+            "library_gets": "the expert stack dequantized to fp32 "
+                            "beforehand (torch.bmm)",
+            "event_ms": t["event_ms"],
+            "timing": "profiler" if t["device_ms"] else "cuda_events",
+            "shape": f"E={E} M={M} K={K} N={N} w3 per-channel fp32 scales"}
 
 
 # ---------------------------------------------------------------------------
@@ -367,13 +560,17 @@ def phase_fixture():
     from repro_torch.serve import Request, ServeEngine
 
     ref = json.loads((FIXTURE / "reference.json").read_text())
+    kvb = ref["kv_bits"]
+    runs = [(name, art, 0) for name, art in ref["artifacts"].items()]
+    runs += [(name, art, kvb["bits"])
+             for name, art in kvb["artifacts"].items()]
     out = {}
-    for name, art in ref["artifacts"].items():
+    for name, art, kv_bits in runs:
         params, _, meta = load_packed(FIXTURE / name, device=DEV)
         cfg = get_config(meta["arch"]).replace(
             dtype="float32", n_layers=len(params["layers"]))
         worst = 0.0
-        page = 16
+        page = kvb["page_size"]
         for prompt, toks, pl, dl in zip(art["prompts"], art["tokens"],
                                         art["prefill_logits"],
                                         art["decode_logits"]):
@@ -382,7 +579,8 @@ def phase_fixture():
                                   torch.tensor([prompt], device=DEV), L)
             steps = [(logits[0], pl)]
             n_pg = -(-(L + len(toks)) // page)
-            cache = init_paged_cache(cfg, n_pg + 1, page, 1, device=DEV)
+            cache = init_paged_cache(cfg, n_pg + 1, page, 1, kv_bits=kv_bits,
+                                     device=DEV)
             ids = list(range(1, n_pg + 1))
             scatter_prefill_cache(cfg, cache, row, 0, ids[:-(-L // page)], L)
             bt = torch.tensor([ids], dtype=torch.int32, device=DEV)
@@ -398,21 +596,23 @@ def phase_fixture():
                 d = np.abs(got.double().cpu().numpy() - want).max()
                 worst = max(worst, d / (TOL_LOGITS * np.abs(want).max()))
         eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
-                          dtype="float32", cache_kind="paged", page_size=16,
-                          device=DEV)
+                          dtype="float32", cache_kind="paged", page_size=page,
+                          kv_bits=kv_bits, device=DEV)
         reqs = [Request(prompt=np.asarray(p, np.int32),
                         max_new_tokens=ref["max_new"])
                 for p in art["prompts"]]
         eng.run(reqs)
         match = sum(r.out == t for r, t in zip(reqs, art["tokens"]))
-        row = {"check": "fixture", "artifact": name,
-               "logits_err_over_tol": worst, "tol_rel": TOL_LOGITS,
+        tag = f"{name}" + (f" kv_bits={kv_bits}" if kv_bits else "")
+        row = {"check": "fixture", "artifact": name, "arch": meta["arch"],
+               "kv_bits": kv_bits, "logits_err_over_tol": worst,
+               "tol_rel": TOL_LOGITS,
                "greedy_match": f"{match}/{len(reqs)}"}
         emit(row)
-        require(worst <= 1.0, f"fixture {name}: logits off by {worst:.3g} "
+        require(worst <= 1.0, f"fixture {tag}: logits off by {worst:.3g} "
                               f"x the tolerance")
-        require(match == len(reqs), f"fixture {name}: greedy tokens differ")
-        out[name] = row
+        require(match == len(reqs), f"fixture {tag}: greedy tokens differ")
+        out[tag] = row
     # the launcher, as a user runs it, on the per-channel artifact
     lref = ref["launcher"]
     _, reqs = launch_main(["--load-quantized", str(FIXTURE / lref["artifact"]),
@@ -432,6 +632,35 @@ def phase_fixture():
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+def _w3(gen, K, N, E=None):
+    """A seeded synthetic w3 per-channel packed weight (K, N), or a stack
+    of E experts: uniform code words, alphas (4,2,1)/sqrt(21) * K^-0.5,
+    betas 0."""
+    import torch
+    from repro_torch.quant import QuantizedTensor
+    lead = () if E is None else (E,)
+    base = torch.tensor([4.0, 2.0, 1.0], device=DEV)
+    base = base / base.square().sum().sqrt()
+    codes = torch.randint(-2 ** 31, 2 ** 31, (*lead, 3, K // 32, N),
+                          dtype=torch.int32, generator=gen, device=DEV)
+    alphas = (base * K ** -0.5).expand(*lead, 1, N, 3).contiguous()
+    betas = torch.zeros((*lead, 1, N), device=DEV)
+    return QuantizedTensor(codes, alphas, betas, K, "float32")
+
+
+def _attn_weights(cfg, gen):
+    import torch
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {"wq": _w3(gen, d, cfg.n_heads * hd),
+         "wk": _w3(gen, d, cfg.n_kv_heads * hd),
+         "wv": _w3(gen, d, cfg.n_kv_heads * hd),
+         "wo": _w3(gen, cfg.n_heads * hd, d)}
+    if cfg.qk_norm:
+        p["qn"] = torch.zeros(hd, device=DEV)
+        p["kn"] = torch.zeros(hd, device=DEV)
+    return p
+
+
 def synthetic_llama(seed: int, arch: str = "llama2-7b"):
     """llama2-7b at full width and depth with seeded synthetic w3
     per-channel packed linears (betas 0) and fp32 embeddings, head and
@@ -439,59 +668,70 @@ def synthetic_llama(seed: int, arch: str = "llama2-7b"):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.quant import QuantizedTensor
     cfg = get_config(arch).replace(dtype="float32")
     params = init_params(cfg.replace(n_layers=0), seed=seed,
                          dtype="float32", device=DEV)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed + 1)
-    base = torch.tensor([4.0, 2.0, 1.0], device=DEV)
-    base = base / base.square().sum().sqrt()
-
-    def qt(K, N):
-        codes = torch.randint(-2 ** 31, 2 ** 31, (3, K // 32, N),
-                              dtype=torch.int32, generator=gen,
-                              device=DEV)
-        alphas = (base * K ** -0.5).expand(1, N, 3).contiguous()
-        betas = torch.zeros((1, N), device=DEV)
-        return QuantizedTensor(codes, alphas, betas, K, "float32")
-
     d, f = cfg.d_model, cfg.d_ff
-    hd = cfg.resolved_head_dim
     params["layers"] = [
-        {"ln": torch.zeros(d, device=DEV),
-         "attn": {"wq": qt(d, cfg.n_heads * hd),
-                  "wk": qt(d, cfg.n_kv_heads * hd),
-                  "wv": qt(d, cfg.n_kv_heads * hd),
-                  "wo": qt(cfg.n_heads * hd, d)},
+        {"ln": torch.zeros(d, device=DEV), "attn": _attn_weights(cfg, gen),
          "ln2": torch.zeros(d, device=DEV),
-         "mlp": {"wg": qt(d, f), "wu": qt(d, f), "wd": qt(f, d)}}
+         "mlp": {"wg": _w3(gen, d, f), "wu": _w3(gen, d, f),
+                 "wd": _w3(gen, f, d)}}
         for _ in range(cfg.n_layers)]
     return cfg, params
 
 
-def phase_main_path(seed: int, arch: str = "llama2-7b"):
+def synthetic_moe(seed: int, arch: str = "qwen3-moe-235b-a22b",
+                  n_layers: int = MOE_LAYERS):
+    """A MoE config at full width, cut to `n_layers`, with seeded
+    synthetic w3 per-channel packed attention linears and expert stacks
+    (codes made on the card), an fp32 router N(0, 1/d), and fp32
+    embeddings, head and norms from the port's init_params."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).replace(dtype="float32", n_layers=n_layers)
+    params = init_params(cfg.replace(n_layers=0), seed=seed,
+                         dtype="float32", device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 2)
+    d, f, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    params["layers"] = [
+        {"ln": torch.zeros(d, device=DEV), "attn": _attn_weights(cfg, gen),
+         "ln2": torch.zeros(d, device=DEV),
+         "moe": {"router": torch.randn((d, E), generator=gen, device=DEV)
+                 * d ** -0.5,
+                 "wg": _w3(gen, d, f, E), "wu": _w3(gen, d, f, E),
+                 "wd": _w3(gen, f, d, E)}}
+        for _ in range(cfg.n_layers)]
+    return cfg, params
+
+
+def _code_bytes(params) -> int:
+    return sum(w.codes.numel() * 4 for layer in params["layers"]
+               for g in ("attn", "mlp", "moe") for w in layer.get(g, {})
+               .values() if hasattr(w, "codes"))
+
+
+PROMPT_LENS = [16, 45, 77, 100]
+
+
+def serve_path(name, cfg, params, seed, kv_bits=0):
+    """Serve the path's 4 requests (32 new tokens each) through the paged
+    engine, every launch count set to 0 just before and read just
+    after; returns (counts, row, prompts, engine)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import (decode_step, decode_step_paged,
-                                    init_cache, init_paged_cache, prefill,
-                                    scatter_prefill_cache)
     from repro_torch.serve import Request, ServeEngine
-
-    t0 = time.time()
-    cfg, params = synthetic_llama(seed, arch)
-    sync()
-    build_s = time.time() - t0
-    codes_bytes = sum(l[g][w].codes.numel() * 4 for l in params["layers"]
-                      for g in ("attn", "mlp") for w in l[g])
     rng = np.random.default_rng(seed)
-    lens = [16, 45, 77, 100]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+               for n in PROMPT_LENS]
     eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
                       dtype="float32", cache_kind="paged", page_size=64,
-                      device=DEV)
+                      kv_bits=kv_bits, device=DEV)
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -503,11 +743,13 @@ def phase_main_path(seed: int, arch: str = "llama2-7b"):
     wall = time.time() - t1
     counts = launch_counts()
     st = eng.stats
-    row = {"check": "main_path", "model": cfg.name, "layers": cfg.n_layers,
-           "requests": len(reqs), "prompt_lens": lens, "max_new": 32,
-           "packed_code_bytes": codes_bytes, "weights_build_s": build_s,
+    row = {"check": name, "model": cfg.name, "layers": cfg.n_layers,
+           "requests": len(reqs), "prompt_lens": PROMPT_LENS, "max_new": 32,
+           "kv_bits": kv_bits, "packed_code_bytes": _code_bytes(params),
+           "kv_bytes_per_token": eng.kv.bytes_per_page() // eng.page_size,
            "wall_s": wall, "prefill_s": st["prefill_s"],
            "prefill_tokens": st["prefill_tokens"],
+           "prefills": len(reqs) + eng.sched.preemptions,
            "decode_s": st["decode_s"], "decode_ticks": st["ticks"],
            "decode_tokens": st["tokens"],
            "decode_tok_per_s": st["tokens"] / max(st["decode_s"], 1e-9),
@@ -516,63 +758,196 @@ def phase_main_path(seed: int, arch: str = "llama2-7b"):
            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                            if DEV == "cuda" else None),
            "launches": counts}
-    emit(row)
     require(all(r.done and len(r.out) == 32 for r in reqs),
-            "main path: a request did not finish with 32 tokens")
+            f"{name}: a request did not finish with 32 tokens")
     require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
-            "main path: token out of the vocabulary")
-    for k in ("bcq_gemv", "bcq_matmul", "paged_attention"):
-        require(counts[k] > 0, f"main path: {k} was never launched")
-    require(counts["bcq_plain"] == 0, "main path: a BCQ call took the "
-                                      "plain path")
+            f"{name}: token out of the vocabulary")
+    require(counts["bcq_plain"] == 0, f"{name}: a BCQ call took the "
+                                      f"plain path")
     require(eng.kv.free_page_count == eng.kv.usable_pages,
-            "main path: pages did not drain back to the pool")
+            f"{name}: pages did not drain back to the pool")
+    return counts, row, prompts, [r.out for r in reqs]
 
-    # the paged path (paged-attention kernel, page scatter) against the
-    # dense-cache torch path, teacher-forced on request 0's tokens
-    prompt, toks = prompts[0], reqs[0].out
+
+def paged_vs_dense(name, cfg, params, prompt, toks, steps=8):
+    """The paged path (paged-attention kernel, page scatter) against the
+    dense-cache torch path, teacher-forced on one request's tokens. For a
+    MoE model it also counts the (token, layer) routings whose top-k
+    expert sets differ between the two paths: a set that flips on a
+    near-tie of the router moves the output by a whole expert's share,
+    which no summation-order tolerance covers."""
+    import torch
+    from repro_torch.models import (decode_step, decode_step_paged,
+                                    init_paged_cache, model, prefill,
+                                    scatter_prefill_cache)
     L = len(prompt)
-    steps = 8
     tok_t = torch.tensor(prompt[None], device=DEV)
-    logits_d, row_cache = prefill(cfg, params, tok_t, L + steps)
+    logits_d, dense = prefill(cfg, params, tok_t, L + steps)
     require(bool(torch.isfinite(logits_d).all())
             and tuple(logits_d.shape) == (1, cfg.vocab_size),
-            "main path: prefill logits not finite / wrong shape")
-    dense = row_cache
-    logits_p, prow = prefill(cfg, params, tok_t, L)
+            f"{name}: prefill logits not finite / wrong shape")
+    _, prow = prefill(cfg, params, tok_t, L)
     page = 64
     pool = init_paged_cache(cfg, 4, page, 1, device=DEV)
     scatter_prefill_cache(cfg, pool, prow, 0, [1], L)
     bt = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=DEV)
-    worst = 0.0
-    for t in range(steps):
-        tk = torch.tensor([[toks[t]]], device=DEV)
-        pos = torch.tensor([L + t], dtype=torch.int32, device=DEV)
-        ld, dense = decode_step(cfg, params, dense, tk, pos)
-        lp, pool = decode_step_paged(cfg, params, pool, tk, pos, bt)
-        worst = max(worst, float((ld - lp).abs().max() / ld.abs().max()))
-        require(bool(torch.isfinite(lp).all()), "main path: decode logits "
-                                                "not finite")
+    routes: list = []
+    forward = model.moe_forward
+
+    def recorded(cfg_, p, x, **kw):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
+        top = torch.topk(probs, cfg_.moe.top_k + 1, dim=-1).values
+        routes.append((torch.topk(probs, cfg_.moe.top_k, dim=-1).indices
+                       .sort(dim=-1).values, top[..., -2] - top[..., -1]))
+        return forward(cfg_, p, x, **kw)
+    errs, flips, min_gap = [], 0, None
+    model.moe_forward = recorded
+    try:
+        for t in range(steps):
+            tk = torch.tensor([[toks[t]]], device=DEV)
+            pos = torch.tensor([L + t], dtype=torch.int32, device=DEV)
+            routes.clear()
+            ld, dense = decode_step(cfg, params, dense, tk, pos)
+            n = len(routes)
+            lp, pool = decode_step_paged(cfg, params, pool, tk, pos, bt)
+            for (a, gap), (b, _) in zip(routes[:n], routes[n:]):
+                flips += int((a != b).any(dim=-1).sum())
+                g = float(gap.min())
+                min_gap = g if min_gap is None else min(min_gap, g)
+            errs.append(float((ld - lp).abs().max() / ld.abs().max()))
+            require(bool(torch.isfinite(lp).all()), f"{name}: decode logits "
+                                                    f"not finite")
+    finally:
+        model.moe_forward = forward
     sync()
-    emit({"check": "main_path_paged_vs_dense", "steps": steps,
-          "rel_err": worst, "tol": TOL_LOGITS})
-    require(worst <= TOL_LOGITS, f"main path: paged vs dense logits differ "
+    worst = max(errs)
+    emit({"check": f"{name}_paged_vs_dense", "steps": steps,
+          "rel_err": worst, "rel_err_by_step": errs, "tol": TOL_LOGITS,
+          **({"routing_sets_differing": flips,
+              "min_router_gap_kth_to_next": min_gap} if cfg.moe else {})})
+    require(worst <= TOL_LOGITS, f"{name}: paged vs dense logits differ "
                                  f"by {worst:.3g}")
+
+
+def phase_main_path(seed: int, arch: str = "llama2-7b", model=None):
+    t0 = time.time()
+    cfg, params = model or synthetic_llama(seed, arch)
+    sync()
+    build_s = time.time() - t0
+    counts, row, prompts, outs = serve_path("main_path", cfg, params, seed)
+    row["weights_build_s"] = build_s
+    emit(row)
+    for k in ("bcq_gemv", "bcq_matmul", "paged_attention"):
+        require(counts[k] > 0, f"main path: {k} was never launched")
+    require(counts["paged_attention"] == cfg.n_layers * row["decode_ticks"]
+            and counts["paged_attention_quant"] == 0
+            and counts["bcq_expert_matmul"] == 0,
+            f"main path: launches {counts}")
+    paged_vs_dense("main_path", cfg, params, prompts[0], outs[0])
     profile_decode(cfg, params, prompts)
     return counts, row
 
 
-def profile_decode(cfg, params, prompts, steps: int = 4):
-    """Where a main-path decode step's time goes: the paged decode step
-    at batch 4 (each prompt already in its pages), timed untraced, then
+def phase_kv_bits(seed: int, model, kv_bits: int = 4):
+    """Phase 3's model and requests with binary-coded KV pages."""
+    import torch
+    from repro_torch.models import (attention, decode_step_paged,
+                                    init_paged_cache, prefill,
+                                    scatter_prefill_cache)
+    from repro_torch.kernels.ref import paged_attention_quant_ref
+    cfg, params = model
+    counts, row, prompts, outs = serve_path("kv_bits_path", cfg, params,
+                                            seed, kv_bits=kv_bits)
+    row["kv_bytes_per_token_fp32_pages"] = (
+        2 * cfg.n_kv_heads * cfg.resolved_head_dim * 4 * cfg.n_layers)
+    emit(row)
+    require(counts["paged_attention_quant"]
+            == cfg.n_layers * row["decode_ticks"] > 0
+            and counts["paged_attention"] == 0,
+            f"kv_bits path: launches {counts}")
+    # the kernel against its plain version on the path's own inputs: every
+    # layer's call of 8 teacher-forced decode steps of request 0 also runs
+    # the plain version (comparing two whole-model runs would not do: a
+    # 1e-7 difference upstream can flip a near-tie of the next layer's
+    # quantize-on-write)
+    L, steps, page = len(prompts[0]), 8, 64
+    _, row_cache = prefill(cfg, params,
+                           torch.tensor(prompts[0][None], device=DEV), L)
+    pool = init_paged_cache(cfg, 4, page, 1, kv_bits=kv_bits, device=DEV)
+    scatter_prefill_cache(cfg, pool, row_cache, 0, [1], L)
+    bt = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=DEV)
+    kernel = attention.paged_attention_quant
+    errs = []
+
+    def checked(*args, **kw):
+        y = kernel(*args, **kw)
+        ref = paged_attention_quant_ref(*args, **kw)
+        errs.append(float((y - ref).abs().max() / ref.abs().max()))
+        return y
+    attention.paged_attention_quant = checked
+    try:
+        for t in range(steps):
+            logits, _ = decode_step_paged(
+                cfg, params, pool, torch.tensor([[outs[0][t]]], device=DEV),
+                torch.tensor([L + t], dtype=torch.int32, device=DEV), bt)
+            require(bool(torch.isfinite(logits).all()),
+                    "kv_bits path: decode logits not finite")
+    finally:
+        attention.paged_attention_quant = kernel
+    sync()
+    emit({"check": "kv_bits_path_kernel_vs_plain", "steps": steps,
+          "calls": len(errs), "max_rel_err": max(errs), "tol": TOL_FP32})
+    require(len(errs) == steps * cfg.n_layers and max(errs) <= TOL_FP32,
+            f"kv_bits path: kernel vs plain differ by {max(errs):.3g}")
+    profile_decode(cfg, params, prompts, kv_bits=kv_bits, tag="kv_bits")
+    return counts, row
+
+
+def phase_moe(seed: int, arch: str = "qwen3-moe-235b-a22b",
+              n_layers: int = MOE_LAYERS):
+    from repro_torch.configs import get_config
+    t0 = time.time()
+    cfg, params = synthetic_moe(seed, arch, n_layers)
+    sync()
+    build_s = time.time() - t0
+    counts, row, prompts, outs = serve_path("moe_path", cfg, params, seed)
+    full = get_config(arch).n_layers
+    row.update({"weights_build_s": build_s,
+                "depth": f"{n_layers} of {full} layers (cut: the full "
+                         f"depth's w3 expert codes exceed the card's "
+                         f"memory)",
+                "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+                "rep": cfg.n_heads // cfg.n_kv_heads})
+    emit(row)
+    moe_layers = sum(s.mlp == "moe" for s in cfg.layer_specs())
+    require(counts["bcq_expert_matmul"]
+            == 3 * moe_layers * (row["decode_ticks"] + row["prefills"]),
+            f"moe path: launches {counts}")
+    require(counts["paged_attention"] == cfg.n_layers * row["decode_ticks"]
+            > 0 and counts["paged_attention_quant"] == 0,
+            f"moe path: launches {counts}")
+    paged_vs_dense("moe_path", cfg, params, prompts[0], outs[0])
+    profile_decode(cfg, params, prompts, tag="moe")
+    return counts, row
+
+
+def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
+                   tag: str = "main"):
+    """Where a path's decode step's time goes: the paged decode step at
+    batch 4 (each prompt already in its pages), timed untraced, then
     traced with torch.profiler: device busy time per step, kernels per
-    step and the kernels that take the most device time."""
+    step and the kernels that take the most device time. With kv_bits,
+    also the quantize-on-write of one step alone (every layer's new K/V
+    through kv_quantize), host wall and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import (decode_step_paged, init_paged_cache,
                                     prefill, scatter_prefill_cache)
+    from repro_torch.quant.kv import kv_quantize
     B, page, pps = len(prompts), 64, 3
-    pool = init_paged_cache(cfg, B * pps + 1, page, B, device=DEV)
+    pool = init_paged_cache(cfg, B * pps + 1, page, B, kv_bits=kv_bits,
+                            device=DEV)
     bt = torch.zeros((B, pps), dtype=torch.int32)
     for b, p in enumerate(prompts):
         ids = list(range(1 + b * pps, 1 + (b + 1) * pps))
@@ -606,21 +981,49 @@ def profile_decode(cfg, params, prompts, steps: int = 4):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit({"check": "decode_profile", "batch": B, "steps": steps,
-          "wall_ms_per_step": untraced * 1e3,
-          "traced_wall_ms_per_step": traced * 1e3,
-          "device_busy_ms_per_step": busy,
-          # idle share of the untraced step (tracing slows the host)
-          "device_idle_share": (1 - busy / (untraced * 1e3)) if busy
-          else None,
-          "kernels_per_step": len(kernels) / steps,
-          "top_kernels_ms_per_step": [
-              {"name": n[:80], "ms": us / 1e3 / steps} for n, us in top]})
+    row = {"check": "decode_profile", "path": tag, "batch": B,
+           "kv_bits": kv_bits, "steps": steps,
+           "wall_ms_per_step": untraced * 1e3,
+           "traced_wall_ms_per_step": traced * 1e3,
+           "device_busy_ms_per_step": busy,
+           # idle share of the untraced step (tracing slows the host)
+           "device_idle_share": (1 - busy / (untraced * 1e3)) if busy
+           else None,
+           "kernels_per_step": len(kernels) / steps,
+           "top_kernels_ms_per_step": [
+               {"name": n[:80], "ms": us / 1e3 / steps} for n, us in top]}
+    if kv_bits:
+        new = torch.randn((2, B, cfg.n_kv_heads, cfg.resolved_head_dim),
+                          device=DEV)
+
+        def quantize_step():
+            for _ in range(cfg.n_layers):
+                kv_quantize(new, kv_bits)
+        quantize_step()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            quantize_step()
+        sync()
+        q_wall = (time.perf_counter() - t0) / steps * 1e3
+        q_dev = kernel_ms(quantize_step, steps)["device_ms"]
+        with profile(activities=[ProfilerActivity.CPU]) as qprof:
+            quantize_step()
+            sync()
+        ops = sorted(qprof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        row.update({"kv_quantize_wall_ms_per_step": q_wall,
+                    "kv_quantize_share_of_step": q_wall / (untraced * 1e3),
+                    "kv_quantize_device_ms_per_step": q_dev,
+                    "kv_quantize_top_host_ops_ms_per_step": [
+                        {"name": e.key[:60], "calls": e.count,
+                         "ms": e.self_cpu_time_total / 1e3}
+                        for e in ops[:8]]})
+    emit(row)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3")
+    ap.add_argument("--phases", default="1,2,3,4,5")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -657,26 +1060,68 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     lines = {k: {"name": k, "route": "cuda", "source": KERNEL_ROWS[k][0],
-                 "replaces": KERNEL_ROWS[k][1], "launches": 0}
+                 "replaces": KERNEL_ROWS[k][1], "launches": 0,
+                 "launches_by_path": {}}
              for k in KERNEL_ROWS}
+
+    def phase_done(n, t0):
+        emit({"check": "phase_done", "phase": n,
+              "seconds": time.time() - t0})
+
+    def count(path, counts):
+        for k in lines:
+            lines[k]["launches_by_path"][path] = counts[k]
+            lines[k]["launches"] += counts[k]
     try:
         if 1 in phases:
+            t0 = time.time()
             worst, n_checks = check_bcq(gen, LLAMA_SHAPES)
             worst["paged_attention"] = check_paged(gen)
+            worst["paged_attention_quant"] = check_paged_quant(gen)
+            worst["bcq_expert_matmul"], n_exact = check_expert(gen)
             summaries = {
                 "bcq_gemv": summarize_bcq(gen, "bcq_gemv", 4, 4096, 11008),
                 "bcq_matmul": summarize_bcq(gen, "bcq_matmul", 128, 4096,
                                             11008),
-                "paged_attention": summarize_paged(gen)}
+                "bcq_expert_matmul": summarize_expert(gen),
+                "paged_attention": summarize_paged(gen),
+                "paged_attention_quant": summarize_paged_quant(gen)}
             for k in lines:
                 lines[k].update(summaries[k])
                 lines[k]["max_rel_err_all_checks"] = worst[k]
+            lines["bcq_expert_matmul"]["experts_bit_equal_to_single"] = \
+                n_exact
+            # the rep-16 geometry of phase 5 (Qwen3-MoE), beside the lines
+            emit({"check": "paged_attention_rep16",
+                  **summarize_paged(gen, Hkv=4, rep=16)})
+            emit({"check": "paged_attention_quant_rep16",
+                  **summarize_paged_quant(gen, Hkv=4, rep=16)})
+            emit({"check": "bcq_expert_matmul_prefill",
+                  **summarize_expert(gen, M=16)})
+            phase_done(1, t0)
         if 2 in phases:
+            t0 = time.time()
             phase_fixture()
+            phase_done(2, t0)
+        llama = synthetic_llama(args.seed) if phases & {3, 4} else None
         if 3 in phases:
-            counts, _ = phase_main_path(args.seed)
-            for k in lines:
-                lines[k]["launches"] = counts[k]
+            t0 = time.time()
+            counts, _ = phase_main_path(args.seed, model=llama)
+            count("main_path", counts)
+            phase_done(3, t0)
+        if 4 in phases:
+            t0 = time.time()
+            counts, _ = phase_kv_bits(args.seed, llama)
+            count("kv_bits_path", counts)
+            phase_done(4, t0)
+        del llama                # free the llama weights before phase 5
+        gc.collect()
+        torch.cuda.empty_cache()
+        if 5 in phases:
+            t0 = time.time()
+            counts, _ = phase_moe(args.seed)
+            count("moe_path", counts)
+            phase_done(5, t0)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -17,9 +17,12 @@ Both `load_packed` and `params_from_tree` end in the same port layout
 leaves are unstacked into one weight dict per layer,
 
     {"embed", "final_ln", ["lm_head"],
-     "layers": [{"ln", "attn": {...}, "ln2", "mlp": {...}}, ...]}
+     "layers": [{"ln", "attn": {...}, "ln2", "mlp" | "moe": {...}}, ...]}
 
-with layer g * len(pattern) + i taken from block "L{i}", group g. The
+with layer g * len(pattern) + i taken from block "L{i}", group g. A
+packed MoE expert stack, (G, E, bits, K/32, N) codes in the reference's
+stacked tree, becomes one QuantizedTensor of shape (E, K, N) per layer,
+which the batched-expert kernel serves in one launch. The
 spec stays the manifest's dict for now (the quantizer's QuantSpec
 arrives with the quantizer slice).
 """

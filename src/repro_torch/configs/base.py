@@ -1,5 +1,5 @@
 """Model configuration dataclasses (the port's own copy of the
-reference's `configs/base.py`, trimmed to what the serving slice reads).
+reference's `configs/base.py`, trimmed to what the serving slices read).
 
 A ModelConfig fully determines a model: the block *pattern* (a repeating
 super-block of layer specs, `n_groups` repeats), attention details,
@@ -11,6 +11,17 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25       # train-time dispatch capacity
+    inference_capacity_factor: float = 2.0  # prefill; decode uses 4.0
+    sharding: str = "auto"              # the reference's mesh choice
 
 
 @dataclass(frozen=True)
@@ -51,9 +62,9 @@ class ModelConfig:
     final_softcap: Optional[float] = None
     causal: bool = True
     post_block_norms: bool = False
-    # sub-module configs of later slices (MoE, Mamba, MLA); the port
-    # refuses configs that set them
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    # sub-module configs of later slices (Mamba, MLA); the port refuses
+    # configs that set them
     mamba: Optional[object] = None
     mla: Optional[object] = None
     tie_embeddings: bool = True

@@ -1,8 +1,10 @@
-// Dequant-fused binary-coded (BCQ) GEMV and GEMM for Hopper (sm_90a).
+// Dequant-fused binary-coded (BCQ) GEMV and GEMM for Hopper (sm_90a), for one
+// weight matrix or a stack of experts.
 //
-// Replaces the reference's Pallas TPU kernel src/repro/kernels/bcq_matmul.py
+// Replaces the reference's Pallas TPU kernels src/repro/kernels/bcq_matmul.py
 // (`bcq_matmul`: body `_kernel`, tile expansion `_expand_w`; `bcq_gemv`,
-// the same kernel with an 8-row tile). Both compute
+// the same kernel with an 8-row tile; `bcq_expert_matmul`: body
+// `_expert_kernel`, the same GEMM batched over an expert stack). All compute
 //     y = x @ W,  W[k, n] = sum_i alphas[g(k), n, i] * s_i[k, n] + betas[g(k), n]
 // with g(k) = k / gs, the sign planes s_i packed 32 per 32-bit word along K
 // (bit j of word w is K index w*32 + j, a 1 bit is +1), fp32 accumulation,
@@ -27,6 +29,13 @@
 //   dequantizes the (32, 64) W tile once into shared memory and stages the
 //   (64, 32) x tile, then 256 threads each accumulate a 4x4 register tile.
 //   wgmma, TMA and a multi-stage pipeline are left for a later PR.
+// * Expert stacks (MoE layers). One launch covers the whole stack: the
+//   expert is blockIdx.z, and each operand advances by its per-expert
+//   stride (x (E, M, K), codes (E, bits, K/32, N), alphas (E, G, N, bits),
+//   betas (E, G, N), y (E, M, N), split-K partials (E, splits, M, N)). A
+//   single matrix is the stack of one expert, so both run the same code
+//   with the same split, and each expert's slice of y equals, bit for
+//   bit, the single-matrix kernel run on that expert alone.
 //
 // A word never straddles a scale group: the wrapper only launches for
 // G == 1 or gs % 32 == 0 (the reference's `_kernel_groups_ok`), so the
@@ -87,6 +96,20 @@ __device__ __forceinline__ void load_group(const void* alphas,
   beta = load_scale(betas, base, bf16);
 }
 
+// Per-expert element strides of the operands (all 0 for one matrix).
+struct ExpertStrides {
+  long long x, codes, alphas, betas;
+};
+
+// A scale pointer advanced by `off` elements of its dtype.
+__device__ __forceinline__ const void* scale_at(const void* p, long long off,
+                                                int bf16) {
+  return bf16 ? static_cast<const void*>(
+                    reinterpret_cast<const __nv_bfloat16*>(p) + off)
+              : static_cast<const void*>(reinterpret_cast<const float*>(p) +
+                                         off);
+}
+
 // One weight from its sign bits at position j of each plane word:
 // beta + sum_i (+-alpha_i), added in plane order like the reference.
 template <int BITS>
@@ -106,7 +129,7 @@ __device__ __forceinline__ float expand(const uint32_t (&c)[kMaxBits],
 }
 
 // ---------------------------------------------------------------------------
-// GEMV: grid (ceil(N/32), splits), block kGemvWarps warps.
+// GEMV: grid (ceil(N/32), splits, experts), block kGemvWarps warps.
 // MR rows are computed (MR >= M; rows past M read as 0 and are not stored).
 // ---------------------------------------------------------------------------
 template <typename TX, int MR, int BITS>
@@ -116,7 +139,14 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
                     const void* __restrict__ betas, TX* __restrict__ y,
                     float* __restrict__ partial, int M, int KW, int N,
                     int bits, long long plane_stride, int words_per_group,
-                    int words_per_split, int scale_bf16) {
+                    int words_per_split, int scale_bf16, ExpertStrides es) {
+  const int ex = blockIdx.z;
+  x += ex * es.x;
+  codes += ex * es.codes;
+  alphas = scale_at(alphas, ex * es.alphas, scale_bf16);
+  betas = scale_at(betas, ex * es.betas, scale_bf16);
+  y += (long long)ex * M * N;
+  partial += (long long)ex * gridDim.y * M * N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * 32 + lane;
@@ -177,20 +207,23 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
   }
 }
 
-// Sum the split-K partials (splits, M, N) in split order into y (M, N).
+// Sum the split-K partials (E, splits, M, N) in split order into y (E, M, N).
 template <typename TX>
 __global__ void bcq_splitk_reduce(const float* __restrict__ partial,
                                   TX* __restrict__ y, int splits,
-                                  long long MN) {
+                                  long long MN, long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
+  if (i >= total) return;
+  const long long ex = i / MN;
+  const float* p = partial + ex * splits * MN + (i - ex * MN);
   float s = 0.f;
-  for (int t = 0; t < splits; ++t) s += partial[t * MN + i];
+  for (int t = 0; t < splits; ++t) s += p[t * MN];
   y[i] = from_f32<TX>(s);
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: grid (ceil(N/64), ceil(M/64)), 256 threads, one word per K step.
+// GEMM: grid (ceil(N/64), ceil(M/64), experts), 256 threads, one word per
+// K step.
 // ---------------------------------------------------------------------------
 template <typename TX, int BITS>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -198,7 +231,13 @@ __global__ void __launch_bounds__(kGemmThreads)
                     const void* __restrict__ alphas,
                     const void* __restrict__ betas, TX* __restrict__ y, int M,
                     int KW, int N, int bits, long long plane_stride,
-                    int words_per_group, int scale_bf16) {
+                    int words_per_group, int scale_bf16, ExpertStrides es) {
+  const int ex = blockIdx.z;
+  x += ex * es.x;
+  codes += ex * es.codes;
+  alphas = scale_at(alphas, ex * es.alphas, scale_bf16);
+  betas = scale_at(betas, ex * es.betas, scale_bf16);
+  y += (long long)ex * M * N;
   __shared__ float xs[kBM][kWord + 1];                      // x tile (m, k)
   __shared__ __align__(16) float ws[kWord][kBN + 4];        // W tile (k, n)
 
@@ -288,24 +327,24 @@ void launch_gemv_rows(dim3 grid, cudaStream_t st, const TX* x,
                       const uint32_t* codes, const void* alphas,
                       const void* betas, TX* y, float* partial, int M, int KW,
                       int N, int bits, long long ps, int wpg, int wps,
-                      int sbf) {
+                      int sbf, ExpertStrides es) {
   const dim3 block(kGemvWarps * 32);
   switch (bits) {
     case 2:
       bcq_gemv_kernel<TX, MR, 2><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf);
+          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     case 3:
       bcq_gemv_kernel<TX, MR, 3><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf);
+          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     case 4:
       bcq_gemv_kernel<TX, MR, 4><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf);
+          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     default:
       bcq_gemv_kernel<TX, MR, 0><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf);
+          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
   }
 }
 
@@ -313,49 +352,51 @@ template <typename TX>
 void launch_gemv(const void* x, const void* codes, const void* alphas,
                  const void* betas, void* y, void* partial, int M, int KW,
                  int N, int bits, long long ps, int wpg, int splits, int sbf,
-                 cudaStream_t st) {
-  const dim3 grid((N + 31) / 32, splits);
+                 int E, ExpertStrides es, cudaStream_t st) {
+  const dim3 grid((N + 31) / 32, splits, E);
   const int wps = (KW + splits - 1) / splits;
   const TX* xt = static_cast<const TX*>(x);
   const uint32_t* ct = static_cast<const uint32_t*>(codes);
   TX* yt = static_cast<TX*>(y);
   float* pt = static_cast<float*>(partial);
   if (M <= 1)
-    launch_gemv_rows<TX, 1>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf);
+    launch_gemv_rows<TX, 1>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else if (M <= 2)
-    launch_gemv_rows<TX, 2>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf);
+    launch_gemv_rows<TX, 2>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else if (M <= 4)
-    launch_gemv_rows<TX, 4>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf);
+    launch_gemv_rows<TX, 4>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else
-    launch_gemv_rows<TX, 8>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf);
+    launch_gemv_rows<TX, 8>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
   if (splits > 1) {
     const long long MN = (long long)M * N;
-    bcq_splitk_reduce<TX><<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-        pt, yt, splits, MN);
+    const long long total = MN * E;
+    bcq_splitk_reduce<TX><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        pt, yt, splits, MN, total);
   }
 }
 
 template <typename TX>
 void launch_gemm(const void* x, const void* codes, const void* alphas,
                  const void* betas, void* y, int M, int KW, int N, int bits,
-                 long long ps, int wpg, int sbf, cudaStream_t st) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+                 long long ps, int wpg, int sbf, int E, ExpertStrides es,
+                 cudaStream_t st) {
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
   const dim3 block(kGemmThreads);
   const TX* xt = static_cast<const TX*>(x);
   const uint32_t* ct = static_cast<const uint32_t*>(codes);
   TX* yt = static_cast<TX*>(y);
   switch (bits) {
     case 2:
-      bcq_gemm_kernel<TX, 2><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf);
+      bcq_gemm_kernel<TX, 2><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
       break;
     case 3:
-      bcq_gemm_kernel<TX, 3><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf);
+      bcq_gemm_kernel<TX, 3><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
       break;
     case 4:
-      bcq_gemm_kernel<TX, 4><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf);
+      bcq_gemm_kernel<TX, 4><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
       break;
     default:
-      bcq_gemm_kernel<TX, 0><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf);
+      bcq_gemm_kernel<TX, 0><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
   }
 }
 
@@ -363,21 +404,27 @@ void launch_gemm(const void* x, const void* codes, const void* alphas,
 
 // Plain C entry points (loaded with ctypes). Shapes and dtypes are checked
 // by the Python wrappers; these only launch on `stream` and return
-// cudaGetLastError() so a refused launch is reported.
+// cudaGetLastError() so a refused launch is reported. E experts with the
+// given per-expert element strides of x, codes, alphas and betas (E = 1
+// and strides 0 for one matrix); y and the partials are (E, ...) dense.
 extern "C" int bcq_gemv_launch(const void* x, const void* codes,
                                const void* alphas, const void* betas,
                                void* y, void* partial, int M, int KW, int N,
                                int bits, long long plane_stride,
                                int words_per_group, int splits, int x_bf16,
-                               int scale_bf16, void* stream) {
+                               int scale_bf16, int E, long long x_es,
+                               long long codes_es, long long alphas_es,
+                               long long betas_es, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
   if (x_bf16)
     launch_gemv<__nv_bfloat16>(x, codes, alphas, betas, y, partial, M, KW, N,
                                bits, plane_stride, words_per_group, splits,
-                               scale_bf16, st);
+                               scale_bf16, E, es, st);
   else
     launch_gemv<float>(x, codes, alphas, betas, y, partial, M, KW, N, bits,
-                       plane_stride, words_per_group, splits, scale_bf16, st);
+                       plane_stride, words_per_group, splits, scale_bf16, E,
+                       es, st);
   return (int)cudaGetLastError();
 }
 
@@ -385,13 +432,18 @@ extern "C" int bcq_gemm_launch(const void* x, const void* codes,
                                const void* alphas, const void* betas,
                                void* y, int M, int KW, int N, int bits,
                                long long plane_stride, int words_per_group,
-                               int x_bf16, int scale_bf16, void* stream) {
+                               int x_bf16, int scale_bf16, int E,
+                               long long x_es, long long codes_es,
+                               long long alphas_es, long long betas_es,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
   if (x_bf16)
     launch_gemm<__nv_bfloat16>(x, codes, alphas, betas, y, M, KW, N, bits,
-                               plane_stride, words_per_group, scale_bf16, st);
+                               plane_stride, words_per_group, scale_bf16, E,
+                               es, st);
   else
     launch_gemm<float>(x, codes, alphas, betas, y, M, KW, N, bits,
-                       plane_stride, words_per_group, scale_bf16, st);
+                       plane_stride, words_per_group, scale_bf16, E, es, st);
   return (int)cudaGetLastError();
 }

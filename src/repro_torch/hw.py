@@ -9,8 +9,8 @@ follows.
               BCQ kernel (the reference's 8-row gemv tile).
   GEMM_BM/BN  output tile of the BCQ GEMM kernel (csrc/bcq_matmul.cu);
   GEMM_BK     its K step, one packed word.
-  ATTN_WARPS  warps per (sequence, KV head) block of the paged-attention
-              kernel (csrc/paged_attention.cu).
+  ATTN_WARPS  warps per (sequence, KV head, query-head group) block of
+              the paged-attention kernels (csrc/paged_attention.cu).
 
 The kernels' own copies of the tile sizes live in the .cu sources; the
 Python side uses these only for launch arithmetic and documentation, so

@@ -1,6 +1,6 @@
 """Wrappers of the dequant-fused binary-coded GEMM/GEMV kernels
 (csrc/bcq_matmul.cu), replacing the reference's Pallas
-`kernels/bcq_matmul.py:bcq_matmul` and `bcq_gemv`.
+`kernels/bcq_matmul.py:bcq_matmul`, `bcq_gemv` and `bcq_expert_matmul`.
 
 Same interface as the reference: x (M, K) with K = 32 * codes.shape[1]
 (the caller zero-pads x to the packed K); codes (bits, K/32, N) words;
@@ -8,10 +8,16 @@ alphas (G, N, bits) and betas (G, N), fp32 or bf16, with G == 1 or G
 dividing K into groups whose size is a multiple of 32. Returns (M, N)
 in x.dtype, accumulated in fp32, with W rounded to x.dtype before the
 product as the reference kernel rounds its expanded tile.
+`bcq_expert_matmul` takes the same operands with a leading expert axis
+(x (E, M, K), codes (E, bits, K/32, N), alphas (E, G, N, bits), betas
+(E, G, N)) and runs the whole stack in one launch of the same kernels:
+each expert's slice of its output equals `bcq_gemv` / `bcq_matmul` on
+that expert alone, bit for bit.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version `_bcq_matmul_plain` below, which is the same math in
-PyTorch ops. `LAUNCHES` counts kernel launches only.
+plain version (`_bcq_matmul_plain`, `_bcq_expert_plain` below), which
+is the same math in PyTorch ops. `LAUNCHES` counts kernel launches
+only.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from repro_torch.hw import GEMV_ROWS, WARP, WORD
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import dequant_ref
 
-LAUNCHES = {"bcq_gemv": 0, "bcq_matmul": 0}
+LAUNCHES = {"bcq_gemv": 0, "bcq_matmul": 0, "bcq_expert_matmul": 0}
 MAX_BITS = 8
 # split-K target for the GEMV: about this many blocks in flight per SM
 GEMV_BLOCKS_PER_SM = 4
@@ -32,11 +38,12 @@ GEMV_MIN_WORDS_PER_SPLIT = 16
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # bcq_gemv_launch(x, codes, alphas, betas, y, partial, M, KW, N, bits,
 #                 plane_stride, words_per_group, splits, x_bf16,
-#                 scale_bf16, stream)
-_GEMV_ARGS = [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P]
+#                 scale_bf16, E, x_es, codes_es, alphas_es, betas_es, stream)
+_GEMV_ARGS = [_P] * 6 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 4 + [_P]
 # bcq_gemm_launch(x, codes, alphas, betas, y, M, KW, N, bits,
-#                 plane_stride, words_per_group, x_bf16, scale_bf16, stream)
-_GEMM_ARGS = [_P] * 5 + [_I] * 4 + [_L] + [_I] * 3 + [_P]
+#                 plane_stride, words_per_group, x_bf16, scale_bf16, E,
+#                 x_es, codes_es, alphas_es, betas_es, stream)
+_GEMM_ARGS = [_P] * 5 + [_I] * 4 + [_L] + [_I] * 4 + [_L] * 4 + [_P]
 _SMS: dict = {}
 
 
@@ -73,12 +80,38 @@ def _bcq_matmul_plain(x, codes, alphas, betas):
     return (x.float() @ w.float()).to(x.dtype)
 
 
+def _check_expert(x, codes, alphas, betas):
+    if x.dim() != 3 or codes.dim() != 4 or alphas.dim() != 4 \
+            or betas.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}, codes {tuple(codes.shape)}, "
+                         f"alphas {tuple(alphas.shape)}, betas "
+                         f"{tuple(betas.shape)}: want (E, M, K), "
+                         f"(E, bits, K/32, N), (E, G, N, bits), (E, G, N)")
+    E = x.shape[0]
+    if not (codes.shape[0] == alphas.shape[0] == betas.shape[0] == E):
+        raise ValueError(f"expert counts differ: x {E}, codes "
+                         f"{codes.shape[0]}, alphas {alphas.shape[0]}, "
+                         f"betas {betas.shape[0]}")
+    return _check(x[0], codes[0], alphas[0], betas[0])
+
+
+def _bcq_expert_plain(x, codes, alphas, betas):
+    """The expert kernel's plain version: each expert through
+    `_bcq_matmul_plain` (one expert's W in memory at a time)."""
+    return torch.stack([_bcq_matmul_plain(*t)
+                        for t in zip(x, codes, alphas, betas)])
+
+
 def _launch_args(x, codes, alphas, betas):
-    M, K, nb, KW, N, G = _check(x, codes, alphas, betas)
+    """Checks of a launch on the (E, ...) stacked operands; returns
+    (E, M, nb, KW, N, words_per_group, plane stride, per-expert
+    strides of x, codes, alphas, betas)."""
+    E = x.shape[0]
+    M, K, nb, KW, N, G = _check(x[0], codes[0], alphas[0], betas[0])
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"x on {dev}: the kernel runs on CUDA tensors")
-    if M < 1:
+    if M < 1 or E < 1:
         raise ValueError("x has no rows")
     for name, t in (("codes", codes), ("alphas", alphas), ("betas", betas)):
         if t.device != dev:
@@ -92,11 +125,64 @@ def _launch_args(x, codes, alphas, betas):
     if nb > MAX_BITS:
         raise ValueError(f"{nb} active bits > {MAX_BITS}")
     if not (x.is_contiguous() and alphas.is_contiguous()
-            and betas.is_contiguous() and codes[0].is_contiguous()):
+            and betas.is_contiguous() and codes.stride(-1) == 1
+            and codes.stride(-2) == N):
         raise ValueError("x, alphas, betas and each code plane must be "
                          "contiguous")
+    if E > 65535:
+        raise ValueError(f"{E} experts > 65535 (the grid's z extent)")
     wpg = 0 if G == 1 else (K // G) // WORD
-    return M, nb, KW, N, wpg
+    es = (x.stride(0), codes.stride(0), alphas.stride(0), betas.stride(0))
+    return E, M, nb, KW, N, wpg, codes.stride(1), es
+
+
+def _splits(device, KW, N) -> int:
+    """K splits of the GEMV for one (KW, N) matrix: enough blocks for
+    GEMV_BLOCKS_PER_SM per SM, at least GEMV_MIN_WORDS_PER_SPLIT words
+    each. A function of the matrix alone, so every expert of a stack
+    splits as it would alone."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    col_blocks = -(-N // WARP)          # a warp owns 32 output columns
+    return max(1, min(-(-GEMV_BLOCKS_PER_SM * sms // col_blocks),
+                      KW // GEMV_MIN_WORDS_PER_SPLIT))
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _gemv(x, codes, alphas, betas):
+    """Launch the GEMV body on (E, M <= GEMV_ROWS, K) stacked operands."""
+    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas)
+    if not 1 <= M <= GEMV_ROWS:
+        raise ValueError(f"bcq_gemv takes 1..{GEMV_ROWS} rows, got {M}")
+    splits = _splits(x.device, KW, N)
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((E, splits, M, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else y)
+    fn = build.function("bcq_matmul", "bcq_gemv_launch", _GEMV_ARGS)
+    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
+                betas.data_ptr(), y.data_ptr(), partial.data_ptr(), M, KW, N,
+                nb, ps, wpg, splits, int(x.dtype == torch.bfloat16),
+                int(alphas.dtype == torch.bfloat16), E, *es, _stream(x))
+    build.check(status, "bcq_gemv")
+    return y
+
+
+def _gemm(x, codes, alphas, betas):
+    """Launch the GEMM body on (E, M, K) stacked operands."""
+    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas)
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    fn = build.function("bcq_matmul", "bcq_gemm_launch", _GEMM_ARGS)
+    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
+                betas.data_ptr(), y.data_ptr(), M, KW, N, nb, ps, wpg,
+                int(x.dtype == torch.bfloat16),
+                int(alphas.dtype == torch.bfloat16), E, *es, _stream(x))
+    build.check(status, "bcq_matmul")
+    return y
 
 
 def bcq_gemv(x, codes, alphas, betas):
@@ -104,27 +190,7 @@ def bcq_gemv(x, codes, alphas, betas):
     _check(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_matmul_plain(x, codes, alphas, betas)
-    M, nb, KW, N, wpg = _launch_args(x, codes, alphas, betas)
-    if not 1 <= M <= GEMV_ROWS:
-        raise ValueError(f"bcq_gemv takes 1..{GEMV_ROWS} rows, got {M}")
-    sms = _SMS.get(x.device)
-    if sms is None:
-        sms = _SMS[x.device] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-    col_blocks = -(-N // WARP)          # a warp owns 32 output columns
-    splits = max(1, min(-(-GEMV_BLOCKS_PER_SM * sms // col_blocks),
-                        KW // GEMV_MIN_WORDS_PER_SPLIT))
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else y)
-    fn = build.function("bcq_matmul", "bcq_gemv_launch", _GEMV_ARGS)
-    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), y.data_ptr(), partial.data_ptr(), M, KW, N,
-                nb, codes.stride(0), wpg, splits,
-                int(x.dtype == torch.bfloat16),
-                int(alphas.dtype == torch.bfloat16),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "bcq_gemv")
+    y = _gemv(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_gemv"] += 1
     return y
 
@@ -134,14 +200,19 @@ def bcq_matmul(x, codes, alphas, betas):
     _check(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_matmul_plain(x, codes, alphas, betas)
-    M, nb, KW, N, wpg = _launch_args(x, codes, alphas, betas)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    fn = build.function("bcq_matmul", "bcq_gemm_launch", _GEMM_ARGS)
-    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), y.data_ptr(), M, KW, N, nb,
-                codes.stride(0), wpg, int(x.dtype == torch.bfloat16),
-                int(alphas.dtype == torch.bfloat16),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "bcq_matmul")
+    y = _gemm(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_matmul"] += 1
+    return y
+
+
+def bcq_expert_matmul(x, codes, alphas, betas):
+    """Batched-expert entry: x (E, M, K) through each expert's packed
+    weight -> (E, M, N), one launch for the stack (the GEMV body for
+    M <= GEMV_ROWS, the GEMM body otherwise)."""
+    _check_expert(x, codes, alphas, betas)
+    if x.device.type == "cpu":
+        return _bcq_expert_plain(x, codes, alphas, betas)
+    fn = _gemv if x.shape[1] <= GEMV_ROWS else _gemm
+    y = fn(x, codes, alphas, betas)
+    LAUNCHES["bcq_expert_matmul"] += 1
     return y

@@ -5,12 +5,14 @@
 weights. It zero-pads x to the packed K (the pad bits are -1 signs and
 cancel only against zeros), then sends at most `GEMV_ROWS` rows to the
 decode-shaped kernel and more rows to the GEMM — on a CUDA tensor the
-hand-written kernels, on a CPU tensor their plain versions. Groupings
-the kernels do not take (a group size that is not a multiple of the
-32-bit word, the reference's `_kernel_groups_ok`) go through the plain
-dequantize-then-matmul path on any device, as the reference sends them
-to its jnp path; `PLAIN_CALLS` counts them. Expert stacks belong to the
-MoE slice.
+hand-written kernels, on a CPU tensor their plain versions. A
+single-axis expert stack (codes (E, bits, K/32, N)) with a matching
+batched activation (E, C, k_in) goes to the batched-expert kernel, one
+launch for the whole stack. Groupings the kernels do not take (a group
+size that is not a multiple of the 32-bit word, the reference's
+`_kernel_groups_ok`) and deeper or mismatched stacks go through the
+plain dequantize-then-matmul path on any device, as the reference sends
+them to its jnp path; `PLAIN_CALLS` counts them.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.hw import GEMV_ROWS, WORD
 from repro_torch.kernels import ref
-from repro_torch.kernels.bcq_matmul import bcq_gemv, bcq_matmul
+from repro_torch.kernels.bcq_matmul import (bcq_expert_matmul, bcq_gemv,
+                                            bcq_matmul)
 
 PLAIN_CALLS = {"bcq_plain": 0}
 
@@ -41,23 +44,32 @@ def _active_codes(qt):
     return qt.codes[..., : qt.bits, :, :]
 
 
+def _pad_k(x, qt, codes):
+    """x zero-padded along its last axis to the packed K."""
+    kp = codes.shape[-2] * WORD
+    if kp != qt.k_in:
+        x = torch.nn.functional.pad(x, (0, kp - qt.k_in))
+    return x.contiguous()
+
+
 def bcq_apply(x, qt):
     """x (..., k_in) @ QuantizedTensor -> (..., n_out)."""
     codes = _active_codes(qt)
-    if codes.dim() > 3:
-        raise NotImplementedError(
-            "stacked (expert) QuantizedTensors are served by the MoE slice "
-            "(ROADMAP Queue 1 item 9, bcq_expert_matmul)")
+    lead = codes.shape[:-3]
+    if lead:                      # expert stacks
+        batched = len(lead) == 1 and x.dim() == 3 and x.shape[0] == lead[0]
+        if batched and _kernel_groups_ok(qt):
+            return bcq_expert_matmul(_pad_k(x, qt, codes), codes, qt.alphas,
+                                     qt.betas)
+        PLAIN_CALLS["bcq_plain"] += 1
+        eq = "eck,ekn->ecn" if batched else "...k,...kn->...n"
+        return torch.einsum(eq, x, qt.dequant(x.dtype))
     if not _kernel_groups_ok(qt):
         PLAIN_CALLS["bcq_plain"] += 1
         w = ref.dequant_ref(codes, qt.alphas, qt.betas, qt.k_in,
                             dtype=x.dtype)
         return x @ w
-    xm = x.reshape(-1, qt.k_in)
-    kp = codes.shape[-2] * WORD
-    if kp != qt.k_in:
-        xm = torch.nn.functional.pad(xm, (0, kp - qt.k_in))
-    xm = xm.contiguous()
+    xm = _pad_k(x.reshape(-1, qt.k_in), qt, codes)
     fn = bcq_gemv if xm.shape[0] <= GEMV_ROWS else bcq_matmul
     y = fn(xm, codes, qt.alphas, qt.betas)
     return y.reshape(*x.shape[:-1], qt.n_out)

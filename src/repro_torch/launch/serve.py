@@ -3,7 +3,8 @@ request batch through the continuous-batching engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --load-quantized DIR [--cache auto|dense|paged] [--requests N] \\
-      [--batch-size B] [--max-new T] [--device cuda|cpu]
+      [--batch-size B] [--max-new T] [--kv-bits BITS] \\
+      [--kv-group-size GS] [--device cuda|cpu]
 
 The artifact is read by ckpt.packed.load_packed (manifests v1-v4, as
 the reference writes them); the model config is the registry entry its
@@ -26,18 +27,32 @@ def main(argv=None):
                     help="packed artifact directory (ckpt/packed.py)")
     ap.add_argument("--cache", default="auto",
                     choices=("auto", "dense", "paged"),
-                    help="cache backend; auto picks dense, as the "
-                         "reference does without a mesh, kv-bits or "
-                         "speculation")
+                    help="cache backend; auto picks paged when --kv-bits "
+                         "asks for it and dense otherwise, as the "
+                         "reference does without a mesh or speculation")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--batch-size", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--kv-bits", type=int, default=0,
+                    help="binary-code the KV page pool at this many bits "
+                         "per coefficient (0 = raw fp pages); implies "
+                         "the paged cache backend")
+    ap.add_argument("--kv-group-size", type=int, default=0,
+                    help="head_dim entries per KV scale group (0 = one "
+                         "group per head vector); must divide head_dim")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    paged = args.kv_bits > 0
+    if args.cache == "paged":
+        paged = True
+    elif args.cache == "dense" and paged:
+        ap.error("--cache dense conflicts with --kv-bits (binary-coded "
+                 "pages need the paged backend)")
 
     from repro_torch.ckpt.packed import load_packed
     from repro_torch.configs import get_config
     from repro_torch.data import ByteTokenizer
+    from repro_torch.models.attention import paged_kv_page_bytes
     from repro_torch.serve import Request, ServeEngine
 
     params, spec, meta = load_packed(args.load_quantized, device=args.device)
@@ -50,14 +65,21 @@ def main(argv=None):
     desc = (f"{spec['method']} w{spec['bits']}" if spec else "unknown spec")
     print(f"loaded packed model '{arch}' ({desc}) from "
           f"{args.load_quantized} on {args.device}")
-    paged = args.cache == "paged"
     eng = ServeEngine(cfg, params, batch_size=args.batch_size, max_len=160,
                       dtype="float32",
                       cache_kind="paged" if paged else "dense",
-                      device=args.device)
+                      kv_bits=args.kv_bits,
+                      kv_group_size=args.kv_group_size, device=args.device)
     if paged:
         kv = eng.kv
-        print(f"paged kv cache: {kv.n_pages} pages x {kv.page_size} tok")
+        print(f"paged kv cache: {kv.n_pages} pages x {kv.page_size} tok, "
+              f"{kv.bytes_per_page()} B/page")
+    if args.kv_bits:
+        kv = eng.kv
+        raw = paged_kv_page_bytes(cfg, kv.page_size, "float32")
+        print(f"quantized KV cache: {args.kv_bits}-bit binary-coded pages, "
+              f"{kv.bytes_per_page()} B/page vs {raw} B/page raw "
+              f"({raw / kv.bytes_per_page():.1f}x capacity)")
     tok = ByteTokenizer()
     reqs = [Request(prompt=tok.encode(SEEDS[i % len(SEEDS)]),
                     max_new_tokens=args.max_new)

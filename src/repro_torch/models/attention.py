@@ -1,20 +1,25 @@
-"""Attention (the reference's `models/attention.py`, fp KV pages only):
-GQA with optional qk-norm / sliding window / softcap, a dense and a
-chunked ("flash-style") full-sequence path for prefill, and single-token
-decode against a dense KV cache or a paged KV pool.
+"""Attention (the reference's `models/attention.py`): GQA with optional
+qk-norm / sliding window / softcap, a dense and a chunked
+("flash-style") full-sequence path for prefill, and single-token decode
+against a dense KV cache or a paged KV pool of fp or binary-coded pages.
 
 Shapes: activations (B, S, D); q/k/v (B, S, H, hd); dense caches
-(B, Hkv, S, hd); page pools (P, page, Hkv, hd). Caches are updated in
-place (the reference's functional update plus donation becomes a
-direct write, which keeps one copy of the pool in memory).
+(B, Hkv, S, hd); fp page pools (P, page, Hkv, hd); binary-coded pools
+(quant/kv.py) codes (P, page, Hkv, bits, hd/32), alphas (P, page, Hkv,
+G, bits), betas (P, page, Hkv, G) per side. Caches are updated in place
+(the reference's functional update plus donation becomes a direct
+write, which keeps one copy of the pool in memory).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.hw import torch_dtype
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_quant)
 from repro_torch.models.layers import init_linear, linear, rmsnorm, rope, softcap
+from repro_torch.quant.kv import (kv_bytes_per_token_head, kv_layout,
+                                  kv_quantize)
 
 NEG_INF = -1e30
 # full-sequence attention switches to the chunked path above this length
@@ -152,48 +157,105 @@ def init_kv_cache(cfg, spec, batch, max_len, dtype, device):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def init_paged_kv(cfg, n_pages, page_size, dtype, device, kv_bits=0):
+def init_paged_kv(cfg, n_pages, page_size, dtype, device, kv_bits=0,
+                  kv_group_size=0):
     """Global page pool for one attention layer; page 0 is the
-    allocator's null page. Binary-coded pages (kv_bits > 0) belong to
-    the quantized-KV slice."""
-    if kv_bits:
-        raise NotImplementedError(
-            "binary-coded KV pages (kv_bits > 0) come with the quantized-KV "
-            "slice (ROADMAP Queue 1 item 7, paged_attention_quant)")
-    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = torch_dtype(dtype)
-    return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
-            "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+    allocator's null page. With `kv_bits > 0` pages store binary-coded
+    K/V (quant/kv.py): sign words packed along head_dim plus per-(token,
+    head, group) alphas and betas, quantized on write and expanded
+    inside the attention kernel. The "k_codes" leaf selects that path
+    downstream."""
+    hd = cfg.resolved_head_dim
+    lead = (n_pages, page_size, cfg.n_kv_heads)
+    if not kv_bits:
+        dt = torch_dtype(dtype)
+        return {"k_pages": torch.zeros(lead + (hd,), dtype=dt, device=device),
+                "v_pages": torch.zeros(lead + (hd,), dtype=dt, device=device)}
+    G, hdw = kv_layout(hd, kv_bits, kv_group_size)
+    pool = {}
+    for side in ("k", "v"):
+        pool[f"{side}_codes"] = torch.zeros(lead + (kv_bits, hdw),
+                                            dtype=torch.int32, device=device)
+        pool[f"{side}_alphas"] = torch.zeros(lead + (G, kv_bits),
+                                             dtype=torch.float32,
+                                             device=device)
+        pool[f"{side}_betas"] = torch.zeros(lead + (G,), dtype=torch.float32,
+                                            device=device)
+    return pool
+
+
+def paged_kv_page_bytes(cfg, page_size, dtype, kv_bits=0,
+                        kv_group_size=0) -> int:
+    """Device bytes one page id costs across the whole model: every
+    attention layer holds a K and a V page of `page_size` tokens per KV
+    head (codes and scales when binary-coded)."""
+    itemsize = torch_dtype(dtype or cfg.dtype).itemsize
+    n_attn = sum(1 for s in cfg.layer_specs() if s.kind == "attn")
+    per_vec = kv_bytes_per_token_head(cfg.resolved_head_dim, kv_bits,
+                                      kv_group_size, itemsize)
+    return 2 * page_size * cfg.n_kv_heads * per_vec * n_attn
+
+
+def paged_kv_bits(cache) -> int:
+    """kv_bits of a paged layer cache (0 = fp pages); the layout
+    describes itself through its leaves' shapes."""
+    return cache["k_codes"].shape[-2] if "k_codes" in cache else 0
+
+
+def _quant_scatter(cache, new, pid, off):
+    """Quantize-on-write: binary-code the new K and V vectors `new`
+    (2, ..., hd) — both sides in one call — and write codes and scales
+    into the pool at (pid, off), in place."""
+    bits = cache["k_codes"].shape[-2]
+    G = cache["k_betas"].shape[-1]
+    vals = kv_quantize(new, bits, new.shape[-1] // G)
+    for side, i in (("k", 0), ("v", 1)):
+        for suffix, val in zip(("codes", "alphas", "betas"), vals):
+            cache[f"{side}_{suffix}"][pid, off] = val[i]
+    return cache
 
 
 def attn_decode_paged(cfg, spec, p, x, cache, block_tables, pos):
     """Single-token decode against a paged KV pool.
 
-    x: (B, 1, D); cache {"k_pages","v_pages"} (P, page, Hkv, hd);
-    block_tables (B, T) int32; pos (B,) absolute positions. The new
-    token's K/V is written into page block_tables[b, pos // page] at
-    offset pos % page BEFORE attention reads it, and the sequence then
-    attends over ctx = pos + 1 tokens. Returns (y, cache)."""
+    x: (B, 1, D); cache {"k_pages","v_pages"} (P, page, Hkv, hd) — or
+    the binary-coded layout {"k_codes","k_alphas","k_betas","v_..."}
+    (init_paged_kv(kv_bits=...)), where the new token's K/V is quantized
+    before the scatter and the kernel expands the pages inside its
+    loop; block_tables (B, T) int32; pos (B,) absolute positions. The
+    new token's K/V is written into page block_tables[b, pos // page]
+    at offset pos % page BEFORE attention reads it, and the sequence
+    then attends over ctx = pos + 1 tokens. Returns (y, cache)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x)                    # (B,1,H,hd)
     q = rope(q, pos[:, None], cfg.rope_theta)
     k = rope(k, pos[:, None], cfg.rope_theta)
 
-    kp, vp = cache["k_pages"], cache["v_pages"]
-    page = kp.shape[1]
+    quant = paged_kv_bits(cache) > 0
+    page = (cache["k_codes"] if quant else cache["k_pages"]).shape[1]
     posl = pos.long()
     pid = block_tables.long()[torch.arange(B, device=x.device), posl // page]
     off = posl % page
-    kp[pid, off] = k[:, 0].to(kp.dtype)
-    vp[pid, off] = v[:, 0].to(vp.dtype)
+    if quant:
+        _quant_scatter(cache, torch.stack([k[:, 0], v[:, 0]]), pid, off)
+    else:
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        kp[pid, off] = k[:, 0].to(kp.dtype)
+        vp[pid, off] = v[:, 0].to(vp.dtype)
 
     qg = q[:, 0].reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
                          hd).contiguous()
     ctx = (pos + 1).to(torch.int32)
-    out = paged_attention(qg, kp, vp, block_tables.to(torch.int32)
-                          .contiguous(), ctx, window=spec.window,
-                          cap=cfg.attn_softcap)
+    bt = block_tables.to(torch.int32).contiguous()
+    if quant:
+        out = paged_attention_quant(
+            qg, cache["k_codes"], cache["k_alphas"], cache["k_betas"],
+            cache["v_codes"], cache["v_alphas"], cache["v_betas"], bt, ctx,
+            window=spec.window, cap=cfg.attn_softcap)
+    else:
+        out = paged_attention(qg, cache["k_pages"], cache["v_pages"], bt,
+                              ctx, window=spec.window, cap=cfg.attn_softcap)
     y = linear(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
     return y, cache
 

@@ -1,5 +1,5 @@
-"""Model assembly for attention-only decoders (the reference's
-`models/model.py`, serving entry points).
+"""Model assembly for attention-only decoders with dense or MoE MLPs
+(the reference's `models/model.py`, serving entry points).
 
 Parameters are plain dicts of tensors with one weight dict per layer
 (the reference stacks each pattern position along an (n_groups, ...)
@@ -7,7 +7,8 @@ axis and scans it; the port loops over the layers):
 
     {"embed": (V, D), "final_ln": (D,), ["lm_head": (D, V)],
      "layers": [{"ln", "attn": {"wq","wk","wv","wo"}, "ln2",
-                 "mlp": {"wg","wu","wd"}}, ...]}
+                 "mlp": {"wg","wu","wd"}                    (dense), or
+                 "moe": {"router","wg","wu","wd"}}, ...]}   (MoE stacks)
 
 Any weight may be a QuantizedTensor; `layers.linear` dispatches on it.
 Caches are lists with one dict per layer, updated in place.
@@ -16,8 +17,13 @@ Entry points:
   init_params(cfg, seed, dtype, device)              -> params
   prefill(cfg, params, tokens, max_len, last_pos=)   -> (last logits, cache)
   init_cache / decode_step                            dense KV cache
-  init_paged_cache / decode_step_paged                paged KV pool
+  init_paged_cache / decode_step_paged                paged KV pool (fp
+                                                      or binary-coded)
   scatter_prefill_cache                               dense prefill -> pages
+
+MoE layers use the reference's capacities: the inference capacity
+factor in prefill (pad tokens of a bucket route and take capacity like
+real ones, as in the reference) and 4.0 in decode.
 """
 from __future__ import annotations
 
@@ -27,19 +33,24 @@ from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (init_linear, init_swiglu, linear,
                                        rmsnorm, softcap, swiglu)
+from repro_torch.models.moe import init_moe, moe_forward
+
+# decode dispatch capacity of MoE layers (the reference's 4x slack
+# instead of fully dropless; exactly dropless at tiny batch)
+DECODE_CAPACITY_FACTOR = 4.0
 
 
 def require_attention_only(cfg) -> None:
-    """The port serves attention-only dense decoders so far."""
+    """The port serves attention-only decoders (dense or MoE MLPs) so
+    far."""
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA comes with a later slice "
-                                  f"(ROADMAP Queue 1 item 10)")
+                                  f"(ROADMAP Queue 1 item 5)")
     if any(s.kind != "attn" for s in cfg.pattern):
         raise NotImplementedError(f"{cfg.name}: Mamba layers come with a "
-                                  f"later slice (ROADMAP Queue 1 item 11)")
-    if any(s.mlp == "moe" for s in cfg.pattern) or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with a later "
-                                  f"slice (ROADMAP Queue 1 item 9)")
+                                  f"later slice (ROADMAP Queue 1 item 5)")
+    if any(s.mlp == "moe" for s in cfg.pattern) and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: MoE layers without a MoE config")
     if cfg.post_block_norms or cfg.embed_input != "tokens":
         raise NotImplementedError(f"{cfg.name}: post-block norms and frame "
                                   f"inputs are not ported yet")
@@ -65,7 +76,10 @@ def _init_layer(cfg, spec, gen, dtype, device):
          "attn": attn.init_attn(cfg, gen, dtype, device)}
     if spec.mlp != "none":
         p["ln2"] = torch.zeros((d,), dtype=dt, device=device)
-        p["mlp"] = init_swiglu(gen, d, cfg.d_ff, dtype, device)
+        if spec.mlp == "moe":
+            p["moe"] = init_moe(cfg, gen, dtype, device)
+        else:
+            p["mlp"] = init_swiglu(gen, d, cfg.d_ff, dtype, device)
     return p
 
 
@@ -135,10 +149,17 @@ def _attn_prefill(cfg, spec, p, h, positions, max_len):
     return y, {"k": ck.contiguous(), "v": cv.contiguous()}
 
 
-def _mlp(cfg, spec, lp, x):
+def _mlp(cfg, spec, lp, x, moe_capacity_factor):
+    """x + the layer's MLP (dense SwiGLU or MoE at the given capacity
+    factor; the aux loss is not used in serving)."""
     if spec.mlp == "none":
         return x
-    return x + swiglu(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if spec.mlp == "moe":
+        y, _ = moe_forward(cfg, lp["moe"], h,
+                           capacity_factor=moe_capacity_factor)
+        return x + y
+    return x + swiglu(lp["mlp"], h)
 
 
 def _last_positions(x, last_pos):
@@ -162,7 +183,8 @@ def prefill(cfg, params, tokens, max_len, *, last_pos=None):
         h = rmsnorm(x, lp["ln"], cfg.norm_eps)
         y, c = _attn_prefill(cfg, spec, lp["attn"], h, positions, max_len)
         cache.append(c)
-        x = _mlp(cfg, spec, lp, x + y)
+        x = _mlp(cfg, spec, lp, x + y,
+                 cfg.moe.inference_capacity_factor if cfg.moe else None)
     x = rmsnorm(_last_positions(x, last_pos), params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0], cache
 
@@ -180,20 +202,25 @@ def init_cache(cfg, batch, max_len, dtype=None, device=None):
 
 
 def init_paged_cache(cfg, n_pages, page_size, max_seqs, dtype=None,
-                     kv_bits=0, device=None):
-    """Paged cache: one {"k_pages","v_pages"} (n_pages, page_size, Hkv,
-    hd) pool per layer, shared by all sequences (max_seqs is the
-    reference's argument for per-slot recurrent state, unused by
-    attention-only patterns)."""
+                     kv_bits=0, kv_group_size=0, device=None):
+    """Paged cache: one pool per layer, shared by all sequences —
+    {"k_pages","v_pages"} (n_pages, page_size, Hkv, hd), or with
+    `kv_bits > 0` the binary-coded {"k_codes","k_alphas","k_betas",
+    "v_..."} (attention.init_paged_kv). max_seqs is the reference's
+    argument for per-slot recurrent state, unused by attention-only
+    patterns."""
     require_attention_only(cfg)
     dev = resolve_device(device)
     return [attn.init_paged_kv(cfg, n_pages, page_size, dtype or cfg.dtype,
-                               dev, kv_bits=kv_bits)
+                               dev, kv_bits=kv_bits,
+                               kv_group_size=kv_group_size)
             for _ in cfg.layer_specs()]
 
 
 def is_page_leaf(leaf, n_pages) -> bool:
-    """A page-pool leaf: page axis at dim 0 of the per-layer pool."""
+    """A page-pool leaf: page axis at dim 0 of the per-layer pool. Both
+    fp pages (ndim 4) and the binary-coded code/alpha/beta leaves
+    (ndim 4-5) match."""
     return leaf.dim() >= 4 and leaf.shape[0] == n_pages
 
 
@@ -207,7 +234,7 @@ def _decode_layers(cfg, params, cache, x, attn_step):
     for (spec, lp), lc in zip(_layers(cfg, params), cache):
         h = rmsnorm(x, lp["ln"], cfg.norm_eps)
         y, _ = attn_step(spec, lp["attn"], h, lc)
-        x = _mlp(cfg, spec, lp, x + y)
+        x = _mlp(cfg, spec, lp, x + y, DECODE_CAPACITY_FACTOR)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), cache
 
@@ -240,17 +267,25 @@ def scatter_prefill_cache(cfg, paged_cache, row_cache, slot, page_ids,
     """Write one sequence's dense prefill cache (prefill() on a single
     padded row: {"k","v"} (1, Hkv, S_pad, hd) per layer) into its pages:
     token t lands in page page_ids[t // page] at offset t % page, for
-    the n_valid real tokens only (padding never reaches a page). `slot`
-    is the reference's argument for per-slot recurrent state, unused by
-    attention-only patterns. Writes in place; returns the cache."""
+    the n_valid real tokens only (padding never reaches a page). On a
+    binary-coded pool each token's K/V is quantized here (quantize on
+    write), so pages never hold raw values. `slot` is the reference's
+    argument for per-slot recurrent state, unused by attention-only
+    patterns. Writes in place; returns the cache."""
     ids = torch.as_tensor(page_ids, dtype=torch.long)
     n = int(n_valid)
     for pooled, row in zip(paged_cache, row_cache):
-        page = pooled["k_pages"].shape[1]
+        quant = attn.paged_kv_bits(pooled) > 0
+        lead = pooled["k_codes" if quant else "k_pages"]
+        page = lead.shape[1]
         t = torch.arange(n)
-        pid = ids[t // page].to(pooled["k_pages"].device)
-        off = (t % page).to(pooled["k_pages"].device)
-        for side in ("k", "v"):
+        pid = ids[t // page].to(lead.device)
+        off = (t % page).to(lead.device)
+        rows = [row[side][0, :, :n].transpose(0, 1) for side in ("k", "v")]
+        if quant:
+            attn._quant_scatter(pooled, torch.stack(rows), pid, off)
+            continue
+        for side, r in zip(("k", "v"), rows):
             pool = pooled[f"{side}_pages"]
-            pool[pid, off] = row[side][0, :, :n].transpose(0, 1).to(pool.dtype)
+            pool[pid, off] = r.to(pool.dtype)
     return paged_cache

@@ -8,11 +8,13 @@ decode with two cache backends behind one switch (the reference's
     sequences share one page pool and admission is gated on free pages.
     Prefill runs on the bucket-padded prompt and its K/V is scattered
     into the sequence's pages; every decode step runs the paged-attention
-    kernel over the pool.
+    kernel over the pool. `kv_bits > 0` binary-codes the pool
+    (quant/kv.py): K/V are quantized on write and the fused-dequant
+    kernel reads the codes.
 
 Both run on the FCFS Scheduler (serve/scheduler.py). Works with plain
-weights or GPTQT-packed QuantizedTensor weights: `layers.linear`
-dispatches per leaf. Prompt lengths are padded to power-of-two buckets
+weights or GPTQT-packed QuantizedTensor weights (dense or MoE expert
+stacks): `layers.linear` and `models/moe.py` dispatch per leaf. Prompt lengths are padded to power-of-two buckets
 (attention-only, no-window configs), as the reference does to bound its
 compilations; the port keeps the buckets so that both run the same
 shapes.
@@ -25,8 +27,8 @@ null page (the reference's live-row / null-row trick,
 
 PyTorch runs eagerly, so there is no compile cache to share; timing
 synchronizes the CUDA device where the reference blocks on its result.
-Prefix sharing, chunked prefill, binary-coded KV, speculative decoding
-and meshes belong to later slices and raise NotImplementedError.
+Prefix sharing, chunked prefill, speculative decoding and meshes belong
+to later slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -115,41 +117,46 @@ class ServeEngine:
                  dtype=None, cache_kind="dense",
                  page_size=64, n_pages=None, prefill_chunk=None,
                  prefix_sharing=False,
-                 mesh=None, kv_bits=0, speculate=0, device=None):
+                 mesh=None, kv_bits=0, kv_group_size=0, speculate=0,
+                 device=None):
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind={cache_kind!r}")
+        if kv_bits and cache_kind != "paged":
+            raise ValueError(
+                "kv_bits requires cache_kind='paged': the binary-coded "
+                "KV layout lives in the page pool (quantize-on-write "
+                "needs page-granular scatter)")
         if prefix_sharing:
             raise NotImplementedError(
                 "prefix_sharing=True comes with the prefix-cache slice "
-                "(ROADMAP Queue 1: prefix cache, extend path, COW copies)")
+                "(ROADMAP Queue 1 item 1: prefix cache, extend path, COW "
+                "copies)")
         if prefill_chunk:
             raise NotImplementedError(
                 "prefill_chunk comes with the chunked-prefill slice "
-                "(ROADMAP Queue 1)")
-        if kv_bits:
-            raise NotImplementedError(
-                "kv_bits > 0 comes with the quantized-KV slice (ROADMAP "
-                "Queue 1 item 7)")
+                "(ROADMAP Queue 1 item 2)")
         if speculate:
             raise NotImplementedError(
                 "speculate > 0 comes with the speculative-decoding slice "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 4)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving comes with the multi-GPU slice (ROADMAP "
-                "Queue 1 item 12)")
+                "Queue 1 item 6)")
         require_attention_only(cfg)
         if cache_kind == "paged" and any(s.window is not None
                                          for s in cfg.pattern):
             raise NotImplementedError(
                 "paged sliding-window layers prefill through the extend "
-                "path, which comes with the prefix-cache slice")
+                "path, which comes with the prefix-cache slice (ROADMAP "
+                "Queue 1 item 1)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
         self.B = batch_size
         self.max_len = max_len
         self.cache_kind = cache_kind
+        self.kv_bits = int(kv_bits)
         dtype = dtype or cfg.dtype
         self._bucket = all(s.window is None for s in cfg.pattern)
         if cache_kind == "paged":
@@ -160,7 +167,9 @@ class ServeEngine:
             self.kv = PagedKVCache(cfg, n_pages=n_pages, page_size=page_size,
                                    max_seqs=batch_size,
                                    max_pages_per_seq=pages_per_seq,
-                                   dtype=dtype, device=self.device)
+                                   dtype=dtype, kv_bits=kv_bits,
+                                   kv_group_size=kv_group_size,
+                                   device=self.device)
             self.page_size = page_size
             self.cache = self.kv.take_pool()
             # device mirror of the block tables: rows are pushed only when
@@ -259,7 +268,8 @@ class ServeEngine:
                 ok, copies = self.sched.ensure_write_capacity(slot, p, p + 1)
                 if copies:
                     raise NotImplementedError(
-                        "COW page copies come with the prefix-cache slice")
+                        "COW page copies come with the prefix-cache slice "
+                        "(ROADMAP Queue 1 item 1)")
                 if ok:
                     grown.append(slot)
             ready = [s for s in grown if s in self.sched.running]

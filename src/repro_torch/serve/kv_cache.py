@@ -1,11 +1,13 @@
 """Block-table paged KV cache: the host-side page allocator over the
 device pool built by models.model.init_paged_cache (the reference's
-`serve/kv_cache.py`, single shard, fp pages).
+`serve/kv_cache.py`, single shard, fp or binary-coded pages).
 
 Layout:
   - device pool, per attention layer: k/v pages (n_pages, page_size,
-    Hkv, hd). Page 0 is the *null page*, never allocated: inactive batch
-    rows write there, so the decode step's scatter needs no branch.
+    Hkv, hd), or with kv_bits > 0 their binary-coded codes, alphas and
+    betas (quant/kv.py). Page 0 is the *null page*, never allocated:
+    inactive batch rows write there, so the decode step's scatter needs
+    no branch.
   - block table: (max_seqs, max_pages_per_seq) int32, row = sequence
     slot, entry = page id (0 for unused entries, always a valid page).
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.models.attention import paged_kv_page_bytes
 from repro_torch.models.model import init_paged_cache
 
 
@@ -35,7 +38,7 @@ class OutOfPages(Exception):
 class PagedKVCache:
     def __init__(self, cfg, *, n_pages, page_size, max_seqs,
                  max_pages_per_seq=None, dtype=None, create_pool=True,
-                 kv_bits=0, device=None):
+                 kv_bits=0, kv_group_size=0, device=None):
         if n_pages < 2:
             raise ValueError("need at least the null page + one real page")
         self.cfg = cfg
@@ -50,8 +53,12 @@ class PagedKVCache:
                 raise ValueError(
                     f"max_pages_per_seq={max_pages_per_seq!r}: must be >= 1")
         self.kv_bits = int(kv_bits)
+        self.kv_group_size = int(kv_group_size)
+        self._dtype = dtype
         self.pool = (init_paged_cache(cfg, n_pages, page_size, max_seqs,
-                                      dtype, kv_bits=kv_bits, device=device)
+                                      dtype, kv_bits=self.kv_bits,
+                                      kv_group_size=self.kv_group_size,
+                                      device=device)
                      if create_pool else None)
         self.block_tables = np.zeros((max_seqs, self.max_pages_per_seq),
                                      np.int32)
@@ -65,6 +72,13 @@ class PagedKVCache:
         self.high_water = 0
         self.cow_forks = 0
         self.pages_allocated = 0
+
+    def bytes_per_page(self) -> int:
+        """Device bytes one page id costs across all attention layers
+        (K + V, codes + scales when binary-coded)."""
+        return paged_kv_page_bytes(self.cfg, self.page_size, self._dtype,
+                                   kv_bits=self.kv_bits,
+                                   kv_group_size=self.kv_group_size)
 
     def take_pool(self):
         """Hand the device pool to the engine."""

@@ -8,12 +8,17 @@ the JAX package (`repro`) itself:
   w3_pc/        packed artifact: seeded 2-layer tiny-lm, GPTQT w3
                 per-channel, fp32 scales (ckpt/packed.py:save_packed)
   w3_g64_bf16/  the same model at w3 group_size=64, scales stored bf16
+  w3_moe/       seeded 2-layer tiny-moe (4 experts, top-2), GPTQT w3
+                per-channel, expert stacks packed per expert
   reference.json
       per artifact: fixed prompts, the reference paged engine's greedy
       tokens (prefix_sharing=False), the prefill logits and the
       teacher-forced decode logits along each greedy path, and the
-      smallest top-1/top-2 logit gap on that path; plus the launcher's
-      demo prompts and the reference's greedy tokens for them.
+      smallest top-1/top-2 logit gap on that path; the same under
+      "kv_bits" for the tiny-lm artifacts served with KV_BITS-bit
+      binary-coded pages (greedy paths through the paged model
+      functions); plus the launcher's demo prompts and the reference's
+      greedy tokens for them.
 
 Only prompts whose smallest gap is at least GAP_FACTOR times the logits
 tolerance (LOGITS_RTOL * max|logit|) are kept, so greedy equality of the
@@ -39,7 +44,9 @@ from repro.configs import get_config  # noqa: E402
 from repro.core import quantize_model  # noqa: E402
 from repro.data import ByteTokenizer  # noqa: E402
 from repro.models import init_params  # noqa: E402
-from repro.models.model import decode_step, prefill  # noqa: E402
+from repro.models.model import (decode_step, decode_step_paged,  # noqa: E402
+                                init_paged_cache, prefill,
+                                scatter_prefill_cache)
 from repro.quant import QuantSpec  # noqa: E402
 from repro.serve import Request, ServeEngine  # noqa: E402
 
@@ -49,7 +56,14 @@ MAX_NEW = 8
 N_PROMPTS = 4
 LOGITS_RTOL = 1e-4
 GAP_FACTOR = 10.0
-ARTIFACTS = {"w3_pc": (0, None), "w3_g64_bf16": (64, "bfloat16")}
+# name -> (arch, group size, scale dtype)
+ARTIFACTS = {"w3_pc": ("tiny-lm", 0, None),
+             "w3_g64_bf16": ("tiny-lm", 64, "bfloat16"),
+             "w3_moe": ("tiny-moe", 0, None)}
+# binary-coded KV pages: bits, page size of the paged greedy paths
+KV_BITS = 4
+KV_ARTIFACTS = ["w3_pc", "w3_g64_bf16"]
+PAGE = 16
 LAUNCHER_SEEDS = ["the ancient city", "a famous museum", "this railway",
                   "the council", "another region", "the early dynasty"]
 LAUNCHER_MAX_NEW = 24
@@ -57,31 +71,44 @@ LAUNCHER_MAX_NEW = 24
 CACHE_LEN = 64
 
 
-def config():
-    return get_config("tiny-lm").replace(dtype="float32", n_layers=N_LAYERS)
+def config(arch="tiny-lm"):
+    return get_config(arch).replace(dtype="float32", n_layers=N_LAYERS)
 
 
 def _round(a) -> list:
     return [float(f"{v:.7g}") for v in np.asarray(a, np.float64).ravel()]
 
 
-def greedy_path(cfg, params, prompt, max_new):
+def greedy_path(cfg, params, prompt, max_new, kv_bits=0):
     """Reference greedy decode through the model functions: tokens, the
     prefill logits and the decode logits (each step fed the previous
     greedy token), and the smallest top-1/top-2 gap relative to the
     logits tolerance. The prompt is padded to CACHE_LEN (its logits row
-    picked by last_pos) so every path reuses one compilation."""
+    picked by last_pos) so every path reuses one compilation. With
+    kv_bits the prefill K/V is scattered into a binary-coded page pool
+    (pages 1.., PAGE tokens each) and every step decodes through it."""
     L = len(prompt)
     padded = np.zeros((1, CACHE_LEN), np.int32)
     padded[0, :L] = prompt
-    logits, cache = _prefill(cfg)(params, jnp.asarray(padded),
-                                  jnp.asarray([L - 1], jnp.int32))
+    logits, cache = _jit(cfg, "prefill")(params, jnp.asarray(padded),
+                                         jnp.asarray([L - 1], jnp.int32))
+    if kv_bits:
+        n_pg = CACHE_LEN // PAGE
+        pool = init_paged_cache(cfg, n_pg + 1, PAGE, 1, "float32",
+                                kv_bits=kv_bits)
+        ids = jnp.arange(1, n_pg + 1, dtype=jnp.int32)
+        cache = _jit(cfg, "scatter")(pool, cache, ids, L)
+        bt = ids[None]
     steps = [np.asarray(logits[0])]
     toks = [int(np.argmax(steps[0]))]
     for t in range(max_new - 1):
-        logits, cache = _decode(cfg)(params, cache,
-                                     jnp.asarray([[toks[-1]]], jnp.int32),
-                                     jnp.asarray([L + t], jnp.int32))
+        tok = jnp.asarray([[toks[-1]]], jnp.int32)
+        pos = jnp.asarray([L + t], jnp.int32)
+        if kv_bits:
+            logits, cache = _jit(cfg, "decode_paged")(params, cache, tok,
+                                                      pos, bt)
+        else:
+            logits, cache = _jit(cfg, "decode")(params, cache, tok, pos)
         steps.append(np.asarray(logits[0]))
         toks.append(int(np.argmax(steps[-1])))
     ratio = min(float(np.diff(np.sort(s)[-2:])[0])
@@ -92,69 +119,91 @@ def greedy_path(cfg, params, prompt, max_new):
 _JIT: dict = {}
 
 
-def _prefill(cfg):
-    if "prefill" not in _JIT:
-        _JIT["prefill"] = jax.jit(lambda p, t, lp: prefill(
-            cfg, p, t, CACHE_LEN, last_pos=lp))
-    return _JIT["prefill"]
+def _jit(cfg, what):
+    """One compilation per (config, entry point)."""
+    key = (cfg.name, what)
+    if key not in _JIT:
+        _JIT[key] = jax.jit({
+            "prefill": lambda p, t, lp: prefill(cfg, p, t, CACHE_LEN,
+                                                last_pos=lp),
+            "decode": lambda p, c, t, s: decode_step(cfg, p, c, t, s),
+            "decode_paged": lambda p, c, t, s, bt: decode_step_paged(
+                cfg, p, c, t, s, bt),
+            "scatter": lambda pool, row, ids, n: scatter_prefill_cache(
+                cfg, pool, row, 0, ids, n),
+        }[what])
+    return _JIT[key]
 
 
-def _decode(cfg):
-    if "decode" not in _JIT:
-        _JIT["decode"] = jax.jit(lambda p, c, t, s: decode_step(
-            cfg, p, c, t, s))
-    return _JIT["decode"]
+def select(cfg, params, candidates, kv_bits=0):
+    """The first N_PROMPTS candidates whose greedy path clears the gap
+    filter, and the reference paged engine's tokens for them (which
+    must equal the model functions' greedy paths)."""
+    kept = []
+    for prompt in candidates:
+        toks, steps, ratio = greedy_path(cfg, params, prompt, MAX_NEW,
+                                         kv_bits)
+        if ratio >= GAP_FACTOR:
+            kept.append((prompt, toks, steps, ratio))
+        if len(kept) == N_PROMPTS:
+            break
+    if len(kept) < N_PROMPTS:
+        raise RuntimeError(f"{cfg.name} kv_bits={kv_bits}: only "
+                           f"{len(kept)} prompts clear the greedy gap "
+                           f"filter")
+    eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                      dtype="float32", cache_kind="paged", page_size=PAGE,
+                      prefix_sharing=False, kv_bits=kv_bits)
+    reqs = [Request(prompt=k[0], max_new_tokens=MAX_NEW) for k in kept]
+    eng.run(reqs)
+    for r, k in zip(reqs, kept):
+        if r.out != k[1]:
+            raise RuntimeError(f"{cfg.name} kv_bits={kv_bits}: engine and "
+                               f"model-function greedy paths differ")
+    return {"prompts": [k[0].tolist() for k in kept],
+            "tokens": [r.out for r in reqs],
+            "gap_ratio": [k[3] for k in kept],
+            "prefill_logits": [_round(k[2][0]) for k in kept],
+            "decode_logits": [[_round(s) for s in k[2][1:]] for k in kept]}
 
 
 def build(out: Path) -> dict:
-    cfg = config()
     key = jax.random.PRNGKey(SEED)
-    p = init_params(cfg, key)
-    calib = [jax.random.randint(jax.random.fold_in(key, i), (2, 48), 0,
-                                cfg.vocab_size) for i in range(2)]
     rng = np.random.default_rng(SEED)
     candidates = [rng.integers(0, 256, n).astype(np.int32)
                   for n in (5, 9, 12, 17, 23, 31, 40, 7, 14, 26, 35, 44)]
     doc = {"generator": "tests/data/torch_port/make_fixture.py",
            "seed": SEED, "arch": "tiny-lm", "n_layers": N_LAYERS,
            "max_new": MAX_NEW, "logits_rtol": LOGITS_RTOL,
-           "gap_factor": GAP_FACTOR, "artifacts": {}}
-    for name, (gs, scale_dtype) in ARTIFACTS.items():
+           "gap_factor": GAP_FACTOR, "artifacts": {},
+           "kv_bits": {"bits": KV_BITS, "page_size": PAGE,
+                       "artifacts": {}}}
+    models: dict = {}
+    for name, (arch, gs, scale_dtype) in ARTIFACTS.items():
+        cfg = config(arch)
+        if arch not in models:
+            p = init_params(cfg, key)
+            calib = [jax.random.randint(jax.random.fold_in(key, i), (2, 48),
+                                        0, cfg.vocab_size) for i in range(2)]
+            models[arch] = (p, calib)
+        p, calib = models[arch]
         spec = QuantSpec.from_config(cfg.quant, method="gptqt",
                                      mode="packed", group_size=gs)
         qp, _ = quantize_model(cfg, p, calib, spec=spec)
         save_packed(out / name, qp, spec=spec,
-                    meta={"arch": "tiny-lm", "n_layers": N_LAYERS},
+                    meta={"arch": arch, "n_layers": N_LAYERS},
                     scale_dtype=scale_dtype)
         lp, _, _ = load_packed(out / name)
-        kept = []
-        for prompt in candidates:
-            toks, steps, ratio = greedy_path(cfg, lp, prompt, MAX_NEW)
-            if ratio >= GAP_FACTOR:
-                kept.append((prompt, toks, steps, ratio))
-            if len(kept) == N_PROMPTS:
-                break
-        if len(kept) < N_PROMPTS:
-            raise RuntimeError(f"{name}: only {len(kept)} prompts clear the "
-                               f"greedy gap filter")
-        eng = ServeEngine(cfg, lp, batch_size=2, max_len=64,
-                          dtype="float32", cache_kind="paged", page_size=16,
-                          prefix_sharing=False)
-        reqs = [Request(prompt=k[0], max_new_tokens=MAX_NEW) for k in kept]
-        eng.run(reqs)
-        for r, k in zip(reqs, kept):
-            if r.out != k[1]:
-                raise RuntimeError(f"{name}: engine and model-function "
-                                   f"greedy paths differ")
         doc["artifacts"][name] = {
-            "group_size": gs, "scale_dtype": scale_dtype or "float32",
-            "prompts": [k[0].tolist() for k in kept],
-            "tokens": [r.out for r in reqs],
-            "gap_ratio": [k[3] for k in kept],
-            "prefill_logits": [_round(k[2][0]) for k in kept],
-            "decode_logits": [[_round(s) for s in k[2][1:]] for k in kept]}
+            "arch": arch, "group_size": gs,
+            "scale_dtype": scale_dtype or "float32",
+            **select(cfg, lp, candidates)}
+        if name in KV_ARTIFACTS:
+            doc["kv_bits"]["artifacts"][name] = select(cfg, lp, candidates,
+                                                       KV_BITS)
     # the launcher's demo prompts on the per-channel artifact (greedy
     # paths of the model functions, which the engine run above matches)
+    cfg = config()
     lp, _, _ = load_packed(out / "w3_pc")
     tok = ByteTokenizer()
     paths = [greedy_path(cfg, lp, tok.encode(s), LAUNCHER_MAX_NEW)

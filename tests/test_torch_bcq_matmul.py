@@ -202,11 +202,24 @@ def test_dispatch_threshold_and_padding(monkeypatch):
 
 
 def test_expert_stacks_wait_for_the_moe_slice():
-    codes = np.zeros((2, 3, 2, 8), np.uint32)
-    qt = QuantizedTensor(to_torch(codes), torch.ones(2, 1, 8, 3),
-                         torch.zeros(2, 1, 8), 64)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ops.bcq_apply(torch.zeros(2, 4, 64), qt)
+    """The MoE slice has come: an expert stack goes to the batched-expert
+    path (its plain version on the CPU, no plain-path count) and matches
+    the reference's bcq_apply; the full parity tests are in
+    tests/test_torch_moe.py."""
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 2 ** 32, (2, 3, 2, 8), dtype=np.uint32)
+    alphas = rng.random((2, 1, 8, 3)).astype(np.float32)
+    betas = rng.standard_normal((2, 1, 8)).astype(np.float32)
+    x = rng.standard_normal((2, 4, 64)).astype(np.float32)
+    qt = QuantizedTensor(to_torch(codes), to_torch(alphas), to_torch(betas),
+                         64)
+    plain = ops.PLAIN_CALLS["bcq_plain"]
+    got = ops.bcq_apply(torch.from_numpy(x), qt)
+    assert ops.PLAIN_CALLS["bcq_plain"] == plain
+    want = jops.bcq_apply(to_jax(x), JaxQT(to_jax(codes), to_jax(alphas),
+                                           to_jax(betas), 64))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
 
 
 def test_quantized_tensor_validation_and_dequant():

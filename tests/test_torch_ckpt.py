@@ -25,7 +25,7 @@ from repro_torch.quant import QuantizedTensor, codes_to_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "torch_port"
-ARTIFACTS = ["w3_pc", "w3_g64_bf16"]
+ARTIFACTS = ["w3_pc", "w3_g64_bf16", "w3_moe"]   # w3_moe: expert stacks
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -249,6 +249,12 @@ def test_fixture_rebuilds_identically(tmp_path):
     old = json.loads((FIXTURE / "reference.json").read_text())
     for name in ARTIFACTS:
         n, o = new["artifacts"][name], old["artifacts"][name]
+        assert n["prompts"] == o["prompts"] and n["tokens"] == o["tokens"]
+        for key in ("prefill_logits", "decode_logits"):
+            np.testing.assert_allclose(np.asarray(n[key]), np.asarray(o[key]),
+                                       rtol=1e-6, atol=1e-7)
+    for name, o in old["kv_bits"]["artifacts"].items():
+        n = new["kv_bits"]["artifacts"][name]
         assert n["prompts"] == o["prompts"] and n["tokens"] == o["tokens"]
         for key in ("prefill_logits", "decode_logits"):
             np.testing.assert_allclose(np.asarray(n[key]), np.asarray(o[key]),

@@ -11,7 +11,9 @@ REQUIRE_CUDA=1. The file imports no JAX, so it runs where the card is:
 Tolerances: fp32 outputs rtol 1e-5 with atol 1e-5 * max|y| (fp32 sums in
 another order); bf16 outputs atol 2^-7 * max|y| (both sides round W to
 bf16 and multiply exactly in fp32, so they differ by the final bf16
-rounding of the output, one ulp = 2^-8 relative).
+rounding of the output, one ulp = 2^-8 relative). The batched-expert
+kernel's slice of each expert equals the single-matrix kernel on that
+expert exactly (both run the same code with the same split).
 """
 import json
 import os
@@ -24,8 +26,10 @@ import torch
 from repro_torch.kernels import bcq_matmul as tbm
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import paged_attention as tpa
-from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.kernels.ref import (paged_attention_quant_ref,
+                                     paged_attention_ref)
 from repro_torch.quant import QuantizedTensor, codes_from_numpy
+from repro_torch.quant.kv import kv_quantize
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port"
 
@@ -119,6 +123,61 @@ def test_bcq_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         tbm.bcq_matmul(x, c.cpu(), a, b)
 
 
+def make_expert_qt(seed, E, M, k_in, N, G, bits, scale_dtype):
+    rng = np.random.default_rng(seed)
+    KW = -(-k_in // 32)
+    codes = rng.integers(0, 2 ** 32, (E, bits, KW, N), dtype=np.uint32)
+    alphas = torch.from_numpy(
+        (rng.random((E, G, N, bits)) * 0.2 + 0.01).astype(np.float32))
+    betas = torch.from_numpy(
+        (rng.standard_normal((E, G, N)) * 0.05).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((E, M, k_in)).astype(np.float32))
+    qt = QuantizedTensor(codes_from_numpy(codes), alphas.to(scale_dtype),
+                         betas.to(scale_dtype), k_in, "float32")
+    return x, qt
+
+
+EXPERT_CASES = [
+    # (E, M, k_in, N, G, bits)
+    (4, 1, 256, 96, 1, 3), (3, 5, 250, 130, 1, 3),      # pad bits, ragged N
+    (4, 8, 512, 64, 4, 3), (5, 9, 256, 96, 2, 4),
+    (6, 16, 4096, 192, 32, 3),                           # gs 128
+    (128, 4, 1536, 64, 1, 3),                            # 128 experts
+]
+
+
+@pytest.mark.parametrize("E,M,k_in,N,G,bits", EXPERT_CASES)
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_matches_plain_and_dense_kernels(
+        cuda, E, M, k_in, N, G, bits, scale_dtype, x_dtype):
+    x, qt = make_expert_qt(E + M + k_in + N, E, M, k_in, N, G, bits,
+                           scale_dtype)
+    x = x.to(x_dtype)
+    want = ops.bcq_apply(x, qt)                       # plain, on the CPU
+    xd, qd = x.to(cuda), qt.to(cuda)
+    before = dict(tbm.LAUNCHES)
+    got = ops.bcq_apply(xd, qd)
+    torch.cuda.synchronize()
+    assert tbm.LAUNCHES["bcq_expert_matmul"] == \
+        before["bcq_expert_matmul"] + 1
+    assert got.is_cuda and got.dtype == x_dtype and got.shape == (E, M, N)
+    close(got, want, bf16=x_dtype == torch.bfloat16)
+    # each expert's slice equals the single-matrix kernel, bit for bit
+    for e in range(E):
+        alone = ops.bcq_apply(xd[e], QuantizedTensor(
+            qd.codes[e], qd.alphas[e], qd.betas[e], k_in, "float32"))
+        assert torch.equal(got[e], alone), f"expert {e}"
+
+
+def test_expert_stack_with_ragged_groups_takes_the_counted_plain_path(cuda):
+    x, qt = make_expert_qt(1, 2, 3, 96, 40, 6, 3, torch.float32)  # gs 16
+    before = ops.PLAIN_CALLS["bcq_plain"]
+    got = ops.bcq_apply(x.to(cuda), qt.to(cuda))
+    assert ops.PLAIN_CALLS["bcq_plain"] == before + 1
+    close(got, ops.bcq_apply(x, qt))
+
+
 # ---------------------------------------------------------------------------
 # paged attention
 # ---------------------------------------------------------------------------
@@ -150,6 +209,9 @@ PAGED_CASES = [
     (16, [50, 17, 33], 2, 4, 32, 20, 30.0, ()),
     (16, [30, 40, 12], 2, 2, 64, None, None, (1,)),         # inactive row
     (4, [9, 77], 1, 8, 256, 16, None, (0,)),
+    (64, [50, 80, 110, 131], 4, 16, 128, None, None, ()),  # Qwen3-MoE
+    (16, [40, 23, 9], 2, 16, 256, 8, 30.0, ()),      # rep 16 over 2 blocks
+    (16, [40, 23, 9], 1, 24, 64, None, None, (1,)),  # rep 24: 16 + 8
 ]
 
 
@@ -169,6 +231,45 @@ def test_paged_attention_matches_plain(cuda, page, ctx, Hkv, rep, hd,
     assert tpa.LAUNCHES["paged_attention"] == before + 1
     assert got.dtype == dtype
     close(got, want, bf16=dtype == torch.bfloat16)
+
+
+def quant_pool(kp, vp, bits, gs):
+    """Binary-coded K/V pools of fp pools (quant/kv.py layout)."""
+    return (*kv_quantize(kp, bits, gs), *kv_quantize(vp, bits, gs))
+
+
+@pytest.mark.parametrize("page,ctx,Hkv,rep,hd,window,cap,inactive",
+                         PAGED_CASES)
+@pytest.mark.parametrize("bits,gs", [(2, 0), (3, 32), (4, 0), (4, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_quant_matches_plain(cuda, page, ctx, Hkv, rep, hd,
+                                             window, cap, inactive, bits, gs,
+                                             dtype):
+    q, kp, vp, bt, cl = make_pages(page + sum(ctx) + bits, page, ctx, Hkv,
+                                   rep, hd, inactive)
+    q = q.to(dtype)
+    pool = quant_pool(kp, vp, bits, gs)
+    want = paged_attention_quant_ref(q, *pool, bt, cl, window=window,
+                                     cap=cap)
+    before = tpa.LAUNCHES["paged_attention_quant"]
+    got = tpa.paged_attention_quant(
+        *(t.to(cuda) for t in (q, *pool, bt, cl)), window=window, cap=cap)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["paged_attention_quant"] == before + 1
+    assert got.dtype == dtype
+    close(got, want, bf16=dtype == torch.bfloat16)
+
+
+def test_paged_attention_quant_refuses_what_the_kernel_does_not_take(cuda):
+    q, kp, vp, bt, cl = make_pages(0, 16, [5], 1, 1, 64, ())
+    pool = [t.to(cuda) for t in quant_pool(kp, vp, 3, 0)]
+    q, bt, cl = q.to(cuda), bt.to(cuda), cl.to(cuda)
+    with pytest.raises(TypeError, match="fp32"):
+        tpa.paged_attention_quant(q, pool[0], pool[1].double(), *pool[2:],
+                                  bt, cl)
+    with pytest.raises(ValueError, match="do not match"):
+        tpa.paged_attention_quant(q, pool[0][..., :1].contiguous(), *pool[1:],
+                                  bt, cl)
 
 
 def test_paged_attention_refuses_unsupported_geometry(cuda):
@@ -206,3 +307,35 @@ def test_fixture_serves_on_the_card_like_the_reference(cuda):
         assert [r.out for r in reqs] == art["tokens"]
         assert counts["bcq_gemv"] and counts["bcq_matmul"]
         assert counts["paged_attention"] and not counts["bcq_plain"]
+
+
+def test_fixture_with_binary_coded_kv_and_moe_serves_like_the_reference(
+        cuda):
+    """tiny-lm with 4-bit KV pages and the tiny-moe artifact, through the
+    paged engine on the card: the reference's recorded greedy tokens, and
+    the new kernels on the path."""
+    from repro_torch.ckpt import load_packed
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request, ServeEngine
+    ref = json.loads((FIXTURE / "reference.json").read_text())
+    kvb = ref["kv_bits"]
+    runs = [(name, art, kvb["bits"], "paged_attention_quant")
+            for name, art in kvb["artifacts"].items()]
+    runs.append(("w3_moe", ref["artifacts"]["w3_moe"], 0,
+                 "bcq_expert_matmul"))
+    for name, art, bits, kernel in runs:
+        params, _, meta = load_packed(FIXTURE / name)
+        cfg = get_config(meta["arch"]).replace(
+            dtype="float32", n_layers=len(params["layers"]))
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          dtype="float32", cache_kind="paged",
+                          page_size=kvb["page_size"], kv_bits=bits)
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=ref["max_new"])
+                for p in art["prompts"]]
+        reset_launch_counts()
+        eng.run(reqs)
+        counts = launch_counts()
+        assert [r.out for r in reqs] == art["tokens"], name
+        assert counts[kernel] and not counts["bcq_plain"], counts

@@ -26,7 +26,7 @@ from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.quant import QuantizedTensor as JaxQT
 from repro_torch.ckpt import params_from_tree
-from repro_torch.configs import LayerSpec, ModelConfig, get_config
+from repro_torch.configs import LayerSpec, ModelConfig, MoEConfig, get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
@@ -36,12 +36,15 @@ FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port"
 
 
 def port_cfg(jcfg):
-    """The port's ModelConfig with the reference config's fields."""
+    """The port's ModelConfig with the reference config's fields (its
+    MoE config included)."""
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(ModelConfig)
-          if f.name not in ("pattern", "quant")}
+          if f.name not in ("pattern", "quant", "moe")}
     kw["pattern"] = tuple(LayerSpec(s.kind, s.mlp, s.window)
                           for s in jcfg.pattern)
+    if jcfg.moe is not None:
+        kw["moe"] = MoEConfig(**dataclasses.asdict(jcfg.moe))
     return ModelConfig(**kw)
 
 
@@ -245,13 +248,19 @@ def test_init_params_layout_matches_reference_shapes():
 
 
 def test_attention_only_and_fp_pages_in_this_slice():
+    """Binary-coded pages and MoE layers are served now (their parity
+    tests are tests/test_torch_kv_quant.py and test_torch_moe.py); Mamba
+    and MLA layers still raise, and a MoE pattern needs its config."""
     cfg = get_config("tiny-lm").replace(n_layers=1)
-    with pytest.raises(NotImplementedError, match="quantized-KV"):
-        tmodel.init_paged_cache(cfg, 4, 8, 1, kv_bits=4, device="cpu")
+    pool = tmodel.init_paged_cache(cfg, 4, 8, 1, kv_bits=4, device="cpu")
+    assert pool[0]["k_codes"].shape == (4, 8, 4, 4, 2)
+    assert "k_pages" not in pool[0]
     with pytest.raises(NotImplementedError, match="Mamba"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(kind="mamba"),)),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tmodel.init_params(cfg.replace(mla=object()), device="cpu")
+    with pytest.raises(ValueError, match="MoE"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(mlp="moe"),)),
                            device="cpu")
     if not torch.cuda.is_available():

@@ -1,9 +1,14 @@
 """The port's serving stack (repro_torch/serve/, launch/serve.py) on the
 CPU: greedy tokens of its paged engine equal those the reference's paged
 engine (prefix_sharing=False) recorded on the committed fixture
-artifacts, its paged and dense engines agree, pages drain back to the
+artifacts (tiny-lm w3, tiny-lm w3 with 4-bit binary-coded KV pages,
+tiny-moe w3), its paged and dense engines agree, pages drain back to the
 pool, the allocator keeps its invariants under preemption, and the
-launcher serves the fixture with --device cpu."""
+launcher serves the fixture with --device cpu (with --kv-bits too).
+
+The 4-bit KV engine is held to the reference at the same kv_bits, never
+to fp KV pages (the reference's own 4-bit-vs-fp greedy comparison fails
+on this tree)."""
 import importlib.util
 import json
 import os
@@ -27,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "torch_port"
 REF = json.loads((FIXTURE / "reference.json").read_text())
 ARTIFACTS = ["w3_pc", "w3_g64_bf16"]
+KV = REF["kv_bits"]
 
 
 def _model(name):
@@ -52,7 +58,7 @@ def check_drained(kv):
     assert not kv.block_tables.any()
 
 
-@pytest.mark.parametrize("name", ARTIFACTS)
+@pytest.mark.parametrize("name", ARTIFACTS + ["w3_moe"])
 def test_paged_engine_matches_reference_greedy_tokens(name):
     art = REF["artifacts"][name]
     cfg, params = _model(name)
@@ -62,6 +68,53 @@ def test_paged_engine_matches_reference_greedy_tokens(name):
     assert eng.stats["n_done"] == len(outs)
     assert eng.stats["kv_high_water_pages"] > 0
     check_drained(eng.kv)
+
+
+@pytest.mark.parametrize("name", sorted(KV["artifacts"]))
+def test_kv_bits_engine_matches_reference_greedy_tokens(name):
+    """4-bit binary-coded pages: the reference paged engine's tokens at
+    the same kv_bits, and the pool's byte count."""
+    art = KV["artifacts"][name]
+    cfg, params = _model(name)
+    eng, outs = _serve(cfg, params, art["prompts"], REF["max_new"],
+                       cache_kind="paged", page_size=KV["page_size"],
+                       kv_bits=KV["bits"])
+    assert outs == art["tokens"]
+    assert "k_codes" in eng.cache[0] and "k_pages" not in eng.cache[0]
+    # per (token, head) at hd 64: 4 planes x 2 words + 4 alphas + 1 beta
+    # = 52 B; x 2 sides x 16 tokens x 4 heads x 2 layers
+    assert eng.kv.bytes_per_page() == 2 * 16 * 4 * 52 * 2
+    check_drained(eng.kv)
+
+
+def test_kv_bits_paged_matches_reference_logits():
+    """Prefill logits and teacher-forced paged decode logits through a
+    4-bit pool, against those the reference recorded."""
+    from repro_torch.models import (decode_step_paged, init_paged_cache,
+                                    prefill, scatter_prefill_cache)
+    page, bits = KV["page_size"], KV["bits"]
+    for name, art in KV["artifacts"].items():
+        cfg, params = _model(name)
+        prompt, toks = art["prompts"][0], art["tokens"][0]
+        L = len(prompt)
+        logits, row = prefill(cfg, params, torch.tensor([prompt]), L)
+        steps = [(logits[0], art["prefill_logits"][0])]
+        n_pg = -(-(L + len(toks)) // page)
+        pool = init_paged_cache(cfg, n_pg + 1, page, 1, kv_bits=bits,
+                                device="cpu")
+        ids = list(range(1, n_pg + 1))
+        scatter_prefill_cache(cfg, pool, row, 0, ids[:-(-L // page)], L)
+        bt = torch.tensor([ids], dtype=torch.int32)
+        for t, want in enumerate(art["decode_logits"][0]):
+            logits, pool = decode_step_paged(
+                cfg, params, pool, torch.tensor([[toks[t]]]),
+                torch.tensor([L + t], dtype=torch.int32), bt)
+            steps.append((logits[0], want))
+        for got, want in steps:
+            want = np.asarray(want, np.float64)
+            np.testing.assert_allclose(
+                got.double().numpy(), want, rtol=0,
+                atol=REF["logits_rtol"] * np.abs(want).max())
 
 
 @pytest.mark.parametrize("name", ARTIFACTS)
@@ -160,6 +213,25 @@ def test_launcher_serves_fixture_on_cpu(capsys):
     assert "served 3 requests" in capsys.readouterr().out
 
 
+def test_launcher_kv_bits_picks_paged_and_serves_fixture_on_cpu(capsys):
+    """--kv-bits 4 with --cache auto serves from binary-coded pages; the
+    launcher's prompts are held to the reference only where the
+    reference recorded them (fp pages), so this checks the pool, the
+    banner and that every request finishes."""
+    eng, reqs = launch_main(["--load-quantized", str(FIXTURE / "w3_pc"),
+                             "--device", "cpu", "--kv-bits", "4",
+                             "--requests", "3", "--batch-size", "3",
+                             "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert eng.cache_kind == "paged" and eng.kv.kv_bits == 4
+    assert "quantized KV cache: 4-bit binary-coded pages" in out
+    assert all(r.done and len(r.out) == 6 for r in reqs)
+    with pytest.raises(SystemExit):
+        launch_main(["--load-quantized", str(FIXTURE / "w3_pc"),
+                     "--device", "cpu", "--kv-bits", "4", "--cache",
+                     "dense"])
+
+
 def test_launcher_module_entry_point():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
@@ -174,13 +246,22 @@ def test_launcher_module_entry_point():
 @pytest.mark.parametrize("kw,slice_name", [
     ({"prefix_sharing": True}, "prefix-cache"),
     ({"prefill_chunk": 16}, "chunked-prefill"),
-    ({"kv_bits": 4}, "quantized-KV"),
+    ({"kv_bits": 4, "cache_kind": "dense"}, "quantized-KV"),
     ({"speculate": 2}, "speculative"),
     ({"mesh": object()}, "multi-GPU")])
 def test_later_slices_raise(kw, slice_name):
+    """Each slice still to come raises naming its ROADMAP Queue 1 item;
+    binary-coded KV pages are served now, and on a dense cache they
+    raise as in the reference."""
     cfg, params = _model("w3_pc")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ServeEngine(cfg, params, cache_kind="paged", device="cpu", **kw)
+    kw = {"cache_kind": "paged", **kw}
+    if slice_name == "quantized-KV":
+        with pytest.raises(ValueError, match="kv_bits requires cache_kind"):
+            ServeEngine(cfg, params, device="cpu", **kw)
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"{slice_name}.*ROADMAP Queue 1 item [1-8]"):
+        ServeEngine(cfg, params, device="cpu", **kw)
 
 
 def test_engine_runs_on_cuda_unless_told_otherwise():
@@ -233,8 +314,22 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert n_checks == {"bcq_gemv": 16, "bcq_matmul": 12}
     assert worst["bcq_gemv"] <= cs.TOL_FP32
     assert cs.check_paged(gen) <= cs.TOL_FP32
+    assert cs.check_paged_quant(gen, geoms=((2, 16, 64),)) <= cs.TOL_FP32
+    worst_e, n_exact = cs.check_expert(gen, E=3, shapes=((128, 64),),
+                                       Ms=(4, 9))
+    assert worst_e <= cs.TOL_FP32 and n_exact == 3 * 2 * 2
+    for row in (cs.summarize_expert(gen, E=2, K=128, N=64),
+                cs.summarize_paged_quant(gen, Hkv=2, rep=16, hd=64),
+                cs.summarize_paged(gen, Hkv=2, rep=16, hd=64)):
+        assert row["bound_ms"] > 0 and row["max_abs_err"] <= 1e-5
     cs.phase_fixture()
     counts, row = cs.phase_main_path(0, "tiny-lm")
     assert row["decode_tokens"] == 4 * 31 and row["model"] == "tiny-lm"
-    assert unmet == [f"main path: {k} was never launched"
-                     for k in ("bcq_gemv", "bcq_matmul", "paged_attention")]
+    _, row = cs.phase_kv_bits(0, cs.synthetic_llama(0, "tiny-lm"))
+    # 2 sides x 4 heads x (4 planes x 2 words + 4 alphas + 1 beta) x 4 B
+    # x 4 layers
+    assert row["kv_bytes_per_token"] == 2 * 4 * 13 * 4 * 4
+    _, row = cs.phase_moe(0, "tiny-moe", 2)
+    assert row["decode_tokens"] == 4 * 31 and "2 of 2 layers" in row["depth"]
+    launches = [u for u in unmet if "launch" in u]
+    assert unmet == launches and len(launches) == 7, unmet
