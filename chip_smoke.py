@@ -830,11 +830,9 @@ def paged_vs_dense(name, cfg, params, prompt, toks, steps=8):
                                  f"by {worst:.3g}")
 
 
-def phase_main_path(seed: int, arch: str = "llama2-7b", model=None):
-    t0 = time.time()
-    cfg, params = model or synthetic_llama(seed, arch)
-    sync()
-    build_s = time.time() - t0
+def phase_main_path(seed: int, model, build_s: float):
+    """Phase 3 on `model`, built by synthetic_llama in `build_s` s."""
+    cfg, params = model
     counts, row, prompts, outs = serve_path("main_path", cfg, params, seed)
     row["weights_build_s"] = build_s
     emit(row)
@@ -868,9 +866,7 @@ def phase_kv_bits(seed: int, model, kv_bits: int = 4):
             f"kv_bits path: launches {counts}")
     # the kernel against its plain version on the path's own inputs: every
     # layer's call of 8 teacher-forced decode steps of request 0 also runs
-    # the plain version (comparing two whole-model runs would not do: a
-    # 1e-7 difference upstream can flip a near-tie of the next layer's
-    # quantize-on-write)
+    # the plain version; whole-model runs follow in kv_divergence_witness
     L, steps, page = len(prompts[0]), 8, 64
     _, row_cache = prefill(cfg, params,
                            torch.tensor(prompts[0][None], device=DEV), L)
@@ -900,8 +896,136 @@ def phase_kv_bits(seed: int, model, kv_bits: int = 4):
           "calls": len(errs), "max_rel_err": max(errs), "tol": TOL_FP32})
     require(len(errs) == steps * cfg.n_layers and max(errs) <= TOL_FP32,
             f"kv_bits path: kernel vs plain differ by {max(errs):.3g}")
+    kv_divergence_witness(cfg, params, prompts[0], outs[0], kv_bits)
     profile_decode(cfg, params, prompts, kv_bits=kv_bits, tag="kv_bits")
     return counts, row
+
+
+NEAR_TIE = 1e-5       # as tests/test_torch_kv_quant.py counts near-ties
+
+
+def near_ties(x, alphas, betas):
+    """Entries of x (..., hd) whose distances to their two nearest
+    levels under the given scales differ by less than NEAR_TIE *
+    max|x|."""
+    import torch
+    from repro_torch.quant.kv import sign_combos
+    bits, G = alphas.shape[-1], betas.shape[-1]
+    xg = x.float().reshape(*x.shape[:-1], G, -1) - betas[..., None]
+    levels = alphas @ sign_combos(bits, x.device).T          # (..., G, L)
+    d = torch.sort((xg[..., None, :] - levels[..., None]).abs(),
+                   dim=-2).values
+    tie = (d[..., 1, :] - d[..., 0, :]) < NEAR_TIE * x.abs().max()
+    return tie.reshape(x.shape)
+
+
+def first_refit_difference(xk, xp, bits, gs):
+    """Quantize both sides' K/V inputs again with 0, 1, ... refit rounds
+    (0 = the greedy signs alone): the first round after which their codes
+    differ, the entries that differ then, and, for a refit round (which
+    assigns each entry to its nearest level), how many of them are
+    near-ties of that round's levels on either side."""
+    import torch
+    from repro_torch.quant.kv import KV_REFINE_ITERS, kv_quantize
+    from repro_torch.quant.packing import unpack_signs_last
+    for i in range(KV_REFINE_ITERS + 1):
+        (ck, ak, bk), (cp, ap, bp) = (kv_quantize(x, bits, gs, iters=i)
+                                      for x in (xk, xp))
+        if not torch.equal(ck, cp):
+            break
+    differ = (unpack_signs_last(ck) != unpack_signs_last(cp)).any(dim=-2)
+    ties = near_ties(xk, ak, bk) | near_ties(xp, ap, bp)
+    return {"first_round_codes_differ": i,
+            "entries_differing_then": int(differ.sum()),
+            "of_them_near_ties_then": (int((differ & ties).sum()) if i
+                                       else None)}
+
+
+def kv_divergence_witness(cfg, params, prompt, toks, kv_bits, steps=8):
+    """Whole-model runs of the quantized-KV path with the kernel and with
+    its plain version, teacher-forced on one request's tokens, three
+    pools filled by one prefill:
+      - kernel: the kernel reads pool A;
+      - plain: the plain version reads pool B, which its own
+        quantize-on-write fills;
+      - shared: the plain version reads pool C, which takes the kernel
+        run's quantized values, so it holds what pool A holds.
+    Reports the kernel-vs-plain and kernel-vs-shared logits by step and,
+    at the first (step, layer) whose written codes differ between A and
+    B, how far apart the quantized K/V inputs were and how many entries
+    whose codes differ are near-ties of their final levels (on either
+    side). The kernel-vs-shared logits must agree within
+    TOL_LOGITS."""
+    import torch
+    from repro_torch.kernels.ref import paged_attention_quant_ref
+    from repro_torch.models import (attention, decode_step_paged,
+                                    init_paged_cache, prefill,
+                                    scatter_prefill_cache)
+    from repro_torch.quant.packing import unpack_signs_last
+    L, page = len(prompt), 64
+    _, row_cache = prefill(cfg, params,
+                           torch.tensor(prompt[None], device=DEV), L)
+    pools = []
+    for _ in range(3):
+        pools.append(init_paged_cache(cfg, 4, page, 1, kv_bits=kv_bits,
+                                      device=DEV))
+        scatter_prefill_cache(cfg, pools[-1], row_cache, 0, [1], L)
+    bt = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=DEV)
+    kernel, quantize = attention.paged_attention_quant, attention.kv_quantize
+
+    def step(pool, attend, t, writes=None):
+        rec = []
+
+        def quantize_rec(x, *a, **kw):
+            vals = (writes[len(rec)] if writes is not None
+                    else quantize(x, *a, **kw))
+            rec.append((x, vals))
+            return vals
+        attention.paged_attention_quant = attend
+        attention.kv_quantize = quantize_rec
+        try:
+            logits, _ = decode_step_paged(
+                cfg, params, pool, torch.tensor([[toks[t]]], device=DEV),
+                torch.tensor([L + t], dtype=torch.int32, device=DEV), bt)
+        finally:
+            attention.paged_attention_quant = kernel
+            attention.kv_quantize = quantize
+        return logits, rec
+
+    def rel(a, b):
+        return float((a - b).abs().max() / a.abs().max())
+    plain, shared, first = [], [], None
+    for t in range(steps):
+        lk, rk = step(pools[0], kernel, t)
+        lp, rp = step(pools[1], paged_attention_quant_ref, t)
+        ls, _ = step(pools[2], paged_attention_quant_ref, t,
+                     writes=[v for _, v in rk])
+        plain.append(rel(lk, lp))
+        shared.append(rel(lk, ls))
+        for layer, ((xk, vk), (xp, vp)) in enumerate(zip(rk, rp)):
+            if first is not None or torch.equal(vk[0], vp[0]):
+                continue
+            differ = (unpack_signs_last(vk[0])
+                      != unpack_signs_last(vp[0])).any(dim=-2)
+            ties = near_ties(xk, *vk[1:]) | near_ties(xp, *vp[1:])
+            first = {"step": t, "layer": layer,
+                     "input_rel_diff": rel(xk, xp),
+                     "vectors_differing": int(differ.any(-1).sum()),
+                     "vectors": xk[..., 0].numel(),
+                     "entries_differing": int(differ.sum()),
+                     "of_them_near_ties": int((differ & ties).sum()),
+                     "max_alpha_rel_diff": rel(vk[1], vp[1]),
+                     **first_refit_difference(xk, xp, kv_bits,
+                                              xk.shape[-1] // vk[2].shape[-1])}
+    sync()
+    emit({"check": "kv_bits_path_whole_model", "steps": steps,
+          "kernel_vs_plain_rel_err_by_step": plain,
+          "kernel_vs_shared_pool_rel_err_by_step": shared,
+          "first_quantize_difference": first, "near_tie": NEAR_TIE,
+          "tol": TOL_LOGITS})
+    require(max(shared) <= TOL_LOGITS, f"kv_bits path: kernel vs plain "
+                                       f"logits on one pool differ by "
+                                       f"{max(shared):.3g}")
 
 
 def phase_moe(seed: int, arch: str = "qwen3-moe-235b-a22b",
@@ -1103,10 +1227,15 @@ def main(argv=None) -> int:
             t0 = time.time()
             phase_fixture()
             phase_done(2, t0)
-        llama = synthetic_llama(args.seed) if phases & {3, 4} else None
+        llama = None
+        if phases & {3, 4}:
+            t0 = time.time()
+            llama = synthetic_llama(args.seed)
+            sync()
+            llama_build_s = time.time() - t0
         if 3 in phases:
             t0 = time.time()
-            counts, _ = phase_main_path(args.seed, model=llama)
+            counts, _ = phase_main_path(args.seed, llama, llama_build_s)
             count("main_path", counts)
             phase_done(3, t0)
         if 4 in phases:

@@ -18,10 +18,8 @@ class MoEConfig:
     n_experts: int
     top_k: int
     d_ff_expert: int
-    router_jitter: float = 0.0
     capacity_factor: float = 1.25       # train-time dispatch capacity
     inference_capacity_factor: float = 2.0  # prefill; decode uses 4.0
-    sharding: str = "auto"              # the reference's mesh choice
 
 
 @dataclass(frozen=True)

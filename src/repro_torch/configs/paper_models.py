@@ -41,6 +41,6 @@ QWEN3_MOE_235B_A22B = ModelConfig(
     name="qwen3-moe-235b-a22b", family="moe", n_layers=94, d_model=4096,
     n_heads=64, n_kv_heads=4, head_dim=128, d_ff=1536, vocab_size=151936,
     pattern=(LayerSpec(kind="attn", mlp="moe"),),
-    moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=1536, sharding="auto"),
+    moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=1536),
     qk_norm=True, rope_theta=1e6, tie_embeddings=False,
 )

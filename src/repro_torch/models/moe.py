@@ -37,12 +37,9 @@ def init_moe(cfg, gen, dtype, device):
             "wd": (ew(f, d) * (f ** -0.5) / scale).to(dt)}
 
 
-def capacity(cfg, T: int, capacity_factor=None, dropless=False) -> int:
-    """Slots per expert: C = min(T, max(1, int(ceil(T*k/E) * cf))), or T
-    when dropless."""
+def capacity(cfg, T: int, capacity_factor=None) -> int:
+    """Slots per expert: C = min(T, max(1, int(ceil(T*k/E) * cf)))."""
     m = cfg.moe
-    if dropless:
-        return T
     cf = capacity_factor or m.capacity_factor
     return min(T, max(1, int(-(-T * m.top_k // m.n_experts) * cf)))
 
@@ -54,14 +51,14 @@ def _expert_matmul(v, w):
     return torch.einsum("eck,ekn->ecn", v, w.to(v.dtype))
 
 
-def moe_forward(cfg, p, x, *, capacity_factor=None, dropless=False):
+def moe_forward(cfg, p, x, *, capacity_factor=None):
     """x: (B, S, D) -> (out, aux_loss). Capacity C = ceil(T*k/E) * cf
-    slots per expert (capped at T), or T when dropless."""
+    slots per expert (capped at T)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
-    C = capacity(cfg, T, capacity_factor, dropless)
+    C = capacity(cfg, T, capacity_factor)
 
     xf = x.reshape(T, D)
     logits = xf.float() @ p["router"].float()

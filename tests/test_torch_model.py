@@ -44,8 +44,14 @@ def port_cfg(jcfg):
     kw["pattern"] = tuple(LayerSpec(s.kind, s.mlp, s.window)
                           for s in jcfg.pattern)
     if jcfg.moe is not None:
-        kw["moe"] = MoEConfig(**dataclasses.asdict(jcfg.moe))
+        kw["moe"] = MoEConfig(**moe_fields(jcfg.moe))
     return ModelConfig(**kw)
+
+
+def moe_fields(jmoe_cfg):
+    """The reference MoE config's values of the fields the port keeps."""
+    return {f.name: getattr(jmoe_cfg, f.name)
+            for f in dataclasses.fields(MoEConfig)}
 
 
 def random_packed(tree, seed, bits=3, group_size=0):

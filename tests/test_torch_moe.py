@@ -41,7 +41,7 @@ from repro_torch.kernels.ref import bcq_expert_matmul_ref
 from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
 from repro_torch.quant import QuantizedTensor, codes_from_numpy
-from test_torch_model import close_logits, port_cfg
+from test_torch_model import close_logits, moe_fields, port_cfg
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port"
 
@@ -50,7 +50,7 @@ def test_moe_configs_match_reference():
     for name in ("tiny-moe", "qwen3-moe-235b-a22b"):
         jcfg, cfg = jax_get_config(name), get_config(name)
         assert port_cfg(jcfg) == cfg.replace(quant=port_cfg(jcfg).quant)
-        assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
+        assert dataclasses.asdict(cfg.moe) == moe_fields(jcfg.moe)
     assert get_config("tiny-moe").moe.capacity_factor == 1.25
     assert get_config("tiny-moe").moe.inference_capacity_factor == 2.0
 
@@ -172,8 +172,11 @@ def test_moe_forward_matches_reference(quantized, cf, dropless):
          + rng.standard_normal(cfg.d_model)).astype(np.float32)
     want, waux = jmoe.moe_forward(jcfg, jp, jnp.asarray(x),
                                   capacity_factor=cf, dropless=dropless)
+    if dropless:         # the port has no flag: a factor of E gives C = T
+        cf = float(cfg.moe.n_experts)
+        assert tmoe.capacity(cfg, B * S, cf) == B * S
     got, aux = tmoe.moe_forward(cfg, tp, torch.from_numpy(x),
-                                capacity_factor=cf, dropless=dropless)
+                                capacity_factor=cf)
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())

@@ -323,7 +323,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                 cs.summarize_paged(gen, Hkv=2, rep=16, hd=64)):
         assert row["bound_ms"] > 0 and row["max_abs_err"] <= 1e-5
     cs.phase_fixture()
-    counts, row = cs.phase_main_path(0, "tiny-lm")
+    counts, row = cs.phase_main_path(0, cs.synthetic_llama(0, "tiny-lm"),
+                                     0.0)
     assert row["decode_tokens"] == 4 * 31 and row["model"] == "tiny-lm"
     _, row = cs.phase_kv_bits(0, cs.synthetic_llama(0, "tiny-lm"))
     # 2 sides x 4 heads x (4 planes x 2 words + 4 alphas + 1 beta) x 4 B
@@ -333,3 +334,26 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert row["decode_tokens"] == 4 * 31 and "2 of 2 layers" in row["depth"]
     launches = [u for u in unmet if "launch" in u]
     assert unmet == launches and len(launches) == 7, unmet
+
+
+@pytest.mark.parametrize("bits,gs", [(2, 0), (4, 32)])
+def test_chip_smoke_near_ties_match_the_parity_tests(monkeypatch, bits, gs):
+    """The near-ties chip_smoke's whole-model KV witness counts are the
+    ones tests/test_torch_kv_quant.py excuses in kv_quantize: entries set
+    halfway between two adjacent levels are ties for both, and both mark
+    the same entries."""
+    from repro_torch.quant import kv as tkv
+    from test_torch_kv_quant import near_ties
+    cs = _chip_smoke(monkeypatch)
+    rng = np.random.default_rng(bits)
+    x = (rng.standard_normal((16, 2, 128)) * 2.0).astype(np.float32)
+    _, a, b = tkv.kv_quantize(torch.from_numpy(x), bits, gs)
+    levels = np.sort(b.numpy()[..., 0, None]
+                     + a.numpy()[..., 0, :] @ tkv.sign_combos(bits).numpy().T,
+                     axis=-1)                                 # (16, 2, L)
+    x[..., 0] = (levels[..., 0] + levels[..., 1]) / 2
+    x[..., 1] = (levels[..., -2] + levels[..., -1]) / 2
+    got = cs.near_ties(torch.from_numpy(x), a, b).numpy()
+    want = near_ties(x, a.numpy(), b.numpy(), bits, gs or 128).reshape(x.shape)
+    np.testing.assert_array_equal(got, want)
+    assert got[..., :2].all() and got.mean() < 0.05
