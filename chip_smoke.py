@@ -8,18 +8,24 @@ It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
 five phases; any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
-     card at the main-path shapes (BCQ GEMV M in {1,4,8} and GEMM M in
-     {9,128} on 4096x4096, 4096x11008, 11008x4096, w3 per-channel and
-     group 128, fp32 and bf16 scales; the batched-expert GEMM at E=128,
-     M in {4,16}, 4096x1536 and 1536x4096, also bit for bit against the
-     single-matrix kernels expert by expert; paged attention over fp and
-     2/3/4-bit binary-coded pages at the llama2-7b (Hkv 32, rep 1) and
-     Qwen3-MoE (Hkv 4, rep 16) geometries, page 64, ragged contexts,
-     window and cap), with times.
+     card at the main-path shapes (BCQ GEMV M in {1,4,8} and the
+     tensor-core GEMM M in {9,16,64,128} on 4096x4096, 4096x11008,
+     11008x4096, w3 per-channel and group 128, fp32 and bf16 scales;
+     the batched-expert GEMM at E=128, M in {4,16}, 4096x1536 and
+     1536x4096, also bit for bit against the single-matrix kernels
+     expert by expert, with and without the rows of a routing; paged
+     attention over fp and 2/3/4-bit binary-coded pages at the
+     llama2-7b (Hkv 32, rep 1) and Qwen3-MoE (Hkv 4, rep 16)
+     geometries, page 64, ragged contexts, window and cap), with times;
+     after the build, the GEMM must hold wgmma (HGMMA in its SASS) and
+     ptxas must report no spill in it.
   2. reference fixture: the committed artifacts (tests/data/torch_port/:
      tiny-lm w3, tiny-moe w3, and tiny-lm with 4-bit KV pages) served on
      the card through the launcher and the paged ServeEngine; logits and
-     greedy tokens are held against those the JAX reference recorded.
+     greedy tokens are held against those the JAX reference recorded;
+     with 4-bit KV also the card's kv_quantize against the CPU's on the
+     same K/V, and a witness line on the first prompt the fixture
+     dropped for a quantize-on-write near-tie.
   3. main path at full width: seeded synthetic w3 per-channel packed
      llama2-7b (32 layers) served by the paged engine, 4 requests with
      16-100 token prompts and 32 new tokens each, with per-kernel launch
@@ -43,6 +49,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -53,7 +60,8 @@ FIXTURE = ROOT / "tests" / "data" / "torch_port"
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+FP32_FLOPS = 67e12        # CUDA cores: the GEMV, attention
+TF32_FLOPS = 495e12       # tensor cores: the GEMM's TF32 passes
 
 # tolerances, relative to max|reference| of each output
 TOL_FP32 = 2e-5       # fp32 sums of up to 11008 products in another order
@@ -146,10 +154,44 @@ def best_ms(t: dict) -> float:
     return t["device_ms"] if t["device_ms"] is not None else t["event_ms"]
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOPS):
+    """The least time of the work: its bytes at the HBM rate or its
+    operations at `peak`, whichever is longer, and which it was."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gemm_arithmetic(x_dtype) -> tuple:
+    """The tensor-core GEMM's arithmetic for x of `x_dtype`: three TF32
+    passes for fp32 x (3xTF32), one for bf16 x; (name, passes)."""
+    import torch
+    return ("tf32", 1) if x_dtype == torch.bfloat16 else ("tf32x3", 3)
+
+
+def sass_check(out: Path) -> None:
+    """The tensor-core GEMM was compiled to wgmma: HGMMA instructions in
+    every instance of its kernel in the built library (cuobjdump -sass),
+    and ptxas reports no spill in any of them."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(out / "libbcq_matmul.so")],
+                          capture_output=True, text=True, timeout=300).stdout
+    funcs = sass.split("Function : ")[1:]
+    gemm = [f for f in funcs if "bcq_tc_gemm_kernel" in f.split("\n", 1)[0]]
+    hgmma = [sum("HGMMA" in ln for ln in f.splitlines()) for f in gemm]
+    gemm_spills, cur = [], ""
+    for ln in (out / "bcq_matmul.log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and int(m.group(1)) and "bcq_tc_gemm_kernel" in cur:
+            gemm_spills.append(re.search(r"kernelILi(\d+)", cur).group(1))
+    emit({"check": "sass", "gemm_instances": len(gemm),
+          "hgmma_per_instance_min": min(hgmma) if hgmma else 0,
+          "token_tiles_with_spills": gemm_spills})
+    require(gemm and min(hgmma) > 0, "the GEMM kernel has no HGMMA")
+    require(not gemm_spills, f"the GEMM kernel spills: {gemm_spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +219,10 @@ def random_qt(gen, K, N, gs, scale_dtype, bits=3, beta_scale=0.1, E=None):
 
 
 LLAMA_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096)]
+# (M, K, N) of the GEMM beside its line: llama2-7b's prefill buckets 16
+# and 64, Qwen3-MoE's k/v (N=512) and q (N=8192) projections
+GEMM_SHAPES = ((16, 4096, 11008), (64, 4096, 11008), (16, 4096, 512),
+               (128, 4096, 512), (16, 4096, 8192), (128, 4096, 8192))
 # (Hkv, rep, hd) of the binary-coded decode: llama2-7b, Qwen3-MoE
 QUANT_GEOMS = ((32, 1, 128), (4, 16, 128))
 PAGED_CTX = [50, 80, 110, 131]
@@ -196,7 +242,7 @@ def check_bcq(gen, shapes):
                 n_copy = max(2, -(-100_000_000 // (3 * K * N // 8)))
                 qts = [random_qt(gen, K, N, gs, sdt) for _ in range(n_copy)]
                 qt = qts[0]
-                for M in (1, 4, 8, 9, 128):
+                for M in (1, 4, 8, 9, 16, 64, 128):
                     name = "bcq_gemv" if M <= 8 else "bcq_matmul"
                     fn = bcq_gemv if M <= 8 else bcq_matmul
                     x = torch.randn((M, K), generator=gen, device=DEV)
@@ -273,9 +319,21 @@ def summarize_bcq(gen, name, M, K, N):
     w = q0.dequant(torch.float32)
     lib_ms = best_ms(kernel_ms(lambda: torch.matmul(x, w), 20))
     n_bytes = q0.packed_bytes() + 4 * M * K + 4 * M * N
-    b, by = bound_ms(n_bytes, 2.0 * M * K * N)
+    row = {}
+    if name == "bcq_gemv":
+        b, by = bound_ms(n_bytes, 2.0 * M * K * N)
+        row["arithmetic"] = "fp32"
+    else:
+        from repro_torch.kernels.bcq_matmul import gemm_launch_shape
+        arith, passes = gemm_arithmetic(x.dtype)
+        b, by = bound_ms(n_bytes, passes * 2.0 * M * K * N, TF32_FLOPS)
+        tile, ntiles, splits = gemm_launch_shape(
+            M, K // 32, N, torch.cuda.get_device_properties(
+                0).multi_processor_count if DEV == "cuda" else 132)
+        row.update({"arithmetic": arith, "token_tile": tile,
+                    "token_tiles": ntiles, "k_splits": splits})
     return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "bound_ms": b, "bound_by": by, **row, "library_ms": lib_ms,
             "event_ms": t["event_ms"],
             "timing": "profiler" if t["device_ms"] else "cuda_events",
             "shape": f"M={M} K={K} N={N} w3 per-channel fp32 scales"}
@@ -472,10 +530,23 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
 EXPERT_SHAPES = ((4096, 1536), (1536, 4096))
 
 
+def routed_rows(gen, E=128, T=4, k=8, C=4):
+    """Filled slots of each expert for T tokens routed top-k over E
+    experts by seeded random router logits, clamped at C (what
+    moe_forward passes as rows): an (E,) int32 tensor on the card."""
+    import torch
+    logits = torch.randn((T, E), generator=gen, device=DEV)
+    top = torch.topk(logits, min(k, E), dim=-1).indices.reshape(-1)
+    return torch.bincount(top, minlength=E).clamp(max=C).int()
+
+
 def check_expert(gen, E=128, shapes=EXPERT_SHAPES, Ms=(4, 16)):
     """bcq_expert_matmul against its plain version (w3 per-channel fp32
     scales and group 128 bf16 scales), and each expert's slice against
-    the single-matrix kernel on that expert alone, bit for bit."""
+    the single-matrix kernel on that expert alone, bit for bit; then the
+    same with rows from a seeded routing (most experts empty): exact
+    zeros past each count, the live rows bit-equal to the single-matrix
+    kernel."""
     import torch
     from repro_torch.kernels.bcq_matmul import (_bcq_expert_plain,
                                                 bcq_expert_matmul, bcq_gemv,
@@ -511,52 +582,228 @@ def check_expert(gen, E=128, shapes=EXPERT_SHAPES, Ms=(4, 16)):
                                f"single-matrix kernel")
                 worst = max(worst, rel)
                 n_exact += E
+                # live rows only: a routing's counts (M=16: a prefill's)
+                rows = routed_rows(gen, E, T=4 if M <= GEMV_ROWS else 128,
+                                   C=M)
+                yr = bcq_expert_matmul(x, c, a, b, rows)
+                refr = _bcq_expert_plain(x, c, a, b, rows)
+                live = rows.tolist()
+                zeros = all(not bool(yr[e, n:].any())
+                            for e, n in enumerate(live))
+                exact_r = all(torch.equal(yr[e, :n], y[e, :n])
+                              for e, n in enumerate(live))
+                sync()
+                rel_r = float((yr - refr).abs().max()
+                              / refr.abs().max().clamp(min=1e-30))
+                emit({"check": "bcq_expert_matmul_rows", "E": E, "M": M,
+                      "K": K, "N": N, "group_size": gs,
+                      "live_experts": sum(n > 0 for n in live),
+                      "live_rows": sum(live), "rel_err": rel_r,
+                      "tol": TOL_FP32, "dead_rows_exact_zero": zeros,
+                      "live_rows_equal_single_matrix": exact_r})
+                require(rel_r <= TOL_FP32 and zeros and exact_r,
+                        f"bcq_expert_matmul rows M={M} K={K} N={N} gs={gs}: "
+                        f"rel err {rel_r:.3g}, zeros {zeros}, exact "
+                        f"{exact_r}")
+                worst = max(worst, rel_r)
             del qt, c, a, b
     return worst, n_exact
 
 
-def summarize_expert(gen, E=128, M=4, K=4096, N=1536):
+def summarize_expert(gen, E=128, M=4, K=4096, N=1536, routed=True):
     """The kernel's line at the phase-5 decode shape (wg/wu, C = 4 rows
     per expert), w3 per-channel fp32: time, bound, plain, and the library
     yardstick: torch.bmm on the stack dequantized to fp32 beforehand (it
-    gets its operand already expanded)."""
+    gets its operand already expanded). With `routed`, the rows of a
+    seeded batch-4 top-8 routing, as moe_forward passes them: the bound
+    counts the routed experts' codes and scales and their live rows (y
+    is written whole), and the line also times every row (rows=None).
+    M > 8 runs the tensor-core GEMM body: its bound is its TF32 passes."""
     import torch
+    from repro_torch.hw import GEMV_ROWS
     from repro_torch.kernels.bcq_matmul import (_bcq_expert_plain,
                                                 bcq_expert_matmul)
     qt = random_qt(gen, K, N, 0, torch.float32, E=E)
     c, a, b = qt.codes, qt.alphas, qt.betas
     x = torch.randn((E, M, K), generator=gen, device=DEV)
-    y = bcq_expert_matmul(x, c, a, b)
-    ref = _bcq_expert_plain(x, c, a, b)
+    rows = routed_rows(gen, E, C=M) if routed else None
+    y = bcq_expert_matmul(x, c, a, b, rows)
+    ref = _bcq_expert_plain(x, c, a, b, rows)
     err = float((y - ref).abs().max())
-    t = kernel_ms(lambda: bcq_expert_matmul(x, c, a, b), 50)
-    plain_ms = best_ms(kernel_ms(lambda: _bcq_expert_plain(x, c, a, b), 2))
+    t = kernel_ms(lambda: bcq_expert_matmul(x, c, a, b, rows), 50)
+    plain_ms = best_ms(kernel_ms(
+        lambda: _bcq_expert_plain(x, c, a, b, rows), 2))
     w = qt.dequant(torch.float32)                      # (E, K, N) fp32
     lib_ms = best_ms(kernel_ms(lambda: torch.bmm(x, w), 20))
     del w
-    n_bytes = qt.packed_bytes() + 4 * E * M * K + 4 * E * M * N
-    bd, by = bound_ms(n_bytes, 2.0 * E * M * K * N)
-    return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
-            "bound_ms": bd, "bound_by": by, "library_ms": lib_ms,
-            "library_gets": "the expert stack dequantized to fp32 "
-                            "beforehand (torch.bmm)",
-            "event_ms": t["event_ms"],
-            "timing": "profiler" if t["device_ms"] else "cuda_events",
-            "shape": f"E={E} M={M} K={K} N={N} w3 per-channel fp32 scales"}
+    live = [M] * E if rows is None else rows.tolist()
+    used = sum(n > 0 for n in live)
+    n_bytes = (qt.packed_bytes() * used / E + 4 * sum(live) * K
+               + 4 * E * M * N)
+    if M <= GEMV_ROWS:
+        bd, by = bound_ms(n_bytes, 2.0 * sum(live) * K * N)
+        arith = "fp32"
+    else:
+        arith, passes = gemm_arithmetic(x.dtype)
+        bd, by = bound_ms(n_bytes, passes * 2.0 * sum(live) * K * N,
+                          TF32_FLOPS)
+    row = {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
+           "bound_ms": bd, "bound_by": by, "arithmetic": arith,
+           "library_ms": lib_ms,
+           "library_gets": "the expert stack dequantized to fp32 "
+                           "beforehand (torch.bmm, every row)",
+           "event_ms": t["event_ms"],
+           "timing": "profiler" if t["device_ms"] else "cuda_events",
+           "shape": f"E={E} M={M} K={K} N={N} w3 per-channel fp32 scales"}
+    if rows is not None:
+        whole = qt.packed_bytes() + 4 * E * M * K + 4 * E * M * N
+        row.update({
+            "rows": f"batch-4 top-8 routing, {used} live experts, "
+                    f"{sum(live)} live rows",
+            "live_experts": used,
+            "ms_every_row": best_ms(kernel_ms(
+                lambda: bcq_expert_matmul(x, c, a, b), 50)),
+            "bound_ms_every_row": bound_ms(whole, 2.0 * E * M * K * N)[0]})
+    return row
 
 
 # ---------------------------------------------------------------------------
 # phase 2: the reference fixture on the card
 # ---------------------------------------------------------------------------
 
+def logits_err(got, want) -> float:
+    """Worst step of a logits trajectory against the reference's, over
+    TOL_LOGITS x max|reference logit| of that step."""
+    import numpy as np
+    worst = 0.0
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        d = np.abs(g.double().cpu().numpy() - w).max()
+        worst = max(worst, d / (TOL_LOGITS * np.abs(w).max()))
+    return worst
+
+
+def fixture_steps(cfg, params, prompt, toks, page, kv_bits, dev):
+    """Logits of a fixture prompt's prefill and its teacher-forced paged
+    decode steps on `dev`; with KV bits, the pool holds what the run's
+    own quantize-on-write wrote."""
+    import torch
+    from repro_torch.models import (decode_step_paged, init_paged_cache,
+                                    prefill, scatter_prefill_cache)
+    L = len(prompt)
+    logits, row = prefill(cfg, params, torch.tensor([prompt], device=dev), L)
+    out = [logits[0]]
+    n_pg = -(-(L + len(toks)) // page)
+    cache = init_paged_cache(cfg, n_pg + 1, page, 1, kv_bits=kv_bits,
+                             device=dev)
+    ids = list(range(1, n_pg + 1))
+    scatter_prefill_cache(cfg, cache, row, 0, ids[:-(-L // page)], L)
+    bt = torch.tensor([ids], dtype=torch.int32, device=dev)
+    for t, tok in enumerate(toks[:-1]):
+        logits, cache = decode_step_paged(
+            cfg, params, cache, torch.tensor([[tok]], device=dev),
+            torch.tensor([L + t], dtype=torch.int32, device=dev), bt)
+        out.append(logits[0])
+    return out
+
+
+def check_kv_quantize(cfg, host, prompts, kv_bits):
+    """The card's quantize-on-write against the CPU plain path's on the
+    same inputs: each layer's prefill K and V of every prompt, computed
+    on the CPU, quantized on both. Codes must be equal except at
+    near-ties of the final levels on either side (NEAR_TIE, as
+    tests/test_torch_kv_quant.py excuses them); alphas and betas within
+    1e-5 relative plus NEAR_TIE * max|x| (that test's tolerance)."""
+    import torch
+    from repro_torch.models import prefill
+    from repro_torch.quant.kv import kv_quantize
+    from repro_torch.quant.packing import unpack_signs_last
+    writes = entries = ties = differ = 0
+    scales = 0.0
+    for prompt in prompts:
+        _, rows = prefill(cfg, host, torch.tensor([prompt]), len(prompt))
+        for layer in rows:
+            for side in "kv":
+                x = layer[side]
+                c, a, b = kv_quantize(x, kv_bits)
+                gc_, ga, gb = (t.cpu() for t in kv_quantize(x.to(DEV),
+                                                           kv_bits))
+                tie = near_ties(x, a, b) | near_ties(x, ga, gb)
+                flip = (unpack_signs_last(c)
+                        != unpack_signs_last(gc_)).any(dim=-2)
+                tol = NEAR_TIE * float(x.abs().max())
+                for want, got in ((a, ga), (b, gb)):
+                    scales = max(scales, float(
+                        ((got - want).abs() / (tol + 1e-5 * want.abs()))
+                        .max()))
+                writes += 1
+                entries += x.numel()
+                ties += int(tie.sum())
+                differ += int((flip & ~tie).sum())
+    return {"kv_quantize_writes": writes, "kv_quantize_entries": entries,
+            "kv_quantize_near_ties": ties,
+            "kv_quantize_codes_differ_off_ties": differ,
+            "kv_quantize_scales_err_over_tol": scales}
+
+
+def near_tie_witness(cfg, params, host, wit, page, kv_bits):
+    """Why the fixture drops prompts whose quantize-on-write has a
+    near-tie (make_fixture.py, KV_TIE_MARGIN): the first prompt it
+    dropped, served on its own pool with the GEMM kernel, with the
+    GEMM's plain version on the card, with an fp64 GEMM on the card,
+    and by the CPU plain path, each one's logits error against the
+    reference's (over TOL_LOGITS); and, at the first layer whose prefill
+    K or V from the kernel quantizes differently from the CPU's, how far
+    apart the inputs were and the first kv_quantize round whose codes
+    differ. Reported, not gated."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bcq_matmul import _bcq_matmul_plain
+    from repro_torch.kernels.ref import dequant_ref
+    from repro_torch.models import prefill
+
+    def fp64(x, codes, alphas, betas):
+        w = dequant_ref(codes[:alphas.shape[-1]], alphas, betas, x.shape[1])
+        return (x.double() @ w.double()).to(x.dtype)
+
+    prompt, toks = wit["prompt"], wit["tokens"]
+    want = [wit["prefill_logits"], *wit["decode_logits"]]
+    row = {"check": "fixture_near_tie_witness", "prompt_len": len(prompt),
+           "quant_margin": wit["quant_margin"]}
+    kernel = ops.bcq_matmul
+    for label, gemm in (("kernel", kernel), ("plain_on_card",
+                                             _bcq_matmul_plain),
+                        ("fp64_on_card", fp64)):
+        ops.bcq_matmul = gemm
+        try:
+            got = fixture_steps(cfg, params, prompt, toks, page, kv_bits, DEV)
+        finally:
+            ops.bcq_matmul = kernel
+        row[f"{label}_logits_err_over_tol"] = logits_err(got, want)
+    row["cpu_plain_logits_err_over_tol"] = logits_err(
+        fixture_steps(cfg, host, prompt, toks, page, kv_bits, "cpu"), want)
+    _, card = prefill(cfg, params, torch.tensor([prompt], device=DEV),
+                      len(prompt))
+    _, cpu = prefill(cfg, host, torch.tensor([prompt]), len(prompt))
+    row["first_write_quantized_differently"] = None
+    for i, (lk, lc) in enumerate(zip(card, cpu)):
+        for side in "kv":
+            xk, xc = lk[side].cpu(), lc[side]
+            diff = first_refit_difference(xk, xc, kv_bits, 0)
+            if diff["entries_differing_then"]:
+                row["first_write_quantized_differently"] = {
+                    "layer": i, "side": side,
+                    "kv_rel_err": float((xk - xc).abs().max()
+                                        / xc.abs().max()), **diff}
+                return row
+    return row
+
+
 def phase_fixture():
     import numpy as np
-    import torch
     from repro_torch.ckpt import load_packed
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import main as launch_main
-    from repro_torch.models import (decode_step_paged, init_paged_cache,
-                                    prefill, scatter_prefill_cache)
     from repro_torch.serve import Request, ServeEngine
 
     ref = json.loads((FIXTURE / "reference.json").read_text())
@@ -569,32 +816,16 @@ def phase_fixture():
         params, _, meta = load_packed(FIXTURE / name, device=DEV)
         cfg = get_config(meta["arch"]).replace(
             dtype="float32", n_layers=len(params["layers"]))
-        worst = 0.0
         page = kvb["page_size"]
+        # with KV bits, each prompt's pool is the card's own writes (the
+        # fixture keeps only prompts whose quantize-on-write has no
+        # near-tie in the reference, see near_tie_witness)
+        worst = 0.0
         for prompt, toks, pl, dl in zip(art["prompts"], art["tokens"],
                                         art["prefill_logits"],
                                         art["decode_logits"]):
-            L = len(prompt)
-            logits, row = prefill(cfg, params,
-                                  torch.tensor([prompt], device=DEV), L)
-            steps = [(logits[0], pl)]
-            n_pg = -(-(L + len(toks)) // page)
-            cache = init_paged_cache(cfg, n_pg + 1, page, 1, kv_bits=kv_bits,
-                                     device=DEV)
-            ids = list(range(1, n_pg + 1))
-            scatter_prefill_cache(cfg, cache, row, 0, ids[:-(-L // page)], L)
-            bt = torch.tensor([ids], dtype=torch.int32, device=DEV)
-            for t, want in enumerate(dl):
-                logits, cache = decode_step_paged(
-                    cfg, params, cache,
-                    torch.tensor([[toks[t]]], device=DEV),
-                    torch.tensor([L + t], dtype=torch.int32, device=DEV),
-                    bt)
-                steps.append((logits[0], want))
-            for got, want in steps:
-                want = np.asarray(want, np.float64)
-                d = np.abs(got.double().cpu().numpy() - want).max()
-                worst = max(worst, d / (TOL_LOGITS * np.abs(want).max()))
+            got = fixture_steps(cfg, params, prompt, toks, page, kv_bits, DEV)
+            worst = max(worst, logits_err(got, [pl, *dl]))
         eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
                           dtype="float32", cache_kind="paged", page_size=page,
                           kv_bits=kv_bits, device=DEV)
@@ -608,10 +839,23 @@ def phase_fixture():
                "kv_bits": kv_bits, "logits_err_over_tol": worst,
                "tol_rel": TOL_LOGITS,
                "greedy_match": f"{match}/{len(reqs)}"}
+        if kv_bits:
+            host = load_packed(FIXTURE / name, device="cpu")[0]
+            row.update({"quant_margin_min": min(art["quant_margin"]),
+                        "tie_margin": kvb["tie_margin"],
+                        **check_kv_quantize(cfg, host, art["prompts"],
+                                            kv_bits)})
         emit(row)
         require(worst <= 1.0, f"fixture {tag}: logits off by {worst:.3g} "
                               f"x the tolerance")
         require(match == len(reqs), f"fixture {tag}: greedy tokens differ")
+        if kv_bits:
+            require(row["kv_quantize_codes_differ_off_ties"] == 0
+                    and row["kv_quantize_scales_err_over_tol"] <= 1.0,
+                    f"fixture {tag}: the card's kv_quantize differs from "
+                    f"the CPU's: {row}")
+            emit(near_tie_witness(cfg, params, host, art["near_tie"], page,
+                                  kv_bits))
         out[tag] = row
     # the launcher, as a user runs it, on the per-channel artifact
     lref = ref["launcher"]
@@ -1180,6 +1424,11 @@ def main(argv=None) -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{log.stem}] {line.strip()}")
+    try:
+        sass_check(out)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
@@ -1221,7 +1470,12 @@ def main(argv=None) -> int:
             emit({"check": "paged_attention_quant_rep16",
                   **summarize_paged_quant(gen, Hkv=4, rep=16)})
             emit({"check": "bcq_expert_matmul_prefill",
-                  **summarize_expert(gen, M=16)})
+                  **summarize_expert(gen, M=16, routed=False)})
+            # the GEMM at the other prefill buckets and at Qwen3-MoE's
+            # attention projections (k/v N=512, q N=8192)
+            for M, K, N in GEMM_SHAPES:
+                emit({"check": "bcq_matmul_shape",
+                      **summarize_bcq(gen, "bcq_matmul", M, K, N)})
             phase_done(1, t0)
         if 2 in phases:
             t0 = time.time()

@@ -24,18 +24,50 @@
 //   atomics). x is read as one coalesced 32-value slice per word and
 //   broadcast by warp shuffles. The per-weight dequant (bits adds) is ALU
 //   work that a later PR can cut with a lookup table.
-// * GEMM (M > 8, prefill). Arithmetic on CUDA cores in fp32: a 64x64
-//   output tile per block, one packed word (32 K rows) per step. Each step
-//   dequantizes the (32, 64) W tile once into shared memory and stages the
-//   (64, 32) x tile, then 256 threads each accumulate a 4x4 register tile.
-//   wgmma, TMA and a multi-stage pipeline are left for a later PR.
+// * GEMM (M > 8, prefill). Tensor cores: wgmma m64nNk8 in TF32 with the
+//   operands swapped, Y^T = W^T X^T, so the dequantized weight columns are
+//   the 64-row M side and the tokens the N side: a token tile is M rounded
+//   up to 8 (at most 128; more tokens split over blocks along M), and a
+//   16-token prefill multiplies no padding rows. A block is two
+//   warpgroups, 128 weight columns. Each thread expands its 16 weights of
+//   a packed word (two columns x 8 k) straight into the register A operand
+//   (a column's 32 sign bits are 32 consecutive k: K-major, as TF32
+//   requires), any bit count up to 8 by a loop on the uniform count; x is
+//   a K-major shared tile with the 128-byte swizzle (one word is one
+//   128-byte row). fp32 activations keep fp32 accuracy with three TF32
+//   passes (3xTF32): each operand splits as v = hi + lo, both rounded to
+//   TF32 to nearest, and the tensor cores take lo*hi + hi*lo + hi*hi;
+//   bf16 activations take one pass (W rounds to bf16 first, and bf16
+//   values are exact in TF32). x is split once per call (bcq_split_x),
+//   every column block loads the parts. The tensor cores sum one word (12
+//   wgmmas) at a time, into a fresh accumulator that is then added to an
+//   fp32 total, so that the tensor cores' own sums, which do not round as
+//   an fp32 add does, stay one word long. cp.async keeps the B tiles and
+//   the code words of the next
+//   S - 1 words in flight, one barrier a word. A K split chosen from
+//   (M, K, N) alone fills the SMs when the column blocks are few; its
+//   second pass is the GEMV's fixed-order reduce.
+//   What bounds it: not the tensor cores, whose three passes are the
+//   smaller part of a word's time even at 128 tokens, but each word's
+//   serial path through a block: a barrier, the expansion of 16 weights a
+//   thread (a sign flip and an add a plane, then the TF32 split), the
+//   wgmmas and their wait. Tiles of up to 32 tokens run two blocks an SM,
+//   so that one block's expansion overlaps the other's wgmmas; tiles of 40
+//   to 96 tokens overlap their own, word it + 1 expanding into a second A
+//   buffer while word it's wgmmas run; wider tiles have no registers for
+//   that beside their two accumulators. Left for later: a cheaper
+//   expansion (a per-column table of the 2^bits levels), and the overlap
+//   at 128 tokens.
 // * Expert stacks (MoE layers). One launch covers the whole stack: the
 //   expert is blockIdx.z, and each operand advances by its per-expert
 //   stride (x (E, M, K), codes (E, bits, K/32, N), alphas (E, G, N, bits),
 //   betas (E, G, N), y (E, M, N), split-K partials (E, splits, M, N)). A
 //   single matrix is the stack of one expert, so both run the same code
-//   with the same split, and each expert's slice of y equals, bit for
-//   bit, the single-matrix kernel run on that expert alone.
+//   with the same split and token tile, and each expert's slice of y
+//   equals, bit for bit, the single-matrix kernel run on that expert
+//   alone. An optional rows (E,) int32 gives the live leading rows of each
+//   expert: rows past it read as zero and are stored as exact zeros, and a
+//   block whose expert (or token tile) holds no live row loads nothing.
 //
 // A word never straddles a scale group: the wrapper only launches for
 // G == 1 or gs % 32 == 0 (the reference's `_kernel_groups_ok`), so the
@@ -52,9 +84,22 @@ namespace {
 constexpr int kWord = 32;
 constexpr int kMaxBits = 8;
 constexpr int kGemvWarps = 8;
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kGemmThreads = 256;
+// The GEMM's tile constants are hw.py's (GEMM_COLS, GEMM_TILE_MAX,
+// GEMM_PAIRED_TILE), which the Python launch arithmetic reads too; the
+// build (kernels/build.py) passes them as these macros.
+#if !defined(BCQ_GEMM_COLS) || !defined(BCQ_GEMM_TILE_MAX) || \
+    !defined(BCQ_GEMM_PAIRED_TILE)
+#error "build with src/repro_torch/kernels/build.py (it passes hw.py's GEMM tile constants)"
+#endif
+constexpr int kTcCols = BCQ_GEMM_COLS;            // weight columns a block
+constexpr int kTcMaxTile = BCQ_GEMM_TILE_MAX;     // widest token tile
+constexpr int kTcPairedTile = BCQ_GEMM_PAIRED_TILE;  // two blocks an SM
+static_assert(kTcCols == 2 * 64,
+              "a GEMM block is two warpgroups, each a 64-row wgmma M side");
+static_assert(kTcMaxTile == 128,
+              "bcq_gemm_launch instantiates token tiles 8, 16, ..., 128");
+static_assert(kTcPairedTile % 8 == 0 && kTcPairedTile <= 96,
+              "a paired tile is a multiple of 8 with room for two blocks");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -110,6 +155,11 @@ __device__ __forceinline__ const void* scale_at(const void* p, long long off,
                                          off);
 }
 
+// Live leading rows of expert ex: rows[ex] clamped to [0, M], or M.
+__device__ __forceinline__ int live_rows(const int* rows, int ex, int M) {
+  return rows ? min(max(rows[ex], 0), M) : M;
+}
+
 // One weight from its sign bits at position j of each plane word:
 // beta + sum_i (+-alpha_i), added in plane order like the reference.
 template <int BITS>
@@ -130,22 +180,33 @@ __device__ __forceinline__ float expand(const uint32_t (&c)[kMaxBits],
 
 // ---------------------------------------------------------------------------
 // GEMV: grid (ceil(N/32), splits, experts), block kGemvWarps warps.
-// MR rows are computed (MR >= M; rows past M read as 0 and are not stored).
+// MR rows are computed (MR >= M; rows past M, or past the expert's live
+// rows, read as 0 and are stored as 0 or not at all).
 // ---------------------------------------------------------------------------
 template <typename TX, int MR, int BITS>
 __global__ void __launch_bounds__(kGemvWarps * 32)
     bcq_gemv_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ codes,
                     const void* __restrict__ alphas,
                     const void* __restrict__ betas, TX* __restrict__ y,
-                    float* __restrict__ partial, int M, int KW, int N,
-                    int bits, long long plane_stride, int words_per_group,
-                    int words_per_split, int scale_bf16, ExpertStrides es) {
+                    float* __restrict__ partial, const int* __restrict__ rows,
+                    int M, int KW, int N, int bits, long long plane_stride,
+                    int words_per_group, int words_per_split, int scale_bf16,
+                    ExpertStrides es) {
   const int ex = blockIdx.z;
+  const int live = live_rows(rows, ex, M);
+  y += (long long)ex * M * N;
+  if (live == 0) {  // an empty expert: no loads; the reduce zeroes a split
+    if (gridDim.y == 1)
+      for (int idx = threadIdx.x; idx < M * 32; idx += blockDim.x) {
+        const int col = blockIdx.x * 32 + (idx % 32);
+        if (col < N) y[(long long)(idx / 32) * N + col] = from_f32<TX>(0.f);
+      }
+    return;
+  }
   x += ex * es.x;
   codes += ex * es.codes;
   alphas = scale_at(alphas, ex * es.alphas, scale_bf16);
   betas = scale_at(betas, ex * es.betas, scale_bf16);
-  y += (long long)ex * M * N;
   partial += (long long)ex * gridDim.y * M * N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -169,8 +230,9 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
     float xr[MR];
 #pragma unroll
     for (int m = 0; m < MR; ++m)
-      xr[m] = m < M ? to_f32(x[(long long)m * K + (long long)kw * kWord + lane])
-                    : 0.f;
+      xr[m] = m < live
+                  ? to_f32(x[(long long)m * K + (long long)kw * kWord + lane])
+                  : 0.f;
     const int g = words_per_group > 0 ? kw / words_per_group : 0;
     if (g != g_loaded) {
       load_group(alphas, betas, g, nc, N, bits, scale_bf16, a, beta);
@@ -201,20 +263,27 @@ __global__ void __launch_bounds__(kGemvWarps * 32)
 #pragma unroll
     for (int w = 0; w < kGemvWarps; ++w) s += red[w][m][idx % 32];
     if (gridDim.y == 1)
-      y[(long long)m * N + col] = from_f32<TX>(s);
-    else
+      y[(long long)m * N + col] = from_f32<TX>(m < live ? s : 0.f);
+    else if (m < live)
       partial[((long long)blockIdx.y * M + m) * N + col] = s;
   }
 }
 
-// Sum the split-K partials (E, splits, M, N) in split order into y (E, M, N).
+// Sum the split-K partials (E, splits, M, N) in split order into y (E, M, N);
+// rows past an expert's live rows are written as zeros without a read.
 template <typename TX>
 __global__ void bcq_splitk_reduce(const float* __restrict__ partial,
-                                  TX* __restrict__ y, int splits,
-                                  long long MN, long long total) {
+                                  TX* __restrict__ y,
+                                  const int* __restrict__ rows, int splits,
+                                  int M, int N, long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
+  const long long MN = (long long)M * N;
   const long long ex = i / MN;
+  if ((i - ex * MN) / N >= live_rows(rows, (int)ex, M)) {
+    y[i] = from_f32<TX>(0.f);
+    return;
+  }
   const float* p = partial + ex * splits * MN + (i - ex * MN);
   float s = 0.f;
   for (int t = 0; t < splits; ++t) s += p[t * MN];
@@ -222,137 +291,603 @@ __global__ void bcq_splitk_reduce(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: grid (ceil(N/64), ceil(M/64), experts), 256 threads, one word per
-// K step.
+// GEMM on tensor cores: PTX helpers
 // ---------------------------------------------------------------------------
-template <typename TX, int BITS>
-__global__ void __launch_bounds__(kGemmThreads)
-    bcq_gemm_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ codes,
-                    const void* __restrict__ alphas,
-                    const void* __restrict__ betas, TX* __restrict__ y, int M,
-                    int KW, int N, int bits, long long plane_stride,
-                    int words_per_group, int scale_bf16, ExpertStrides es) {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy shared-memory writes made visible to wgmma's async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses to wgmma's registers across the
+// asynchronous instructions.
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// fp32 -> TF32 with round-to-nearest, ties away from zero, as a 32-bit
+// pattern: what cvt.rna.tf32.f32 gives for every finite value short of
+// the top binade, in two integer operations (the cvt has no single SASS
+// instruction on sm_90 and expands to a longer sequence).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 128 bytes (32 fp32 = one word of K), 8-row core groups
+// 1024 bytes apart (SBO), the leading offset unused; the tile starts on a
+// 1024-byte boundary so the base offset is 0. Advancing K by 8 TF32 (32
+// bytes) adds 2 to the start field; advancing 8 rows adds 64.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  uint64_t d = 0;
+  d |= (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// Float offset of 16-byte chunk `chunk` of row r in a 128-byte-swizzled
+// (rows x 32) fp32 tile: it sits at chunk position chunk ^ (r % 8).
+__device__ __forceinline__ int sw128_chunk(int r, int chunk) {
+  return r * 32 + ((chunk ^ (r & 7)) << 2);
+}
+
+// m64nNk8 TF32 wgmma, A from registers, B a K-major shared tile, fp32 D:
+// D = A B (scale_d = 0) or D += A B (scale_d = 1).
+// D (64 x 8) += A (64 x 8, registers) * B (8 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_n8(float* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d)
+      : "memory");
+}
+
+// D (64 x 16) += A (64 x 8, registers) * B (16 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_n16(float* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d)
+      : "memory");
+}
+
+// D (64 x 32) += A (64 x 8, registers) * B (32 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_n32(float* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d)
+      : "memory");
+}
+
+// D (64 x 64) += A (64 x 8, registers) * B (64 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d)
+      : "memory");
+}
+
+// D (64 x 128) += A (64 x 8, registers) * B (128 x 8, shared, K-major)
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d)
+      : "memory");
+}
+
+// One m64 x n x k8 product for a token tile of NT rows, issued as wgmmas of
+// the widest power-of-two widths that sum to NT (their accumulators are
+// consecutive slices of `acc`, their B rows consecutive 8-row groups).
+template <int C>
+__device__ __forceinline__ void wgmma_chunk(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+  if constexpr (C == 128) wgmma_n128(d, a, b, scale_d);
+  else if constexpr (C == 64) wgmma_n64(d, a, b, scale_d);
+  else if constexpr (C == 32) wgmma_n32(d, a, b, scale_d);
+  else if constexpr (C == 16) wgmma_n16(d, a, b, scale_d);
+  else wgmma_n8(d, a, b, scale_d);
+}
+
+template <int R, int REM>
+struct TokenChunks {
+  static constexpr int C = REM >= 128 ? 128 : REM >= 64 ? 64 : REM >= 32 ? 32
+                           : REM >= 16 ? 16 : 8;
+  __device__ __forceinline__ static void mma(float* acc,
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    // accumulator slice: C/2 floats a thread; B rows R.. : 128 B a row
+    wgmma_chunk<C>(acc + R / 2, a, b + (uint64_t)((R * 128) >> 4), scale_d);
+    TokenChunks<R + C, REM - C>::mma(acc, a, b, scale_d);
+  }
+};
+template <int R>
+struct TokenChunks<R, 0> {
+  __device__ __forceinline__ static void mma(float*, const uint32_t (&)[4],
+                                             uint64_t, int) {}
+};
+
+// x split once per call into its TF32 parts: hi = x rounded to TF32 and,
+// for fp32 x, lo = (x - hi) rounded to TF32 (bf16 x is exact in TF32: hi
+// alone). Every column block of the GEMM then loads the parts as they are.
+__global__ void bcq_split_x(const void* __restrict__ x, float* __restrict__ hi,
+                            float* __restrict__ lo, long long n, int x_bf16) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    if (x_bf16) {
+      hi[i] = __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+    } else {
+      const float v = static_cast<const float*>(x)[i];
+      const float h = __uint_as_float(tf32_rna(v));
+      hi[i] = h;
+      lo[i] = __uint_as_float(tf32_rna(v - h));
+    }
+  }
+}
+
+// The NT-token GEMM block: two warpgroups of 64 weight columns each.
+// Shared memory: S stages, each the hi and lo B tiles of one packed word
+// (NT x 32 k fp32, K-major, 128-byte swizzle) and the code words of the
+// block's columns; then two slots of a scale group of the block's columns
+// (alphas negated, at a stride of 9 floats so that a warp's 8 columns fall
+// in distinct banks, then betas), alternating from group to group.
+constexpr int kTcThreads = 256;
+constexpr int kScaleStride = kMaxBits + 1;
+constexpr int kScaleFloats = (kScaleStride + 1) * kTcCols;
+template <int NT>
+struct TcCfg {
+  // Tiles of up to 32 tokens run two blocks an SM, so that one block's
+  // expansion overlaps the other's wgmmas; wider tiles take the SM and, up
+  // to 96 tokens, overlap their own: word it + 1 expands into a second A
+  // buffer while word it's wgmmas run (past 96 tokens the second buffer
+  // does not fit the registers beside the two accumulators).
+  static constexpr int kMinBlocks = NT <= kTcPairedTile ? 2 : 1;
+  static constexpr bool kPipe = NT > kTcPairedTile && NT <= 96;
+  static constexpr int kTileBytes = NT * 128;
+  static constexpr int kCodeBytes = kMaxBits * kTcCols * 4;
+  static constexpr int kStageBytes = 2 * kTileBytes + kCodeBytes;
+  static constexpr int kFit =
+      ((kMinBlocks == 2 ? 113 : 226) * 1024 - 1024 - 2 * 4 * kScaleFloats) /
+      kStageBytes;
+  static constexpr int kStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kSmem =
+      1024 + kStages * kStageBytes + 2 * 4 * kScaleFloats;
+  static_assert(kStages >= 3, "the load ring needs three stages");
+};
+
+// ---------------------------------------------------------------------------
+// GEMM: grid (ceil(N/128), ntiles * splits, experts), 256 threads. Block
+// (column block bx, token tile t, split s) computes y[t*NT .. +NT,
+// bx*128 .. +128] over the K words of split s from the split x (xh, and
+// xl for fp32 x). Each thread expands its 16 weights of a word into the
+// register A operand; cp.async keeps the B tiles and code words of the
+// next words in flight; one barrier a word.
+// ---------------------------------------------------------------------------
+template <int NT>
+__global__ void __launch_bounds__(kTcThreads, TcCfg<NT>::kMinBlocks)
+    bcq_tc_gemm_kernel(const float* __restrict__ xh,
+                       const float* __restrict__ xl,
+                       const uint32_t* __restrict__ codes,
+                       const void* __restrict__ alphas,
+                       const void* __restrict__ betas, void* __restrict__ y,
+                       float* __restrict__ partial,
+                       const int* __restrict__ rows, int M, int KW, int N,
+                       int bits, long long plane_stride, int words_per_group,
+                       int words_per_split, int ntiles, int x_bf16,
+                       int scale_bf16, ExpertStrides es) {
+  using Cfg = TcCfg<NT>;
+  constexpr int S = Cfg::kStages;
+  constexpr int kAcc = NT / 2;  // accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stage0 = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* scales0 = reinterpret_cast<float*>(stage0 + S * Cfg::kStageBytes);
+
+  const int tid = threadIdx.x;
   const int ex = blockIdx.z;
-  x += ex * es.x;
+  const int tile = blockIdx.y % ntiles;
+  const int split = blockIdx.y / ntiles;
+  const int splits = gridDim.y / ntiles;
+  const int t0 = tile * NT;
+  const int n0 = blockIdx.x * kTcCols;
+  const int live = live_rows(rows, ex, M);
+  const long long MN = (long long)M * N;
+
+  if (t0 >= live) {  // no live token in this tile: no loads
+    if (splits == 1)
+      for (int idx = tid; idx < NT * kTcCols; idx += kTcThreads) {
+        const int tok = t0 + idx / kTcCols;
+        const int col = n0 + idx % kTcCols;
+        if (tok < M && col < N) {
+          const long long o = ex * MN + (long long)tok * N + col;
+          if (x_bf16)
+            static_cast<__nv_bfloat16*>(y)[o] = __float2bfloat16_rn(0.f);
+          else
+            static_cast<float*>(y)[o] = 0.f;
+        }
+      }
+    return;
+  }
+
+  const int K = KW * kWord;
+  xh += ex * es.x;
+  xl += ex * es.x;
   codes += ex * es.codes;
   alphas = scale_at(alphas, ex * es.alphas, scale_bf16);
   betas = scale_at(betas, ex * es.betas, scale_bf16);
-  y += (long long)ex * M * N;
-  __shared__ float xs[kBM][kWord + 1];                      // x tile (m, k)
-  __shared__ __align__(16) float ws[kWord][kBN + 4];        // W tile (k, n)
+  const int kb = split * words_per_split;
+  const int nwords = max(0, min(KW, kb + words_per_split) - kb);
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int K = KW * kWord;
-  const int tx = tid % 16;  // 4 output columns: n0 + 4*tx ..
-  const int ty = tid / 16;  // 4 output rows:    m0 + 4*ty ..
-  // dequant role: column dc of the tile, rows dr .. dr+7 of the word
-  const int dc = tid % kBN;
-  const int dr = (tid / kBN) * 8;
-  const int dn = n0 + dc;
-  const bool dn_ok = dn < N;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  float a[kMaxBits];
-  float beta = 0.f;
-  int g_loaded = -1;
-  uint32_t c[kMaxBits];
-#pragma unroll
-  for (int i = 0; i < kMaxBits; ++i) c[i] = 0u;
-
-  for (int kw = 0; kw < KW; ++kw) {
-    // stage x (64 rows x 32 k), coalesced along k
-#pragma unroll
-    for (int t = 0; t < (kBM * kWord) / kGemmThreads; ++t) {
-      const int idx = tid + t * kGemmThreads;
-      const int m = idx / kWord;
-      const int k = idx % kWord;
-      const int gm = m0 + m;
-      xs[m][k] = gm < M ? to_f32(x[(long long)gm * K + (long long)kw * kWord + k])
-                        : 0.f;
-    }
-    // expand 8 weights of column dn into the W tile
-    if (dn_ok) {
-      const int g = words_per_group > 0 ? kw / words_per_group : 0;
-      if (g != g_loaded) {
-        load_group(alphas, betas, g, dn, N, bits, scale_bf16, a, beta);
-        g_loaded = g;
+  // Word kb + it into stage it % S: the B tiles straight into their
+  // swizzled places (rows past the live ones zero-filled) and the code
+  // words of the block's columns; one commit group per call, empty past
+  // the last word.
+  auto load = [&](int it) {
+    if (it < nwords) {
+      uint8_t* hi = stage0 + (it % S) * Cfg::kStageBytes;
+      const long long k0 = (long long)(kb + it) * kWord;
+      for (int q = tid; q < NT * 8 * (x_bf16 ? 1 : 2); q += kTcThreads) {
+        const int part = q / (NT * 8), qq = q % (NT * 8);
+        const int r = qq >> 3, c = qq & 7;
+        const bool ok = t0 + r < live;
+        cp_async16(hi + part * Cfg::kTileBytes + sw128_chunk(r, c) * 4,
+                   (part ? xl : xh) + (ok ? t0 + r : 0) * (long long)K + k0 +
+                       c * 4,
+                   ok ? 16 : 0);
       }
-      const uint32_t* cw = codes + (long long)kw * N + dn;
+      uint32_t* cs = reinterpret_cast<uint32_t*>(hi + 2 * Cfg::kTileBytes);
+      const uint32_t* src = codes + (long long)(kb + it) * N;
+      for (int q = tid; q < bits * kTcCols; q += kTcThreads) {
+        const int i = q / kTcCols, c = q % kTcCols;
+        const bool ok = n0 + c < N;
+        cp_async4(cs + q, src + i * plane_stride + (ok ? n0 + c : 0),
+                  ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // The stage of word it has landed for every thread, for wgmma too.
+  auto ready = [&]() {
+    fence_proxy_async();
+    __syncthreads();
+  };
+
+  // A word that starts a scale group writes the group's scales into the
+  // slot of its parity (read after the next barrier; the other slot may
+  // still be read for the previous group).
+  int g_cur = -1;
+  auto scales = [&](int it) {
+    const int g = words_per_group > 0 ? (kb + it) / words_per_group : 0;
+    if (g == g_cur) return;
+    float* sc = scales0 + (g & 1) * kScaleFloats;
+    for (int q = tid; q < kTcCols * (bits + 1); q += kTcThreads) {
+      const int c = q % kTcCols, i = q / kTcCols;
+      const long long base = (long long)g * N + min(n0 + c, N - 1);
+      if (i < bits)
+        sc[c * kScaleStride + i] =
+            -load_scale(alphas, base * bits + i, scale_bf16);
+      else
+        sc[kScaleStride * kTcCols + c] = load_scale(betas, base, scale_bf16);
+    }
+    g_cur = g;
+  };
+
+  // This thread's A rows (weight columns) in the wgmma fragment layout:
+  // warp w of warpgroup wg holds rows 16w.. of its 64; lane (grp, tig)
+  // rows grp and grp + 8, K offsets tig and tig + 4 of each k8 step.
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int col0 = wg * 64 + warp * 16 + grp;  // and col0 + 8
+
+  // Word it's W fragments: W[k = tig + 4q, columns col0 and col0 + 8],
+  // q = 0..7, beta + (+-alpha_i) in plane order like the reference (a set
+  // bit flips the negated alpha), rounded to bf16 for bf16 x (exact in
+  // TF32) or split hi + lo; as A fragments of the 4 k8 steps {W(col0, k),
+  // W(col0+8, k), W(col0, k+4), W(col0+8, k+4)}, k = 8 ks + tig.
+  auto expand = [&](int it, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+    const uint32_t* cs = reinterpret_cast<const uint32_t*>(
+        stage0 + (it % S) * Cfg::kStageBytes + 2 * Cfg::kTileBytes);
+    const int g = words_per_group > 0 ? (kb + it) / words_per_group : 0;
+    const float* sc = scales0 + (g & 1) * kScaleFloats;
+    float w[2][8];
+    {
+      const float b0 = sc[kScaleStride * kTcCols + col0];
+      const float b1 = sc[kScaleStride * kTcCols + col0 + 8];
 #pragma unroll
-      for (int i = 0; i < kMaxBits; ++i)
-        if (i < (BITS > 0 ? BITS : bits)) c[i] = cw[i * plane_stride];
+      for (int q = 0; q < 8; ++q) {
+        w[0][q] = b0;
+        w[1][q] = b1;
+      }
+    }
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-        ws[dr + r][dc] = round_to<TX>(expand<BITS>(c, a, beta, dr + r, bits));
+    for (int i = 0; i < kMaxBits; ++i) {
+      if (i < bits) {
+        const uint32_t c0 = cs[i * kTcCols + col0] >> tig;
+        const uint32_t c1 = cs[i * kTcCols + col0 + 8] >> tig;
+        const uint32_t m0 = __float_as_uint(sc[col0 * kScaleStride + i]);
+        const uint32_t m1 =
+            __float_as_uint(sc[(col0 + 8) * kScaleStride + i]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          w[0][q] += __uint_as_float(m0 ^ ((c0 << (31 - 4 * q)) & 0x80000000u));
+          w[1][q] += __uint_as_float(m1 ^ ((c1 << (31 - 4 * q)) & 0x80000000u));
+        }
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = w[j & 1][2 * ks + (j >> 1)];
+        ah[ks][j] = x_bf16 ? __float_as_uint(round_to<__nv_bfloat16>(v))
+                           : tf32_rna(v);
+        al[ks][j] = tf32_rna(v - __uint_as_float(ah[ks][j]));
+      }
+  };
+
+  // acc: the tensor cores' sum over one word, added into the fp32 total
+  // once the word's wgmmas are done (the tensor cores' own fp32 sums are
+  // kept short: 3 x 4 steps a word instead of 3 K / 8 over the split)
+  float acc[kAcc], total[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = total[i] = 0.f;
+
+  // Word it's wgmmas on (ah, al), committed and left in flight.
+  auto mma = [&](int it, uint32_t(&ah)[4][4], uint32_t(&al)[4][4]) {
+    uint8_t* st = stage0 + (it % S) * Cfg::kStageBytes;
+    const uint64_t bhi = sw128_desc(st);
+    const uint64_t blo = sw128_desc(st + Cfg::kTileBytes);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) fence_reg(acc[i]);
+    wgmma_fence();
+    if (x_bf16) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        TokenChunks<0, NT>::mma(acc, ah[ks], bhi + 2 * ks, ks > 0);
     } else {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) ws[dr + r][dc] = 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kWord; ++k) {
-      const float4 b4 = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = xs[ty * 4 + i][k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+      for (int ks = 0; ks < 4; ++ks) {
+        TokenChunks<0, NT>::mma(acc, al[ks], bhi + 2 * ks, ks > 0);
+        TokenChunks<0, NT>::mma(acc, ah[ks], blo + 2 * ks, 1);
+        TokenChunks<0, NT>::mma(acc, ah[ks], bhi + 2 * ks, 1);
       }
     }
-    __syncthreads();
-  }
+    wgmma_commit();
+  };
+  auto done = [&]() {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      fence_reg(acc[i]);
+      total[i] += acc[i];
+    }
+  };
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) y[(long long)gm * N + gn] = from_f32<TX>(acc[i][j]);
+  uint32_t ahi[2][4][4], alo[2][4][4];
+#pragma unroll 1
+  for (int s = 0; s < S - 1; ++s) load(s);
+  if constexpr (Cfg::kPipe) {
+    // iteration it: wait for word it + 1, refill the stage of word it - 1,
+    // run word it's wgmmas while word it + 1 expands
+    auto step = [&](int it, uint32_t(&ch)[4][4], uint32_t(&cl)[4][4],
+                    uint32_t(&nh)[4][4], uint32_t(&nl)[4][4]) {
+      if (it + 1 < nwords) scales(it + 1);
+      cp_async_wait<S - 3>();
+      ready();
+      load(it + S - 1);
+      mma(it, ch, cl);
+      if (it + 1 < nwords) expand(it + 1, nh, nl);
+      done();
+    };
+    if (nwords > 0) {
+      scales(0);
+      cp_async_wait<S - 2>();
+      ready();
+      expand(0, ahi[0], alo[0]);
+    }
+#pragma unroll 1
+    for (int it = 0; it < nwords; it += 2) {
+      step(it, ahi[0], alo[0], ahi[1], alo[1]);
+      if (it + 1 < nwords) step(it + 1, ahi[1], alo[1], ahi[0], alo[0]);
+    }
+  } else {
+#pragma unroll 1
+    for (int it = 0; it < nwords; ++it) {
+      scales(it);
+      cp_async_wait<S - 2>();
+      ready();  // word it landed; word it - 1's wgmmas are done
+      load(it + S - 1);  // into the stage of word it - 1
+      expand(it, ahi[0], alo[0]);
+      mma(it, ahi[0], alo[0]);
+      done();
     }
   }
+  cp_async_wait<0>();
+
+  // D fragment: total[4j + r] is weight column col0 + 8 (r >> 1), token
+  // t0 + 8j + 2 tig + (r & 1)
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int tok = t0 + 8 * j + 2 * tig + (r & 1);
+      const int col = n0 + col0 + 8 * (r >> 1);
+      if (tok >= M || col >= N) continue;
+      const float v = tok < live ? total[4 * j + r] : 0.f;
+      if (splits == 1) {
+        const long long o = ex * MN + (long long)tok * N + col;
+        if (x_bf16)
+          static_cast<__nv_bfloat16*>(y)[o] = __float2bfloat16_rn(v);
+        else
+          static_cast<float*>(y)[o] = v;
+      } else if (tok < live) {
+        partial[((ex * splits + split) * (long long)M + tok) * N + col] = v;
+      }
+    }
 }
 
 template <typename TX, int MR>
 void launch_gemv_rows(dim3 grid, cudaStream_t st, const TX* x,
                       const uint32_t* codes, const void* alphas,
-                      const void* betas, TX* y, float* partial, int M, int KW,
-                      int N, int bits, long long ps, int wpg, int wps,
-                      int sbf, ExpertStrides es) {
+                      const void* betas, TX* y, float* partial,
+                      const int* rows, int M, int KW, int N, int bits,
+                      long long ps, int wpg, int wps, int sbf,
+                      ExpertStrides es) {
   const dim3 block(kGemvWarps * 32);
   switch (bits) {
     case 2:
       bcq_gemv_kernel<TX, MR, 2><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
+          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     case 3:
       bcq_gemv_kernel<TX, MR, 3><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
+          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     case 4:
       bcq_gemv_kernel<TX, MR, 4><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
+          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
       break;
     default:
       bcq_gemv_kernel<TX, MR, 0><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, M, KW, N, bits, ps, wpg, wps, sbf, es);
+          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
   }
 }
 
 template <typename TX>
+void launch_reduce(const float* partial, void* y, const int* rows, int splits,
+                   int M, int N, int E, cudaStream_t st) {
+  const long long total = (long long)M * N * E;
+  bcq_splitk_reduce<TX><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      partial, static_cast<TX*>(y), rows, splits, M, N, total);
+}
+
+template <typename TX>
 void launch_gemv(const void* x, const void* codes, const void* alphas,
-                 const void* betas, void* y, void* partial, int M, int KW,
-                 int N, int bits, long long ps, int wpg, int splits, int sbf,
-                 int E, ExpertStrides es, cudaStream_t st) {
+                 const void* betas, void* y, void* partial, const int* rows,
+                 int M, int KW, int N, int bits, long long ps, int wpg,
+                 int splits, int sbf, int E, ExpertStrides es,
+                 cudaStream_t st) {
   const dim3 grid((N + 31) / 32, splits, E);
   const int wps = (KW + splits - 1) / splits;
   const TX* xt = static_cast<const TX*>(x);
@@ -360,44 +895,47 @@ void launch_gemv(const void* x, const void* codes, const void* alphas,
   TX* yt = static_cast<TX*>(y);
   float* pt = static_cast<float*>(partial);
   if (M <= 1)
-    launch_gemv_rows<TX, 1>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
+    launch_gemv_rows<TX, 1>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else if (M <= 2)
-    launch_gemv_rows<TX, 2>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
+    launch_gemv_rows<TX, 2>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else if (M <= 4)
-    launch_gemv_rows<TX, 4>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
+    launch_gemv_rows<TX, 4>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
   else
-    launch_gemv_rows<TX, 8>(grid, st, xt, ct, alphas, betas, yt, pt, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  if (splits > 1) {
-    const long long MN = (long long)M * N;
-    const long long total = MN * E;
-    bcq_splitk_reduce<TX><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        pt, yt, splits, MN, total);
-  }
+    launch_gemv_rows<TX, 8>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
+  if (splits > 1) launch_reduce<TX>(pt, yt, rows, splits, M, N, E, st);
 }
 
-template <typename TX>
-void launch_gemm(const void* x, const void* codes, const void* alphas,
-                 const void* betas, void* y, int M, int KW, int N, int bits,
-                 long long ps, int wpg, int sbf, int E, ExpertStrides es,
-                 cudaStream_t st) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
-  const dim3 block(kGemmThreads);
-  const TX* xt = static_cast<const TX*>(x);
-  const uint32_t* ct = static_cast<const uint32_t*>(codes);
-  TX* yt = static_cast<TX*>(y);
-  switch (bits) {
-    case 2:
-      bcq_gemm_kernel<TX, 2><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
-      break;
-    case 3:
-      bcq_gemm_kernel<TX, 3><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
-      break;
-    case 4:
-      bcq_gemm_kernel<TX, 4><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
-      break;
-    default:
-      bcq_gemm_kernel<TX, 0><<<grid, block, 0, st>>>(xt, ct, alphas, betas, yt, M, KW, N, bits, ps, wpg, sbf, es);
+template <int NT>
+cudaError_t launch_tc_gemm(const void* x, float* xsplit, const void* codes,
+                           const void* alphas, const void* betas, void* y,
+                           void* partial, const int* rows, int M, int KW,
+                           int N, int bits, long long ps, int wpg, int ntiles,
+                           int splits, int xbf, int sbf, int E,
+                           ExpertStrides es, cudaStream_t st) {
+  constexpr int smem = TcCfg<NT>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      bcq_tc_gemm_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)E * M * KW * kWord;
+  float* xl = xbf ? xsplit : xsplit + n;
+  bcq_split_x<<<(unsigned)min((n + 255) / 256, 4096ll), 256, 0, st>>>(
+      x, xsplit, xl, n, xbf);
+  const dim3 grid((N + kTcCols - 1) / kTcCols, ntiles * splits, E);
+  const int wps = (KW + splits - 1) / splits;
+  bcq_tc_gemm_kernel<NT><<<grid, kTcThreads, smem, st>>>(
+      xsplit, xl, static_cast<const uint32_t*>(codes), alphas, betas, y,
+      static_cast<float*>(partial), rows, M, KW, N, bits, ps, wpg, wps,
+      ntiles, xbf, sbf, es);
+  if (splits > 1) {
+    if (xbf)
+      launch_reduce<__nv_bfloat16>(static_cast<const float*>(partial), y,
+                                   rows, splits, M, N, E, st);
+    else
+      launch_reduce<float>(static_cast<const float*>(partial), y, rows,
+                           splits, M, N, E, st);
   }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -407,43 +945,65 @@ void launch_gemm(const void* x, const void* codes, const void* alphas,
 // cudaGetLastError() so a refused launch is reported. E experts with the
 // given per-expert element strides of x, codes, alphas and betas (E = 1
 // and strides 0 for one matrix); y and the partials are (E, ...) dense.
+// rows is null (every row live) or an (E,) int32 device array.
 extern "C" int bcq_gemv_launch(const void* x, const void* codes,
                                const void* alphas, const void* betas,
-                               void* y, void* partial, int M, int KW, int N,
-                               int bits, long long plane_stride,
-                               int words_per_group, int splits, int x_bf16,
-                               int scale_bf16, int E, long long x_es,
-                               long long codes_es, long long alphas_es,
-                               long long betas_es, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
-  if (x_bf16)
-    launch_gemv<__nv_bfloat16>(x, codes, alphas, betas, y, partial, M, KW, N,
-                               bits, plane_stride, words_per_group, splits,
-                               scale_bf16, E, es, st);
-  else
-    launch_gemv<float>(x, codes, alphas, betas, y, partial, M, KW, N, bits,
-                       plane_stride, words_per_group, splits, scale_bf16, E,
-                       es, st);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bcq_gemm_launch(const void* x, const void* codes,
-                               const void* alphas, const void* betas,
-                               void* y, int M, int KW, int N, int bits,
+                               void* y, void* partial, const void* rows,
+                               int M, int KW, int N, int bits,
                                long long plane_stride, int words_per_group,
-                               int x_bf16, int scale_bf16, int E,
+                               int splits, int x_bf16, int scale_bf16, int E,
                                long long x_es, long long codes_es,
                                long long alphas_es, long long betas_es,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
+  const int* r = static_cast<const int*>(rows);
   if (x_bf16)
-    launch_gemm<__nv_bfloat16>(x, codes, alphas, betas, y, M, KW, N, bits,
-                               plane_stride, words_per_group, scale_bf16, E,
-                               es, st);
+    launch_gemv<__nv_bfloat16>(x, codes, alphas, betas, y, partial, r, M, KW,
+                               N, bits, plane_stride, words_per_group, splits,
+                               scale_bf16, E, es, st);
   else
-    launch_gemm<float>(x, codes, alphas, betas, y, M, KW, N, bits,
-                       plane_stride, words_per_group, scale_bf16, E, es, st);
+    launch_gemv<float>(x, codes, alphas, betas, y, partial, r, M, KW, N, bits,
+                       plane_stride, words_per_group, splits, scale_bf16, E,
+                       es, st);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core GEMM with a token tile of `tile` rows (a multiple of 8,
+// at most 128), `ntiles` tiles along M and `splits` K splits (the
+// partials (E, splits, M, N) fp32 are summed by a second pass). xsplit is
+// fp32 scratch for the TF32 parts of x: 2 E M K floats (E M K for bf16 x).
+extern "C" int bcq_gemm_launch(const void* x, void* xsplit,
+                               const void* codes, const void* alphas,
+                               const void* betas, void* y, void* partial,
+                               const void* rows,
+                               int M, int KW, int N, int bits,
+                               long long plane_stride, int words_per_group,
+                               int tile, int ntiles, int splits, int x_bf16,
+                               int scale_bf16, int E, long long x_es,
+                               long long codes_es, long long alphas_es,
+                               long long betas_es, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
+  const int* r = static_cast<const int*>(rows);
+  if (tile < 8 || tile > kTcMaxTile || tile % 8 || ntiles < 1 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+#define BCQ_TILE_CASE(T)                                                   \
+  case T:                                                                  \
+    err = launch_tc_gemm<T>(x, static_cast<float*>(xsplit), codes, alphas,  \
+                            betas, y, partial, r, M, KW, N, bits,          \
+                            plane_stride, words_per_group, ntiles, splits, \
+                            x_bf16, scale_bf16, E, es, st);                \
+    break;
+  switch (tile) {
+    BCQ_TILE_CASE(8) BCQ_TILE_CASE(16) BCQ_TILE_CASE(24) BCQ_TILE_CASE(32)
+    BCQ_TILE_CASE(40) BCQ_TILE_CASE(48) BCQ_TILE_CASE(56) BCQ_TILE_CASE(64)
+    BCQ_TILE_CASE(72) BCQ_TILE_CASE(80) BCQ_TILE_CASE(88) BCQ_TILE_CASE(96)
+    BCQ_TILE_CASE(104) BCQ_TILE_CASE(112) BCQ_TILE_CASE(120)
+    BCQ_TILE_CASE(128)
+  }
+#undef BCQ_TILE_CASE
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

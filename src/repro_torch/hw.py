@@ -7,14 +7,19 @@ follows.
   WARP        threads per warp on NVIDIA GPUs.
   GEMV_ROWS   largest activation row count served by the decode-shaped
               BCQ kernel (the reference's 8-row gemv tile).
-  GEMM_BM/BN  output tile of the BCQ GEMM kernel (csrc/bcq_matmul.cu);
-  GEMM_BK     its K step, one packed word.
+  GEMM_COLS   weight columns per block of the tensor-core BCQ GEMM
+              (csrc/bcq_matmul.cu): two warpgroups, each the 64-row M
+              side of a wgmma.
+  GEMM_TILE_MAX  widest token tile of that GEMM (the N side of its
+              wgmmas); more tokens split over blocks along M.
+  GEMM_PAIRED_TILE  widest token tile that runs two GEMM blocks an SM.
   ATTN_WARPS  warps per (sequence, KV head, query-head group) block of
               the paged-attention kernels (csrc/paged_attention.cu).
 
-The kernels' own copies of the tile sizes live in the .cu sources; the
-Python side uses these only for launch arithmetic and documentation, so
-the two must agree (the build keys on the sources).
+The GEMM_* constants are the GEMM kernel's own: the build passes them to
+nvcc (kernels/build.py), and the launch arithmetic reads them here.
+ATTN_WARPS documents the paged-attention kernels' block size, which
+their source fixes.
 """
 from __future__ import annotations
 
@@ -23,9 +28,9 @@ import torch
 WORD = 32
 WARP = 32
 GEMV_ROWS = 8
-GEMM_BM = 64
-GEMM_BN = 64
-GEMM_BK = WORD
+GEMM_COLS = 128
+GEMM_TILE_MAX = 128
+GEMM_PAIRED_TILE = 32
 ATTN_WARPS = 8
 
 

@@ -12,7 +12,18 @@ product as the reference kernel rounds its expanded tile.
 (x (E, M, K), codes (E, bits, K/32, N), alphas (E, G, N, bits), betas
 (E, G, N)) and runs the whole stack in one launch of the same kernels:
 each expert's slice of its output equals `bcq_gemv` / `bcq_matmul` on
-that expert alone, bit for bit.
+that expert alone, bit for bit. Its optional `rows` (E,) int32, on x's
+device, gives the number of leading rows of each x[e] that hold tokens:
+rows past it are treated as zero and come out exactly zero, and the
+kernels load nothing for an expert with 0 rows (None: every row, the
+reference's behaviour).
+
+The GEMM (M > GEMV_ROWS) runs on tensor cores, three TF32 passes for
+fp32 x and one for bf16 x, with x split into its TF32 parts once per
+call (fp32 scratch the wrapper allocates). Its token tile is M rounded
+up to 8 (`gemm_launch_shape`), and a K split chosen from (M, K, N)
+alone fills the SMs, so an expert of a stack tiles and splits exactly as
+it would alone.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version (`_bcq_matmul_plain`, `_bcq_expert_plain` below), which
@@ -25,7 +36,8 @@ import ctypes
 
 import torch
 
-from repro_torch.hw import GEMV_ROWS, WARP, WORD
+from repro_torch.hw import (GEMM_COLS, GEMM_PAIRED_TILE, GEMM_TILE_MAX,
+                           GEMV_ROWS, WARP, WORD)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import dequant_ref
 
@@ -34,16 +46,20 @@ MAX_BITS = 8
 # split-K target for the GEMV: about this many blocks in flight per SM
 GEMV_BLOCKS_PER_SM = 4
 GEMV_MIN_WORDS_PER_SPLIT = 16
+# fewest K words a split of the GEMM takes (1024 K rows)
+GEMM_MIN_WORDS_PER_SPLIT = 32
+H100_SMS = 132
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# bcq_gemv_launch(x, codes, alphas, betas, y, partial, M, KW, N, bits,
-#                 plane_stride, words_per_group, splits, x_bf16,
+# bcq_gemv_launch(x, codes, alphas, betas, y, partial, rows, M, KW, N,
+#                 bits, plane_stride, words_per_group, splits, x_bf16,
 #                 scale_bf16, E, x_es, codes_es, alphas_es, betas_es, stream)
-_GEMV_ARGS = [_P] * 6 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 4 + [_P]
-# bcq_gemm_launch(x, codes, alphas, betas, y, M, KW, N, bits,
-#                 plane_stride, words_per_group, x_bf16, scale_bf16, E,
-#                 x_es, codes_es, alphas_es, betas_es, stream)
-_GEMM_ARGS = [_P] * 5 + [_I] * 4 + [_L] + [_I] * 4 + [_L] * 4 + [_P]
+_GEMV_ARGS = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 4 + [_P]
+# bcq_gemm_launch(x, xsplit, codes, alphas, betas, y, partial, rows, M,
+#                 KW, N, bits, plane_stride, words_per_group, tile, ntiles,
+#                 splits, x_bf16, scale_bf16, E, x_es, codes_es,
+#                 alphas_es, betas_es, stream)
+_GEMM_ARGS = [_P] * 8 + [_I] * 4 + [_L] + [_I] * 7 + [_L] * 4 + [_P]
 _SMS: dict = {}
 
 
@@ -95,14 +111,25 @@ def _check_expert(x, codes, alphas, betas):
     return _check(x[0], codes[0], alphas[0], betas[0])
 
 
-def _bcq_expert_plain(x, codes, alphas, betas):
-    """The expert kernel's plain version: each expert through
-    `_bcq_matmul_plain` (one expert's W in memory at a time)."""
-    return torch.stack([_bcq_matmul_plain(*t)
-                        for t in zip(x, codes, alphas, betas)])
+def mask_rows(x, rows):
+    """x (E, M, K) with the rows of each expert past rows[e] zeroed
+    (x itself when rows is None)."""
+    if rows is None:
+        return x
+    live = torch.arange(x.shape[1], device=x.device) < rows[:, None]
+    return torch.where(live[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
-def _launch_args(x, codes, alphas, betas):
+def _bcq_expert_plain(x, codes, alphas, betas, rows=None):
+    """The expert kernel's plain version: rows past rows[e] zeroed, then
+    each expert through `_bcq_matmul_plain` (one expert's W in memory at
+    a time)."""
+    return torch.stack([_bcq_matmul_plain(*t) for t in
+                        zip(mask_rows(x, rows), codes, alphas, betas)])
+
+
+def _launch_args(x, codes, alphas, betas, rows=None):
     """Checks of a launch on the (E, ...) stacked operands; returns
     (E, M, nb, KW, N, words_per_group, plane stride, per-expert
     strides of x, codes, alphas, betas)."""
@@ -131,9 +158,24 @@ def _launch_args(x, codes, alphas, betas):
                          "contiguous")
     if E > 65535:
         raise ValueError(f"{E} experts > 65535 (the grid's z extent)")
+    if rows is not None and (rows.dtype != torch.int32
+                             or tuple(rows.shape) != (E,)
+                             or rows.device != dev
+                             or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous ({E},) int32 tensor "
+                         f"on {dev}, got {tuple(rows.shape)} {rows.dtype} "
+                         f"on {rows.device}")
     wpg = 0 if G == 1 else (K // G) // WORD
     es = (x.stride(0), codes.stride(0), alphas.stride(0), betas.stride(0))
     return E, M, nb, KW, N, wpg, codes.stride(1), es
+
+
+def _sms(device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 def _splits(device, KW, N) -> int:
@@ -141,22 +183,46 @@ def _splits(device, KW, N) -> int:
     GEMV_BLOCKS_PER_SM per SM, at least GEMV_MIN_WORDS_PER_SPLIT words
     each. A function of the matrix alone, so every expert of a stack
     splits as it would alone."""
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
     col_blocks = -(-N // WARP)          # a warp owns 32 output columns
-    return max(1, min(-(-GEMV_BLOCKS_PER_SM * sms // col_blocks),
+    return max(1, min(-(-GEMV_BLOCKS_PER_SM * _sms(device) // col_blocks),
                       KW // GEMV_MIN_WORDS_PER_SPLIT))
+
+
+def gemm_launch_shape(M, KW, N, sms=H100_SMS):
+    """(tile, ntiles, splits) of the tensor-core GEMM for one (M, K, N)
+    matrix: M rows in ntiles token tiles of `tile` rows (a multiple of
+    8, at most GEMM_TILE_MAX, so each tile wastes fewer than 8 rows),
+    and a K split of at least GEMM_MIN_WORDS_PER_SPLIT words each. An
+    SM holds two blocks of a tile of up to GEMM_PAIRED_TILE rows, else
+    one. The split is the smallest that fills those slots (or the most
+    the words allow), raised while that shortens the busiest slot's K
+    loop (waves x words per split). A function of (M, K, N) alone,
+    never of the expert count, so an expert of a stack runs exactly as
+    it would alone."""
+    ntiles = -(-M // GEMM_TILE_MAX)
+    tile = -(-(-(-M // ntiles)) // 8) * 8
+    slots = sms * (2 if tile <= GEMM_PAIRED_TILE else 1)
+    blocks = -(-N // GEMM_COLS) * ntiles
+    most = max(1, KW // GEMM_MIN_WORDS_PER_SPLIT)
+    least = min(most, -(-slots // blocks))
+    splits = min(range(least, most + 1),
+                 key=lambda s: (-(-blocks * s // slots) * -(-KW // s), s))
+    splits = -(-KW // -(-KW // splits))  # no split left without words
+    return tile, ntiles, splits
 
 
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _gemv(x, codes, alphas, betas):
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _gemv(x, codes, alphas, betas, rows=None):
     """Launch the GEMV body on (E, M <= GEMV_ROWS, K) stacked operands."""
-    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas)
+    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas,
+                                                rows)
     if not 1 <= M <= GEMV_ROWS:
         raise ValueError(f"bcq_gemv takes 1..{GEMV_ROWS} rows, got {M}")
     splits = _splits(x.device, KW, N)
@@ -165,20 +231,31 @@ def _gemv(x, codes, alphas, betas):
                            device=x.device) if splits > 1 else y)
     fn = build.function("bcq_matmul", "bcq_gemv_launch", _GEMV_ARGS)
     status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), y.data_ptr(), partial.data_ptr(), M, KW, N,
-                nb, ps, wpg, splits, int(x.dtype == torch.bfloat16),
+                betas.data_ptr(), y.data_ptr(), partial.data_ptr(),
+                _ptr(rows), M, KW, N, nb, ps, wpg, splits,
+                int(x.dtype == torch.bfloat16),
                 int(alphas.dtype == torch.bfloat16), E, *es, _stream(x))
     build.check(status, "bcq_gemv")
     return y
 
 
-def _gemm(x, codes, alphas, betas):
-    """Launch the GEMM body on (E, M, K) stacked operands."""
-    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas)
+def _gemm(x, codes, alphas, betas, rows=None):
+    """Launch the tensor-core GEMM body on (E, M, K) stacked operands."""
+    E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas,
+                                                rows)
+    tile, ntiles, splits = gemm_launch_shape(M, KW, N, _sms(x.device))
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    partial = (torch.empty((E, splits, M, N), dtype=torch.float32,
+                           device=x.device) if splits > 1 else y)
+    # the TF32 parts of x: hi and lo (hi alone for bf16 x)
+    parts = 1 if x.dtype == torch.bfloat16 else 2
+    xsplit = torch.empty(parts * x.numel(), dtype=torch.float32,
+                         device=x.device)
     fn = build.function("bcq_matmul", "bcq_gemm_launch", _GEMM_ARGS)
-    status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), y.data_ptr(), M, KW, N, nb, ps, wpg,
+    status = fn(x.data_ptr(), xsplit.data_ptr(), codes.data_ptr(),
+                alphas.data_ptr(), betas.data_ptr(), y.data_ptr(),
+                partial.data_ptr(), _ptr(rows), M, KW, N, nb, ps, wpg, tile,
+                ntiles, splits,
                 int(x.dtype == torch.bfloat16),
                 int(alphas.dtype == torch.bfloat16), E, *es, _stream(x))
     build.check(status, "bcq_matmul")
@@ -196,7 +273,8 @@ def bcq_gemv(x, codes, alphas, betas):
 
 
 def bcq_matmul(x, codes, alphas, betas):
-    """GEMM entry (any M; the dispatcher sends M > GEMV_ROWS here)."""
+    """GEMM entry (any M; the dispatcher sends M > GEMV_ROWS here), on
+    tensor cores: 3xTF32 passes for fp32 x, one TF32 pass for bf16 x."""
     _check(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_matmul_plain(x, codes, alphas, betas)
@@ -205,14 +283,17 @@ def bcq_matmul(x, codes, alphas, betas):
     return y
 
 
-def bcq_expert_matmul(x, codes, alphas, betas):
+def bcq_expert_matmul(x, codes, alphas, betas, rows=None):
     """Batched-expert entry: x (E, M, K) through each expert's packed
     weight -> (E, M, N), one launch for the stack (the GEMV body for
-    M <= GEMV_ROWS, the GEMM body otherwise)."""
+    M <= GEMV_ROWS, the GEMM body otherwise). `rows` (E,) int32 on x's
+    device, or None: the live leading rows of each expert; the rest are
+    treated as zero, give exact zeros, and an expert with 0 rows loads
+    nothing."""
     _check_expert(x, codes, alphas, betas)
     if x.device.type == "cpu":
-        return _bcq_expert_plain(x, codes, alphas, betas)
+        return _bcq_expert_plain(x, codes, alphas, betas, rows)
     fn = _gemv if x.shape[1] <= GEMV_ROWS else _gemm
-    y = fn(x, codes, alphas, betas)
+    y = fn(x, codes, alphas, betas, rows)
     LAUNCHES["bcq_expert_matmul"] += 1
     return y

@@ -4,10 +4,12 @@ Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled by `nvcc -gencode arch=compute_90a,code=sm_90a` and
 loaded with ctypes. All sources compile in parallel (one nvcc process
 each) the first time any kernel is needed, into
-`<repo>/build/kernels/<hash>/`, where the hash covers every source and
-the compiler flags — so an edited kernel is rebuilt and a clean checkout
-builds everything from the repository alone. Nothing here runs at
-import time; a missing nvcc or a failed compile raises.
+`<repo>/build/kernels/<hash>/`, where the hash covers every file under
+`csrc/` (sources and any header they include) and the compiler flags
+(hw.py's GEMM tile constants among them), so an edited kernel is
+rebuilt and a clean checkout builds everything from the repository
+alone. Nothing here runs at import time; a missing nvcc or a failed
+compile raises.
 """
 from __future__ import annotations
 
@@ -18,11 +20,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch import hw
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("bcq_matmul", "paged_attention")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              # the GEMM's tile constants, written once in hw.py
+              f"-DBCQ_GEMM_COLS={hw.GEMM_COLS}",
+              f"-DBCQ_GEMM_TILE_MAX={hw.GEMM_TILE_MAX}",
+              f"-DBCQ_GEMM_PAIRED_TILE={hw.GEMM_PAIRED_TILE}")
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
@@ -47,9 +55,9 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -8,11 +8,13 @@ decode-shaped kernel and more rows to the GEMM — on a CUDA tensor the
 hand-written kernels, on a CPU tensor their plain versions. A
 single-axis expert stack (codes (E, bits, K/32, N)) with a matching
 batched activation (E, C, k_in) goes to the batched-expert kernel, one
-launch for the whole stack. Groupings the kernels do not take (a group
-size that is not a multiple of the 32-bit word, the reference's
-`_kernel_groups_ok`) and deeper or mismatched stacks go through the
-plain dequantize-then-matmul path on any device, as the reference sends
-them to its jnp path; `PLAIN_CALLS` counts them.
+launch for the whole stack; its optional `rows` (E,) int32 names the
+live leading rows of each expert (the rest count as zero). Groupings
+the kernels do not take (a group size that is not a multiple of the
+32-bit word, the reference's `_kernel_groups_ok`) and deeper or
+mismatched stacks go through the plain dequantize-then-matmul path on
+any device, as the reference sends them to its jnp path; `PLAIN_CALLS`
+counts them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from repro_torch.hw import GEMV_ROWS, WORD
 from repro_torch.kernels import ref
 from repro_torch.kernels.bcq_matmul import (bcq_expert_matmul, bcq_gemv,
-                                            bcq_matmul)
+                                            bcq_matmul, mask_rows)
 
 PLAIN_CALLS = {"bcq_plain": 0}
 
@@ -52,18 +54,23 @@ def _pad_k(x, qt, codes):
     return x.contiguous()
 
 
-def bcq_apply(x, qt):
-    """x (..., k_in) @ QuantizedTensor -> (..., n_out)."""
+def bcq_apply(x, qt, rows=None):
+    """x (..., k_in) @ QuantizedTensor -> (..., n_out). `rows` (E,)
+    int32, for a batched expert stack only: live leading rows of each
+    x[e]."""
     codes = _active_codes(qt)
     lead = codes.shape[:-3]
+    batched = len(lead) == 1 and x.dim() == 3 and x.shape[0] == lead[0]
+    if rows is not None and not batched:
+        raise ValueError("rows is given for a batched expert stack only")
     if lead:                      # expert stacks
-        batched = len(lead) == 1 and x.dim() == 3 and x.shape[0] == lead[0]
         if batched and _kernel_groups_ok(qt):
             return bcq_expert_matmul(_pad_k(x, qt, codes), codes, qt.alphas,
-                                     qt.betas)
+                                     qt.betas, rows)
         PLAIN_CALLS["bcq_plain"] += 1
         eq = "eck,ekn->ecn" if batched else "...k,...kn->...n"
-        return torch.einsum(eq, x, qt.dequant(x.dtype))
+        return torch.einsum(eq, mask_rows(x, rows) if batched else x,
+                            qt.dequant(x.dtype))
     if not _kernel_groups_ok(qt):
         PLAIN_CALLS["bcq_plain"] += 1
         w = ref.dequant_ref(codes, qt.alphas, qt.betas, qt.k_in,

@@ -10,7 +10,8 @@ them in choice order instead, the same sum without atomics, so a run on
 the card is deterministic. Expert weights are stacks
 (E, D, F) / (E, F, D), plain or packed QuantizedTensors: a packed stack
 runs the batched-expert BCQ kernel, one launch for all experts
-(kernels/ops.py:bcq_apply).
+(kernels/ops.py:bcq_apply), told each expert's filled slot count so it
+skips the empty ones.
 """
 from __future__ import annotations
 
@@ -44,10 +45,12 @@ def capacity(cfg, T: int, capacity_factor=None) -> int:
     return min(T, max(1, int(-(-T * m.top_k // m.n_experts) * cf)))
 
 
-def _expert_matmul(v, w):
-    """v (E, C, k) @ expert stack (E, k, n) -> (E, C, n)."""
+def _expert_matmul(v, w, rows=None):
+    """v (E, C, k) @ expert stack (E, k, n) -> (E, C, n). `rows` (E,)
+    int32: the filled leading slots of each expert (the rest are zero
+    rows), which lets the packed kernel skip empty experts."""
     if hasattr(w, "quantized_matmul"):
-        return w.quantized_matmul(v)
+        return w.quantized_matmul(v, rows)
     return torch.einsum("eck,ekn->ecn", v, w.to(v.dtype))
 
 
@@ -68,8 +71,11 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)
-    ce = torch.bincount(topi.reshape(-1), minlength=E).float() / (T * K)
+    counts = torch.bincount(topi.reshape(-1), minlength=E)
+    ce = counts.float() / (T * K)
     aux = E * torch.sum(me * ce)
+    # filled slots of each expert, on the device (no host sync)
+    rows = counts.clamp(max=C).int()
 
     # ---- sparse dispatch ----
     e_flat = topi.reshape(T * K)
@@ -90,10 +96,10 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
                                       device=x.device)])
     xe = xpad[slot_tok[:E * C]].reshape(E, C, D)
 
-    # ---- expert computation (SwiGLU) ----
-    h = torch.nn.functional.silu(_expert_matmul(xe, p["wg"]))
-    h = h * _expert_matmul(xe, p["wu"])
-    ye = _expert_matmul(h, p["wd"])
+    # ---- expert computation (SwiGLU); an empty slot's h is silu(0)*0 = 0
+    h = torch.nn.functional.silu(_expert_matmul(xe, p["wg"], rows))
+    h = h * _expert_matmul(xe, p["wu"], rows)
+    ye = _expert_matmul(h, p["wd"], rows)
 
     # ---- combine: each token's k slots (the drop bin is a zero row) ----
     ypad = torch.cat([ye.reshape(E * C, D),

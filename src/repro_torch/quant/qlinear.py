@@ -134,7 +134,8 @@ class QuantizedTensor:
         w = torch.einsum("...ikn,...kni->...kn", signs, a) + b
         return w.to(torch_dtype(dtype or self.orig_dtype))
 
-    def quantized_matmul(self, x):
-        """x (..., k_in) @ W -> (..., n_out) through kernels/ops.py."""
+    def quantized_matmul(self, x, rows=None):
+        """x (..., k_in) @ W -> (..., n_out) through kernels/ops.py
+        (`rows`: live leading rows of each expert of a batched stack)."""
         from repro_torch.kernels import ops
-        return ops.bcq_apply(x, self)
+        return ops.bcq_apply(x, self, rows)

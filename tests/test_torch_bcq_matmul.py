@@ -11,6 +11,8 @@ to a few hundred products in another order); bf16 outputs atol
 2^-7 * max|y| (both sides round W to bf16 and multiply exactly in fp32,
 so they differ by the final bf16 rounding, one ulp = 2^-8 relative).
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.bcq_matmul import bcq_expert_matmul as jax_expert
 from repro.kernels.bcq_matmul import bcq_gemv as jax_gemv
 from repro.kernels.bcq_matmul import bcq_matmul as jax_matmul
 from repro.quant import QuantizedTensor as JaxQT
@@ -238,3 +241,153 @@ def test_quantized_tensor_validation_and_dequant():
     with pytest.raises(ValueError, match="active bits"):
         QuantizedTensor(to_torch(codes), torch.ones(5, 24, 4),
                         to_torch(betas), 250)
+
+
+# ---------------------------------------------------------------------------
+# live rows of an expert stack, and the tensor-core GEMM's launch shape
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M", [4, 16])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_expert_rows_match_reference_with_dead_rows_zeroed(M, scale_dtype):
+    """`rows` of the expert entry: the plain version given rows against
+    the reference's expert kernel (interpret mode) on x with the rows
+    past each count zeroed. Experts with 0 rows and with all rows."""
+    E, K, N, G = 5, 256, 96, 2
+    rng = np.random.default_rng(M)
+    codes = rng.integers(0, 2 ** 32, (E, 3, K // 32, N), dtype=np.uint32)
+    alphas = np.asarray(jnp.asarray(rng.random((E, G, N, 3)) * 0.2 + 0.01,
+                                    scale_dtype))
+    betas = np.asarray(jnp.asarray(rng.standard_normal((E, G, N)) * 0.05,
+                                   scale_dtype))
+    x = rng.standard_normal((E, M, K)).astype(np.float32)
+    rows = np.array([0, M, 1, M // 2 + 1, 0], np.int32)
+    xz = x * (np.arange(M)[None, :, None] < rows[:, None, None])
+    want = np.asarray(jax_expert(*(jnp.asarray(a) for a in
+                                   (xz, codes, alphas, betas)),
+                                 interpret=True))
+    before = dict(tbm.LAUNCHES)
+    got = tbm.bcq_expert_matmul(*(to_torch(a) for a in
+                                  (x, codes, alphas, betas)),
+                                rows=torch.from_numpy(rows))
+    assert tbm.LAUNCHES == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+    for e, r in enumerate(rows):
+        assert not got[e, r:].any()         # exact zeros past the count
+    full = tbm.bcq_expert_matmul(*(to_torch(a) for a in
+                                   (x, codes, alphas, betas)))
+    assert torch.equal(got[1], full[1])
+
+
+def test_bcq_apply_passes_rows_to_expert_stacks_only():
+    rng = np.random.default_rng(1)
+    E, C, k_in, N = 3, 5, 96, 16
+    x = torch.from_numpy(rng.standard_normal((E, C, k_in)).astype(np.float32))
+    rows = torch.tensor([2, 0, 5], dtype=torch.int32)
+    for G in (1, 6):                # kernel path; ragged groups: plain path
+        codes = rng.integers(0, 2 ** 32, (E, 3, 3, N), dtype=np.uint32)
+        qt = QuantizedTensor(to_torch(codes), torch.rand(E, G, N, 3),
+                             torch.zeros(E, G, N), k_in)
+        got = qt.quantized_matmul(x, rows)
+        want = ops.bcq_apply(tbm.mask_rows(x, rows), qt)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        assert not got[1].any() and not got[0, 2:].any()
+    single = QuantizedTensor(to_torch(codes[0]), torch.rand(1, N, 3),
+                             torch.zeros(1, N), k_in)
+    with pytest.raises(ValueError, match="expert stack"):
+        ops.bcq_apply(x[0], single, rows)
+
+
+# (M, K, N) of the GEMM on the main paths: llama2-7b's prefill buckets on
+# its q/k/v/o, gate/up and down projections; Qwen3-MoE's k/v and q
+# projections; its expert stacks at a 16-row prefill capacity; the CUDA
+# tests' ragged and multi-tile token counts
+GEMM_SHAPES = ([(M, K, N) for M in (16, 64, 128)
+                for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+               + [(M, 4096, N) for M in (16, 64, 128) for N in (512, 8192)]
+               + [(16, 4096, 1536), (16, 1536, 4096)]
+               + [(M, 4096, 512) for M in (17, 129, 300)])
+
+
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
+def test_gemm_launch_shape_on_main_path_shapes(M, K, N):
+    KW = K // 32
+    tile, ntiles, splits = tbm.gemm_launch_shape(M, KW, N, sms=132)
+    assert tile % 8 == 0 and 8 <= tile <= tbm.GEMM_TILE_MAX
+    # equal tiles hold M with fewer than 8 rows to spare per tile
+    assert (ntiles - 1) * tile < M <= ntiles * tile
+    assert ntiles * tile - M < 8 * ntiles
+    if M <= tbm.GEMM_TILE_MAX:
+        assert (tile, ntiles) == (-(-M // 8) * 8, 1)
+    # the grid reaches every SM, or the split is at its floor
+    floor = max(1, KW // tbm.GEMM_MIN_WORDS_PER_SPLIT)
+    blocks = -(-N // tbm.GEMM_COLS) * ntiles * splits
+    assert 1 <= splits <= floor
+    assert blocks >= 132 or splits == floor
+    # every split has words, and they cover K
+    wps = -(-KW // splits)
+    assert (splits - 1) * wps < KW <= splits * wps
+
+
+def test_gemm_launch_shape_ignores_the_expert_count(monkeypatch):
+    """An expert stack and a single matrix of the same (M, K, N) launch
+    the same token tile and K split, so each expert's slice can equal
+    the single-matrix kernel bit for bit. The wrapper's C arguments are
+    recorded instead of launched (no card here)."""
+    assert list(inspect.signature(tbm.gemm_launch_shape).parameters) == \
+        ["M", "KW", "N", "sms"]
+    seen = []
+
+    def fake_function(lib, name, argtypes):
+        def call(*args):
+            assert len(args) == len(argtypes)
+            seen.append((name, args))
+            return 0
+        return call
+
+    monkeypatch.setattr(tbm.build, "function", fake_function)
+    monkeypatch.setattr(tbm, "_stream", lambda t: 0)
+    monkeypatch.setattr(tbm, "_sms", lambda dev: 132)
+
+    def cpu_launch_args(x, codes, alphas, betas, rows=None):
+        """_launch_args without its device check (which wants a card)."""
+        E = x.shape[0]
+        M, K, nb, KW, N, G = tbm._check(x[0], codes[0], alphas[0], betas[0])
+        es = (x.stride(0), codes.stride(0), alphas.stride(0),
+              betas.stride(0))
+        return E, M, nb, KW, N, 0, codes.stride(1), es
+
+    monkeypatch.setattr(tbm, "_launch_args", cpu_launch_args)
+    rng = np.random.default_rng(0)
+    for E in (1, 8):
+        codes = to_torch(rng.integers(0, 2 ** 32, (E, 3, 128, 512),
+                                      dtype=np.uint32))
+        x = torch.zeros((E, 16, 4096))
+        rows = torch.full((E,), 3, dtype=torch.int32)
+        tbm._gemm(x, codes, torch.ones(E, 1, 512, 3), torch.zeros(E, 1, 512),
+                  rows)
+        tbm._gemv(x[:, :4], codes, torch.ones(E, 1, 512, 3),
+                  torch.zeros(E, 1, 512), None)
+    (g1, a1), (v1, b1), (g8, a8), (v8, b8) = seen
+    assert g1 == g8 == "bcq_gemm_launch" and v1 == v8 == "bcq_gemv_launch"
+    # (tile, ntiles, splits) sit after the words-per-group argument
+    assert a1[14:17] == a8[14:17] == tbm.gemm_launch_shape(16, 128, 512)
+    assert a8[7] != 0 and b8[6] == 0               # rows pointer, or null
+    assert b1[13] == b8[13]                        # the GEMV's split
+
+
+def test_gemm_tile_constants_reach_the_kernel_from_hw():
+    """The GEMM kernel's tile constants are written once, in hw.py: the
+    launch arithmetic reads them there and the build hands them to nvcc,
+    whose source takes them from those macros (and fails to compile
+    without them)."""
+    from repro_torch import hw
+    src = (tbm.build.CSRC / "bcq_matmul.cu").read_text()
+    assert "#error" in src
+    for macro, value in (("BCQ_GEMM_COLS", hw.GEMM_COLS),
+                         ("BCQ_GEMM_TILE_MAX", hw.GEMM_TILE_MAX),
+                         ("BCQ_GEMM_PAIRED_TILE", hw.GEMM_PAIRED_TILE)):
+        assert f"-D{macro}={value}" in tbm.build.NVCC_FLAGS
+        assert f"= {macro};" in src
+    assert tbm.GEMM_PAIRED_TILE is hw.GEMM_PAIRED_TILE

@@ -256,7 +256,12 @@ def test_fixture_rebuilds_identically(tmp_path):
     for name, o in old["kv_bits"]["artifacts"].items():
         n = new["kv_bits"]["artifacts"][name]
         assert n["prompts"] == o["prompts"] and n["tokens"] == o["tokens"]
-        for key in ("prefill_logits", "decode_logits"):
-            np.testing.assert_allclose(np.asarray(n[key]), np.asarray(o[key]),
-                                       rtol=1e-6, atol=1e-7)
+        # and the first prompt the quantizer-margin filter dropped
+        nt, ot = n["near_tie"], o["near_tie"]
+        assert nt["prompt"] == ot["prompt"] and nt["tokens"] == ot["tokens"]
+        for a, b in ((n, o), (nt, ot)):
+            for key in ("prefill_logits", "decode_logits"):
+                np.testing.assert_allclose(np.asarray(a[key]),
+                                           np.asarray(b[key]),
+                                           rtol=1e-6, atol=1e-7)
     assert new["launcher"]["tokens"] == old["launcher"]["tokens"]

@@ -9,7 +9,9 @@ REQUIRE_CUDA=1. The file imports no JAX, so it runs where the card is:
 (--noconftest because tests/conftest.py configures JAX.)
 
 Tolerances: fp32 outputs rtol 1e-5 with atol 1e-5 * max|y| (fp32 sums in
-another order); bf16 outputs atol 2^-7 * max|y| (both sides round W to
+another order; for the tensor-core GEMM at K = 4096 and 11008, sums of
+three TF32 passes, 2e-5 * max|y|, the gate chip_smoke.py holds it to);
+bf16 outputs atol 2^-7 * max|y| (both sides round W to
 bf16 and multiply exactly in fp32, so they differ by the final bf16
 rounding of the output, one ulp = 2^-8 relative). The batched-expert
 kernel's slice of each expert equals the single-matrix kernel on that
@@ -109,6 +111,31 @@ def test_bcq_kernels_match_plain(cuda, M, k_in, N, G, bits, stored,
     close(got, want, bf16=x_dtype == torch.bfloat16)
 
 
+# the tensor-core GEMM at the main paths' widths: ragged and multi-tile
+# token counts, N = 512 and 11008, K = 4096 and 11008, group size 128
+GEMM_CASES = [(16, 4096, 512), (17, 4096, 11008), (64, 11008, 512),
+              (128, 4096, 11008), (129, 11008, 512), (300, 4096, 512)]
+
+
+@pytest.mark.parametrize("M,k_in,N", GEMM_CASES)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_gemm_at_main_path_widths(cuda, M, k_in, N, x_dtype):
+    x, qt = make_qt(M + k_in + N, M, k_in, N, k_in // 128, 3, 3,
+                    torch.bfloat16)
+    x = x.to(x_dtype)
+    want = ops.bcq_apply(x, qt).float()               # plain, on the CPU
+    before = tbm.LAUNCHES["bcq_matmul"]
+    got = ops.bcq_apply(x.to(cuda), qt.to(cuda))
+    torch.cuda.synchronize()
+    assert tbm.LAUNCHES["bcq_matmul"] == before + 1
+    assert got.dtype == x_dtype and got.shape == (M, N)
+    if x_dtype == torch.bfloat16:
+        close(got, want, bf16=True)
+    else:
+        err = float((got.float().cpu() - want).abs().max())
+        assert err <= 2e-5 * float(want.abs().max()), err
+
+
 def test_bcq_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     x, qt = make_qt(0, 9, 256, 64, 1, 3, 3, torch.float32)
     x, qt = x.to(cuda), qt.to(cuda)
@@ -168,6 +195,31 @@ def test_expert_kernel_matches_plain_and_dense_kernels(
         alone = ops.bcq_apply(xd[e], QuantizedTensor(
             qd.codes[e], qd.alphas[e], qd.betas[e], k_in, "float32"))
         assert torch.equal(got[e], alone), f"expert {e}"
+
+
+@pytest.mark.parametrize("M", [4, 16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_expert_kernel_skips_empty_experts(cuda, M, x_dtype):
+    """rows: experts with 0 live rows give exact zeros; the live rows of
+    the others equal the single-matrix kernel on that expert, bit for
+    bit; the rest of each expert's rows are exact zeros."""
+    E, k_in, N = 10, 4096, 192
+    x, qt = make_expert_qt(M, E, M, k_in, N, 32, 3, torch.bfloat16)
+    x = x.to(x_dtype)
+    rows = torch.tensor([0, M, 1, 0, M // 2, 0, 0, 3, M, 0],
+                        dtype=torch.int32)
+    want = tbm._bcq_expert_plain(x, qt.codes, qt.alphas, qt.betas, rows)
+    xd, qd, rd = x.to(cuda), qt.to(cuda), rows.to(cuda)
+    before = tbm.LAUNCHES["bcq_expert_matmul"]
+    got = tbm.bcq_expert_matmul(xd, qd.codes, qd.alphas, qd.betas, rd)
+    torch.cuda.synchronize()
+    assert tbm.LAUNCHES["bcq_expert_matmul"] == before + 1
+    close(got, want, bf16=x_dtype == torch.bfloat16)
+    single = tbm.bcq_gemv if M <= 8 else tbm.bcq_matmul
+    for e, live in enumerate(rows.tolist()):
+        assert not got[e, live:].any(), f"expert {e}"
+        alone = single(xd[e], qd.codes[e], qd.alphas[e], qd.betas[e])
+        assert torch.equal(got[e, :live], alone[:live]), f"expert {e}"
 
 
 def test_expert_stack_with_ragged_groups_takes_the_counted_plain_path(cuda):

@@ -237,3 +237,42 @@ def test_kv4_prefill_scatter_and_paged_decode_match_reference(mid, gs):
             cfg, params, t_pool, torch.from_numpy(tok),
             torch.from_numpy(pos), torch.from_numpy(bt))
         close_logits(tl, jl)
+
+
+def test_reference_kv_quantize_amplifies_rounding(monkeypatch):
+    """Why the KV fixture drops prompts with a quantize-on-write near-tie
+    (tests/data/torch_port/make_fixture.py, KV_TIE_MARGIN): on the 9-token
+    w3_pc prompt it dropped, layer 1's V from a prefill whose GEMM sums
+    in fp64 differs from the fp32 prefill's by rounding only, yet the
+    reference's own kv_quantize turns that into alphas 0.1 % or more
+    apart (a near-tie in a refit round), so an implementation with
+    another summation order meets the reference's logits there only by
+    chance."""
+    import json
+    from pathlib import Path
+    from repro_torch.ckpt import load_packed
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import dequant_ref
+
+    fixture = Path(__file__).resolve().parent / "data" / "torch_port"
+    art = json.loads((fixture / "reference.json").read_text())
+    prompt = art["kv_bits"]["artifacts"]["w3_pc"]["near_tie"]["prompt"]
+    assert len(prompt) == 9
+    params, _, meta = load_packed(fixture / "w3_pc", device="cpu")
+    cfg = get_config(meta["arch"]).replace(dtype="float32",
+                                           n_layers=len(params["layers"]))
+
+    def fp64(x, codes, alphas, betas):
+        w = dequant_ref(codes[:alphas.shape[-1]], alphas, betas, x.shape[1])
+        return (x.double() @ w.double()).float()
+
+    vs = []
+    for gemm in (ops.bcq_matmul, fp64):
+        monkeypatch.setattr(ops, "bcq_matmul", gemm)
+        _, rows = tmodel.prefill(cfg, params, torch.tensor([prompt]), 9)
+        vs.append(rows[1]["v"][0].numpy())               # (Hkv, 9, hd)
+    v32, v64 = vs
+    assert 0 < np.abs(v32 - v64).max() < 1e-5 * np.abs(v32).max()
+    a32, a64 = (np.asarray(jkv.kv_quantize(jnp.asarray(v), 4)[1])
+                for v in (v32, v64))
+    assert np.max(np.abs(a32 - a64) / np.abs(a32)) > 1e-3

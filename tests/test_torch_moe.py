@@ -188,6 +188,49 @@ def test_moe_forward_matches_reference(quantized, cf, dropless):
         assert int(torch.bincount(topi.reshape(-1)).max()) > C
 
 
+@pytest.mark.parametrize("cf", [1.25, 4.0])
+def test_moe_forward_passes_filled_slot_counts(monkeypatch, cf):
+    """moe_forward tells each expert matmul how many of its C slots hold
+    a token: the per-expert routed counts of the reference's own
+    dispatch, clamped at C, one int32 tensor for wg, wu and wd alike
+    (an empty slot's h is silu(0) * 0 = 0)."""
+    jcfg, jp, tp = moe_case(5, True)
+    cfg = port_cfg(jcfg)
+    rng = np.random.default_rng(6)
+    B, S = 2, 16
+    x = (rng.standard_normal((B, S, cfg.d_model))
+         + rng.standard_normal(cfg.d_model)).astype(np.float32)
+    T, E, K = B * S, cfg.moe.n_experts, cfg.moe.top_k
+    C = tmoe.capacity(cfg, T, cf)
+    # the reference's dispatch: its router, top-k and slot assignment
+    probs = jax.nn.softmax(jnp.asarray(x.reshape(T, -1))
+                           @ jnp.asarray(jp["router"], jnp.float32), -1)
+    e_flat = np.asarray(jax.lax.top_k(probs, K)[1]).reshape(-1)
+    order = np.argsort(e_flat, kind="stable")
+    se = e_flat[order]
+    pos = np.arange(T * K) - np.searchsorted(se, se, side="left")
+    kept = np.bincount(se[pos < C], minlength=E)
+    seen = []
+    real = tmoe._expert_matmul
+
+    def record(v, w, rows=None):
+        seen.append(rows)
+        return real(v, w, rows)
+
+    monkeypatch.setattr(tmoe, "_expert_matmul", record)
+    got, _ = tmoe.moe_forward(cfg, tp, torch.from_numpy(x),
+                              capacity_factor=cf)
+    want, _ = jmoe.moe_forward(jcfg, jp, jnp.asarray(x), capacity_factor=cf)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(want)).max())
+    assert len(seen) == 3 and seen[0] is seen[1] is seen[2]
+    assert seen[0].dtype == torch.int32
+    np.testing.assert_array_equal(seen[0].numpy(), kept)
+    routed = np.bincount(e_flat, minlength=E)
+    assert (kept == np.minimum(routed, C)).all()
+    assert (routed > C).any() == (cf == 1.25)      # clamped when it drops
+
+
 def test_init_moe_layout_matches_reference():
     jcfg = jax_get_config("tiny-moe")
     cfg = get_config("tiny-moe")
