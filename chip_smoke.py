@@ -8,9 +8,10 @@ It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
 five phases; any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
-     card at the main-path shapes (BCQ GEMV M in {1,4,8} and the
+     card at the main-path shapes (BCQ GEMV every M in 1..8 and the
      tensor-core GEMM M in {9,16,64,128} on 4096x4096, 4096x11008,
-     11008x4096, w3 per-channel and group 128, fp32 and bf16 scales;
+     11008x4096, the GEMV also on Qwen3-MoE's 4096x8192 and 4096x512,
+     w3 per-channel and group 128, fp32 and bf16 scales;
      the batched-expert GEMM at E=128, M in {4,16}, 4096x1536 and
      1536x4096, also bit for bit against the single-matrix kernels
      expert by expert, with and without the rows of a routing; paged
@@ -219,6 +220,11 @@ def random_qt(gen, K, N, gs, scale_dtype, bits=3, beta_scale=0.1, E=None):
 
 
 LLAMA_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096)]
+# Qwen3-MoE's q (4096 -> 8192) and k/v (4096 -> 512) projections: the GEMV
+# only (phase 1's bcq_matmul_shape lines time the GEMM there)
+QWEN_SHAPES = [(4096, 8192), (4096, 512)]
+GEMV_MS = tuple(range(1, 9))
+GEMM_MS = (9, 16, 64, 128)
 # (M, K, N) of the GEMM beside its line: llama2-7b's prefill buckets 16
 # and 64, Qwen3-MoE's k/v (N=512) and q (N=8192) projections
 GEMM_SHAPES = ((16, 4096, 11008), (64, 4096, 11008), (16, 4096, 512),
@@ -228,7 +234,7 @@ QUANT_GEOMS = ((32, 1, 128), (4, 16, 128))
 PAGED_CTX = [50, 80, 110, 131]
 
 
-def check_bcq(gen, shapes):
+def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS):
     import torch
     from repro_torch.kernels.bcq_matmul import (_bcq_matmul_plain, bcq_gemv,
                                                 bcq_matmul)
@@ -242,7 +248,7 @@ def check_bcq(gen, shapes):
                 n_copy = max(2, -(-100_000_000 // (3 * K * N // 8)))
                 qts = [random_qt(gen, K, N, gs, sdt) for _ in range(n_copy)]
                 qt = qts[0]
-                for M in (1, 4, 8, 9, 16, 64, 128):
+                for M in Ms:
                     name = "bcq_gemv" if M <= 8 else "bcq_matmul"
                     fn = bcq_gemv if M <= 8 else bcq_matmul
                     x = torch.randn((M, K), generator=gen, device=DEV)
@@ -272,7 +278,7 @@ def check_bcq(gen, shapes):
                     worst[name] = max(worst[name], rel)
                     n_checks[name] += 1
                 # bf16 activations: W rounds to bf16 as in the reference
-                for M in (4, 128):
+                for M in (m for m in (4, 128) if m in Ms):
                     name = "bcq_gemv" if M <= 8 else "bcq_matmul"
                     fn = bcq_gemv if M <= 8 else bcq_matmul
                     x = torch.randn((M, K), generator=gen,
@@ -375,6 +381,13 @@ def check_paged(gen):
         # Qwen3-MoE decode: 64 query heads over 4 KV heads (rep 16)
         dict(B=4, Hkv=4, rep=16, hd=128, page=64, ctx=[50, 80, 110, 131],
              window=None, cap=None),
+        # long contexts: 8 blocks a cluster, several partitions a block
+        # (two K/V stages), with and without a window that starts
+        # mid-partition
+        dict(B=2, Hkv=4, rep=4, hd=128, page=16, ctx=[700, 999],
+             window=None, cap=None),
+        dict(B=2, Hkv=4, rep=4, hd=128, page=16, ctx=[700, 999],
+             window=301, cap=None),
     ]
     worst = 0.0
     for c in cases:
@@ -1358,6 +1371,9 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
            "device_idle_share": (1 - busy / (untraced * 1e3)) if busy
            else None,
            "kernels_per_step": len(kernels) / steps,
+           # the GEMM's split-K second pass; the decode GEMV has none
+           "splitk_reduce_per_step": sum("splitk_reduce" in e.name
+                                         for e in kernels) / steps,
            "top_kernels_ms_per_step": [
                {"name": n[:80], "ms": us / 1e3 / steps} for n, us in top]}
     if kv_bits:
@@ -1387,6 +1403,8 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
                          "ms": e.self_cpu_time_total / 1e3}
                         for e in ops[:8]]})
     emit(row)
+    require(DEV != "cuda" or row["splitk_reduce_per_step"] == 0,
+            f"{tag} decode: a split-K reduce ran ({row})")
 
 
 def main(argv=None) -> int:
@@ -1449,6 +1467,9 @@ def main(argv=None) -> int:
         if 1 in phases:
             t0 = time.time()
             worst, n_checks = check_bcq(gen, LLAMA_SHAPES)
+            worst_q, n_q = check_bcq(gen, QWEN_SHAPES, GEMV_MS)
+            worst["bcq_gemv"] = max(worst["bcq_gemv"], worst_q["bcq_gemv"])
+            n_checks["bcq_gemv"] += n_q["bcq_gemv"]
             worst["paged_attention"] = check_paged(gen)
             worst["paged_attention_quant"] = check_paged_quant(gen)
             worst["bcq_expert_matmul"], n_exact = check_expert(gen)
@@ -1464,11 +1485,17 @@ def main(argv=None) -> int:
                 lines[k]["max_rel_err_all_checks"] = worst[k]
             lines["bcq_expert_matmul"]["experts_bit_equal_to_single"] = \
                 n_exact
+            for k in ("bcq_gemv", "bcq_matmul"):
+                lines[k]["checks"] = n_checks[k]
             # the rep-16 geometry of phase 5 (Qwen3-MoE), beside the lines
             emit({"check": "paged_attention_rep16",
                   **summarize_paged(gen, Hkv=4, rep=16)})
             emit({"check": "paged_attention_quant_rep16",
                   **summarize_paged_quant(gen, Hkv=4, rep=16)})
+            # the GEMV at one and eight rows, beside the line's four
+            for M in (1, 8):
+                emit({"check": "bcq_gemv_shape",
+                      **summarize_bcq(gen, "bcq_gemv", M, 4096, 11008)})
             emit({"check": "bcq_expert_matmul_prefill",
                   **summarize_expert(gen, M=16, routed=False)})
             # the GEMM at the other prefill buckets and at Qwen3-MoE's

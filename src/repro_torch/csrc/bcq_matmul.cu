@@ -13,17 +13,32 @@
 //
 // What bounds them on the H100, and what the design does about it:
 //
-// * GEMV (M <= 8 rows, every decode step). Bandwidth: the packed codes are
-//   bits/8 bytes per weight and are read exactly once; x and y are tiny.
-//   A warp owns 32 adjacent output columns, so each code load is one
-//   128-byte line of one plane (codes are N-minor). The warps of a block
-//   split the K words of their columns and reduce in shared memory; the
-//   wrapper also splits K across blocks (`splits`) so that a 4096-wide N,
-//   which gives only 128 column blocks, still fills 132 SMs, and a second
-//   pass sums the fp32 partials in a fixed order (deterministic, no
-//   atomics). x is read as one coalesced 32-value slice per word and
-//   broadcast by warp shuffles. The per-weight dequant (bits adds) is ALU
-//   work that a later PR can cut with a lookup table.
+// * GEMV (M <= 8 rows, every decode step). One launch, no scratch. The
+//   packed codes are bits/8 bytes per weight, read once (16.9 MB at w3 on
+//   llama2-7b's 4096 x 11008, 5.0 us at 3.35 TB/s); the function's own 2M
+//   flops a weight on the CUDA cores bound it at M >= 3. What the design
+//   does about each cost of a weight:
+//   - the dequant is one read of a per-column table of the scale group's
+//     2^bits levels (2-4 bits; built per group in shared memory, each
+//     level added in plane order like the per-plane expansion, so bit for
+//     bit the same weight), laid out [level][column slot] so a warp's 32
+//     reads hit 32 banks; a weight's level is a nibble of its planes' bits,
+//     interleaved once a word, and becomes a byte offset with one shift
+//     and one masked OR into the table's aligned base (5-8 bits, and 1,
+//     expand plane by plane in registers: beta + (+-alpha_i));
+//   - x is staged in shared memory as [k/4][rows][4], so one 16-byte
+//     broadcast read serves 4 k of a row for a lane's 4 columns;
+//   - a lane owns 4 adjacent columns, so a plane's codes come as one
+//     16-byte load (512 B a warp), the next word's in flight while the
+//     current one is multiplied;
+//   - K splits over the blocks of a thread-block cluster (at most 8, from
+//     (K, N) alone); each block sums its warps in warp order, then each
+//     rank adds its share of the outputs from every rank's shared memory
+//     in rank order (distributed shared memory): deterministic, one launch.
+//   On the H100 it is issue-bound, not bandwidth-bound: ~9 instructions a
+//   weight-lane at 4 rows (4 FMAs, a table read, its shift and OR, a share
+//   of the bit interleave and the x reads) at an issue rate well under one
+//   a cycle. An expert holding one token runs the one-row body.
 // * GEMM (M > 8, prefill). Tensor cores: wgmma m64nNk8 in TF32 with the
 //   operands swapped, Y^T = W^T X^T, so the dequantized weight columns are
 //   the 64-row M side and the tokens the N side: a token tile is M rounded
@@ -61,11 +76,12 @@
 // * Expert stacks (MoE layers). One launch covers the whole stack: the
 //   expert is blockIdx.z, and each operand advances by its per-expert
 //   stride (x (E, M, K), codes (E, bits, K/32, N), alphas (E, G, N, bits),
-//   betas (E, G, N), y (E, M, N), split-K partials (E, splits, M, N)). A
-//   single matrix is the stack of one expert, so both run the same code
-//   with the same split and token tile, and each expert's slice of y
-//   equals, bit for bit, the single-matrix kernel run on that expert
-//   alone. An optional rows (E,) int32 gives the live leading rows of each
+//   betas (E, G, N), y (E, M, N), the GEMM's split-K partials (E, splits,
+//   M, N)). A single matrix is the stack of one expert, so both run the
+//   same code with the same split and token tile, and each expert's slice
+//   of y equals, bit for bit, the single-matrix kernel run on that expert
+//   alone (a row's sums do not depend on how many rows a block computes).
+//   An optional rows (E,) int32 gives the live leading rows of each
 //   expert: rows past it read as zero and are stored as exact zeros, and a
 //   block whose expert (or token tile) holds no live row loads nothing.
 //
@@ -75,15 +91,17 @@
 // and cancel only because the caller zero-pads x to the packed K, which the
 // wrapper checks; ragged N edges are masked, never padded.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWord = 32;
 constexpr int kMaxBits = 8;
-constexpr int kGemvWarps = 8;
 // The GEMM's tile constants are hw.py's (GEMM_COLS, GEMM_TILE_MAX,
 // GEMM_PAIRED_TILE), which the Python launch arithmetic reads too; the
 // build (kernels/build.py) passes them as these macros.
@@ -155,118 +173,368 @@ __device__ __forceinline__ const void* scale_at(const void* p, long long off,
                                          off);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Live leading rows of expert ex: rows[ex] clamped to [0, M], or M.
 __device__ __forceinline__ int live_rows(const int* rows, int ex, int M) {
   return rows ? min(max(rows[ex], 0), M) : M;
 }
 
-// One weight from its sign bits at position j of each plane word:
-// beta + sum_i (+-alpha_i), added in plane order like the reference.
-template <int BITS>
-__device__ __forceinline__ float expand(const uint32_t (&c)[kMaxBits],
-                                        const float (&a)[kMaxBits],
-                                        float beta, int j, int bits) {
-  float w = beta;
-  if (BITS > 0) {
-#pragma unroll
-    for (int i = 0; i < BITS; ++i) w += ((c[i] >> j) & 1u) ? a[i] : -a[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < kMaxBits; ++i)
-      if (i < bits) w += ((c[i] >> j) & 1u) ? a[i] : -a[i];
-  }
-  return w;
-}
-
 // ---------------------------------------------------------------------------
-// GEMV: grid (ceil(N/32), splits, experts), block kGemvWarps warps.
-// MR rows are computed (MR >= M; rows past M, or past the expert's live
+// GEMV: grid (splits, ceil(N / kGemvCols), experts) in clusters of `splits`
+// blocks along x (cluster rank = K split), kGemvThreads threads a block.
+// A lane owns kLaneCols adjacent columns; the block's warps take its K words
+// in turn (word kw to warp (kw - first word) % kGemvWarps, each warp in
+// increasing order), so the summation order is fixed by (KW, N, splits).
+// MR rows are held (MR >= M; rows past M, or past the expert's live
 // rows, read as 0 and are stored as 0 or not at all).
 // ---------------------------------------------------------------------------
-template <typename TX, int MR, int BITS>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-    bcq_gemv_kernel(const TX* __restrict__ x, const uint32_t* __restrict__ codes,
-                    const void* __restrict__ alphas,
-                    const void* __restrict__ betas, TX* __restrict__ y,
-                    float* __restrict__ partial, const int* __restrict__ rows,
-                    int M, int KW, int N, int bits, long long plane_stride,
-                    int words_per_group, int words_per_split, int scale_bf16,
-                    ExpertStrides es) {
+#if !defined(BCQ_GEMV_COLS) || !defined(BCQ_GEMV_WARPS)
+#error "build with src/repro_torch/kernels/build.py (it passes hw.py's GEMV block shape)"
+#endif
+constexpr int kGemvWarps = BCQ_GEMV_WARPS;       // warps taking the K words
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kGemvCols = BCQ_GEMV_COLS;         // columns a block owns
+constexpr int kLaneCols = kGemvCols / 32;        // adjacent columns a lane owns
+static_assert(kLaneCols == 4, "a lane loads one 16-byte vector of 4 columns a plane");
+constexpr int kLevelShift = 9;                   // a table level: 128 floats
+static_assert(kGemvCols * 4 == 1 << kLevelShift, "");
+constexpr int kGemvMaxChunk = 64;                // K words of x staged at a time
+constexpr int kGemvSmemBudget = 112 * 1024;      // two blocks an SM
+constexpr int kGemvMaxSplits = 8;                // portable cluster size
+
+// One GEMV launch (E experts share every field; per-expert strides in es).
+struct GemvArgs {
+  const void* x;
+  const uint32_t* codes;
+  const void* alphas;
+  const void* betas;
+  void* y;
+  const int* rows;
+  int M, KW, N, bits;
+  long long plane_stride;
+  int words_per_group;  // 0: one scale group
+  int words_per_split;
+  int chunk;            // K words of x staged at a time (a multiple of 8)
+  int tab_slots;        // level tables held at a time
+  int vec;              // codes load as 16-byte vectors (N % 4 == 0, aligned)
+  int scale_bf16;
+  ExpertStrides es;
+};
+
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Shared memory of one launch: tables (tab_slots x 2^bits levels x
+// kGemvCols floats), then x of a chunk ([k/4][MR][4] floats; after the K
+// loop the warps' sums), then the block's sums that the cluster reads.
+__host__ __device__ __forceinline__ int gemv_x_floats(int MR, int chunk) {
+  const int x = MR * chunk * kWord, red = kGemvWarps * MR * kGemvCols;
+  return x > red ? x : red;
+}
+__host__ __device__ __forceinline__ int gemv_tab_floats(int tab_bits) {
+  return tab_bits ? (1 << tab_bits) * kGemvCols : 0;
+}
+// A table's byte offset of a level is its index in bits kLevelShift and up;
+// the tables start on a multiple of their size, so a lane's address is
+// (offset | base) with no add.
+
+// The GEMV of one block computing R rows (R <= MR, the rows the launch's
+// shared memory holds; rows at or past R are past the live ones). Each
+// row's sums are the same whatever R is: its own FMAs in the same order.
+// BITS 2..4: each weight is one read of a per-column table of the 2^BITS
+// levels of its scale group; BITS 0: any count up to 8, expanded plane by
+// plane in registers.
+template <typename TX, int MR, int R, int BITS>
+__device__ __forceinline__ void gemv_body(const GemvArgs& a, int live) {
+  constexpr int P = BITS > 0 ? BITS : kMaxBits;  // plane words a column
+  constexpr int kTab = BITS > 0 ? (1 << BITS) * kGemvCols : 0;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;
+  const int splits = gridDim.x;
   const int ex = blockIdx.z;
-  const int live = live_rows(rows, ex, M);
-  y += (long long)ex * M * N;
-  if (live == 0) {  // an empty expert: no loads; the reduce zeroes a split
-    if (gridDim.y == 1)
-      for (int idx = threadIdx.x; idx < M * 32; idx += blockDim.x) {
-        const int col = blockIdx.x * 32 + (idx % 32);
-        if (col < N) y[(long long)(idx / 32) * N + col] = from_f32<TX>(0.f);
-      }
-    return;
-  }
-  x += ex * es.x;
-  codes += ex * es.codes;
-  alphas = scale_at(alphas, ex * es.alphas, scale_bf16);
-  betas = scale_at(betas, ex * es.betas, scale_bf16);
-  partial += (long long)ex * gridDim.y * M * N;
+  const int n0 = blockIdx.y * kGemvCols;
+  const int M = a.M, N = a.N, KW = a.KW;
+  TX* y = static_cast<TX*>(a.y) + (long long)ex * M * N;
+  const TX* x = static_cast<const TX*>(a.x) + ex * a.es.x;
+  const uint32_t* codes = a.codes + ex * a.es.codes;
+  const void* alphas = scale_at(a.alphas, ex * a.es.alphas, a.scale_bf16);
+  const void* betas = scale_at(a.betas, ex * a.es.betas, a.scale_bf16);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + lane;
-  const int nc = n < N ? n : N - 1;  // clamped column for loads
   const int K = KW * kWord;
-  const int kw_begin = blockIdx.y * words_per_split;
-  const int kw_end = min(KW, kw_begin + words_per_split);
+  const int kb = rank * a.words_per_split;
+  const int ke = min(KW, kb + a.words_per_split);
+  const int wpg = a.words_per_group;
 
-  float acc[MR];
+  extern __shared__ float4 gemv_smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(gemv_smem4);
+  if constexpr (BITS > 0)  // the host allocates kTab floats more for this
+    smem += (4 * kTab - (smem_u32(smem) & (4 * kTab - 1))) & (4 * kTab - 1);
+  float* tabs = reinterpret_cast<float*>(smem);
+  float* xs = tabs + a.tab_slots * kTab;
+  float* part = xs + gemv_x_floats(MR, a.chunk);  // as every rank places it
+
+  // The lane's plane words of word kw: one 16-byte load a plane (or four
+  // 4-byte loads when N is ragged), columns past N clamped to valid ones.
+  const int lc = n0 + lane * kLaneCols;
+  auto load_codes = [&](int kw, uint32_t(&p)[P][kLaneCols]) {
+    const uint32_t* src = codes + (long long)kw * N;
 #pragma unroll
-  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
-  float a[kMaxBits];
-  float beta = 0.f;
+    for (int i = 0; i < P; ++i) {
+      if (BITS == 0 && i >= a.bits) break;
+      const uint32_t* s = src + i * a.plane_stride;
+      if (a.vec) {
+        const uint4 v =
+            __ldcs(reinterpret_cast<const uint4*>(s + min(lc, N - kLaneCols)));
+        p[i][0] = v.x;
+        p[i][1] = v.y;
+        p[i][2] = v.z;
+        p[i][3] = v.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < kLaneCols; ++c) p[i][c] = __ldcs(s + min(lc + c, N - 1));
+      }
+    }
+  };
+
+  // x rows of words [c0, c1) into xs as [k/4][R][4] fp32, rows past the
+  // live ones zero: one 16-byte broadcast read then serves R rows' 4 k.
+  auto stage_x = [&](int c0, int c1) {
+    const int n4 = (c1 - c0) * (kWord / 4);
+    for (int i = threadIdx.x; i < R * n4; i += kGemvThreads) {
+      const int m = i / n4, t = i % n4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m < live)
+        v = load_x4(x + (long long)m * K + (long long)c0 * kWord + 4 * t);
+      reinterpret_cast<float4*>(xs)[t * R + m] = v;
+    }
+  };
+
+  // Level tables of groups g0 .. g0 + ng - 1: level l of a column is
+  // beta + sum_i (bit i of l ? alpha_i : -alpha_i), added in plane order
+  // like the per-plane expansion (so bit for bit the same weight), rounded
+  // to x's dtype. Laid out [level][slot], slot c * 32 + lane holding the
+  // lane's column c, so a warp's reads fall in 32 distinct banks.
+  auto build_tables = [&](int g0, int ng) {
+    if constexpr (BITS > 0) {
+      for (int i = threadIdx.x; i < ng * kGemvCols; i += kGemvThreads) {
+        const int s = i / kGemvCols, slot = i % kGemvCols;
+        const int n = min(n0 + (slot % 32) * kLaneCols + slot / 32, N - 1);
+        const long long gb = (long long)(g0 + s) * N + n;
+        float lv[1 << BITS];
+        lv[0] = load_scale(betas, gb, a.scale_bf16);
+#pragma unroll
+        for (int b = 0; b < BITS; ++b) {
+          const float al = load_scale(alphas, gb * BITS + b, a.scale_bf16);
+#pragma unroll
+          for (int j = 0; j < (1 << b); ++j) {
+            lv[j | (1 << b)] = lv[j] + al;
+            lv[j] = lv[j] - al;
+          }
+        }
+        float* t = tabs + s * kTab + slot;
+#pragma unroll
+        for (int l = 0; l < (1 << BITS); ++l)
+          t[l * kGemvCols] = round_to<TX>(lv[l]);
+      }
+    }
+  };
+
+  float acc[R][kLaneCols];
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) acc[m][c] = 0.f;
+
+  // Table path: the planes' bits interleaved once a word into nibbles
+  // (idx[q][c] nibble t = the level of k = 4t + q), then per weight one
+  // shift-and for the level's byte offset and one table read.
+  auto word_lut = [&](const uint32_t(&p)[P][kLaneCols], const float* xw,
+                      const float* tab) {
+    uint32_t idx[4][kLaneCols];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const uint32_t s = i >= q ? p[i][c] << (i - q) : p[i][c] >> (q - i);
+          v |= s & (0x11111111u << i);
+        }
+        idx[q][c] = v;
+      }
+    const uint32_t tl = smem_u32(tab) | (lane * 4);
+    constexpr uint32_t kMask = ((1u << (BITS > 0 ? BITS : 1)) - 1) << kLevelShift;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      float4 xv[R];
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        xv[m] = reinterpret_cast<const float4*>(xw)[t * R + m];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < kLaneCols; ++c) {
+          const uint32_t v = idx[q][c];
+          const uint32_t sh = 4 * t <= kLevelShift ? v << (kLevelShift - 4 * t)
+                                                   : v >> (4 * t - kLevelShift);
+          float w;  // 32-bit shared address, the column's slot an immediate
+          asm volatile("ld.shared.f32 %0, [%1];"
+                       : "=f"(w)
+                       : "r"(((sh & kMask) | tl) + c * 128));
+#pragma unroll
+          for (int m = 0; m < R; ++m) {
+            const float xq = q == 0 ? xv[m].x : q == 1 ? xv[m].y
+                             : q == 2 ? xv[m].z : xv[m].w;
+            acc[m][c] = fmaf(xq, w, acc[m][c]);
+          }
+        }
+    }
+  };
+
+  // Per-plane path (BITS 0, 5..8 bits): beta + (+-alpha_i) in plane order.
+  float al[kLaneCols][kMaxBits], be[kLaneCols];
   int g_loaded = -1;
-  uint32_t c[kMaxBits];
-#pragma unroll
-  for (int i = 0; i < kMaxBits; ++i) c[i] = 0u;
-
-  for (int kw = kw_begin + warp; kw < kw_end; kw += kGemvWarps) {
-    float xr[MR];
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-      xr[m] = m < live
-                  ? to_f32(x[(long long)m * K + (long long)kw * kWord + lane])
-                  : 0.f;
-    const int g = words_per_group > 0 ? kw / words_per_group : 0;
+  auto word_planes = [&](const uint32_t(&p)[P][kLaneCols], const float* xw,
+                         int g) {
     if (g != g_loaded) {
-      load_group(alphas, betas, g, nc, N, bits, scale_bf16, a, beta);
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c)
+        load_group(alphas, betas, g, min(lc + c, N - 1), N, a.bits,
+                   a.scale_bf16, al[c], be[c]);
       g_loaded = g;
     }
-    const uint32_t* cw = codes + (long long)kw * N + nc;
 #pragma unroll
-    for (int i = 0; i < kMaxBits; ++i)
-      if (i < (BITS > 0 ? BITS : bits)) c[i] = cw[i * plane_stride];
+    for (int t = 0; t < 8; ++t) {
+      float4 xv[R];
 #pragma unroll
-    for (int j = 0; j < kWord; ++j) {
-      const float w = round_to<TX>(expand<BITS>(c, a, beta, j, bits));
+      for (int m = 0; m < R; ++m)
+        xv[m] = reinterpret_cast<const float4*>(xw)[t * R + m];
 #pragma unroll
-      for (int m = 0; m < MR; ++m)
-        acc[m] = fmaf(__shfl_sync(0xffffffffu, xr[m], j), w, acc[m]);
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < kLaneCols; ++c) {
+          float w = be[c];
+#pragma unroll
+          for (int i = 0; i < P; ++i)
+            if (i < a.bits)
+              w += ((p[i][c] >> (4 * t + q)) & 1u) ? al[c][i] : -al[c][i];
+          w = round_to<TX>(w);
+#pragma unroll
+          for (int m = 0; m < R; ++m) {
+            const float xq = q == 0 ? xv[m].x : q == 1 ? xv[m].y
+                             : q == 2 ? xv[m].z : xv[m].w;
+            acc[m][c] = fmaf(xq, w, acc[m][c]);
+          }
+        }
     }
+  };
+
+  uint32_t cur[P][kLaneCols], nxt[P][kLaneCols];
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) cur[i][c] = nxt[i][c] = 0u;
+
+  // The block's K words in chunks: the warp's first code words are loaded
+  // before the chunk's x and tables are staged, the next word's while the
+  // current one is multiplied.
+  for (int c0 = kb; c0 < ke; c0 += a.chunk) {
+    const int c1 = min(ke, c0 + a.chunk);
+    int kw = c0 + warp;
+    if (kw < c1) load_codes(kw, cur);
+    stage_x(c0, c1);
+    int g0 = 0;
+    if (wpg > 0) {
+      g0 = c0 / wpg;
+      build_tables(g0, (c1 - 1) / wpg - g0 + 1);
+    } else if (c0 == kb) {
+      build_tables(0, 1);
+    }
+    __syncthreads();
+    for (; kw < c1; kw += kGemvWarps) {
+      const bool more = kw + kGemvWarps < c1;
+      if (more) load_codes(kw + kGemvWarps, nxt);
+      const float* xw = xs + (kw - c0) * kWord * R;
+      if constexpr (BITS > 0)
+        word_lut(cur, xw, tabs + (wpg > 0 ? kw / wpg - g0 : 0) * kTab);
+      else
+        word_planes(cur, xw, wpg > 0 ? kw / wpg : 0);
+      if (more) {
+#pragma unroll
+        for (int i = 0; i < P; ++i)
+#pragma unroll
+          for (int c = 0; c < kLaneCols; ++c) cur[i][c] = nxt[i][c];
+      }
+    }
+    __syncthreads();
   }
 
-  __shared__ float red[kGemvWarps][MR][32];
+  // The warps' sums in warp order, then the cluster's in rank order: each
+  // rank adds its share of the block's outputs from every rank's shared
+  // memory (distributed shared memory) and stores them.
+  float* red = xs;
 #pragma unroll
-  for (int m = 0; m < MR; ++m) red[warp][m][lane] = acc[m];
+  for (int m = 0; m < R; ++m)
+    reinterpret_cast<float4*>(red)[(warp * R + m) * 32 + lane] =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < MR * 32; idx += blockDim.x) {
-    const int m = idx / 32;
-    const int col = blockIdx.x * 32 + (idx % 32);
-    if (m >= M || col >= N) continue;
+  for (int i = threadIdx.x; i < R * kGemvCols; i += kGemvThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kGemvWarps; ++w) s += red[w][m][idx % 32];
-    if (gridDim.y == 1)
-      y[(long long)m * N + col] = from_f32<TX>(m < live ? s : 0.f);
-    else if (m < live)
-      partial[((long long)blockIdx.y * M + m) * N + col] = s;
+    for (int w = 0; w < kGemvWarps; ++w) s += red[w * R * kGemvCols + i];
+    part[i] = s;
   }
+  cluster.sync();
+  const int total = M * kGemvCols;
+  const int per = (total + splits - 1) / splits;
+  const int hi = min(total, (rank + 1) * per);
+  for (int i = rank * per + threadIdx.x; i < hi; i += kGemvThreads) {
+    const int m = i / kGemvCols, n = n0 + i % kGemvCols;
+    float s = 0.f;
+    if (m < live)
+      for (int r = 0; r < splits; ++r) s += cluster.map_shared_rank(part, r)[i];
+    if (n < N) y[(long long)m * N + n] = from_f32<TX>(s);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// grid (splits, ceil(N / kGemvCols), experts): an empty expert's cluster
+// loads nothing and its rank 0 stores the zeros; an expert holding one
+// token computes one row (an expert decode's common case).
+template <typename TX, int MR, int BITS>
+__global__ void __launch_bounds__(kGemvThreads, BITS > 0 ? 2 : 1)
+    bcq_gemv_kernel(const GemvArgs a) {
+  const int live = live_rows(a.rows, blockIdx.z, a.M);
+  if (live == 0) {  // uniform over the cluster: no cluster barrier waits
+    if (blockIdx.x == 0) {
+      TX* y = static_cast<TX*>(a.y) + (long long)blockIdx.z * a.M * a.N;
+      const int n0 = blockIdx.y * kGemvCols;
+      for (int i = threadIdx.x; i < a.M * kGemvCols; i += kGemvThreads) {
+        const int n = n0 + i % kGemvCols;
+        if (n < a.N)
+          y[(long long)(i / kGemvCols) * a.N + n] = from_f32<TX>(0.f);
+      }
+    }
+    return;
+  }
+  if constexpr (MR > 1) {
+    if (live == 1) {
+      gemv_body<TX, MR, 1, BITS>(a, live);
+      return;
+    }
+  }
+  gemv_body<TX, MR, MR, BITS>(a, live);
 }
 
 // Sum the split-K partials (E, splits, M, N) in split order into y (E, M, N);
@@ -293,10 +561,6 @@ __global__ void bcq_splitk_reduce(const float* __restrict__ partial,
 // ---------------------------------------------------------------------------
 // GEMM on tensor cores: PTX helpers
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 (or 4) bytes global -> shared; src_bytes 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -847,33 +1111,6 @@ __global__ void __launch_bounds__(kTcThreads, TcCfg<NT>::kMinBlocks)
     }
 }
 
-template <typename TX, int MR>
-void launch_gemv_rows(dim3 grid, cudaStream_t st, const TX* x,
-                      const uint32_t* codes, const void* alphas,
-                      const void* betas, TX* y, float* partial,
-                      const int* rows, int M, int KW, int N, int bits,
-                      long long ps, int wpg, int wps, int sbf,
-                      ExpertStrides es) {
-  const dim3 block(kGemvWarps * 32);
-  switch (bits) {
-    case 2:
-      bcq_gemv_kernel<TX, MR, 2><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-      break;
-    case 3:
-      bcq_gemv_kernel<TX, MR, 3><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-      break;
-    case 4:
-      bcq_gemv_kernel<TX, MR, 4><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-      break;
-    default:
-      bcq_gemv_kernel<TX, MR, 0><<<grid, block, 0, st>>>(
-          x, codes, alphas, betas, y, partial, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  }
-}
-
 template <typename TX>
 void launch_reduce(const float* partial, void* y, const int* rows, int splits,
                    int M, int N, int E, cudaStream_t st) {
@@ -882,27 +1119,64 @@ void launch_reduce(const float* partial, void* y, const int* rows, int splits,
       partial, static_cast<TX*>(y), rows, splits, M, N, total);
 }
 
+// The chunk of K words staged at a time and the table slots of one GEMV
+// launch, within kGemvSmemBudget (a chunk of 8 words at the least); returns
+// the dynamic shared memory bytes.
+int gemv_plan(int MR, int tab_bits, int wpg, int wps, int& chunk, int& slots) {
+  chunk = min(kGemvMaxChunk, (wps + kGemvWarps - 1) / kGemvWarps * kGemvWarps);
+  for (;;) {
+    slots = tab_bits == 0 ? 0 : wpg == 0 ? 1 : (chunk - 1) / wpg + 2;
+    // (one table more: room to start the tables on a multiple of their size)
+    const int bytes = 4 * ((slots + (slots > 0)) * gemv_tab_floats(tab_bits) +
+                           gemv_x_floats(MR, chunk) + MR * kGemvCols);
+    if (bytes <= kGemvSmemBudget || chunk <= kGemvWarps) return bytes;
+    chunk -= kGemvWarps;
+  }
+}
+
+// One launch in clusters of `splits` blocks; a refused attribute or launch
+// (too much shared memory, a cluster the card cannot place) is returned.
+template <typename TX, int MR, int BITS>
+cudaError_t launch_gemv_t(GemvArgs a, int splits, int E, cudaStream_t st) {
+  const int smem = gemv_plan(MR, BITS, a.words_per_group, a.words_per_split,
+                             a.chunk, a.tab_slots);
+  auto kern = bcq_gemv_kernel<TX, MR, BITS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (a.N + kGemvCols - 1) / kGemvCols, E);
+  cfg.blockDim = dim3(kGemvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, a);
+}
+
+template <typename TX, int MR>
+cudaError_t launch_gemv_bits(const GemvArgs& a, int splits, int E,
+                             cudaStream_t st) {
+  switch (a.bits) {
+    case 2: return launch_gemv_t<TX, MR, 2>(a, splits, E, st);
+    case 3: return launch_gemv_t<TX, MR, 3>(a, splits, E, st);
+    case 4: return launch_gemv_t<TX, MR, 4>(a, splits, E, st);
+    default: return launch_gemv_t<TX, MR, 0>(a, splits, E, st);
+  }
+}
+
 template <typename TX>
-void launch_gemv(const void* x, const void* codes, const void* alphas,
-                 const void* betas, void* y, void* partial, const int* rows,
-                 int M, int KW, int N, int bits, long long ps, int wpg,
-                 int splits, int sbf, int E, ExpertStrides es,
-                 cudaStream_t st) {
-  const dim3 grid((N + 31) / 32, splits, E);
-  const int wps = (KW + splits - 1) / splits;
-  const TX* xt = static_cast<const TX*>(x);
-  const uint32_t* ct = static_cast<const uint32_t*>(codes);
-  TX* yt = static_cast<TX*>(y);
-  float* pt = static_cast<float*>(partial);
-  if (M <= 1)
-    launch_gemv_rows<TX, 1>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  else if (M <= 2)
-    launch_gemv_rows<TX, 2>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  else if (M <= 4)
-    launch_gemv_rows<TX, 4>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  else
-    launch_gemv_rows<TX, 8>(grid, st, xt, ct, alphas, betas, yt, pt, rows, M, KW, N, bits, ps, wpg, wps, sbf, es);
-  if (splits > 1) launch_reduce<TX>(pt, yt, rows, splits, M, N, E, st);
+cudaError_t launch_gemv(const GemvArgs& a, int splits, int E,
+                        cudaStream_t st) {
+  if (a.M <= 1) return launch_gemv_bits<TX, 1>(a, splits, E, st);
+  if (a.M <= 2) return launch_gemv_bits<TX, 2>(a, splits, E, st);
+  if (a.M <= 4) return launch_gemv_bits<TX, 4>(a, splits, E, st);
+  return launch_gemv_bits<TX, 8>(a, splits, E, st);
 }
 
 template <int NT>
@@ -941,31 +1215,49 @@ cudaError_t launch_tc_gemm(const void* x, float* xsplit, const void* codes,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Shapes and dtypes are checked
-// by the Python wrappers; these only launch on `stream` and return
-// cudaGetLastError() so a refused launch is reported. E experts with the
-// given per-expert element strides of x, codes, alphas and betas (E = 1
-// and strides 0 for one matrix); y and the partials are (E, ...) dense.
-// rows is null (every row live) or an (E,) int32 device array.
+// by the Python wrappers; these only launch on `stream` and return the
+// launch's error or cudaGetLastError() so a refused launch is reported. E
+// experts with the given per-expert element strides of x, codes, alphas and
+// betas (E = 1 and strides 0 for one matrix); y and the partials are
+// (E, ...) dense. rows is null (every row live) or an (E,) int32 device
+// array.
+//
+// The GEMV: one launch, K split over the `splits` blocks of a cluster
+// (1..8); `vec` says the code planes may be read as 16-byte vectors (N a
+// multiple of 4, 16-byte aligned planes and experts).
 extern "C" int bcq_gemv_launch(const void* x, const void* codes,
                                const void* alphas, const void* betas,
-                               void* y, void* partial, const void* rows,
-                               int M, int KW, int N, int bits,
-                               long long plane_stride, int words_per_group,
-                               int splits, int x_bf16, int scale_bf16, int E,
+                               void* y, const void* rows, int M, int KW,
+                               int N, int bits, long long plane_stride,
+                               int words_per_group, int splits, int vec,
+                               int x_bf16, int scale_bf16, int E,
                                long long x_es, long long codes_es,
                                long long alphas_es, long long betas_es,
                                void* stream) {
+  if (splits < 1 || splits > kGemvMaxSplits || M < 1 || M > 8 || bits < 1 ||
+      bits > kMaxBits)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ExpertStrides es{x_es, codes_es, alphas_es, betas_es};
-  const int* r = static_cast<const int*>(rows);
-  if (x_bf16)
-    launch_gemv<__nv_bfloat16>(x, codes, alphas, betas, y, partial, r, M, KW,
-                               N, bits, plane_stride, words_per_group, splits,
-                               scale_bf16, E, es, st);
-  else
-    launch_gemv<float>(x, codes, alphas, betas, y, partial, r, M, KW, N, bits,
-                       plane_stride, words_per_group, splits, scale_bf16, E,
-                       es, st);
+  GemvArgs a{};
+  a.x = x;
+  a.codes = static_cast<const uint32_t*>(codes);
+  a.alphas = alphas;
+  a.betas = betas;
+  a.y = y;
+  a.rows = static_cast<const int*>(rows);
+  a.M = M;
+  a.KW = KW;
+  a.N = N;
+  a.bits = bits;
+  a.plane_stride = plane_stride;
+  a.words_per_group = words_per_group;
+  a.words_per_split = (KW + splits - 1) / splits;
+  a.vec = vec;
+  a.scale_bf16 = scale_bf16;
+  a.es = ExpertStrides{x_es, codes_es, alphas_es, betas_es};
+  const cudaError_t err = x_bf16 ? launch_gemv<__nv_bfloat16>(a, splits, E, st)
+                                 : launch_gemv<float>(a, splits, E, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

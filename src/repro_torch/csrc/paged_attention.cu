@@ -20,42 +20,64 @@
 // entry d of group g = d / (hd / G) expands to beta_g + sum_i (+-alpha_gi),
 // added in plane order as `_expand_page` does.
 //
-// What bounds it on the H100: bandwidth. Each live token's K and V vector
-// is read once (2 * hd values, or 2 * (bits * hd / 8 + 4 * G * (bits + 1))
-// bytes binary-coded); the arithmetic is ~4 * rep * hd flops per token.
-// The design:
-// * One block per (KV head, sequence, group of up to kRepBlock query
-//   heads); the block reads its own block-table row (the TPU kernel
-//   received it by scalar prefetch).
-// * The block's warps take interleaved tokens; a warp reads one token's K
-//   and V vector as 32 lanes x hd/32 contiguous entries and keeps its own
-//   online-softmax state (running max, denominator, accumulator) for the
-//   block's query heads, so K/V is read once per GQA group. The warps'
-//   states are merged in shared memory at the end.
-// * Binary-coded pages: a lane loads the `bits` code words that cover its
-//   hd/32 entries (they never straddle a word: hd/32 divides 32) and the
-//   alphas and betas of the groups those entries fall in, and expands them
-//   to fp32 in registers; nothing is expanded into device memory.
-// * Query heads per block: REP (a template bucket 1/2/4/8/16) keeps the
-//   state in registers, with REP * hd/32 <= 64 accumulators a lane; wider
-//   GQA groups (Qwen3-MoE's 16 query heads per KV head at hd 128 fit one
-//   block) spread over gridDim.z blocks, each reading the group's K/V.
-// * Tokens are visited by index, j in [max(0, ctx - window), min(ctx,
-//   T * page)), so pages at or past ctx are never touched and masked tokens
-//   (which the reference weights by exp(-1e30 - m) = 0) are skipped. A
-//   table may name the same page many times (inactive rows all point at
-//   the null page 0); nothing assumes distinct pages.
-// Later PRs: vector loads, splitting long contexts over blocks, bf16 K/V.
+// What bounds it on the H100: at decode sizes, latency. Each live token's K
+// and V vector is read once (2 * hd values, or 2 * (bits * hd / 8 + 4 * G *
+// (bits + 1)) bytes binary-coded), ~4 * rep * hd flops a token: a few MB a
+// call at most, microseconds of bandwidth, so what costs is how many SMs
+// work at once and how long each one's chain of dependent steps is (the
+// table row, the K/V tiles, the compute, the cluster's merge). The
+// design (flash-decoding):
+// * The context splits into partitions of kTile tokens. A thread-block
+//   cluster of `clusters` blocks (at most 8) serves one (sequence, KV head,
+//   group of up to kMaxRep query heads); block p takes partitions t_lo + p,
+//   t_lo + p + clusters, ... of the live ones [t_lo, t_hi). The wrapper
+//   sizes the cluster so that B * Hkv * head groups * clusters blocks reach
+//   every SM with each block's partitions in flight at once (`stages` K/V
+//   tile pairs): 2 blocks of 3 stages at llama2-7b's batch 4 (256 blocks),
+//   6 of 1 at Qwen3-MoE's 4 KV heads (96 blocks, where one block a head
+//   gave 16). A partition wholly outside [max(0, ctx - window), ctx) is
+//   not visited; pages at or past ctx are never touched.
+// * Each block keeps one online-softmax state (max, denominator,
+//   accumulator) per query head; the cluster's blocks merge theirs through
+//   distributed shared memory in rank order (deterministic), each rank
+//   storing its share of the outputs: one launch, no scratch.
+// * The block reads its block-table row once into shared memory, then
+//   its partitions' K and V rows with 16-byte cp.async copies (fp pages),
+//   up to `stages` partitions in flight, each refilled once computed.
+//   Binary-coded pages are expanded into the same fp32 tile by the page
+//   reader `QuantPages` (its scalar loads are not redesigned here).
+// * One softmax rescale per partition, not per token: the scores of a
+//   partition are a (heads x hd) . (hd x kTile) product (a lane a token,
+//   the 8 warps over heads or parts of hd), the softmax a warp a head, and
+//   P . V a (heads x kTile) . (kTile x hd) product (a thread 4 adjacent hd
+//   entries of its heads, for one group of the partition's tokens), all on
+//   the CUDA cores in fp32.
+// A table may name the same page many times (inactive rows all point at the
+// null page 0); nothing assumes distinct pages.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+#if !defined(PA_TILE) || !defined(PA_MAX_CLUSTER) || !defined(PA_MAX_REP) || \
+    !defined(PA_MAX_STAGES)
+#error "build with src/repro_torch/kernels/build.py (it passes hw.py's ATTN_* constants)"
+#endif
+constexpr int kTile = PA_TILE;  // tokens a partition
+static_assert(kTile == 32, "a partition's tokens are the lanes of a warp");
 constexpr int kWarps = 8;
-constexpr int kMaxRegs = 64;  // REP * EPL accumulators a lane at most
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxRep = PA_MAX_REP;          // query heads a block at most
+constexpr int kMaxCluster = PA_MAX_CLUSTER;  // at most the portable 8
+constexpr int kMaxStages = PA_MAX_STAGES;    // K/V tile pairs a block holds
+static_assert(kMaxRep == 16 && kMaxCluster <= 8 && kMaxStages == 4,
+              "launch_pages buckets heads up to 16; the waits count to 3");
 constexpr int kMaxBits = 8;
 constexpr float kNegInf = -1e30f;
 
@@ -77,27 +99,112 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
-// fp pages: a lane's EPL entries of the (token, head) row `row`.
-template <typename T, int EPL>
+// 4 consecutive tile entries as fp32 (16 bytes fp32, 8 bytes bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Elements of one tile row in shared memory: hd and 16 bytes of padding, so
+// that the lanes' rows start in different banks.
+template <typename Elem, int HD>
+__host__ __device__ constexpr int tile_row() {
+  return HD + 16 / (int)sizeof(Elem);
+}
+
+// Where the tokens of the partition starting at token t0 live. The table
+// entry and offset of t0 are divided once; token t0 + j is found from them
+// with one compare for pages of a partition or more (the main paths'), a
+// division only for smaller pages.
+struct PartitionRows {
+  int t0, j0, ctx, q0, r0, page, Hkv, h;
+  const int* bt_s;
+  __device__ __forceinline__ PartitionRows(int t0_, int j0_, int ctx_,
+                                           const int* bt, int page_,
+                                           int Hkv_, int h_)
+      : t0(t0_), j0(j0_), ctx(ctx_), q0(t0_ / page_), r0(t0_ % page_),
+        page(page_), Hkv(Hkv_), h(h_), bt_s(bt) {}
+  // token t0 + j's pool row, or -1 when it lies outside [j0, ctx)
+  __device__ __forceinline__ long long row(int j) const {
+    const int tok = t0 + j;
+    if (tok < j0 || tok >= ctx) return -1;
+    int e = q0, r = r0 + j;
+    if (page >= kTile) {
+      if (r >= page) {
+        r -= page;
+        ++e;
+      }
+    } else {
+      e += r / page;
+      r %= page;
+    }
+    return ((long long)bt_s[e] * page + r) * Hkv + h;
+  }
+};
+
+// fp pages: a partition's K and V rows copied into the tile by 16-byte
+// cp.async (tokens outside the window zero-filled, nothing read).
+template <typename T, int HD>
 struct FpPages {
+  using Elem = T;
+  static constexpr int kHd = HD;
   const T* k;
   const T* v;
-  __device__ __forceinline__ void load(long long row, int lane,
-                                       float (&kv)[EPL],
-                                       float (&vv)[EPL]) const {
-    const long long base = row * (EPL * 32) + lane * EPL;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      kv[e] = to_f32(k[base + e]);
-      vv[e] = to_f32(v[base + e]);
+  __device__ __forceinline__ void stage(T* sk, T* sv,
+                                        const PartitionRows& rows) const {
+    constexpr int kVec = 16 / sizeof(T);   // elements a copy
+    constexpr int kCh = HD / kVec;         // copies a row
+    constexpr int kRow = tile_row<T, HD>();
+    for (int i = threadIdx.x; i < 2 * kTile * kCh; i += kThreads) {
+      const int side = i / (kTile * kCh), j = (i / kCh) % kTile,
+                c = i % kCh;
+      const long long row = rows.row(j);
+      const T* src = side ? v : k;
+      cp_async16((side ? sv : sk) + j * kRow + c * kVec,
+                 src + (row < 0 ? 0 : row * HD + c * kVec), row < 0 ? 0 : 16);
     }
   }
 };
 
-// Binary-coded pages: expand a lane's EPL entries of row `row` in registers.
-template <int EPL>
+// Binary-coded pages: a lane-slot's EPL entries of row `row` expanded in
+// registers, then stored into the fp32 tile.
+template <int HD>
 struct QuantPages {
+  using Elem = float;
+  static constexpr int kHd = HD;
+  static constexpr int EPL = HD / 32;
   const uint32_t *kc, *vc;
   const float *ka, *kb, *va, *vb;
   int bits, G;
@@ -134,197 +241,431 @@ struct QuantPages {
     }
   }
 
-  __device__ __forceinline__ void load(long long row, int lane,
-                                       float (&kv)[EPL],
-                                       float (&vv)[EPL]) const {
-    expand(kc, ka, kb, row, lane, kv);
-    expand(vc, va, vb, row, lane, vv);
+  __device__ __forceinline__ void stage(float* sk, float* sv,
+                                        const PartitionRows& rows) const {
+    constexpr int kRow = tile_row<float, HD>();
+    // unrolled so that two slots' loads are in flight at once
+#pragma unroll 2
+    for (int n = 0; n < 2 * kTile * 32 / kThreads; ++n) {
+      const int i = threadIdx.x + n * kThreads;
+      const int side = i / (kTile * 32), j = (i / 32) % kTile, slot = i % 32;
+      const long long row = rows.row(j);
+      float e[EPL];
+      if (row < 0) {
+#pragma unroll
+        for (int t = 0; t < EPL; ++t) e[t] = 0.f;
+      } else if (side) {
+        expand(vc, va, vb, row, slot, e);
+      } else {
+        expand(kc, ka, kb, row, slot, e);
+      }
+      float* dst = (side ? sv : sk) + j * kRow + slot * EPL;
+#pragma unroll
+      for (int t = 0; t < EPL; ++t) dst[t] = e[t];
+    }
   }
 };
 
-// EPL = hd / 32 entries per lane; REP query heads per block (>= the
-// block's share, gridDim.z blocks per (head, sequence)).
-template <typename TQ, typename Pages, int EPL, int REP>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_attention_kernel(const TQ* __restrict__ q, Pages pages,
+// Shared memory of one block (floats unless said): the block-table row
+// (n_table ints), `stages` K/V tile pairs, q (REP x HD), the score
+// parts (DP x REP x kTile), P ([kTile][REP]), the running max, denominator
+// and correction (REP each, in 4 REP floats to keep 16-byte alignment), and
+// the state the cluster reads (REP x HD).
+template <typename Elem, int HD, int REP>
+struct PaCfg {
+  static constexpr int kRow = tile_row<Elem, HD>();
+  static constexpr int kTileBytes = kTile * kRow * (int)sizeof(Elem);
+  // scores: warps over NRG row groups of RS heads and DP parts of hd
+  static constexpr int NRG = REP < kWarps ? REP : kWarps;
+  static constexpr int RS = REP / NRG;
+  static constexpr int DP = kWarps / NRG;
+  static constexpr int DPL = HD / DP;
+  // P . V: a thread holds 4 adjacent entries (d-chunk) of RT heads, for
+  // one of JG groups of the partition's tokens
+  static constexpr int NDC = HD / 4;
+  static constexpr int F = kThreads / NDC;
+  static constexpr int RG = REP < F ? REP : F;
+  static constexpr int RT = REP / RG;
+  static constexpr int JG = F / RG;
+  static constexpr int JPT = kTile / JG;
+  static_assert(NDC * F == kThreads && RG * RT == REP && JG * JPT == kTile,
+                "thread mapping");
+  static_assert(DP * kTile >= 2 * kMaxCluster + 1,
+                "the merge reuses the score parts for the ranks' states");
+  static constexpr int kFloats =
+      REP * HD + DP * REP * kTile + kTile * REP + 4 * REP + REP * HD;
+  static int bytes(int n_table, int stages) {
+    return ((n_table * 4 + 15) / 16) * 16 + stages * 2 * kTileBytes +
+           4 * kFloats;
+  }
+};
+
+// grid (clusters, Hkv * head groups, B), clusters along x; kThreads threads.
+template <typename TQ, typename Pages, int REP>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_kernel(const TQ* __restrict__ q, const Pages pages,
                            const int* __restrict__ block_tables,
                            const int* __restrict__ ctx_lens,
                            TQ* __restrict__ out, int Hkv, int rep, int page,
-                           int n_table, float scale, int window, float cap) {
-  constexpr int HD = EPL * 32;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.z * REP;        // first query head of the block
+                           int n_table, float scale, int window, float cap,
+                           int stages) {
+  using Elem = typename Pages::Elem;
+  constexpr int HD = Pages::kHd;
+  using C = PaCfg<Elem, HD, REP>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int prank = blockIdx.x;
+  const int NP = gridDim.x;
+  const int groups = gridDim.y / Hkv;
+  const int h = blockIdx.y / groups;
+  const int r0 = (blockIdx.y % groups) * REP;  // first query head
   const int nrep = min(REP, rep - r0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const int ctx_raw = ctx_lens[b];
   const int ctx = min(ctx_raw, n_table * page);
   const int j0 = window > 0 ? max(0, ctx_raw - window) : 0;
-  const int* bt = block_tables + (long long)b * n_table;
+  // live partitions [t_lo, t_hi); this block's: t_lo + prank + i * NP
+  const int t_lo = j0 / kTile, t_hi = (ctx + kTile - 1) / kTile;
+  const int first = t_lo + prank;
+  const int ntiles = first < t_hi ? (t_hi - first + NP - 1) / NP : 0;
   const long long qo = ((long long)b * Hkv + h) * rep + r0;  // first q row
 
-  float qr[REP][EPL];
-  float m_run[REP], l_run[REP], acc[REP][EPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m_run[r] = kNegInf;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[r][e] = 0.f;
-      qr[r][e] = r < nrep ? to_f32(q[(qo + r) * HD + lane * EPL + e]) : 0.f;
-    }
-  }
+  extern __shared__ float4 pa_smem4[];
+  int* bt_s = reinterpret_cast<int*>(pa_smem4);
+  Elem* tiles = reinterpret_cast<Elem*>(
+      reinterpret_cast<uint8_t*>(pa_smem4) + ((n_table * 4 + 15) / 16) * 16);
+  float* q_s = reinterpret_cast<float*>(
+      reinterpret_cast<uint8_t*>(tiles) + stages * 2 * C::kTileBytes);
+  float* s_part = q_s + REP * HD;
+  float* p_s = s_part + C::DP * REP * kTile;
+  float* m_s = p_s + kTile * REP;
+  float* l_s = m_s + REP;
+  float* corr_s = l_s + REP;
+  float* acc_s = m_s + 4 * REP;
 
-  for (int j = j0 + warp; j < ctx; j += kWarps) {
-    const long long pid = bt[j / page];
-    float kv[EPL], vv[EPL];
-    pages.load((pid * page + (j % page)) * Hkv + h, lane, kv, vv);
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      if (r >= nrep) break;
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) d = fmaf(qr[r][e], kv[e], d);
-      float s = warp_sum(d) * scale;
-      if (cap > 0.f) s = cap * tanhf(s / cap);
-      const float m_new = fmaxf(m_run[r], s);
-      const float corr = expf(m_run[r] - m_new);
-      const float p = expf(s - m_new);
-      l_run[r] = l_run[r] * corr + p;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(acc[r][e], corr, p * vv[e]);
-      m_run[r] = m_new;
-    }
+  // the sequence's block-table row (read beside its context length, not
+  // after it: the entries past the context name valid pages too), q, and
+  // the empty states
+  const int* bt = block_tables + (long long)b * n_table;
+  for (int e = tid; e < n_table; e += kThreads) bt_s[e] = bt[e];
+  for (int i = tid; i < REP * HD; i += kThreads)
+    q_s[i] = i / HD < nrep ? to_f32(q[qo * HD + i]) : 0.f;
+  for (int r = tid; r < REP; r += kThreads) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
   }
+  __syncthreads();
 
-  // merge the warps' states, one query head at a time
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_acc[kWarps][HD];
+  auto issue = [&](int it) {
+    Elem* sk = reinterpret_cast<Elem*>(reinterpret_cast<uint8_t*>(tiles) +
+                                       (it % stages) * 2 * C::kTileBytes);
+    pages.stage(sk, sk + kTile * C::kRow,
+                PartitionRows((first + it * NP) * kTile, j0, ctx, bt_s, page,
+                              Hkv, h));
+    cp_async_commit();
+  };
+
+  // this thread's P . V share: d-chunk dc, heads rg * RT .., tokens of group jg
+  const int dc = tid % C::NDC, rg = (tid / C::NDC) % C::RG,
+            jg = tid / C::NDC / C::RG;
+  float acc[C::RT][4];
 #pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (r >= nrep) break;
-    if (lane == 0) {
-      sm_m[warp] = m_run[r];
-      sm_l[warp] = l_run[r];
+  for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // the first `stages` partitions' loads all in flight at once; partition
+  // it + stages refills the pair of partition it once that is done
+  for (int it = 0; it < min(stages, ntiles); ++it) issue(it);
+  for (int it = 0; it < ntiles; ++it) {
+    switch (min(stages, ntiles - it) - 1) {  // newer loads that may pend
+      case 0: cp_async_wait<0>(); break;
+      case 1: cp_async_wait<1>(); break;
+      case 2: cp_async_wait<2>(); break;
+      default: cp_async_wait<3>(); break;
     }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][lane * EPL + e] = acc[r][e];
     __syncthreads();
-    for (int d = threadIdx.x; d < HD; d += blockDim.x) {
-      float mx = kNegInf;
+    const Elem* sk = reinterpret_cast<const Elem*>(
+        reinterpret_cast<const uint8_t*>(tiles) +
+        (it % stages) * 2 * C::kTileBytes);
+    const Elem* sv = sk + kTile * C::kRow;
+    const int t0 = (first + it * NP) * kTile;
+
+    {  // scores: lane = token, warp = (row group, hd part)
+      const int grp = warp % C::NRG, dp = warp / C::NRG;
+      const Elem* kr = sk + lane * C::kRow + dp * C::DPL;
+      const float* qr = q_s + grp * C::RS * HD + dp * C::DPL;
+      float s[C::RS];
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-      float l = 0.f, o = 0.f;
+      for (int i = 0; i < C::RS; ++i) s[i] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < C::DPL; d += 4) {
+        const float4 kv = load4(kr + d);
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(sm_m[w] - mx);
-        l += sm_l[w] * f;
-        o += sm_acc[w][d] * f;
+        for (int i = 0; i < C::RS; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + i * HD + d);
+          s[i] = fmaf(qv.x, kv.x, s[i]);
+          s[i] = fmaf(qv.y, kv.y, s[i]);
+          s[i] = fmaf(qv.z, kv.z, s[i]);
+          s[i] = fmaf(qv.w, kv.w, s[i]);
+        }
       }
-      out[(qo + r) * HD + d] = from_f32<TQ>(o / fmaxf(l, 1e-30f));
+#pragma unroll
+      for (int i = 0; i < C::RS; ++i)
+        s_part[(dp * REP + grp * C::RS + i) * kTile + lane] = s[i];
     }
     __syncthreads();
+
+    // softmax of the partition, a warp a head: one rescale per partition
+    for (int r = warp; r < REP; r += kWarps) {
+      float sc = 0.f;
+#pragma unroll
+      for (int dp = 0; dp < C::DP; ++dp)
+        sc += s_part[(dp * REP + r) * kTile + lane];
+      sc *= scale;
+      if (cap > 0.f) sc = cap * tanhf(sc / cap);
+      const int j = t0 + lane;
+      const bool ok = j >= j0 && j < ctx;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(ok ? sc : kNegInf));
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      const float psum = warp_sum(p);
+      p_s[lane * REP + r] = p;
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        corr_s[r] = corr;
+        l_s[r] = l_s[r] * corr + psum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    {  // acc = acc * corr + P . V
+#pragma unroll
+      for (int i = 0; i < C::RT; ++i) {
+        const float c = corr_s[rg * C::RT + i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= c;
+      }
+#pragma unroll 4
+      for (int jj = 0; jj < C::JPT; ++jj) {
+        const int j = jg * C::JPT + jj;
+        const float4 vv = load4(sv + j * C::kRow + dc * 4);
+#pragma unroll
+        for (int i = 0; i < C::RT; ++i) {
+          const float p = p_s[j * REP + rg * C::RT + i];
+          acc[i][0] = fmaf(p, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(p, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(p, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(p, vv.w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();  // the pair is free for partition it + stages
+    if (it + stages < ntiles) issue(it + stages);
   }
+
+  // the block's state: the token groups' accumulators added in group order
+  // (through the free tiles), then the cluster's merge in rank order
+  float* dst = C::JG == 1 ? acc_s : reinterpret_cast<float*>(tiles);
+#pragma unroll
+  for (int i = 0; i < C::RT; ++i)
+    *reinterpret_cast<float4*>(dst + ((jg * REP) + rg * C::RT + i) * HD +
+                               dc * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  if (C::JG > 1) {
+    __syncthreads();
+    for (int i = tid; i < REP * HD; i += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int g = 0; g < C::JG; ++g) s += dst[g * REP * HD + i];
+      acc_s[i] = s;
+    }
+  }
+  cluster.sync();
+  // every rank's max and denominator, read once (into the free score
+  // parts): rank p's weight of head r is exp(m_p - max_p m_p)
+  float* w_s = s_part;                 // [p][r]
+  float* l_all = s_part + kMaxCluster * REP;
+  float* l_sum = l_all + kMaxCluster * REP;
+  for (int i = tid; i < NP * REP; i += kThreads) {
+    w_s[i] = cluster.map_shared_rank(m_s, i / REP)[i % REP];
+    l_all[i] = cluster.map_shared_rank(l_s, i / REP)[i % REP];
+  }
+  __syncthreads();
+  for (int r = tid; r < REP; r += kThreads) {
+    float mx = kNegInf;
+    for (int p = 0; p < NP; ++p) mx = fmaxf(mx, w_s[p * REP + r]);
+    float l = 0.f;
+    for (int p = 0; p < NP; ++p) {
+      const float f = expf(w_s[p * REP + r] - mx);
+      w_s[p * REP + r] = f;
+      l += l_all[p * REP + r] * f;
+    }
+    l_sum[r] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  const int total = nrep * HD;
+  const int per = (total + NP - 1) / NP;
+  const int hi = min(total, (prank + 1) * per);
+  for (int i = prank * per + tid; i < hi; i += kThreads) {
+    const int r = i / HD;
+    float a[kMaxCluster];
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p)  // the ranks' loads in flight together
+      a[p] = p < NP ? cluster.map_shared_rank(acc_s, p)[i] : 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int p = 0; p < kMaxCluster; ++p)
+      if (p < NP) o += a[p] * w_s[p * REP + r];
+    out[qo * HD + i] = from_f32<TQ>(o / l_sum[r]);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// Query heads per block: the smallest bucket that holds `rep`, capped so a
-// lane keeps at most kMaxRegs accumulators.
-int rep_bucket(int rep, int epl) {
+// Query heads a block: the smallest power of two that holds `rep`, at most
+// kMaxRep (wider groups take several blocks, each reading the K/V).
+int rep_bucket(int rep) {
   int r = 1;
-  while (r < rep && r < 16 && (2 * r) * epl <= kMaxRegs) r *= 2;
+  while (r < rep && r < kMaxRep) r *= 2;
   return r;
 }
 
 struct Geometry {
-  int B, Hkv, rep, page, n_table, window;
+  int B, Hkv, rep, page, n_table, window, clusters, stages;
   float scale, cap;
 };
 
-template <typename TQ, typename Pages, int EPL>
-void launch_epl(const TQ* q, const Pages& pages, const int* bt,
-                const int* ctx, TQ* out, const Geometry& g, cudaStream_t st) {
-  const int rb = rep_bucket(g.rep, EPL);
-  const dim3 grid(g.Hkv, g.B, (g.rep + rb - 1) / rb), block(kWarps * 32);
-#define PA_LAUNCH(R)                                                        \
-  paged_attention_kernel<TQ, Pages, EPL, R><<<grid, block, 0, st>>>(       \
-      q, pages, bt, ctx, out, g.Hkv, g.rep, g.page, g.n_table, g.scale,    \
-      g.window, g.cap)
-  switch (rb) {
-    case 1: PA_LAUNCH(1); break;
-    case 2: PA_LAUNCH(2); break;
-    case 4: PA_LAUNCH(4); break;
-    case 8: if constexpr (8 * EPL <= kMaxRegs) PA_LAUNCH(8); break;
-    default: if constexpr (16 * EPL <= kMaxRegs) PA_LAUNCH(16); break;
-  }
-#undef PA_LAUNCH
+template <typename TQ, typename Pages, int REP>
+cudaError_t launch_rep(const TQ* q, const Pages& pages, const int* bt,
+                       const int* ctx, TQ* out, const Geometry& g,
+                       cudaStream_t st) {
+  const int smem =
+      PaCfg<typename Pages::Elem, Pages::kHd, REP>::bytes(g.n_table, g.stages);
+  auto kern = paged_attention_kernel<TQ, Pages, REP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // all shared memory, no L1 preference: the tiles are the cache
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.clusters, g.Hkv * ((g.rep + REP - 1) / REP), g.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, q, pages, bt, ctx, out, g.Hkv, g.rep,
+                            g.page, g.n_table, g.scale, g.window, g.cap,
+                            g.stages);
 }
 
-// hd -> EPL; `make(epl tag)` builds the page reader for that EPL.
-template <typename TQ, template <int> class MakePages, typename... A>
-void launch_hd(int hd, const void* q, const int* bt, const int* ctx,
-               void* out, const Geometry& g, cudaStream_t st, A... args) {
+template <typename TQ, typename Pages>
+cudaError_t launch_pages(const void* q, const Pages& pages, const int* bt,
+                         const int* ctx, void* out, const Geometry& g,
+                         cudaStream_t st) {
   const TQ* qt = static_cast<const TQ*>(q);
   TQ* ot = static_cast<TQ*>(out);
-  switch (hd) {
-    case 32: launch_epl<TQ, typename MakePages<1>::type, 1>(qt, MakePages<1>::make(args...), bt, ctx, ot, g, st); break;
-    case 64: launch_epl<TQ, typename MakePages<2>::type, 2>(qt, MakePages<2>::make(args...), bt, ctx, ot, g, st); break;
-    case 128: launch_epl<TQ, typename MakePages<4>::type, 4>(qt, MakePages<4>::make(args...), bt, ctx, ot, g, st); break;
-    case 256: launch_epl<TQ, typename MakePages<8>::type, 8>(qt, MakePages<8>::make(args...), bt, ctx, ot, g, st); break;
+  switch (rep_bucket(g.rep)) {
+    case 1: return launch_rep<TQ, Pages, 1>(qt, pages, bt, ctx, ot, g, st);
+    case 2: return launch_rep<TQ, Pages, 2>(qt, pages, bt, ctx, ot, g, st);
+    case 4: return launch_rep<TQ, Pages, 4>(qt, pages, bt, ctx, ot, g, st);
+    case 8: return launch_rep<TQ, Pages, 8>(qt, pages, bt, ctx, ot, g, st);
+    default:
+      return launch_rep<TQ, Pages, 16>(qt, pages, bt, ctx, ot, g, st);
   }
 }
 
-template <typename T>
-struct MakeFp {
-  template <int EPL>
-  struct at {
-    using type = FpPages<T, EPL>;
-    static type make(const void* k, const void* v) {
-      return type{static_cast<const T*>(k), static_cast<const T*>(v)};
-    }
-  };
-};
+template <typename TQ, int HD>
+FpPages<TQ, HD> fp_pages(const void* k, const void* v) {
+  return FpPages<TQ, HD>{static_cast<const TQ*>(k), static_cast<const TQ*>(v)};
+}
 
-template <int EPL>
-struct MakeQuant {
-  using type = QuantPages<EPL>;
-  static type make(const void* kc, const void* ka, const void* kb,
-                   const void* vc, const void* va, const void* vb, int bits,
-                   int G) {
-    return type{static_cast<const uint32_t*>(kc),
-                static_cast<const uint32_t*>(vc),
-                static_cast<const float*>(ka), static_cast<const float*>(kb),
-                static_cast<const float*>(va), static_cast<const float*>(vb),
-                bits, G};
+template <typename TQ>
+cudaError_t launch_fp(int hd, const void* q, const void* k, const void* v,
+                      const int* bt, const int* ctx, void* out,
+                      const Geometry& g, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_pages<TQ>(q, fp_pages<TQ, 32>(k, v), bt, ctx, out, g, st);
+    case 64: return launch_pages<TQ>(q, fp_pages<TQ, 64>(k, v), bt, ctx, out, g, st);
+    case 128: return launch_pages<TQ>(q, fp_pages<TQ, 128>(k, v), bt, ctx, out, g, st);
+    case 256: return launch_pages<TQ>(q, fp_pages<TQ, 256>(k, v), bt, ctx, out, g, st);
   }
-};
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+QuantPages<HD> quant_pages(const void* kc, const void* ka, const void* kb,
+                           const void* vc, const void* va, const void* vb,
+                           int bits, int G) {
+  return QuantPages<HD>{static_cast<const uint32_t*>(kc),
+                        static_cast<const uint32_t*>(vc),
+                        static_cast<const float*>(ka),
+                        static_cast<const float*>(kb),
+                        static_cast<const float*>(va),
+                        static_cast<const float*>(vb), bits, G};
+}
+
+template <typename TQ>
+cudaError_t launch_quant(int hd, const void* q, const void* kc,
+                         const void* ka, const void* kb, const void* vc,
+                         const void* va, const void* vb, int bits, int G,
+                         const int* bt, const int* ctx, void* out,
+                         const Geometry& g, cudaStream_t st) {
+  switch (hd) {
+    case 32: return launch_pages<TQ>(q, quant_pages<32>(kc, ka, kb, vc, va, vb, bits, G), bt, ctx, out, g, st);
+    case 64: return launch_pages<TQ>(q, quant_pages<64>(kc, ka, kb, vc, va, vb, bits, G), bt, ctx, out, g, st);
+    case 128: return launch_pages<TQ>(q, quant_pages<128>(kc, ka, kb, vc, va, vb, bits, G), bt, ctx, out, g, st);
+    case 256: return launch_pages<TQ>(q, quant_pages<256>(kc, ka, kb, vc, va, vb, bits, G), bt, ctx, out, g, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int finish(cudaError_t err) {
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool geometry_ok(const Geometry& g) {
+  return g.clusters >= 1 && g.clusters <= kMaxCluster && g.stages >= 1 &&
+         g.stages <= kMaxStages;
+}
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes); the Python wrappers check
 // shapes, dtypes, hd in {32, 64, 128, 256} and (binary-coded) bits <= 8
-// and G dividing hd. window <= 0 and cap <= 0 mean "none". Each returns
-// cudaGetLastError().
+// and G dividing hd, and choose `clusters` (blocks splitting a context,
+// 1..8) and `stages` (K/V tile pairs a block holds, 1..4: the partitions
+// whose loads are in flight at once). window <= 0 and cap <= 0 mean "none". Each
+// returns the launch's error or cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,
                                       const void* ctx_lens, void* out, int B,
                                       int Hkv, int rep, int hd, int page,
-                                      int n_table, float scale, int window,
-                                      float cap, int bf16, void* stream) {
+                                      int n_table, int clusters, int stages,
+                                      float scale, int window, float cap,
+                                      int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
-  const Geometry g{B, Hkv, rep, page, n_table, window, scale, cap};
-  if (bf16)
-    launch_hd<__nv_bfloat16, MakeFp<__nv_bfloat16>::at>(
-        hd, q, bt, cl, out, g, st, k_pages, v_pages);
-  else
-    launch_hd<float, MakeFp<float>::at>(hd, q, bt, cl, out, g, st, k_pages,
-                                        v_pages);
-  return (int)cudaGetLastError();
+  const Geometry g{B, Hkv, rep, page, n_table, window, clusters, stages,
+                   scale, cap};
+  if (!geometry_ok(g)) return (int)cudaErrorInvalidValue;
+  return finish(bf16 ? launch_fp<__nv_bfloat16>(hd, q, k_pages, v_pages, bt,
+                                                cl, out, g, st)
+                     : launch_fp<float>(hd, q, k_pages, v_pages, bt, cl, out,
+                                        g, st));
 }
 
 extern "C" int paged_attention_quant_launch(
@@ -332,18 +673,18 @@ extern "C" int paged_attention_quant_launch(
     const void* k_betas, const void* v_codes, const void* v_alphas,
     const void* v_betas, const void* block_tables, const void* ctx_lens,
     void* out, int B, int Hkv, int rep, int hd, int page, int n_table,
-    int bits, int G, float scale, int window, float cap, int bf16,
-    void* stream) {
+    int clusters, int stages, int bits, int G, float scale, int window,
+    float cap, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
-  const Geometry g{B, Hkv, rep, page, n_table, window, scale, cap};
-  if (bf16)
-    launch_hd<__nv_bfloat16, MakeQuant>(hd, q, bt, cl, out, g, st, k_codes,
-                                        k_alphas, k_betas, v_codes, v_alphas,
-                                        v_betas, bits, G);
-  else
-    launch_hd<float, MakeQuant>(hd, q, bt, cl, out, g, st, k_codes, k_alphas,
-                                k_betas, v_codes, v_alphas, v_betas, bits, G);
-  return (int)cudaGetLastError();
+  const Geometry g{B, Hkv, rep, page, n_table, window, clusters, stages,
+                   scale, cap};
+  if (!geometry_ok(g)) return (int)cudaErrorInvalidValue;
+  return finish(bf16 ? launch_quant<__nv_bfloat16>(
+                           hd, q, k_codes, k_alphas, k_betas, v_codes,
+                           v_alphas, v_betas, bits, G, bt, cl, out, g, st)
+                     : launch_quant<float>(hd, q, k_codes, k_alphas, k_betas,
+                                           v_codes, v_alphas, v_betas, bits,
+                                           G, bt, cl, out, g, st));
 }

@@ -18,6 +18,18 @@ rows past it are treated as zero and come out exactly zero, and the
 kernels load nothing for an expert with 0 rows (None: every row, the
 reference's behaviour).
 
+The GEMV (M <= GEMV_ROWS, every decode step) is one launch with no
+scratch: each block owns GEMV_COLS output columns, a lane 4 adjacent
+ones; x of the block's K range is staged in shared memory and read as
+16-byte broadcasts; a weight of 2-4 bits is one read of a per-column
+table of its scale group's 2^bits levels (5-8 bits, and 1, expand plane
+by plane); K splits over the blocks of a thread-block cluster
+(`gemv_splits`, a function of (K, N) alone), whose partial sums are
+added in rank order through distributed shared memory. It is bound by
+instruction issue on the card (about 9 instructions a weight and lane at
+4 rows), not by the code bytes; an expert holding one token computes one
+row.
+
 The GEMM (M > GEMV_ROWS) runs on tensor cores, three TF32 passes for
 fp32 x and one for bf16 x, with x split into its TF32 parts once per
 call (fp32 scratch the wrapper allocates). Its token tile is M rounded
@@ -33,34 +45,35 @@ only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.hw import (GEMM_COLS, GEMM_PAIRED_TILE, GEMM_TILE_MAX,
-                           GEMV_ROWS, WARP, WORD)
+                           GEMV_COLS, GEMV_MAX_SPLITS, GEMV_ROWS,
+                           GEMV_WARPS, H100_SMS, WORD, sm_count)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import dequant_ref
 
 LAUNCHES = {"bcq_gemv": 0, "bcq_matmul": 0, "bcq_expert_matmul": 0}
 MAX_BITS = 8
-# split-K target for the GEMV: about this many blocks in flight per SM
-GEMV_BLOCKS_PER_SM = 4
+# K split of the GEMV: about this many blocks per SM, and at least this
+# many K words a split (two a warp)
+GEMV_BLOCKS_PER_SM = 2
 GEMV_MIN_WORDS_PER_SPLIT = 16
 # fewest K words a split of the GEMM takes (1024 K rows)
 GEMM_MIN_WORDS_PER_SPLIT = 32
-H100_SMS = 132
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# bcq_gemv_launch(x, codes, alphas, betas, y, partial, rows, M, KW, N,
-#                 bits, plane_stride, words_per_group, splits, x_bf16,
+# bcq_gemv_launch(x, codes, alphas, betas, y, rows, M, KW, N, bits,
+#                 plane_stride, words_per_group, splits, vec, x_bf16,
 #                 scale_bf16, E, x_es, codes_es, alphas_es, betas_es, stream)
-_GEMV_ARGS = [_P] * 7 + [_I] * 4 + [_L] + [_I] * 5 + [_L] * 4 + [_P]
+_GEMV_ARGS = [_P] * 6 + [_I] * 4 + [_L] + [_I] * 6 + [_L] * 4 + [_P]
 # bcq_gemm_launch(x, xsplit, codes, alphas, betas, y, partial, rows, M,
 #                 KW, N, bits, plane_stride, words_per_group, tile, ntiles,
 #                 splits, x_bf16, scale_bf16, E, x_es, codes_es,
 #                 alphas_es, betas_es, stream)
 _GEMM_ARGS = [_P] * 8 + [_I] * 4 + [_L] + [_I] * 7 + [_L] * 4 + [_P]
-_SMS: dict = {}
 
 
 def _check(x, codes, alphas, betas):
@@ -170,22 +183,23 @@ def _launch_args(x, codes, alphas, betas, rows=None):
     return E, M, nb, KW, N, wpg, codes.stride(1), es
 
 
-def _sms(device) -> int:
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return sms
-
-
-def _splits(device, KW, N) -> int:
-    """K splits of the GEMV for one (KW, N) matrix: enough blocks for
-    GEMV_BLOCKS_PER_SM per SM, at least GEMV_MIN_WORDS_PER_SPLIT words
-    each. A function of the matrix alone, so every expert of a stack
-    splits as it would alone."""
-    col_blocks = -(-N // WARP)          # a warp owns 32 output columns
-    return max(1, min(-(-GEMV_BLOCKS_PER_SM * _sms(device) // col_blocks),
-                      KW // GEMV_MIN_WORDS_PER_SPLIT))
+@functools.lru_cache(maxsize=None)
+def gemv_splits(KW, N, sms=H100_SMS) -> int:
+    """K splits of the GEMV for one (K/32 = KW, N) matrix: the blocks of
+    one thread-block cluster (at most GEMV_MAX_SPLITS), each taking at
+    least GEMV_MIN_WORDS_PER_SPLIT words. Of those, the split whose
+    busiest block slot (GEMV_BLOCKS_PER_SM an SM over ceil(N / GEMV_COLS)
+    column blocks) runs the fewest rounds of a word per warp (waves x
+    rounds a block), the fewest blocks on a tie; no split is left without
+    words. A function of the matrix alone, never of the expert count, so
+    every expert of a stack splits (and sums) as it would alone."""
+    col_blocks = -(-N // GEMV_COLS)
+    slots = GEMV_BLOCKS_PER_SM * sms
+    most = max(1, min(GEMV_MAX_SPLITS, KW // GEMV_MIN_WORDS_PER_SPLIT))
+    splits = min(range(1, most + 1),
+                 key=lambda s: (-(-col_blocks * s // slots)
+                                * -(-(-(-KW // s)) // GEMV_WARPS), s))
+    return -(-KW // -(-KW // splits))
 
 
 def gemm_launch_shape(M, KW, N, sms=H100_SMS):
@@ -220,20 +234,21 @@ def _ptr(t) -> int:
 
 
 def _gemv(x, codes, alphas, betas, rows=None):
-    """Launch the GEMV body on (E, M <= GEMV_ROWS, K) stacked operands."""
+    """Launch the GEMV body on (E, M <= GEMV_ROWS, K) stacked operands:
+    one launch, no scratch."""
     E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas,
                                                 rows)
     if not 1 <= M <= GEMV_ROWS:
         raise ValueError(f"bcq_gemv takes 1..{GEMV_ROWS} rows, got {M}")
-    splits = _splits(x.device, KW, N)
+    splits = gemv_splits(KW, N, sm_count(x.device))
+    # 16-byte code loads: 4 columns a lane, every plane and expert aligned
+    vec = int(N % 4 == 0 and codes.data_ptr() % 16 == 0 and ps % 4 == 0
+              and es[1] % 4 == 0)
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
-    partial = (torch.empty((E, splits, M, N), dtype=torch.float32,
-                           device=x.device) if splits > 1 else y)
     fn = build.function("bcq_matmul", "bcq_gemv_launch", _GEMV_ARGS)
     status = fn(x.data_ptr(), codes.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), y.data_ptr(), partial.data_ptr(),
-                _ptr(rows), M, KW, N, nb, ps, wpg, splits,
-                int(x.dtype == torch.bfloat16),
+                betas.data_ptr(), y.data_ptr(), _ptr(rows), M, KW, N, nb, ps,
+                wpg, splits, vec, int(x.dtype == torch.bfloat16),
                 int(alphas.dtype == torch.bfloat16), E, *es, _stream(x))
     build.check(status, "bcq_gemv")
     return y
@@ -243,7 +258,7 @@ def _gemm(x, codes, alphas, betas, rows=None):
     """Launch the tensor-core GEMM body on (E, M, K) stacked operands."""
     E, M, nb, KW, N, wpg, ps, es = _launch_args(x, codes, alphas, betas,
                                                 rows)
-    tile, ntiles, splits = gemm_launch_shape(M, KW, N, _sms(x.device))
+    tile, ntiles, splits = gemm_launch_shape(M, KW, N, sm_count(x.device))
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((E, splits, M, N), dtype=torch.float32,
                            device=x.device) if splits > 1 else y)

@@ -6,7 +6,7 @@ loaded with ctypes. All sources compile in parallel (one nvcc process
 each) the first time any kernel is needed, into
 `<repo>/build/kernels/<hash>/`, where the hash covers every file under
 `csrc/` (sources and any header they include) and the compiler flags
-(hw.py's GEMM tile constants among them), so an edited kernel is
+(hw.py's kernel constants among them), so an edited kernel is
 rebuilt and a clean checkout builds everything from the repository
 alone. Nothing here runs at import time; a missing nvcc or a failed
 compile raises.
@@ -30,7 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # the GEMM's tile constants, written once in hw.py
               f"-DBCQ_GEMM_COLS={hw.GEMM_COLS}",
               f"-DBCQ_GEMM_TILE_MAX={hw.GEMM_TILE_MAX}",
-              f"-DBCQ_GEMM_PAIRED_TILE={hw.GEMM_PAIRED_TILE}")
+              f"-DBCQ_GEMM_PAIRED_TILE={hw.GEMM_PAIRED_TILE}",
+              # the GEMV's block shape and the attention's partition
+              f"-DBCQ_GEMV_COLS={hw.GEMV_COLS}",
+              f"-DBCQ_GEMV_WARPS={hw.GEMV_WARPS}",
+              f"-DPA_TILE={hw.ATTN_TILE}",
+              f"-DPA_MAX_CLUSTER={hw.ATTN_MAX_CLUSTER}",
+              f"-DPA_MAX_REP={hw.ATTN_MAX_REP}",
+              f"-DPA_MAX_STAGES={hw.ATTN_MAX_STAGES}")
 
 _LIBS: dict = {}
 _FUNCS: dict = {}

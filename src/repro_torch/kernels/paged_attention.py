@@ -13,6 +13,13 @@ hd) in q's dtype; `paged_attention_quant` reads binary-coded pages
 alphas (P, page, Hkv, G, bits) and betas (P, page, Hkv, G) fp32) and
 expands them inside the kernel. Any GQA width rep is taken.
 
+The kernels split each context into partitions of ATTN_TILE tokens
+over the blocks of a thread-block cluster, which merge their softmax
+states in rank order through distributed shared memory: one launch per
+call, no scratch. `attention_launch_shape` sizes the cluster and each
+block's K/V stages from the table's capacity, the number of (sequence,
+KV head, query-head group) units and the card's SM count.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version, `ref.paged_attention_ref` / `ref.paged_attention_quant_ref`.
 `LAUNCHES` counts kernel launches only.
@@ -23,6 +30,8 @@ import ctypes
 
 import torch
 
+from repro_torch.hw import (ATTN_MAX_CLUSTER, ATTN_MAX_REP, ATTN_MAX_STAGES,
+                           ATTN_TILE, H100_SMS, sm_count)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
@@ -30,17 +39,51 @@ from repro_torch.kernels.ref import (paged_attention_quant_ref,
 LAUNCHES = {"paged_attention": 0, "paged_attention_quant": 0}
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_KV_BITS = 8
+# block-table entries a block keeps in shared memory at most (32 KB)
+MAX_TABLE = 8192
+# shared memory for a block's K/V tile pairs
+ATTN_STAGE_BUDGET = 150 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # paged_attention_launch(q, k_pages, v_pages, block_tables, ctx_lens, out,
-#                        B, Hkv, rep, hd, page, n_table, scale, window, cap,
-#                        bf16, stream)
-_ARGS = [_P] * 6 + [_I] * 6 + [_F, _I, _F, _I, _P]
+#                        B, Hkv, rep, hd, page, n_table, clusters, stages,
+#                        scale, window, cap, bf16, stream)
+_ARGS = [_P] * 6 + [_I] * 8 + [_F, _I, _F, _I, _P]
 # paged_attention_quant_launch(q, k_codes, k_alphas, k_betas, v_codes,
 #                              v_alphas, v_betas, block_tables, ctx_lens,
-#                              out, B, Hkv, rep, hd, page, n_table, bits, G,
-#                              scale, window, cap, bf16, stream)
-_QUANT_ARGS = [_P] * 10 + [_I] * 8 + [_F, _I, _F, _I, _P]
+#                              out, B, Hkv, rep, hd, page, n_table, clusters,
+#                              stages, bits, G, scale, window, cap, bf16,
+#                              stream)
+_QUANT_ARGS = [_P] * 10 + [_I] * 10 + [_F, _I, _F, _I, _P]
+
+
+def attention_launch_shape(n_table, page, units, stage_bytes,
+                           sms=H100_SMS):
+    """(clusters, stages) of one launch: the table's capacity n_table *
+    page in partitions of ATTN_TILE tokens; `units` (sequence, KV head,
+    query-head group) triples, each served by a cluster of `clusters`
+    blocks (block p takes live partitions p, p + clusters, ...); each
+    block holds `stages` K/V tile pairs of `stage_bytes` (at most
+    ATTN_MAX_STAGES, within ATTN_STAGE_BUDGET bytes), whose loads are in
+    flight at once. Clusters: the fewest that let every block keep all
+    its partitions in flight, and at least one block an SM; stages: what
+    the busiest block takes."""
+    parts = -(-n_table * page // ATTN_TILE)
+    most = max(1, min(ATTN_MAX_STAGES, ATTN_STAGE_BUDGET // stage_bytes))
+    clusters = max(1, min(ATTN_MAX_CLUSTER, parts,
+                          max(-(-parts // most), -(-sms // units))))
+    return clusters, min(most, -(-parts // clusters))
+
+
+def _launch_shape(q, block_tables, page, elem_bytes):
+    """attention_launch_shape for this call: its units (the kernel's
+    query-head groups hold the power of two >= rep, at most ATTN_MAX_REP
+    heads) and the bytes of one K/V tile pair (rows padded by 16 bytes)."""
+    B, Hkv, rep, hd = q.shape
+    rep_block = min(ATTN_MAX_REP, 1 << (rep - 1).bit_length())
+    return attention_launch_shape(
+        block_tables.shape[1], page, B * Hkv * -(-rep // rep_block),
+        2 * ATTN_TILE * (hd * elem_bytes + 16), sm_count(q.device))
 
 
 def _check_options(window, cap):
@@ -66,6 +109,9 @@ def _check_launch(q, block_tables, ctx_lens, tensors):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
     if block_tables.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
         raise TypeError("block_tables and ctx_lens must be int32")
+    if not 1 <= block_tables.shape[1] <= MAX_TABLE:
+        raise ValueError(f"block tables of {block_tables.shape[1]} pages: "
+                         f"the kernel takes 1..{MAX_TABLE}")
     ts = (q, block_tables, ctx_lens, *tensors)
     if any(t.device != q.device for t in ts):
         raise ValueError("all operands must be on q's device")
@@ -100,6 +146,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
                 B, Hkv, rep, hd, page, block_tables.shape[1],
+                *_launch_shape(q, block_tables, page, q.element_size()),
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention")
@@ -139,7 +186,8 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
                         _QUANT_ARGS)
     status = fn(q.data_ptr(), *(t.data_ptr() for t in pool),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-                B, Hkv, rep, hd, page, block_tables.shape[1], bits, G,
+                B, Hkv, rep, hd, page, block_tables.shape[1],
+                *_launch_shape(q, block_tables, page, 4), bits, G,
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention_quant")

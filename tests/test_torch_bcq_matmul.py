@@ -348,7 +348,7 @@ def test_gemm_launch_shape_ignores_the_expert_count(monkeypatch):
 
     monkeypatch.setattr(tbm.build, "function", fake_function)
     monkeypatch.setattr(tbm, "_stream", lambda t: 0)
-    monkeypatch.setattr(tbm, "_sms", lambda dev: 132)
+    monkeypatch.setattr(tbm, "sm_count", lambda dev: 132)
 
     def cpu_launch_args(x, codes, alphas, betas, rows=None):
         """_launch_args without its device check (which wants a card)."""
@@ -373,8 +373,8 @@ def test_gemm_launch_shape_ignores_the_expert_count(monkeypatch):
     assert g1 == g8 == "bcq_gemm_launch" and v1 == v8 == "bcq_gemv_launch"
     # (tile, ntiles, splits) sit after the words-per-group argument
     assert a1[14:17] == a8[14:17] == tbm.gemm_launch_shape(16, 128, 512)
-    assert a8[7] != 0 and b8[6] == 0               # rows pointer, or null
-    assert b1[13] == b8[13]                        # the GEMV's split
+    assert a8[7] != 0 and b8[5] == 0               # rows pointer, or null
+    assert b1[12] == b8[12] == tbm.gemv_splits(128, 512)  # the GEMV's split
 
 
 def test_gemm_tile_constants_reach_the_kernel_from_hw():
@@ -391,3 +391,60 @@ def test_gemm_tile_constants_reach_the_kernel_from_hw():
         assert f"-D{macro}={value}" in tbm.build.NVCC_FLAGS
         assert f"= {macro};" in src
     assert tbm.GEMM_PAIRED_TILE is hw.GEMM_PAIRED_TILE
+
+
+# (K, N) of the GEMV on the main paths: llama2-7b's q/k/v/o, gate/up and
+# down projections; Qwen3-MoE's q, k/v, o and expert matrices; the CUDA
+# tests' ragged and grouped shapes
+GEMV_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 8192),
+               (4096, 512), (8192, 4096), (4096, 1536), (1536, 4096),
+               (11008, 260), (1536, 1030), (2048, 96), (256, 96), (32, 10)]
+
+
+@pytest.mark.parametrize("K,N", GEMV_SHAPES)
+def test_gemv_splits_cover_every_word_once(K, N):
+    """The GEMV's K split is one cluster of 1..GEMV_MAX_SPLITS blocks:
+    block r of the kernel takes words [r * wps, min(KW, (r + 1) * wps)),
+    wps = ceil(KW / splits); together they take every word exactly once,
+    none is empty, and each holds GEMV_MIN_WORDS_PER_SPLIT words unless
+    the matrix has too few for two splits."""
+    KW = K // 32
+    splits = tbm.gemv_splits(KW, N, sms=132)
+    assert 1 <= splits <= tbm.GEMV_MAX_SPLITS
+    wps = -(-KW // splits)
+    ranges = [range(r * wps, min(KW, (r + 1) * wps)) for r in range(splits)]
+    words = [w for r in ranges for w in r]
+    assert sorted(words) == list(range(KW)) and all(len(r) for r in ranges)
+    assert splits == 1 or wps >= tbm.GEMV_MIN_WORDS_PER_SPLIT
+
+
+def test_gemv_splits_fill_the_card_on_main_path_shapes():
+    """A function of (KW, N) and the SM count alone, with no expert
+    count; at llama2-7b's shapes the grid reaches every SM."""
+    assert list(inspect.signature(tbm.gemv_splits).parameters) == \
+        ["KW", "N", "sms"]
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        splits = tbm.gemv_splits(K // 32, N, sms=132)
+        assert -(-N // tbm.GEMV_COLS) * splits >= 132, (K, N, splits)
+
+
+def test_gemv_and_attention_constants_reach_the_kernels_from_hw():
+    """The GEMV's block shape and the attention's partition are written
+    once, in hw.py: the launch arithmetic reads them there and the build
+    hands them to nvcc, whose sources take them from those macros (and
+    fail to compile without them)."""
+    from repro_torch import hw
+    from repro_torch.kernels import paged_attention as tpa
+    gemv = (tbm.build.CSRC / "bcq_matmul.cu").read_text()
+    attn = (tbm.build.CSRC / "paged_attention.cu").read_text()
+    for src, macro, value in ((gemv, "BCQ_GEMV_COLS", hw.GEMV_COLS),
+                              (gemv, "BCQ_GEMV_WARPS", hw.GEMV_WARPS),
+                              (attn, "PA_TILE", hw.ATTN_TILE),
+                              (attn, "PA_MAX_CLUSTER", hw.ATTN_MAX_CLUSTER),
+                              (attn, "PA_MAX_REP", hw.ATTN_MAX_REP),
+                              (attn, "PA_MAX_STAGES", hw.ATTN_MAX_STAGES)):
+        assert f"-D{macro}={value}" in tbm.build.NVCC_FLAGS
+        assert f"= {macro};" in src and f"defined({macro})" in src
+    assert tbm.GEMV_COLS is hw.GEMV_COLS and tbm.GEMV_WARPS is hw.GEMV_WARPS
+    assert tpa.ATTN_TILE is hw.ATTN_TILE
+    assert tpa.ATTN_MAX_STAGES is hw.ATTN_MAX_STAGES

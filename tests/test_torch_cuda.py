@@ -136,6 +136,55 @@ def test_tensor_core_gemm_at_main_path_widths(cuda, M, k_in, N, x_dtype):
         assert err <= 2e-5 * float(want.abs().max()), err
 
 
+# the one-launch GEMV: (k_in, N, G, bits) at every row count 1..8 — K of
+# 11008 (groups of 4 words across split boundaries, N ragged for a block
+# but a multiple of 4) and of 1536 (N not a multiple of 4: scalar code
+# loads; groups of 3 words across split boundaries), 4-bit tables with
+# gs 128, the per-plane path at 6 bits with one group a word
+GEMV_CASES = [(11008, 260, 86, 3), (1536, 1030, 1, 2), (1536, 200, 16, 3),
+              (4096, 512, 32, 4), (2048, 96, 64, 6)]
+
+
+@pytest.mark.parametrize("k_in,N,G,bits", GEMV_CASES)
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gemv_every_row_count_bit_width_and_group(cuda, k_in, N, G, bits, M,
+                                                  scale_dtype, x_dtype):
+    x, qt = make_qt(M * 100 + k_in + N + bits, M, k_in, N, G, bits, bits,
+                    scale_dtype)
+    x = x.to(x_dtype)
+    want = ops.bcq_apply(x, qt)                       # plain, on the CPU
+    before = tbm.LAUNCHES["bcq_gemv"]
+    got = ops.bcq_apply(x.to(cuda), qt.to(cuda))
+    torch.cuda.synchronize()
+    assert tbm.LAUNCHES["bcq_gemv"] == before + 1
+    assert got.dtype == x_dtype and got.shape == (M, N)
+    close(got, want, bf16=x_dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("k_in,N,G", [(1536, 4096, 1), (4096, 1536, 32)])
+def test_expert_gemv_rows_at_every_row_count(cuda, M, k_in, N, G):
+    """The expert decode at every capacity 1..8 with rows holding 0,
+    some and all of an expert's rows: each expert bit-equal to the
+    single-matrix GEMV on it, exact zeros past its rows, and within the
+    fp32 tolerance of the plain version."""
+    E = 6
+    x, qt = make_expert_qt(M + k_in, E, M, k_in, N, G, 3, torch.bfloat16)
+    rows = torch.tensor([0, M, 1, M // 2, 0, max(M - 1, 0)],
+                        dtype=torch.int32)
+    want = tbm._bcq_expert_plain(x, qt.codes, qt.alphas, qt.betas, rows)
+    xd, qd, rd = x.to(cuda), qt.to(cuda), rows.to(cuda)
+    got = tbm.bcq_expert_matmul(xd, qd.codes, qd.alphas, qd.betas, rd)
+    torch.cuda.synchronize()
+    close(got, want)
+    for e, live in enumerate(rows.tolist()):
+        assert not got[e, live:].any(), f"expert {e}"
+        alone = tbm.bcq_gemv(xd[e], qd.codes[e], qd.alphas[e], qd.betas[e])
+        assert torch.equal(got[e, :live], alone[:live]), f"expert {e}"
+
+
 def test_bcq_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     x, qt = make_qt(0, 9, 256, 64, 1, 3, 3, torch.float32)
     x, qt = x.to(cuda), qt.to(cuda)
@@ -264,6 +313,13 @@ PAGED_CASES = [
     (64, [50, 80, 110, 131], 4, 16, 128, None, None, ()),  # Qwen3-MoE
     (16, [40, 23, 9], 2, 16, 256, 8, 30.0, ()),      # rep 16 over 2 blocks
     (16, [40, 23, 9], 1, 24, 64, None, None, (1,)),  # rep 24: 16 + 8
+    # contexts over several partitions a block (8 blocks a cluster, two
+    # K/V stages), ctx 1, windows that start mid-partition, rep 1, 2 and
+    # 16, cap, inactive rows on the null page
+    (16, [700, 1, 333], 2, 1, 128, None, None, ()),
+    (16, [700, 45, 333], 2, 2, 64, 301, None, ()),
+    (64, [1000, 1, 130], 4, 16, 128, 200, 30.0, (1,)),
+    (16, [257, 31, 64], 1, 1, 32, 40, 5.0, (1,)),
 ]
 
 

@@ -102,3 +102,60 @@ def test_rejects_bad_window_and_cap():
     q, kp, vp, bt, cl = make(0, 16, [5])
     with pytest.raises(ValueError, match="window"):
         tpa.paged_attention(*_torch(q, kp, vp, bt, cl), window=0)
+
+
+def kernel_partitions(rank, clusters, ctx_raw, window, capacity):
+    """The partitions block `rank` of a cluster visits, as the kernel
+    computes them: the live ones [t_lo, t_hi) of the context, taken
+    t_lo + rank, t_lo + rank + clusters, ..."""
+    ctx = min(ctx_raw, capacity)
+    j0 = max(0, ctx_raw - window) if window else 0
+    t_lo, t_hi = j0 // tpa.ATTN_TILE, -(-ctx // tpa.ATTN_TILE)
+    return list(range(t_lo + rank, t_hi, clusters))
+
+
+# (n_table, page, units, stage bytes): llama2-7b's and Qwen3-MoE's decode
+# (128 and 16 units, fp32 hd 128 tiles), short and long tables, hd 256
+LAUNCHES = [(3, 64, 128, 33792), (3, 64, 16, 33792), (1, 4, 6, 8704),
+            (2, 16, 6, 16896), (16, 64, 4, 33792), (63, 16, 2, 33792),
+            (5, 48, 3, 66560)]
+
+
+@pytest.mark.parametrize("n_table,page,units,stage_bytes", LAUNCHES)
+def test_partitions_cover_the_live_context_once(n_table, page, units,
+                                                stage_bytes):
+    """The cluster's blocks visit each partition that meets [j0, ctx)
+    exactly once, and none other, for every context length up to the
+    table's capacity and several windows. A block holds at most
+    ATTN_MAX_STAGES tile pairs within ATTN_STAGE_BUDGET, as many as the
+    busiest block can use; the clusters reach one block an SM unless the
+    partitions run out, and fewer would leave a block more partitions
+    than it can hold."""
+    clusters, stages = tpa.attention_launch_shape(n_table, page, units,
+                                                  stage_bytes, sms=132)
+    assert 1 <= clusters <= tpa.ATTN_MAX_CLUSTER
+    assert 1 <= stages <= tpa.ATTN_MAX_STAGES
+    assert stages == 1 or stages * stage_bytes <= tpa.ATTN_STAGE_BUDGET
+    cap = n_table * page
+    T = tpa.ATTN_TILE
+    parts = -(-cap // T)
+    most = 0
+    for ctx in range(0, cap + 3):
+        for window in (None, 1, 7, 31, 32, 45, 300):
+            seen = [t for r in range(clusters)
+                    for t in kernel_partitions(r, clusters, ctx, window, cap)]
+            lo = max(0, ctx - window) if window else 0
+            want = [t for t in range(parts)
+                    if t * T < min(ctx, cap) and t * T + T > lo]
+            assert sorted(seen) == want, (ctx, window)
+            most = max(most, max((len(kernel_partitions(
+                r, clusters, ctx, window, cap)) for r in range(clusters))))
+    assert stages <= most or most == 0
+    hold = max(1, min(tpa.ATTN_MAX_STAGES,
+                      tpa.ATTN_STAGE_BUDGET // stage_bytes))
+    assert stages == min(most, hold)
+    assert clusters * units >= 132 or clusters == min(parts,
+                                                      tpa.ATTN_MAX_CLUSTER)
+    if clusters > 1:
+        assert -(-parts // (clusters - 1)) > hold or \
+            (clusters - 1) * units < 132
