@@ -17,9 +17,13 @@ five phases; any failure is a non-zero exit.
      expert by expert, with and without the rows of a routing; paged
      attention over fp and 2/3/4-bit binary-coded pages at the
      llama2-7b (Hkv 32, rep 1) and Qwen3-MoE (Hkv 4, rep 16)
-     geometries, page 64, ragged contexts, window and cap), with times;
-     after the build, the GEMM must hold wgmma (HGMMA in its SASS) and
-     ptxas must report no spill in it.
+     geometries, page 64, ragged contexts, window and cap, and the
+     binary-coded reader over bits 1..8 x hd {32, 64, 128, 256} x G in
+     {1, 2, hd/32} and its edge layouts, with windows, caps, bf16 q and
+     contexts ending mid-partition), with times; after the build, the
+     GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
+     spill in it, and every binary-coded attention instance must copy
+     by cp.async (LDGSTS in its SASS).
   2. reference fixture: the committed artifacts (tests/data/torch_port/:
      tiny-lm w3, tiny-moe w3, and tiny-lm with 4-bit KV pages) served on
      the card through the launcher and the paged ServeEngine; logits and
@@ -170,15 +174,22 @@ def gemm_arithmetic(x_dtype) -> tuple:
     return ("tf32", 1) if x_dtype == torch.bfloat16 else ("tf32x3", 3)
 
 
-def sass_check(out: Path) -> None:
-    """The tensor-core GEMM was compiled to wgmma: HGMMA instructions in
-    every instance of its kernel in the built library (cuobjdump -sass),
-    and ptxas reports no spill in any of them."""
+def sass_functions(out: Path, lib: str) -> list:
+    """The SASS of every kernel instance in a built library (cuobjdump
+    -sass), each starting with its mangled name."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(out / "libbcq_matmul.so")],
+    sass = subprocess.run([str(tool), "-sass", str(out / f"lib{lib}.so")],
                           capture_output=True, text=True, timeout=300).stdout
-    funcs = sass.split("Function : ")[1:]
+    return sass.split("Function : ")[1:]
+
+
+def sass_check(out: Path) -> None:
+    """The tensor-core GEMM was compiled to wgmma: HGMMA instructions in
+    every instance of its kernel in the built library, and ptxas reports
+    no spill in any of them. Every instance of the binary-coded attention
+    reader copies its rows by cp.async: LDGSTS in each."""
+    funcs = sass_functions(out, "bcq_matmul")
     gemm = [f for f in funcs if "bcq_tc_gemm_kernel" in f.split("\n", 1)[0]]
     hgmma = [sum("HGMMA" in ln for ln in f.splitlines()) for f in gemm]
     gemm_spills, cur = [], ""
@@ -188,11 +199,24 @@ def sass_check(out: Path) -> None:
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and int(m.group(1)) and "bcq_tc_gemm_kernel" in cur:
             gemm_spills.append(re.search(r"kernelILi(\d+)", cur).group(1))
+    ldgsts = {}
+    for f in sass_functions(out, "paged_attention"):
+        name = f.split("\n", 1)[0]
+        if "QuantPages" in name:
+            m = re.search(r"QuantPagesILi(\d+)EE+Li(\d+)E", name)
+            key = (("bf16" if "bfloat16" in name else "f32")
+                   + (f"/hd{m.group(1)}/rep{m.group(2)}" if m else
+                      f"/{name.strip()[:60]}"))
+            ldgsts[key] = sum("LDGSTS" in ln for ln in f.splitlines())
     emit({"check": "sass", "gemm_instances": len(gemm),
           "hgmma_per_instance_min": min(hgmma) if hgmma else 0,
-          "token_tiles_with_spills": gemm_spills})
+          "token_tiles_with_spills": gemm_spills,
+          "quant_attention_instances": len(ldgsts),
+          "ldgsts_per_quant_instance": ldgsts})
     require(gemm and min(hgmma) > 0, "the GEMM kernel has no HGMMA")
     require(not gemm_spills, f"the GEMM kernel spills: {gemm_spills}")
+    require(ldgsts and min(ldgsts.values()) > 0,
+            f"a binary-coded attention instance has no LDGSTS: {ldgsts}")
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +256,26 @@ GEMM_SHAPES = ((16, 4096, 11008), (64, 4096, 11008), (16, 4096, 512),
 # (Hkv, rep, hd) of the binary-coded decode: llama2-7b, Qwen3-MoE
 QUANT_GEOMS = ((32, 1, 128), (4, 16, 128))
 PAGED_CTX = [50, 80, 110, 131]
+# (bits, hd, G) of the binary-coded reader's grid: every bits 1..8 at each
+# head dim with one scale group, two, and groups of 32 entries; then
+# layouts that take its other paths: groups narrower than the 32-entry
+# runs it expands (16, 4 entries: scales read per entry), a scale row of
+# exactly ATTN_QUANT_SCALES_MAX bytes, and scale rows too wide to stage
+# (read from the pool)
+QUANT_GRID = tuple((bits, hd, G) for hd in (32, 64, 128, 256)
+                   for bits in range(1, 9) for G in sorted({1, 2, hd // 32}))
+QUANT_EDGES = ((5, 128, 8), (2, 32, 8), (7, 256, 16), (3, 64, 64),
+               (8, 256, 256))
+# (contexts, Hkv, rep, page, window, cap, q dtype) the grid cycles through:
+# contexts that end mid-partition, ctx 1, windows that start mid-partition,
+# caps, GQA widths 1-16, bf16 q
+QUANT_VARIANTS = (
+    ([45, 1, 77], 4, 1, 16, None, None, "float32"),
+    ([131, 33], 2, 4, 64, 40, 30.0, "bfloat16"),
+    ([100, 250], 2, 16, 16, None, 5.0, "float32"),
+    ([70, 95, 3], 3, 2, 32, 50, None, "bfloat16"),
+)
+BF16_ULP = 2.0 ** -8   # bf16 rounding of an output: half an ulp, relative
 
 
 def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS):
@@ -457,6 +501,24 @@ def quant_pages(kp, vp, bits, gs):
     return (*kv_quantize(kp, bits, gs), *kv_quantize(vp, bits, gs))
 
 
+def random_quant_pages(gen, like, bits, G):
+    """Binary-coded K/V pools (quant/kv.py layout) of random code words
+    and scales, shaped as the fp pool `like`: every sign pattern, alphas
+    in [0.1, 1.1) / sqrt(bits), small betas."""
+    import torch
+    P, page, Hkv, hd = like.shape
+    out = []
+    for _ in range(2):
+        out += [torch.randint(-2 ** 31, 2 ** 31,
+                              (P, page, Hkv, bits, hd // 32),
+                              dtype=torch.int32, generator=gen, device=DEV),
+                (0.1 + torch.rand((P, page, Hkv, G, bits), generator=gen,
+                                  device=DEV)) / bits ** 0.5,
+                0.1 * torch.randn((P, page, Hkv, G), generator=gen,
+                                  device=DEV)]
+    return tuple(out)
+
+
 
 
 def check_paged_quant(gen, geoms=QUANT_GEOMS, page=64, ctx=PAGED_CTX):
@@ -496,11 +558,57 @@ def check_paged_quant(gen, geoms=QUANT_GEOMS, page=64, ctx=PAGED_CTX):
     return worst
 
 
+def check_paged_quant_grid(seed, cases=QUANT_GRID + QUANT_EDGES):
+    """paged_attention_quant against its plain version over the reader's
+    (bits, hd, G) grid, each case on the next of QUANT_VARIANTS, on random
+    pools (kv_quantize yields NaN alphas for some vectors at many bits a
+    32-entry group, the reference's as well), drawn from a generator of
+    their own (so the later phase-1 lines get the inputs they would get
+    without these checks). fp32 q: within TOL_FP32 x max|out|; bf16 q:
+    the bf16 output within half a bf16 ulp of the plain fp32 output plus
+    TOL_FP32 x max|out| (both compute in fp32 from the same bf16 q, then
+    the kernel rounds)."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention_quant
+    from repro_torch.kernels.ref import paged_attention_quant_ref
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    worst = 0.0
+    for i, (bits, hd, G) in enumerate(cases):
+        ctx, Hkv, rep, page, window, cap, dt = \
+            QUANT_VARIANTS[i % len(QUANT_VARIANTS)]
+        q, kp, vp, bt, cl = paged_case(gen, len(ctx), Hkv, rep, hd, page,
+                                       ctx, torch.float32)
+        pool = random_quant_pages(gen, kp, bits, G)
+        q = q.to(getattr(torch, dt))
+        y = paged_attention_quant(q, *pool, bt, cl, window=window, cap=cap)
+        ref = paged_attention_quant_ref(q.float(), *pool, bt, cl,
+                                        window=window, cap=cap)
+        sync()
+        diff = (y.float() - ref).abs()
+        if dt == "bfloat16":
+            diff = (diff - BF16_ULP * ref.abs()).clamp_min(0)
+        rel = float(diff.max()) / float(ref.abs().max())
+        emit({"check": "paged_attention_quant_grid", "bits": bits, "hd": hd,
+              "G": G, "ctx": ctx, "Hkv": Hkv, "rep": rep, "page": page,
+              "window": window, "cap": cap, "q_dtype": dt,
+              "max_abs_err": float((y.float() - ref).abs().max()),
+              "rel_err": rel, "tol": TOL_FP32,
+              **({"plus": "bf16 rounding"} if dt == "bfloat16" else {})})
+        require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                f"paged_attention_quant bits={bits} hd={hd} G={G} "
+                f"{dt} window={window} cap={cap}: rel err {rel:.3g}")
+        worst = max(worst, rel)
+    return worst
+
+
 def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
                           ctx=PAGED_CTX):
     """The kernel's line at the phase-4 decode shape: time, bound, plain,
-    and the library yardstick: SDPA on K/V gathered and expanded to fp32
-    before the call (it gets its operand already expanded)."""
+    and two library yardsticks: SDPA on K/V gathered and expanded to fp32
+    before the call (it gets its operand already expanded), and the whole
+    PyTorch equivalent timed as one call (gather the binary-coded rows,
+    kv_dequantize, SDPA)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention_quant
@@ -510,6 +618,7 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
     q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
                                    torch.float32)
     pool = quant_pages(kp, vp, bits, 0)
+    G = pool[2].shape[-1]
     y = paged_attention_quant(q, *pool, bt, cl)
     ref = paged_attention_quant_ref(q, *pool, bt, cl)
     err = float((y - ref).abs().max())
@@ -526,17 +635,30 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
     qs = q.reshape(B, Hkv * rep, 1, hd)
     lib_ms = best_ms(kernel_ms(lambda: F.scaled_dot_product_attention(
         qs, k, v, attn_mask=mask, enable_gqa=True), 200))
+    btl = bt.long()
+
+    def whole():
+        kf = kv_dequantize(*(t[btl] for t in pool[:3])).reshape(
+            B, T * page, Hkv, hd).transpose(1, 2)
+        vf = kv_dequantize(*(t[btl] for t in pool[3:])).reshape(
+            B, T * page, Hkv, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask,
+                                              enable_gqa=True)
+    full = kernel_ms(whole, 50)
     tokens = sum(ctx)
-    n_bytes = (2 * tokens * Hkv * kv_bytes_per_token_head(hd, bits)
+    n_bytes = (2 * tokens * Hkv * kv_bytes_per_token_head(hd, bits, hd // G)
                + 2 * q.numel() * 4 + bt.numel() * 4 + cl.numel() * 4)
     b, by = bound_ms(n_bytes, 4.0 * tokens * Hkv * rep * hd)
     return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
             "library_gets": "K/V gathered and expanded to fp32 beforehand",
+            "library_full_ms": best_ms(full),
+            "library_full_event_ms": full["event_ms"],
+            "library_full_is": "gather, kv_dequantize, SDPA in one call",
             "event_ms": t["event_ms"],
             "timing": "profiler" if t["device_ms"] else "cuda_events",
             "shape": f"B={B} Hkv={Hkv} rep={rep} hd={hd} page={page} "
-                     f"ctx={ctx} {bits}-bit G=1, fp32 q"}
+                     f"ctx={ctx} {bits}-bit G={G}, fp32 q"}
 
 
 # the Qwen3-MoE expert matrices: wg/wu (4096 x 1536) and wd (1536 x 4096)
@@ -1471,7 +1593,8 @@ def main(argv=None) -> int:
             worst["bcq_gemv"] = max(worst["bcq_gemv"], worst_q["bcq_gemv"])
             n_checks["bcq_gemv"] += n_q["bcq_gemv"]
             worst["paged_attention"] = check_paged(gen)
-            worst["paged_attention_quant"] = check_paged_quant(gen)
+            worst["paged_attention_quant"] = max(
+                check_paged_quant(gen), check_paged_quant_grid(args.seed))
             worst["bcq_expert_matmul"], n_exact = check_expert(gen)
             summaries = {
                 "bcq_gemv": summarize_bcq(gen, "bcq_gemv", 4, 4096, 11008),

@@ -25,27 +25,45 @@
 // (bits + 1)) bytes binary-coded), ~4 * rep * hd flops a token: a few MB a
 // call at most, microseconds of bandwidth, so what costs is how many SMs
 // work at once and how long each one's chain of dependent steps is (the
-// table row, the K/V tiles, the compute, the cluster's merge). The
+// table row, the K/V rows, the compute, the cluster's merge). The
 // design (flash-decoding):
 // * The context splits into partitions of kTile tokens. A thread-block
 //   cluster of `clusters` blocks (at most 8) serves one (sequence, KV head,
 //   group of up to kMaxRep query heads); block p takes partitions t_lo + p,
 //   t_lo + p + clusters, ... of the live ones [t_lo, t_hi). The wrapper
 //   sizes the cluster so that B * Hkv * head groups * clusters blocks reach
-//   every SM with each block's partitions in flight at once (`stages` K/V
-//   tile pairs): 2 blocks of 3 stages at llama2-7b's batch 4 (256 blocks),
-//   6 of 1 at Qwen3-MoE's 4 KV heads (96 blocks, where one block a head
-//   gave 16). A partition wholly outside [max(0, ctx - window), ctx) is
-//   not visited; pages at or past ctx are never touched.
+//   every SM with each block's partitions in flight at once (`stages`
+//   staged partitions, from the bytes one stage holds): 2 blocks of 3
+//   stages at llama2-7b's batch 4 (256 blocks), 6 of 1 at Qwen3-MoE's 4 KV
+//   heads (96 blocks, where one block a head gave 16). A partition wholly
+//   outside [max(0, ctx - window), ctx) is not visited; pages at or past
+//   ctx are never touched.
 // * Each block keeps one online-softmax state (max, denominator,
 //   accumulator) per query head; the cluster's blocks merge theirs through
 //   distributed shared memory in rank order (deterministic), each rank
 //   storing its share of the outputs: one launch, no scratch.
 // * The block reads its block-table row once into shared memory, then
-//   its partitions' K and V rows with 16-byte cp.async copies (fp pages),
-//   up to `stages` partitions in flight, each refilled once computed.
-//   Binary-coded pages are expanded into the same fp32 tile by the page
-//   reader `QuantPages` (its scalar loads are not redesigned here).
+//   copies its partitions' K and V rows into a ring of `stages` slots by
+//   cp.async, all `stages` partitions' copies in flight at once, each slot
+//   refilled once its partition no longer needs it. A page reader fills
+//   the slot and says what the compute reads:
+//   - `FpPages`: the K and V tiles themselves (16-byte copies); a slot is
+//     free once its partition is computed.
+//   - `QuantPages`: the raw binary-coded rows, three pieces a (token, head)
+//     and side: code words, alphas and betas, each row in its own
+//     shared-memory stride, copied 16, 8 or 4 bytes at a time (the widest
+//     the piece's size and the pool's address allow; the host works out
+//     each piece's width and count, so the card divides nothing). After
+//     the wait the block expands the slot into one fp32 K/V tile pair (a
+//     warp a run of up to 32 entries of one side, a lane a token; each
+//     row's scales read once, each entry beta + sum_i +-alpha_i in plane
+//     order as `_expand_page` forms it, plane 0 a choice of beta +-
+//     alpha_0), and the slot takes its next partition at once, so the
+//     copies stay in flight through the compute. A stage is a few KB
+//     (7,168 bytes at hd 128, 4-bit, G=1, against the 33,792 of the fp32
+//     tile pair). Scale rows wider than PA_QUANT_SCALES_MAX bytes (groups
+//     of a few entries at many bits) are not staged: the expansion reads
+//     them from the pool.
 // * One softmax rescale per partition, not per token: the scores of a
 //   partition are a (heads x hd) . (hd x kTile) product (a lane a token,
 //   the 8 warps over heads or parts of hd), the softmax a warp a head, and
@@ -66,7 +84,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 #if !defined(PA_TILE) || !defined(PA_MAX_CLUSTER) || !defined(PA_MAX_REP) || \
-    !defined(PA_MAX_STAGES)
+    !defined(PA_MAX_STAGES) || !defined(PA_QUANT_SCALES_MAX)
 #error "build with src/repro_torch/kernels/build.py (it passes hw.py's ATTN_* constants)"
 #endif
 constexpr int kTile = PA_TILE;  // tokens a partition
@@ -75,7 +93,9 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRep = PA_MAX_REP;          // query heads a block at most
 constexpr int kMaxCluster = PA_MAX_CLUSTER;  // at most the portable 8
-constexpr int kMaxStages = PA_MAX_STAGES;    // K/V tile pairs a block holds
+constexpr int kMaxStages = PA_MAX_STAGES;    // partitions a block stages
+// bytes of a binary-coded row's alphas and betas staged at most
+constexpr int kQuantScalesMax = PA_QUANT_SCALES_MAX;
 static_assert(kMaxRep == 16 && kMaxCluster <= 8 && kMaxStages == 4,
               "launch_pages buckets heads up to 16; the waits count to 3");
 constexpr int kMaxBits = 8;
@@ -129,6 +149,24 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes)
                : "memory");
 }
+// 16, 8 or 4 bytes (n, the same for the whole block) global -> shared; ok
+// false zero-fills the destination and reads nothing.
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src, int n,
+                                           bool ok) {
+  const uint32_t d = smem_u32(dst);
+  if (n == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else if (n == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -156,10 +194,14 @@ struct PartitionRows {
                                            int Hkv_, int h_)
       : t0(t0_), j0(j0_), ctx(ctx_), q0(t0_ / page_), r0(t0_ % page_),
         page(page_), Hkv(Hkv_), h(h_), bt_s(bt) {}
-  // token t0 + j's pool row, or -1 when it lies outside [j0, ctx)
-  __device__ __forceinline__ long long row(int j) const {
+  // whether token t0 + j lies in [j0, ctx)
+  __device__ __forceinline__ bool live(int j) const {
     const int tok = t0 + j;
-    if (tok < j0 || tok >= ctx) return -1;
+    return tok >= j0 && tok < ctx;
+  }
+  // token t0 + j's pool row, or -1 when it is not live
+  __device__ __forceinline__ long long row(int j) const {
+    if (!live(j)) return -1;
     int e = q0, r = r0 + j;
     if (page >= kTile) {
       if (r >= page) {
@@ -174,19 +216,26 @@ struct PartitionRows {
   }
 };
 
-// fp pages: a partition's K and V rows copied into the tile by 16-byte
-// cp.async (tokens outside the window zero-filled, nothing read).
+// fp pages: a partition's K and V rows copied into the slot's tile pair
+// by 16-byte cp.async (tokens outside the window zero-filled, nothing
+// read); the compute reads the slot itself.
 template <typename T, int HD>
 struct FpPages {
   using Elem = T;
   static constexpr int kHd = HD;
+  static constexpr bool kExpands = false;
   const T* k;
   const T* v;
-  __device__ __forceinline__ void stage(T* sk, T* sv,
+  __host__ __device__ int stage_bytes() const {
+    return 2 * kTile * tile_row<T, HD>() * (int)sizeof(T);
+  }
+  __device__ __forceinline__ void stage(uint8_t* slot,
                                         const PartitionRows& rows) const {
     constexpr int kVec = 16 / sizeof(T);   // elements a copy
     constexpr int kCh = HD / kVec;         // copies a row
     constexpr int kRow = tile_row<T, HD>();
+    T* sk = reinterpret_cast<T*>(slot);
+    T* sv = sk + kTile * kRow;
     for (int i = threadIdx.x; i < 2 * kTile * kCh; i += kThreads) {
       const int side = i / (kTile * kCh), j = (i / kCh) % kTile,
                 c = i % kCh;
@@ -198,79 +247,134 @@ struct FpPages {
   }
 };
 
-// Binary-coded pages: a lane-slot's EPL entries of row `row` expanded in
-// registers, then stored into the fp32 tile.
+// Shared-memory stride of a staged piece of `bytes` a row: whole 16-byte
+// units (cp.async's alignment), an odd number of them, so that 32 rows'
+// words fall at most 4 to a bank.
+__host__ __device__ constexpr int staged_row(int bytes) {
+  return ((bytes + 15) / 16 + ((bytes + 15) / 16 + 1) % 2) * 16;
+}
+
+// Binary-coded pages. A slot holds, for K then V, the partition's 32 code
+// rows, alpha rows and beta rows (strides cs, as, bs); `stage` copies them
+// by cp.async, a lane a token, the warps over the rows' chunks. `expand`
+// turns a slot into the fp32 tile pair the compute reads.
 template <int HD>
 struct QuantPages {
   using Elem = float;
   static constexpr int kHd = HD;
-  static constexpr int EPL = HD / 32;
+  static constexpr bool kExpands = true;
+  static constexpr int EPL = HD / 32;                   // words a plane
+  static constexpr int EU = HD / 4 < 32 ? HD / 4 : 32;  // entries a unit
+  static constexpr int kChunks = HD / EU;               // units a side
   const uint32_t *kc, *vc;
   const float *ka, *kb, *va, *vb;
   int bits, G;
+  int cs, as, bs;  // staged strides (bytes); as = bs = 0: scales unstaged
+  int cw, aw, bw;  // bytes of one copy of codes, alphas, betas
+  int cn, an, bn;  // copies of a row's codes, alphas, betas (0: unstaged)
 
-  __device__ __forceinline__ void expand(const uint32_t* codes,
-                                         const float* alphas,
-                                         const float* betas, long long row,
-                                         int lane, float (&out)[EPL]) const {
-    const int first = lane * EPL;         // first entry of the lane
-    const int shift = first & 31;         // its bit in the word
-    const int gs = (EPL * 32) / G;        // entries per scale group
-    const uint32_t* cw = codes + row * bits * EPL + (first >> 5);
-    uint32_t w[kMaxBits];
+  __host__ __device__ int side_bytes() const { return kTile * (cs + as + bs); }
+  __host__ __device__ int stage_bytes() const { return 2 * side_bytes(); }
+
+  __device__ __forceinline__ void stage(uint8_t* slot,
+                                        const PartitionRows& rows) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row = rows.row(lane);
+    const bool ok = row >= 0;
+    const long long r = ok ? row : 0;
+    const int stride[3] = {cs, as, bs};
+    const int width[3] = {cw, aw, bw};
+    const int count[3] = {cn, an, bn};
+    const int at[3] = {0, kTile * cs, kTile * (cs + as)};  // in a side
+    int t = warp;  // this warp's next copy, counted over the six pieces
 #pragma unroll
-    for (int i = 0; i < kMaxBits; ++i) w[i] = i < bits ? cw[i * EPL] : 0u;
-    float a[kMaxBits];
-    float beta = 0.f;
-    int g_loaded = -1;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      const int g = (first + e) / gs;
-      if (g != g_loaded) {
-        const float* ag = alphas + (row * G + g) * bits;
-#pragma unroll
-        for (int i = 0; i < kMaxBits; ++i) a[i] = i < bits ? ag[i] : 0.f;
-        beta = betas[row * G + g];
-        g_loaded = g;
-      }
-      float x = beta;
-#pragma unroll
-      for (int i = 0; i < kMaxBits; ++i)
-        if (i < bits) x += ((w[i] >> (shift + e)) & 1u) ? a[i] : -a[i];
-      out[e] = x;
+    for (int s = 0; s < 6; ++s) {
+      const int side = s / 3, p = s % 3, n = count[p];
+      const void* pool = p == 0   ? (const void*)(side ? vc : kc)
+                         : p == 1 ? (const void*)(side ? va : ka)
+                                  : (const void*)(side ? vb : kb);
+      const uint8_t* src =
+          static_cast<const uint8_t*>(pool) + r * (n * width[p]);
+      uint8_t* dst = slot + side * side_bytes() + at[p] + lane * stride[p];
+      for (; t < n; t += kWarps)
+        cp_async_n(dst + t * width[p], src + t * width[p], width[p], ok);
+      t -= n;
     }
   }
 
-  __device__ __forceinline__ void stage(float* sk, float* sv,
-                                        const PartitionRows& rows) const {
+  // Warp-units (side, run of EU entries) over the slot, a lane a token:
+  // the run's words of each plane and its group's scales read once, each
+  // entry beta + sum_i +-alpha_i in plane order, stored as float4s. A
+  // token outside the window expands to 0: its staged rows are zeros.
+  __device__ __forceinline__ void expand(const uint8_t* slot, float* tk,
+                                         float* tv,
+                                         const PartitionRows& rows) const {
     constexpr int kRow = tile_row<float, HD>();
-    // unrolled so that two slots' loads are in flight at once
-#pragma unroll 2
-    for (int n = 0; n < 2 * kTile * 32 / kThreads; ++n) {
-      const int i = threadIdx.x + n * kThreads;
-      const int side = i / (kTile * 32), j = (i / 32) % kTile, slot = i % 32;
-      const long long row = rows.row(j);
-      float e[EPL];
-      if (row < 0) {
-#pragma unroll
-        for (int t = 0; t < EPL; ++t) e[t] = 0.f;
-      } else if (side) {
-        expand(vc, va, vb, row, slot, e);
-      } else {
-        expand(kc, ka, kb, row, slot, e);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const bool live = rows.live(lane);
+    const int sh = __ffs(HD / G) - 1;  // log2 of the group size
+    for (int u = warp; u < 2 * kChunks; u += kWarps) {
+      const int side = u / kChunks, first = (u % kChunks) * EU;
+      const uint8_t* base = slot + side * side_bytes();
+      const uint32_t* code =
+          reinterpret_cast<const uint32_t*>(base + lane * cs) + (first >> 5);
+      const float *al, *be;
+      if (as) {
+        al = reinterpret_cast<const float*>(base + kTile * cs + lane * as);
+        be = reinterpret_cast<const float*>(base + kTile * (cs + as) +
+                                            lane * bs);
+      } else {  // scale rows too wide to stage: read from the pool
+        const long long r = live ? rows.row(lane) : 0;
+        al = (side ? va : ka) + r * G * bits;
+        be = (side ? vb : kb) + r * G;
       }
-      float* dst = (side ? sv : sk) + j * kRow + slot * EPL;
+      float x[EU];
+      if ((first >> sh) == ((first + EU - 1) >> sh)) {  // one scale group
+        const int g = first >> sh;
+        // plane 0 picks beta + alpha_0 or beta - alpha_0, the sum the
+        // entry forms first
+        const float b = be[g], a0 = al[g * bits];
+        const float bp = b + a0, bm = b + -a0;
+        const uint32_t w0 = code[0] >> (first & 31);
 #pragma unroll
-      for (int t = 0; t < EPL; ++t) dst[t] = e[t];
+        for (int e = 0; e < EU; ++e) x[e] = ((w0 >> e) & 1u) ? bp : bm;
+        for (int i = 1; i < bits; ++i) {
+          const uint32_t w = code[i * EPL] >> (first & 31);
+          const float a = al[g * bits + i];
+#pragma unroll
+          for (int e = 0; e < EU; ++e) x[e] += ((w >> e) & 1u) ? a : -a;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < EU; ++e) x[e] = be[(first + e) >> sh];
+        for (int i = 0; i < bits; ++i) {
+          const uint32_t w = code[i * EPL] >> (first & 31);
+#pragma unroll
+          for (int e = 0; e < EU; ++e) {
+            const float a = al[((first + e) >> sh) * bits + i];
+            x[e] += ((w >> e) & 1u) ? a : -a;
+          }
+        }
+      }
+      if (!as && !live) {  // the pool's row 0 was read in its place
+#pragma unroll
+        for (int e = 0; e < EU; ++e) x[e] = 0.f;
+      }
+      float* dst = (side ? tv : tk) + lane * kRow + first;
+#pragma unroll
+      for (int e = 0; e < EU; e += 4)
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
     }
   }
 };
 
 // Shared memory of one block (floats unless said): the block-table row
-// (n_table ints), `stages` K/V tile pairs, q (REP x HD), the score
-// parts (DP x REP x kTile), P ([kTile][REP]), the running max, denominator
-// and correction (REP each, in 4 REP floats to keep 16-byte alignment), and
-// the state the cluster reads (REP x HD).
+// (n_table ints), the ring of `stages` slots (the page reader's
+// stage_bytes each), binary-coded pages' expanded K/V tile pair, q (REP x
+// HD), the score parts (DP x REP x kTile), P ([kTile][REP]), the running
+// max, denominator and correction (REP each, in 4 REP floats to keep
+// 16-byte alignment), and the state the cluster reads (REP x HD).
 template <typename Elem, int HD, int REP>
 struct PaCfg {
   static constexpr int kRow = tile_row<Elem, HD>();
@@ -294,9 +398,9 @@ struct PaCfg {
                 "the merge reuses the score parts for the ranks' states");
   static constexpr int kFloats =
       REP * HD + DP * REP * kTile + kTile * REP + 4 * REP + REP * HD;
-  static int bytes(int n_table, int stages) {
-    return ((n_table * 4 + 15) / 16) * 16 + stages * 2 * kTileBytes +
-           4 * kFloats;
+  static int bytes(int n_table, int stages, int stage_bytes, bool expands) {
+    return ((n_table * 4 + 15) / 16) * 16 + stages * stage_bytes +
+           (expands ? 2 * kTileBytes : 0) + 4 * kFloats;
   }
 };
 
@@ -333,10 +437,11 @@ __global__ void __launch_bounds__(kThreads)
 
   extern __shared__ float4 pa_smem4[];
   int* bt_s = reinterpret_cast<int*>(pa_smem4);
-  Elem* tiles = reinterpret_cast<Elem*>(
-      reinterpret_cast<uint8_t*>(pa_smem4) + ((n_table * 4 + 15) / 16) * 16);
-  float* q_s = reinterpret_cast<float*>(
-      reinterpret_cast<uint8_t*>(tiles) + stages * 2 * C::kTileBytes);
+  const int sb = pages.stage_bytes();
+  uint8_t* ring =
+      reinterpret_cast<uint8_t*>(pa_smem4) + ((n_table * 4 + 15) / 16) * 16;
+  float* xt = reinterpret_cast<float*>(ring + stages * sb);  // expanded K/V
+  float* q_s = xt + (Pages::kExpands ? 2 * kTile * C::kRow : 0);
   float* s_part = q_s + REP * HD;
   float* p_s = s_part + C::DP * REP * kTile;
   float* m_s = p_s + kTile * REP;
@@ -358,9 +463,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   auto issue = [&](int it) {
-    Elem* sk = reinterpret_cast<Elem*>(reinterpret_cast<uint8_t*>(tiles) +
-                                       (it % stages) * 2 * C::kTileBytes);
-    pages.stage(sk, sk + kTile * C::kRow,
+    pages.stage(ring + (it % stages) * sb,
                 PartitionRows((first + it * NP) * kTile, j0, ctx, bt_s, page,
                               Hkv, h));
     cp_async_commit();
@@ -376,7 +479,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   // the first `stages` partitions' loads all in flight at once; partition
-  // it + stages refills the pair of partition it once that is done
+  // it + stages refills the slot of partition it once that is free
   for (int it = 0; it < min(stages, ntiles); ++it) issue(it);
   for (int it = 0; it < ntiles; ++it) {
     switch (min(stages, ntiles - it) - 1) {  // newer loads that may pend
@@ -386,11 +489,18 @@ __global__ void __launch_bounds__(kThreads)
       default: cp_async_wait<3>(); break;
     }
     __syncthreads();
-    const Elem* sk = reinterpret_cast<const Elem*>(
-        reinterpret_cast<const uint8_t*>(tiles) +
-        (it % stages) * 2 * C::kTileBytes);
-    const Elem* sv = sk + kTile * C::kRow;
+    const uint8_t* slot = ring + (it % stages) * sb;
     const int t0 = (first + it * NP) * kTile;
+    const Elem* sk = reinterpret_cast<const Elem*>(slot);
+    if constexpr (Pages::kExpands) {
+      pages.expand(slot, xt, xt + kTile * C::kRow,
+                   PartitionRows(t0, j0, ctx, bt_s, page, Hkv, h));
+      __syncthreads();
+      // the raw rows are expanded: their slot takes partition it + stages
+      if (it + stages < ntiles) issue(it + stages);
+      sk = xt;
+    }
+    const Elem* sv = sk + kTile * C::kRow;
 
     {  // scores: lane = token, warp = (row group, hd part)
       const int grp = warp % C::NRG, dp = warp / C::NRG;
@@ -462,13 +572,16 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    __syncthreads();  // the pair is free for partition it + stages
-    if (it + stages < ntiles) issue(it + stages);
+    __syncthreads();  // fp: the slot is free for partition it + stages
+    if constexpr (!Pages::kExpands)
+      if (it + stages < ntiles) issue(it + stages);
   }
 
   // the block's state: the token groups' accumulators added in group order
-  // (through the free tiles), then the cluster's merge in rank order
-  float* dst = C::JG == 1 ? acc_s : reinterpret_cast<float*>(tiles);
+  // (through the free tile pair), then the cluster's merge in rank order
+  float* dst = C::JG == 1           ? acc_s
+               : Pages::kExpands ? xt
+                                 : reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int i = 0; i < C::RT; ++i)
     *reinterpret_cast<float4*>(dst + ((jg * REP) + rg * C::RT + i) * HD +
@@ -541,8 +654,8 @@ template <typename TQ, typename Pages, int REP>
 cudaError_t launch_rep(const TQ* q, const Pages& pages, const int* bt,
                        const int* ctx, TQ* out, const Geometry& g,
                        cudaStream_t st) {
-  const int smem =
-      PaCfg<typename Pages::Elem, Pages::kHd, REP>::bytes(g.n_table, g.stages);
+  const int smem = PaCfg<typename Pages::Elem, Pages::kHd, REP>::bytes(
+      g.n_table, g.stages, pages.stage_bytes(), Pages::kExpands);
   auto kern = paged_attention_kernel<TQ, Pages, REP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -603,16 +716,42 @@ cudaError_t launch_fp(int hd, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// Bytes of one cp.async copy of a piece of `bytes` a row in the pools at a
+// and b: 16, 8 or 4, the widest that divides the size and both addresses.
+int copy_width(int bytes, const void* a, const void* b) {
+  const uintptr_t m = reinterpret_cast<uintptr_t>(a) |
+                      reinterpret_cast<uintptr_t>(b) | (uintptr_t)bytes;
+  return m % 16 == 0 ? 16 : m % 8 == 0 ? 8 : 4;
+}
+
+// The reader of binary-coded pools and its stage layout (staged_row
+// strides; scales staged when a row's alphas and betas take at most
+// kQuantScalesMax bytes).
 template <int HD>
 QuantPages<HD> quant_pages(const void* kc, const void* ka, const void* kb,
                            const void* vc, const void* va, const void* vb,
                            int bits, int G) {
+  const int cb = bits * HD / 8, ab = 4 * G * bits, bb = 4 * G;
+  const bool scales = ab + bb <= kQuantScalesMax;
+  const int cw = copy_width(cb, kc, vc), aw = copy_width(ab, ka, va),
+            bw = copy_width(bb, kb, vb);
   return QuantPages<HD>{static_cast<const uint32_t*>(kc),
                         static_cast<const uint32_t*>(vc),
                         static_cast<const float*>(ka),
                         static_cast<const float*>(kb),
                         static_cast<const float*>(va),
-                        static_cast<const float*>(vb), bits, G};
+                        static_cast<const float*>(vb),
+                        bits,
+                        G,
+                        staged_row(cb),
+                        scales ? staged_row(ab) : 0,
+                        scales ? staged_row(bb) : 0,
+                        cw,
+                        aw,
+                        bw,
+                        cb / cw,
+                        scales ? ab / aw : 0,
+                        scales ? bb / bw : 0};
 }
 
 template <typename TQ>
@@ -645,8 +784,8 @@ bool geometry_ok(const Geometry& g) {
 // Plain C entry points (loaded with ctypes); the Python wrappers check
 // shapes, dtypes, hd in {32, 64, 128, 256} and (binary-coded) bits <= 8
 // and G dividing hd, and choose `clusters` (blocks splitting a context,
-// 1..8) and `stages` (K/V tile pairs a block holds, 1..4: the partitions
-// whose loads are in flight at once). window <= 0 and cap <= 0 mean "none". Each
+// 1..8) and `stages` (partitions a block stages, 1..4: those whose loads
+// are in flight at once). window <= 0 and cap <= 0 mean "none". Each
 // returns the launch's error or cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,

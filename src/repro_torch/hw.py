@@ -31,6 +31,10 @@ follows.
               several blocks).
   ATTN_MAX_STAGES  most partitions whose K/V a block holds (and loads)
               at once.
+  ATTN_QUANT_SCALES_MAX  most bytes of one binary-coded row's alphas and
+              betas that the quant reader stages in shared memory; wider
+              scale rows (groups of a few entries at many bits) are read
+              from the pool during the expansion.
 
 The GEMM_*, GEMV_COLS, GEMV_WARPS and ATTN_* constants are the kernels'
 own: the build passes them to nvcc (kernels/build.py), and the launch
@@ -54,6 +58,7 @@ ATTN_TILE = 32
 ATTN_MAX_CLUSTER = 8
 ATTN_MAX_REP = 16
 ATTN_MAX_STAGES = 4
+ATTN_QUANT_SCALES_MAX = 512
 
 
 H100_SMS = 132

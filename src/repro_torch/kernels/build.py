@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               f"-DPA_TILE={hw.ATTN_TILE}",
               f"-DPA_MAX_CLUSTER={hw.ATTN_MAX_CLUSTER}",
               f"-DPA_MAX_REP={hw.ATTN_MAX_REP}",
-              f"-DPA_MAX_STAGES={hw.ATTN_MAX_STAGES}")
+              f"-DPA_MAX_STAGES={hw.ATTN_MAX_STAGES}",
+              f"-DPA_QUANT_SCALES_MAX={hw.ATTN_QUANT_SCALES_MAX}")
 
 _LIBS: dict = {}
 _FUNCS: dict = {}

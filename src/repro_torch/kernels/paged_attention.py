@@ -16,9 +16,17 @@ expands them inside the kernel. Any GQA width rep is taken.
 The kernels split each context into partitions of ATTN_TILE tokens
 over the blocks of a thread-block cluster, which merge their softmax
 states in rank order through distributed shared memory: one launch per
-call, no scratch. `attention_launch_shape` sizes the cluster and each
-block's K/V stages from the table's capacity, the number of (sequence,
-KV head, query-head group) units and the card's SM count.
+call, no scratch. Each block copies its partitions' rows into a ring of
+`stages` shared-memory slots by cp.async, all in flight at once: fp
+pages as the K/V tiles themselves; binary-coded pages as their raw rows
+(code words, alphas and betas, each in copies of 16, 8 or 4 bytes,
+the widest that the piece's size and the pool's address allow), which
+the block expands into one fp32 tile pair
+once they have arrived, freeing the slot for the next partition.
+`attention_launch_shape` sizes the cluster and the ring from the
+table's capacity, the number of (sequence, KV head, query-head group)
+units, the bytes of one stage (`quant_stage_bytes` for binary-coded
+pages) and the card's SM count.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version, `ref.paged_attention_ref` / `ref.paged_attention_quant_ref`.
@@ -31,7 +39,8 @@ import ctypes
 import torch
 
 from repro_torch.hw import (ATTN_MAX_CLUSTER, ATTN_MAX_REP, ATTN_MAX_STAGES,
-                           ATTN_TILE, H100_SMS, sm_count)
+                           ATTN_QUANT_SCALES_MAX, ATTN_TILE, H100_SMS,
+                           sm_count)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
@@ -41,7 +50,8 @@ HEAD_DIMS = (32, 64, 128, 256)
 MAX_KV_BITS = 8
 # block-table entries a block keeps in shared memory at most (32 KB)
 MAX_TABLE = 8192
-# shared memory for a block's K/V tile pairs
+# shared memory for a block's ring of stages (binary-coded pages: less
+# their expanded fp32 tile pair)
 ATTN_STAGE_BUDGET = 150 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,32 +68,70 @@ _QUANT_ARGS = [_P] * 10 + [_I] * 10 + [_F, _I, _F, _I, _P]
 
 
 def attention_launch_shape(n_table, page, units, stage_bytes,
-                           sms=H100_SMS):
+                           sms=H100_SMS, budget=ATTN_STAGE_BUDGET):
     """(clusters, stages) of one launch: the table's capacity n_table *
     page in partitions of ATTN_TILE tokens; `units` (sequence, KV head,
     query-head group) triples, each served by a cluster of `clusters`
     blocks (block p takes live partitions p, p + clusters, ...); each
-    block holds `stages` K/V tile pairs of `stage_bytes` (at most
-    ATTN_MAX_STAGES, within ATTN_STAGE_BUDGET bytes), whose loads are in
-    flight at once. Clusters: the fewest that let every block keep all
-    its partitions in flight, and at least one block an SM; stages: what
-    the busiest block takes."""
+    block stages `stages` partitions of `stage_bytes` (at most
+    ATTN_MAX_STAGES, within `budget` bytes), whose loads are in flight
+    at once. Clusters: the fewest that let every block keep all its
+    partitions in flight, and at least one block an SM; stages: what the
+    busiest block takes."""
     parts = -(-n_table * page // ATTN_TILE)
-    most = max(1, min(ATTN_MAX_STAGES, ATTN_STAGE_BUDGET // stage_bytes))
+    most = max(1, min(ATTN_MAX_STAGES, budget // stage_bytes))
     clusters = max(1, min(ATTN_MAX_CLUSTER, parts,
                           max(-(-parts // most), -(-sms // units))))
     return clusters, min(most, -(-parts // clusters))
 
 
-def _launch_shape(q, block_tables, page, elem_bytes):
+def tile_pair_bytes(hd, elem_bytes):
+    """Bytes of one K/V tile pair of ATTN_TILE rows (padded by 16
+    bytes): an fp stage, and the fp32 pair binary-coded pages expand
+    into."""
+    return 2 * ATTN_TILE * (hd * elem_bytes + 16)
+
+
+def _staged_row(nbytes):
+    """Shared-memory stride of a staged piece of `nbytes` a row, as the
+    kernel lays it out (csrc `staged_row`): an odd number of 16-byte
+    units."""
+    units = -(-nbytes // 16)
+    return (units + (units + 1) % 2) * 16
+
+
+def quant_stage_bytes(hd, bits, G):
+    """Bytes of one partition's staged binary-coded rows, K and V, as
+    the kernel lays them out (csrc `quant_pages`): ATTN_TILE rows of each
+    piece of a (token, KV head) row (code words, alphas, betas) at its
+    `_staged_row` stride; the scales only when a row's alphas and betas
+    take at most ATTN_QUANT_SCALES_MAX bytes."""
+    codes, alphas, betas = bits * hd // 8, 4 * G * bits, 4 * G
+    row = _staged_row(codes)
+    if alphas + betas <= ATTN_QUANT_SCALES_MAX:
+        row += _staged_row(alphas) + _staged_row(betas)
+    return 2 * ATTN_TILE * row
+
+
+def _launch_shape(q, block_tables, page, stage_bytes,
+                  budget=ATTN_STAGE_BUDGET):
     """attention_launch_shape for this call: its units (the kernel's
     query-head groups hold the power of two >= rep, at most ATTN_MAX_REP
-    heads) and the bytes of one K/V tile pair (rows padded by 16 bytes)."""
+    heads) and the bytes of one stage."""
     B, Hkv, rep, hd = q.shape
     rep_block = min(ATTN_MAX_REP, 1 << (rep - 1).bit_length())
     return attention_launch_shape(
         block_tables.shape[1], page, B * Hkv * -(-rep // rep_block),
-        2 * ATTN_TILE * (hd * elem_bytes + 16), sm_count(q.device))
+        stage_bytes, sm_count(q.device), budget)
+
+
+def quant_launch_shape(q, block_tables, page, bits, G):
+    """The binary-coded launch: stages of the raw rows, within the
+    budget less the expanded fp32 tile pair."""
+    hd = q.shape[-1]
+    return _launch_shape(q, block_tables, page,
+                         quant_stage_bytes(hd, bits, G),
+                         ATTN_STAGE_BUDGET - tile_pair_bytes(hd, 4))
 
 
 def _check_options(window, cap):
@@ -146,7 +194,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
                 B, Hkv, rep, hd, page, block_tables.shape[1],
-                *_launch_shape(q, block_tables, page, q.element_size()),
+                *_launch_shape(q, block_tables, page,
+                               tile_pair_bytes(hd, q.element_size())),
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention")
@@ -187,7 +236,7 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
     status = fn(q.data_ptr(), *(t.data_ptr() for t in pool),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
                 B, Hkv, rep, hd, page, block_tables.shape[1],
-                *_launch_shape(q, block_tables, page, 4), bits, G,
+                *quant_launch_shape(q, block_tables, page, bits, G), bits, G,
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention_quant")

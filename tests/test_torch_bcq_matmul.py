@@ -442,9 +442,12 @@ def test_gemv_and_attention_constants_reach_the_kernels_from_hw():
                               (attn, "PA_TILE", hw.ATTN_TILE),
                               (attn, "PA_MAX_CLUSTER", hw.ATTN_MAX_CLUSTER),
                               (attn, "PA_MAX_REP", hw.ATTN_MAX_REP),
-                              (attn, "PA_MAX_STAGES", hw.ATTN_MAX_STAGES)):
+                              (attn, "PA_MAX_STAGES", hw.ATTN_MAX_STAGES),
+                              (attn, "PA_QUANT_SCALES_MAX",
+                               hw.ATTN_QUANT_SCALES_MAX)):
         assert f"-D{macro}={value}" in tbm.build.NVCC_FLAGS
         assert f"= {macro};" in src and f"defined({macro})" in src
     assert tbm.GEMV_COLS is hw.GEMV_COLS and tbm.GEMV_WARPS is hw.GEMV_WARPS
     assert tpa.ATTN_TILE is hw.ATTN_TILE
     assert tpa.ATTN_MAX_STAGES is hw.ATTN_MAX_STAGES
+    assert tpa.ATTN_QUANT_SCALES_MAX is hw.ATTN_QUANT_SCALES_MAX

@@ -346,22 +346,65 @@ def quant_pool(kp, vp, bits, gs):
     return (*kv_quantize(kp, bits, gs), *kv_quantize(vp, bits, gs))
 
 
-@pytest.mark.parametrize("page,ctx,Hkv,rep,hd,window,cap,inactive",
-                         PAGED_CASES)
-@pytest.mark.parametrize("bits,gs", [(2, 0), (3, 32), (4, 0), (4, 16)])
+def random_pool(seed, like, bits, G):
+    """Binary-coded K/V pools of random code words and scales in the
+    quant/kv.py layout, shaped as the fp pool `like` (P, page, Hkv, hd):
+    every sign pattern, alphas in [0.1, 1.1) / sqrt(bits), small betas."""
+    rng = np.random.default_rng(seed)
+    P, page, Hkv, hd = like.shape
+    out = []
+    for _ in range(2):
+        out += [torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (
+                    P, page, Hkv, bits, hd // 32), dtype=np.int32)),
+                torch.from_numpy(((0.1 + rng.random((P, page, Hkv, G, bits)))
+                                  / bits ** 0.5).astype(np.float32)),
+                torch.from_numpy(0.1 * rng.standard_normal(
+                    (P, page, Hkv, G)).astype(np.float32))]
+    return out
+
+
+# the binary-coded reader's grid: bits 1..8 x hd {32, 64, 128, 256} x G in
+# {1, 2, hd/32}, then layouts that take its other paths (groups narrower
+# than the 32-entry runs it expands, a scale row of exactly
+# ATTN_QUANT_SCALES_MAX bytes, scale rows too wide to stage), each over
+# geometries with windows, caps, GQA, contexts that end mid-partition and
+# null-page rows, on random pools (kv_quantize yields NaN alphas for some
+# vectors at many bits a 32-entry group, the reference's as well)
+QUANT_GRID = [(bits, hd, G) for hd in (32, 64, 128, 256)
+              for bits in range(1, 9) for G in sorted({1, 2, hd // 32})] + [
+    (5, 128, 8), (2, 32, 8), (7, 256, 16), (3, 64, 64), (8, 256, 256)]
+QUANT_GEOMETRIES = [
+    # (page, ctx, Hkv, rep, window, cap, inactive)
+    (16, [45, 1, 77], 4, 1, None, None, (1,)),
+    (64, [131, 33], 2, 4, 40, 30.0, ()),
+    (16, [100, 250], 2, 16, None, 5.0, ()),
+    (32, [70, 95, 3], 3, 2, 50, None, (2,)),
+]
+QUANT_CASES = [(*c, bits, gs, "quantized") for c in PAGED_CASES
+               for bits, gs in ((2, 0), (3, 32), (4, 0), (4, 16))] + [
+    (page, ctx, Hkv, rep, hd, window, cap, inactive, bits, hd // G, "random")
+    for bits, hd, G in QUANT_GRID
+    for page, ctx, Hkv, rep, window, cap, inactive in QUANT_GEOMETRIES]
+
+
+@pytest.mark.parametrize(
+    "page,ctx,Hkv,rep,hd,window,cap,inactive,bits,gs,pool_kind", QUANT_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_quant_matches_plain(cuda, page, ctx, Hkv, rep, hd,
                                              window, cap, inactive, bits, gs,
-                                             dtype):
-    q, kp, vp, bt, cl = make_pages(page + sum(ctx) + bits, page, ctx, Hkv,
-                                   rep, hd, inactive)
+                                             pool_kind, dtype):
+    """The kernel against its plain version on the same card: pools
+    quantized there by kv_quantize, or random pools."""
+    seed = page + sum(ctx) + bits
+    q, kp, vp, bt, cl = (t.to(cuda) for t in make_pages(
+        seed, page, ctx, Hkv, rep, hd, inactive))
     q = q.to(dtype)
-    pool = quant_pool(kp, vp, bits, gs)
+    pool = (quant_pool(kp, vp, bits, gs) if pool_kind == "quantized" else
+            [t.to(cuda) for t in random_pool(seed, kp, bits, hd // gs)])
     want = paged_attention_quant_ref(q, *pool, bt, cl, window=window,
                                      cap=cap)
     before = tpa.LAUNCHES["paged_attention_quant"]
-    got = tpa.paged_attention_quant(
-        *(t.to(cuda) for t in (q, *pool, bt, cl)), window=window, cap=cap)
+    got = tpa.paged_attention_quant(q, *pool, bt, cl, window=window, cap=cap)
     torch.cuda.synchronize()
     assert tpa.LAUNCHES["paged_attention_quant"] == before + 1
     assert got.dtype == dtype

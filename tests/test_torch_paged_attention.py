@@ -115,10 +115,11 @@ def kernel_partitions(rank, clusters, ctx_raw, window, capacity):
 
 
 # (n_table, page, units, stage bytes): llama2-7b's and Qwen3-MoE's decode
-# (128 and 16 units, fp32 hd 128 tiles), short and long tables, hd 256
-LAUNCHES = [(3, 64, 128, 33792), (3, 64, 16, 33792), (1, 4, 6, 8704),
-            (2, 16, 6, 16896), (16, 64, 4, 33792), (63, 16, 2, 33792),
-            (5, 48, 3, 66560)]
+# (128 and 16 units, fp32 hd 128 tiles, then their 4-bit G=1 binary-coded
+# stages: quant_stage_bytes(128, 4, 1)), short and long tables, hd 256
+LAUNCHES = [(3, 64, 128, 33792), (3, 64, 16, 33792), (3, 64, 128, 7168),
+            (3, 64, 16, 7168), (1, 4, 6, 8704), (2, 16, 6, 16896),
+            (16, 64, 4, 33792), (63, 16, 2, 33792), (5, 48, 3, 66560)]
 
 
 @pytest.mark.parametrize("n_table,page,units,stage_bytes", LAUNCHES)
@@ -159,3 +160,85 @@ def test_partitions_cover_the_live_context_once(n_table, page, units,
     if clusters > 1:
         assert -(-parts // (clusters - 1)) > hold or \
             (clusters - 1) * units < 132
+
+
+def copy_width(nbytes):
+    """Bytes of one cp.async copy of a piece of `nbytes` a row, as the
+    kernel's launcher (csrc `copy_width`) picks it for pools at 16-byte
+    aligned addresses (the allocator's): the widest of 16, 8 and 4 that
+    divides the piece."""
+    return 16 if nbytes % 16 == 0 else 8 if nbytes % 8 == 0 else 4
+
+
+def quant_pieces(hd, bits, G):
+    """Bytes of one (token, KV head) row of a binary-coded pool's code
+    words, alphas and betas."""
+    return bits * hd // 8, 4 * G * bits, 4 * G
+
+
+# (hd, bits, G): bytes of a partition's staged rows (K and V, 32 tokens,
+# each piece at an odd number of 16-byte units) and the copy widths of
+# codes, alphas, betas, counted by hand
+QUANT_STAGES = [
+    (128, 4, 1, 64 * (80 + 16 + 16), (16, 16, 4)),   # codes 64 B -> 80
+    (32, 3, 1, 64 * (16 + 16 + 16), (4, 4, 4)),      # 12-byte codes, alphas
+    (64, 1, 2, 64 * (16 + 16 + 16), (8, 8, 8)),
+    (256, 8, 8, 64 * (272 + 272 + 48), (16, 16, 16)),
+    (64, 3, 64, 64 * 48, (8, 16, 16)),               # scales not staged
+]
+
+
+@pytest.mark.parametrize("hd,bits,G,stage,widths", QUANT_STAGES)
+def test_quant_stage_bytes_by_hand(hd, bits, G, stage, widths):
+    assert tpa.quant_stage_bytes(hd, bits, G) == stage
+    assert tuple(map(copy_width, quant_pieces(hd, bits, G))) == widths
+
+
+def odd_units(nbytes):
+    """16-byte units of a staged row: enough for nbytes, and odd."""
+    units = -(-nbytes // 16)
+    return units if units % 2 else units + 1
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_quant_stage_bytes_and_copy_widths(hd, bits):
+    """The binary-coded reader's stage over the grid bits 1..8, hd
+    32..256, G in {1, 2, hd/32}: code rows of bits * hd / 8 bytes, alpha
+    rows of 4 G bits, beta rows of 4 G, each copied in the widest of 16,
+    8 and 4 bytes that divides it, and staged at an odd number of
+    16-byte units (scales only up to ATTN_QUANT_SCALES_MAX bytes a
+    row)."""
+    for G in sorted({1, 2, hd // 32}):
+        pieces = quant_pieces(hd, bits, G)
+        for nbytes in pieces:
+            w = copy_width(nbytes)
+            assert w in (4, 8, 16) and nbytes % w == 0
+            assert w == 16 or nbytes % (2 * w), (nbytes, w)
+        staged = [pieces[0]] + (list(pieces[1:]) if sum(pieces[1:])
+                                <= tpa.ATTN_QUANT_SCALES_MAX else [])
+        want = 2 * 32 * 16 * sum(odd_units(n) for n in staged)
+        assert tpa.quant_stage_bytes(hd, bits, G) == want
+
+
+def test_quant_launch_fits_shared_memory():
+    """Every binary-coded layout the wrapper takes (hd 32..256, bits
+    1..8, every power-of-two G dividing hd) launches within the 232,448
+    bytes of shared memory a block may have, at the largest table and
+    every query-head bucket: the table row, the ring of stages, the
+    expanded fp32 tile pair, and the kernel's own floats (q, score
+    parts, P, softmax state, the merged state)."""
+    for hd in tpa.HEAD_DIMS:
+        pair = tpa.tile_pair_bytes(hd, 4)
+        for bits in range(1, 9):
+            for G in (1 << i for i in range(hd.bit_length())):
+                stage = tpa.quant_stage_bytes(hd, bits, G)
+                _, stages = tpa.attention_launch_shape(
+                    tpa.MAX_TABLE, 64, 1, stage, sms=132,
+                    budget=tpa.ATTN_STAGE_BUDGET - pair)
+                for rep in (1, 2, 4, 8, 16):
+                    dp = 8 // min(rep, 8)
+                    floats = 2 * rep * hd + dp * rep * 32 + 32 * rep + 4 * rep
+                    total = (4 * tpa.MAX_TABLE + stages * stage + pair
+                             + 4 * floats)
+                    assert total <= 232448, (hd, bits, G, rep, total)

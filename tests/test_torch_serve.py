@@ -315,11 +315,16 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert worst["bcq_gemv"] <= cs.TOL_FP32
     assert cs.check_paged(gen) <= cs.TOL_FP32
     assert cs.check_paged_quant(gen, geoms=((2, 16, 64),)) <= cs.TOL_FP32
+    # the reader's grid: one case on each of the first two variants (the
+    # second with bf16 q and a 4-entry scale group)
+    assert cs.check_paged_quant_grid(0, cases=((1, 32, 1), (2, 32, 8))) \
+        <= cs.TOL_FP32
     worst_e, n_exact = cs.check_expert(gen, E=3, shapes=((128, 64),),
                                        Ms=(4, 9))
     assert worst_e <= cs.TOL_FP32 and n_exact == 3 * 2 * 2
-    for row in (cs.summarize_expert(gen, E=2, K=128, N=64),
-                cs.summarize_paged_quant(gen, Hkv=2, rep=16, hd=64),
+    quant = cs.summarize_paged_quant(gen, Hkv=2, rep=16, hd=64)
+    assert quant["library_full_ms"] > 0 and "G=1," in quant["shape"]
+    for row in (cs.summarize_expert(gen, E=2, K=128, N=64), quant,
                 cs.summarize_paged(gen, Hkv=2, rep=16, hd=64)):
         assert row["bound_ms"] > 0 and row["max_abs_err"] <= 1e-5
     cs.phase_fixture()
