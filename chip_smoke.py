@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-five phases; any failure is a non-zero exit.
+six phases; any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -40,9 +40,22 @@ five phases; any failure is a non-zero exit.
   5. MoE at full width: seeded synthetic w3 per-channel qwen3-moe-235b-a22b
      (128 experts top-8), cut to 16 of its 94 layers, 4 requests, 32 new
      tokens each, fp KV pages.
+  6. shared prefixes and chunked prefill at full width: phase 3's model,
+     a 192-token system prefix and the four suffixes, in three waves
+     (request 0; requests 1-3, which hit the prefix; request 0's prompt +
+     its first 8 tokens, which forks request 0's tail page copy-on-write)
+     through engines with prefix sharing, without, and with 64-token
+     chunked prefill, 32 new tokens each, max_len 384; the waves again
+     with 4-bit KV pages, sharing and chunks, 8 new tokens each. Checks
+     hits, forks, the prefill tokens saved, byte-equal forked leaves,
+     extend against prefill logits, greedy tokens against the no-sharing
+     engine, launches and page accounting; times TTFT per wave and the
+     extend path's share of prefill.
 
-Each path (phases 3-5) is driven with every launch count set to 0 just
-before it and read just after. The line before the last is
+Phases 2-5 serve without a prefix index (prefix_sharing=False), as they
+did before it existed. Each path (phases 3-6) is driven with every
+launch count set to 0 just before it and read just after. The line
+before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
 error against the plain version, time, bound, plain and library
 times); the last line is {"ok": true, "device": {...}}. It exits
@@ -963,7 +976,7 @@ def phase_fixture():
             worst = max(worst, logits_err(got, [pl, *dl]))
         eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
                           dtype="float32", cache_kind="paged", page_size=page,
-                          kv_bits=kv_bits, device=DEV)
+                          kv_bits=kv_bits, prefix_sharing=False, device=DEV)
         reqs = [Request(prompt=np.asarray(p, np.int32),
                         max_new_tokens=ref["max_new"])
                 for p in art["prompts"]]
@@ -1110,7 +1123,7 @@ def serve_path(name, cfg, params, seed, kv_bits=0):
                for n in PROMPT_LENS]
     eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
                       dtype="float32", cache_kind="paged", page_size=64,
-                      kv_bits=kv_bits, device=DEV)
+                      kv_bits=kv_bits, prefix_sharing=False, device=DEV)
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1435,6 +1448,276 @@ def phase_moe(seed: int, arch: str = "qwen3-moe-235b-a22b",
     return counts, row
 
 
+# ---------------------------------------------------------------------------
+# phase 6: shared prefixes and chunked prefill at full width
+# ---------------------------------------------------------------------------
+
+PREFIX_TOKENS = 192     # the system prefix: 3 full 64-token pages
+FORK_TOKENS = 8         # wave 3: request 0's prompt + its first 8 tokens
+PREFIX_MAX_LEN = 384
+PREFIX_CHUNK = 64
+
+
+def prefix_workload(seed, vocab):
+    """The system prefix and the four prompts (prefix + PROMPT_LENS
+    suffixes). Every suffix starts with another token than request 0's,
+    so a wave-2 match ends exactly at the prefix."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 6)
+    prefix = rng.integers(0, vocab, PREFIX_TOKENS)
+    suffixes = [rng.integers(0, vocab, n) for n in PROMPT_LENS]
+    for i, sfx in enumerate(suffixes[1:], 1):
+        sfx[0] = (suffixes[0][0] + i) % vocab
+    return [np.concatenate([prefix, sfx]).astype(np.int32)
+            for sfx in suffixes]
+
+
+def serve_waves(name, cfg, params, waves, max_new, hook=None, **kw):
+    """Serve `waves` (lists of prompts; None: request 0's prompt + its
+    first FORK_TOKENS tokens) in turn through one paged engine (`hook`
+    sees it first), every launch count set to 0 just before and read
+    just after. Times the engine's extend passes. Returns (row, tokens
+    per request, prompts, engine, counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=PREFIX_MAX_LEN,
+                      dtype="float32", cache_kind="paged", page_size=64,
+                      device=DEV, **kw)
+    if hook is not None:
+        hook(eng)
+    extend, ext_s = eng._extend, [0.0]
+
+    def timed(*args):
+        sync()
+        t0 = time.time()
+        out = extend(*args)
+        sync()
+        ext_s[0] += time.time() - t0
+        return out
+    eng._extend = timed
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    outs, prompts, ttft = [], [], []
+    sync()
+    reset_launch_counts()
+    t1 = time.time()
+    for wave in waves:
+        wave = wave or [np.concatenate([prompts[0], np.asarray(
+            outs[0][:FORK_TOKENS], np.int32)])]
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in wave]
+        eng.run(reqs)
+        ttft.append(eng.stats["ttft_avg_s"])
+        prompts += list(wave)
+        outs += [r.out for r in reqs]
+    sync()
+    wall = time.time() - t1
+    counts = launch_counts()
+    st = eng.stats
+    row = {"check": name, "model": cfg.name, "layers": cfg.n_layers,
+           "requests": len(outs), "waves": [len(w or [0]) for w in waves],
+           "max_new": max_new, "engine": kw, "wall_s": wall,
+           "ttft_s_by_wave": ttft, "prefill_s": st["prefill_s"],
+           "extend_s": ext_s[0],
+           "extend_share_of_prefill": ext_s[0] / max(st["prefill_s"], 1e-9),
+           "prefill_tokens": st["prefill_tokens"],
+           "decode_ticks": st["ticks"], "decode_tokens": st["tokens"],
+           "decode_ms_per_tick": 1e3 * st["decode_s"] / max(st["ticks"], 1),
+           "tpot_avg_s": st["tpot_avg_s"],
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if DEV == "cuda" else None),
+           **{k: st[k] for k in ("prefix_hits", "prefix_tokens_saved",
+                                 "cow_forks", "pages_allocated",
+                                 "preemptions", "prefix_cached_pages")},
+           "live_pages": eng.kv.live_pages, "launches": counts}
+    require(all(len(o) == max_new for o in outs)
+            and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+            f"{name}: a request did not finish with {max_new} tokens")
+    require(counts["bcq_plain"] == 0, f"{name}: a BCQ call took the plain "
+                                      f"path")
+    # pages: only the index holds any after the run; clearing it frees all
+    require(eng.kv.live_pages == st["prefix_cached_pages"]
+            and not eng.kv.active_slots(),
+            f"{name}: {eng.kv.live_pages} live pages, the index holds "
+            f"{st['prefix_cached_pages']}")
+    if eng._prefix is not None:
+        eng._prefix.clear()
+    require(eng.kv.free_page_count == eng.kv.usable_pages,
+            f"{name}: pages did not drain back to the pool")
+    return row, outs, prompts, eng, counts
+
+
+def first_divergence(cfg, params, prompt, want, got):
+    """None when `got` equals `want`; else the first index where they
+    differ and the top-2 logit gap of `want`'s run there, relative to
+    max|logit| (a full prefill of the prompt + want's earlier tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import prefill
+    if got == want:
+        return None
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    toks = np.concatenate([prompt, np.asarray(want[:t], np.int32)])
+    logits, _ = prefill(cfg, params, torch.tensor(toks[None], device=DEV),
+                        len(toks))
+    top = torch.topk(logits[0].double(), 2).values
+    return t, float((top[0] - top[1]) / logits[0].abs().max())
+
+
+def extend_vs_prefill(cfg, params, prompt):
+    """The extend path at the model level: extend_paged of the suffix
+    over the prefix's pages (written by prefill + scatter), against
+    prefill of the whole prompt: the last logits' error relative to
+    max|logit|, the extend call's bcq_matmul launches, and both calls'
+    device and CUDA-event times (kernel_ms; the extend re-writes the
+    same slots each call)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import (extend_paged, init_paged_cache, prefill,
+                                    scatter_prefill_cache)
+    from repro_torch.serve.engine import bucket_len
+    page, N, L = 64, PREFIX_TOKENS, len(prompt)
+    npg = -(-L // page)
+    pool = init_paged_cache(cfg, npg + 1, page, 1, device=DEV)
+    _, row = prefill(cfg, params, torch.tensor(prompt[None, :N], device=DEV),
+                     N)
+    ids = list(range(1, npg + 1))
+    scatter_prefill_cache(cfg, pool, row, 0, ids[:N // page], N)
+    C = bucket_len(L - N, PREFIX_MAX_LEN)
+    tokens = torch.zeros((1, C), dtype=torch.int32, device=DEV)
+    tokens[0, :L - N] = torch.tensor(prompt[N:], device=DEV)
+    args = (tokens, torch.tensor([N], dtype=torch.int32, device=DEV),
+            torch.tensor([ids], dtype=torch.int32, device=DEV),
+            torch.tensor([L - N], dtype=torch.int32, device=DEV))
+    whole = torch.tensor(prompt[None], device=DEV)
+    sync()
+    reset_launch_counts()
+    got, _ = extend_paged(cfg, params, pool, *args)
+    sync()
+    gemm = launch_counts()["bcq_matmul"]
+    want, _ = prefill(cfg, params, whole, L)
+    require(bool(torch.isfinite(got).all()), "prefix path: extend logits "
+                                             "not finite")
+    return {"suffix": L - N, "chunk": C,
+            "rel_err": float((got - want).abs().max() / want.abs().max()),
+            "bcq_matmul_launches": gemm,
+            "extend_ms": kernel_ms(lambda: extend_paged(cfg, params, pool,
+                                                        *args), 3),
+            "prefill_whole_prompt_ms": kernel_ms(
+                lambda: prefill(cfg, params, whole, L), 3)}
+
+
+def phase_prefix(seed: int, model, kv_bits: int = 4, max_new: int = 32):
+    """Phase 6 on phase 3's model: one system prefix, three waves
+    (request 0; requests 1-3, which hit the prefix; request 0's prompt +
+    its first tokens, whose match ends inside request 0's tail page and
+    forks it) through engines with prefix sharing (A), without (B, the
+    yardstick) and with chunked prefill and no sharing (C), then the
+    waves with 4-bit KV pages, sharing and chunks, 8 new tokens each
+    (`max_new` and 8 shrink for rehearsals on the CPU). Returns (summed
+    launch counts, rows)."""
+    import torch
+    cfg, params = model
+    prompts = prefix_workload(seed, cfg.vocab_size)
+    waves = [prompts[:1], prompts[1:], None]
+    rows, outs, total = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    rows["A"], outs["A"], five, eng, counts = serve_waves(
+        "prefix_path_share", cfg, params, waves, max_new,
+        prefix_sharing=True)
+    add(counts)
+    del eng
+    suffix = sum(len(p) - PREFIX_TOKENS for p in prompts[1:])
+    rows["A"]["want_prefill_tokens"] = want = \
+        len(prompts[0]) + suffix + 1      # wave 3: all but its last token
+    emit(rows["A"])
+    require(rows["A"]["prefix_hits"] >= 4 and rows["A"]["cow_forks"] >= 1,
+            f"prefix path: hits/forks {rows['A']}")
+    require(rows["A"]["prefill_tokens"] == want,
+            f"prefix path: prefilled {rows['A']['prefill_tokens']} tokens, "
+            f"the unshared suffixes hold {want}")
+    for tag, kw in (("B", {"prefix_sharing": False}),
+                    ("C", {"prefix_sharing": False,
+                           "prefill_chunk": PREFIX_CHUNK})):
+        rows[tag], outs[tag], _, eng, counts = serve_waves(
+            f"prefix_path_{'none' if tag == 'B' else 'chunked'}", cfg,
+            params, [[p] for p in five[:1]] + [five[1:4], five[4:]],
+            max_new, **kw)
+        add(counts)
+        del eng
+        emit(rows[tag])
+    require(rows["C"]["prefill_tokens"] == rows["B"]["prefill_tokens"],
+            f"prefix path: chunked prefill ran {rows['C']['prefill_tokens']} "
+            f"tokens, B {rows['B']['prefill_tokens']}")
+    require(rows["C"]["launches"]["bcq_matmul"] > 0,
+            "prefix path: the chunked extends never launched bcq_matmul")
+    for tag in ("A", "B", "C"):
+        r = rows[tag]
+        require(r["launches"]["paged_attention"]
+                == cfg.n_layers * r["decode_ticks"] > 0
+                and r["launches"]["paged_attention_quant"] == 0,
+                f"prefix path {tag}: launches {r['launches']}")
+    # greedy tokens of A and C against B, up to a printed near-tie
+    for tag in ("A", "C"):
+        for i, (want_t, got_t) in enumerate(zip(outs["B"], outs[tag])):
+            div = first_divergence(cfg, params, five[i], want_t, got_t)
+            emit({"check": "prefix_path_tokens", "engine": tag,
+                  "request": i, "equal_to_B": div is None,
+                  **({} if div is None else
+                     {"first_diff": div[0], "B_top2_gap_rel": div[1],
+                      "gap_limit": 2 * TOL_LOGITS})})
+            if div is not None:
+                require(div[1] <= 2 * TOL_LOGITS,
+                        f"prefix path {tag}: request {i} differs from B at "
+                        f"token {div[0]} with a gap of {div[1]:.3g}")
+    row = extend_vs_prefill(cfg, params, five[1])
+    emit({"check": "prefix_path_extend_vs_prefill", **row,
+          "tol": TOL_LOGITS})
+    require(row["rel_err"] <= TOL_LOGITS, f"prefix path: extend vs "
+                                          f"prefill logits differ by "
+                                          f"{row['rel_err']:.3g}")
+    require(row["bcq_matmul_launches"] > 0, "prefix path: the extend call "
+                                            "never launched bcq_matmul")
+    # 4-bit KV pages: a fork copies every leaf (codes, alphas, betas),
+    # byte for byte
+    forks = []
+
+    def check_first_fork(eng):
+        apply = eng._apply_copies
+
+        def run(copies):
+            apply(copies)
+            if copies and not forks:
+                src = [a for a, _ in copies]
+                dst = [b for _, b in copies]
+                forks.append(all(torch.equal(leaf[dst].view(torch.int32),
+                                             leaf[src].view(torch.int32))
+                                 for layer in eng.cache
+                                 for leaf in layer.values()))
+        eng._apply_copies = run
+    rows["kv"], _, _, eng, counts = serve_waves(
+        "prefix_path_kv_bits", cfg, params,
+        [[p] for p in five[:1]] + [five[1:4], None], min(8, max_new),
+        hook=check_first_fork, prefix_sharing=True,
+        prefill_chunk=PREFIX_CHUNK, kv_bits=kv_bits)
+    add(counts)
+    del eng
+    rows["kv"]["fork_copied_every_leaf"] = forks[:1] == [True]
+    emit(rows["kv"])
+    require(rows["kv"]["cow_forks"] >= 1 and forks == [True],
+            f"prefix path kv_bits: forks {rows['kv']['cow_forks']}, every "
+            f"leaf copied: {forks}")
+    require(rows["kv"]["launches"]["paged_attention_quant"]
+            == cfg.n_layers * rows["kv"]["decode_ticks"] > 0
+            and rows["kv"]["launches"]["paged_attention"] == 0,
+            f"prefix path kv_bits: launches {rows['kv']['launches']}")
+    return total, rows
+
+
 def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
                    tag: str = "main"):
     """Where a path's decode step's time goes: the paged decode step at
@@ -1531,7 +1814,7 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1632,7 +1915,7 @@ def main(argv=None) -> int:
             phase_fixture()
             phase_done(2, t0)
         llama = None
-        if phases & {3, 4}:
+        if phases & {3, 4, 6}:
             t0 = time.time()
             llama = synthetic_llama(args.seed)
             sync()
@@ -1647,6 +1930,11 @@ def main(argv=None) -> int:
             counts, _ = phase_kv_bits(args.seed, llama)
             count("kv_bits_path", counts)
             phase_done(4, t0)
+        if 6 in phases:
+            t0 = time.time()
+            counts, _ = phase_prefix(args.seed, llama)
+            count("prefix_path", counts)
+            phase_done(6, t0)
         del llama                # free the llama weights before phase 5
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,9 +1,11 @@
-from repro_torch.models.model import (decode_step, decode_step_paged,
-                                      embed_inputs, init_cache,
+from repro_torch.models.model import (copy_pages, decode_step,
+                                      decode_step_paged, embed_inputs,
+                                      extend_paged, init_cache,
                                       init_paged_cache, init_params,
                                       is_page_leaf, prefill,
                                       scatter_prefill_cache, unembed)
 
 __all__ = ["init_params", "embed_inputs", "unembed", "prefill",
            "init_cache", "init_paged_cache", "is_page_leaf", "decode_step",
-           "decode_step_paged", "scatter_prefill_cache"]
+           "decode_step_paged", "extend_paged", "copy_pages",
+           "scatter_prefill_cache"]

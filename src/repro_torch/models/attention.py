@@ -18,8 +18,8 @@ from repro_torch.hw import torch_dtype
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant)
 from repro_torch.models.layers import init_linear, linear, rmsnorm, rope, softcap
-from repro_torch.quant.kv import (kv_bytes_per_token_head, kv_layout,
-                                  kv_quantize)
+from repro_torch.quant.kv import (kv_bytes_per_token_head, kv_dequantize,
+                                  kv_layout, kv_quantize)
 
 NEG_INF = -1e30
 # full-sequence attention switches to the chunked path above this length
@@ -202,17 +202,36 @@ def paged_kv_bits(cache) -> int:
     return cache["k_codes"].shape[-2] if "k_codes" in cache else 0
 
 
-def _quant_scatter(cache, new, pid, off):
+def _quant_scatter(cache, new, pid, off, mask=None):
     """Quantize-on-write: binary-code the new K and V vectors `new`
     (2, ..., hd) — both sides in one call — and write codes and scales
-    into the pool at (pid, off), in place."""
+    into the pool at (pid, off), in place. With `mask` (new's dims
+    between the side axis and the vector), False rows write the null
+    page's slot-0 content instead (the extend path's padding: they land
+    on page 0, slot 0, so the write is a no-op however many hit it)."""
     bits = cache["k_codes"].shape[-2]
     G = cache["k_betas"].shape[-1]
     vals = kv_quantize(new, bits, new.shape[-1] // G)
     for side, i in (("k", 0), ("v", 1)):
         for suffix, val in zip(("codes", "alphas", "betas"), vals):
-            cache[f"{side}_{suffix}"][pid, off] = val[i]
+            pool = cache[f"{side}_{suffix}"]
+            val = val[i]
+            if mask is not None:
+                m = mask.reshape(mask.shape + (1,) * (val.dim() - mask.dim()))
+                val = torch.where(m, val, pool[0, 0])
+            pool[pid, off] = val
     return cache
+
+
+def _gather_dequant(cache, side, block_tables, hd):
+    """Gather and expand a sequence's binary-coded pages: (B, T*page,
+    Hkv, hd) fp32, the extend path's dense view."""
+    bt = block_tables.long()
+    B, T = bt.shape
+    codes = cache[f"{side}_codes"]
+    x = kv_dequantize(codes[bt], cache[f"{side}_alphas"][bt],
+                      cache[f"{side}_betas"][bt])
+    return x.reshape(B, T * codes.shape[1], codes.shape[2], hd)
 
 
 def attn_decode_paged(cfg, spec, p, x, cache, block_tables, pos):
@@ -257,6 +276,60 @@ def attn_decode_paged(cfg, spec, p, x, cache, block_tables, pos):
         out = paged_attention(qg, cache["k_pages"], cache["v_pages"], bt,
                               ctx, window=spec.window, cap=cfg.attn_softcap)
     y = linear(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
+    return y, cache
+
+
+def attn_extend_paged(cfg, spec, p, h, cache, block_tables, start_pos,
+                      chunk_mask):
+    """Chunked-prefill step: C prompt tokens at absolute positions
+    start_pos + [0..C) attend causally over everything already in the
+    sequence's pages plus themselves. h (B, C, D); block_tables (B, T);
+    start_pos (B,); chunk_mask (B, C) bool, False for padding tokens,
+    whose K/V must not land in a page: they re-write the null page's
+    slot 0 with its own content. The chunk's K/V is written first (on a
+    binary-coded pool, quantized), then every query attends over the
+    gathered pages (expanded from their codes), with window and cap, in
+    plain PyTorch as the reference writes it in jnp. Returns (y, cache)."""
+    B, C, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(cfg, p, h)                    # (B,C,H,hd)
+    positions = start_pos.long()[:, None] + torch.arange(C, device=h.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    quant = paged_kv_bits(cache) > 0
+    page = (cache["k_codes"] if quant else cache["k_pages"]).shape[1]
+    bt = block_tables.long()
+    T = bt.shape[1]
+    # padding positions may lie past the table: clamp, then send to page 0
+    pid = torch.gather(bt, 1, (positions // page).clamp(max=T - 1))
+    pid = torch.where(chunk_mask, pid, 0)
+    off = torch.where(chunk_mask, positions % page, 0)
+    if quant:
+        _quant_scatter(cache, torch.stack([k, v]), pid, off, mask=chunk_mask)
+        ck = _gather_dequant(cache, "k", bt, hd)
+        cv = _gather_dequant(cache, "v", bt, hd)
+    else:
+        m4 = chunk_mask[:, :, None, None]
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        kp[pid, off] = torch.where(m4, k.to(kp.dtype), kp[0, 0])
+        vp[pid, off] = torch.where(m4, v.to(vp.dtype), vp[0, 0])
+        ck = kp[bt].reshape(B, T * page, cfg.n_kv_heads, hd)
+        cv = vp[bt].reshape(B, T * page, cfg.n_kv_heads, hd)
+    qg = _group_q(q, cfg.n_kv_heads)                     # (B,C,Hkv,r,hd)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg,
+                          ck.to(q.dtype)).float() * hd ** -0.5
+    logits = softcap(logits, cfg.attn_softcap)
+    j = torch.arange(T * page, device=h.device)[None, None, :]
+    qi = positions[:, :, None]                           # (B, C, 1)
+    ok = j <= qi
+    if spec.window is not None:
+        ok &= (qi - j) < spec.window
+    logits = torch.where(ok[:, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w, cv.to(q.dtype))
+    y = linear(out.reshape(B, C, cfg.n_heads * hd), p["wo"])
     return y, cache
 
 

@@ -20,10 +20,13 @@ Entry points:
   init_paged_cache / decode_step_paged                paged KV pool (fp
                                                       or binary-coded)
   scatter_prefill_cache                               dense prefill -> pages
+  extend_paged / _extend_scan                         a chunk of prompt
+                                                      tokens over the pages
+  copy_pages                                          copy-on-write forks
 
 MoE layers use the reference's capacities: the inference capacity
 factor in prefill (pad tokens of a bucket route and take capacity like
-real ones, as in the reference) and 4.0 in decode.
+real ones, as in the reference) and 4.0 in decode and extend.
 """
 from __future__ import annotations
 
@@ -224,6 +227,22 @@ def is_page_leaf(leaf, n_pages) -> bool:
     return leaf.dim() >= 4 and leaf.shape[0] == n_pages
 
 
+def copy_pages(cache, src, dst, n_pages):
+    """Copy-on-write forks: page src[i] -> dst[i] in every layer's pool,
+    in place. On a binary-coded pool the codes AND the alpha/beta leaves
+    all copy (a fork that missed the scales would decode the old page's
+    magnitudes under the new page's signs). src/dst: (n,) page ids; every
+    source is read before any destination is written."""
+    dev = next(iter(cache[0].values())).device
+    src = torch.as_tensor(src, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+    for layer in cache:
+        for leaf in layer.values():
+            if is_page_leaf(leaf, n_pages):
+                leaf[dst] = leaf[src]
+    return cache
+
+
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
@@ -289,3 +308,34 @@ def scatter_prefill_cache(cfg, paged_cache, row_cache, slot, page_ids,
             pool = pooled[f"{side}_pages"]
             pool[pid, off] = r.to(pool.dtype)
     return paged_cache
+
+
+def _extend_scan(cfg, params, cache, tokens, start_pos, block_tables,
+                 n_valid):
+    """Shared multi-token paged pass: C tokens (tokens (B, C), padded;
+    n_valid (B,) counts the real ones) at absolute positions start_pos +
+    [0..C) write their K/V into the sequences' pages and attend over
+    pages + chunk causally. Every layer runs as in decode (MoE at the
+    decode capacity factor, so the expert GEMM sees B*C rows). Returns
+    the logits at every chunk position ((B, C, V), cache)."""
+    require_attention_only(cfg)
+    C = tokens.shape[1]
+    chunk_mask = (torch.arange(C, device=tokens.device)[None, :]
+                  < n_valid.to(tokens.device)[:, None])
+    x = embed_inputs(cfg, params, tokens)
+    return _decode_layers(
+        cfg, params, cache, x,
+        lambda spec, p, h, c: attn.attn_extend_paged(
+            cfg, spec, p, h, c, block_tables, start_pos, chunk_mask))
+
+
+def extend_paged(cfg, params, cache, tokens, start_pos, block_tables,
+                 n_valid):
+    """Chunked prefill: _extend_scan reduced to the logits of each row's
+    last valid chunk position ((B, V), cache), all a prefill needs to
+    seed its first decode token."""
+    logits, cache = _extend_scan(cfg, params, cache, tokens, start_pos,
+                                 block_tables, n_valid)
+    idx = torch.clamp(n_valid.long().to(logits.device) - 1, min=0)
+    return logits[torch.arange(logits.shape[0], device=logits.device),
+                  idx], cache

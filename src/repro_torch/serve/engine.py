@@ -10,7 +10,15 @@ decode with two cache backends behind one switch (the reference's
     into the sequence's pages; every decode step runs the paged-attention
     kernel over the pool. `kv_bits > 0` binary-codes the pool
     (quant/kv.py): K/V are quantized on write and the fused-dequant
-    kernel reads the codes.
+    kernel reads the codes. With prefix sharing (the default) a radix
+    index (serve/prefix_cache.py) maps completed prompt pages to token
+    prefixes: a request with an N-token cached prefix attaches those
+    pages by reference, prefills only its suffix through the extend
+    path (models/model.py:extend_paged), and allocates only its suffix
+    pages; a shared page forks copy-on-write before any write.
+    `prefill_chunk` prefills prompts through the same extend path, one
+    chunk of one sequence per engine tick, so long prompts do not stall
+    decode; sliding-window layers always prefill through it.
 
 Both run on the FCFS Scheduler (serve/scheduler.py). Works with plain
 weights or GPTQT-packed QuantizedTensor weights (dense or MoE expert
@@ -25,10 +33,11 @@ row and keep an arbitrary position, so their K/V writes land in the
 null page (the reference's live-row / null-row trick,
 `serve/compile_cache.py` "decode_paged").
 
-PyTorch runs eagerly, so there is no compile cache to share; timing
-synchronizes the CUDA device where the reference blocks on its result.
-Prefix sharing, chunked prefill, speculative decoding and meshes belong
-to later slices and raise NotImplementedError.
+PyTorch runs eagerly, so there is no compile cache to share and no
+shape to pad to (the reference pads copy lists and dirty-row lists to
+powers of two to bound its compilations); timing synchronizes the CUDA
+device where the reference blocks on its result. Speculative decoding
+and meshes belong to later slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,11 +48,13 @@ import numpy as np
 import torch
 
 from repro_torch.hw import resolve_device
-from repro_torch.models.model import (decode_step, decode_step_paged,
+from repro_torch.models.model import (copy_pages, decode_step,
+                                      decode_step_paged, extend_paged,
                                       init_cache, prefill,
                                       require_attention_only,
                                       scatter_prefill_cache)
 from repro_torch.serve.kv_cache import PagedKVCache
+from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
 
 MIN_BUCKET = 8
@@ -116,7 +127,7 @@ class ServeEngine:
     def __init__(self, cfg, params, *, batch_size=4, max_len=512,
                  dtype=None, cache_kind="dense",
                  page_size=64, n_pages=None, prefill_chunk=None,
-                 prefix_sharing=False,
+                 prefix_sharing=True, prefix_max_pages=None,
                  mesh=None, kv_bits=0, kv_group_size=0, speculate=0,
                  device=None):
         if cache_kind not in ("dense", "paged"):
@@ -126,15 +137,9 @@ class ServeEngine:
                 "kv_bits requires cache_kind='paged': the binary-coded "
                 "KV layout lives in the page pool (quantize-on-write "
                 "needs page-granular scatter)")
-        if prefix_sharing:
+        if prefill_chunk and cache_kind != "paged":
             raise NotImplementedError(
-                "prefix_sharing=True comes with the prefix-cache slice "
-                "(ROADMAP Queue 1 item 1: prefix cache, extend path, COW "
-                "copies)")
-        if prefill_chunk:
-            raise NotImplementedError(
-                "prefill_chunk comes with the chunked-prefill slice "
-                "(ROADMAP Queue 1 item 2)")
+                "chunked prefill requires cache_kind='paged'")
         if speculate:
             raise NotImplementedError(
                 "speculate > 0 comes with the speculative-decoding slice "
@@ -144,12 +149,6 @@ class ServeEngine:
                 "mesh serving comes with the multi-GPU slice (ROADMAP "
                 "Queue 1 item 6)")
         require_attention_only(cfg)
-        if cache_kind == "paged" and any(s.window is not None
-                                         for s in cfg.pattern):
-            raise NotImplementedError(
-                "paged sliding-window layers prefill through the extend "
-                "path, which comes with the prefix-cache slice (ROADMAP "
-                "Queue 1 item 1)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -157,8 +156,16 @@ class ServeEngine:
         self.max_len = max_len
         self.cache_kind = cache_kind
         self.kv_bits = int(kv_bits)
+        self.prefill_chunk = prefill_chunk
         dtype = dtype or cfg.dtype
-        self._bucket = all(s.window is None for s in cfg.pattern)
+        no_window = all(s.window is None for s in cfg.pattern)
+        self._bucket = no_window
+        # window layers: prefill()'s rolling buffer cannot be scattered
+        # into absolute page slots, so the paged engine prefills them
+        # through the extend path
+        self._extend_prefill = cache_kind == "paged" and \
+            (bool(prefill_chunk) or not no_window)
+        self._prefix = None
         if cache_kind == "paged":
             pages_per_seq = -(-max_len // page_size)
             if n_pages is None:
@@ -171,6 +178,9 @@ class ServeEngine:
                                    kv_group_size=kv_group_size,
                                    device=self.device)
             self.page_size = page_size
+            if prefix_sharing:
+                self._prefix = RadixPrefixCache(
+                    self.kv, max_cached_pages=prefix_max_pages)
             self.cache = self.kv.take_pool()
             # device mirror of the block tables: rows are pushed only when
             # the allocator bumps their version
@@ -178,12 +188,16 @@ class ServeEngine:
                                        dtype=torch.int32, device=self.device)
             self._bt_applied = np.full((batch_size,), -1, np.int64)
         else:
+            # the dense engine has no pages to share: prefix_sharing is
+            # accepted and ignored, as in the reference
             self.kv = DenseSlotPool(batch_size)
             self.cache = init_cache(cfg, batch_size, max_len, dtype,
                                     device=self.device)
         # one spare page keeps a decode tick's growth from starving at once
         self.sched = Scheduler(self.kv,
-                               watermark=1 if cache_kind == "paged" else 0)
+                               watermark=1 if cache_kind == "paged" else 0,
+                               prefill_chunk=prefill_chunk,
+                               prefix=self._prefix)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
@@ -197,6 +211,13 @@ class ServeEngine:
     def _ints(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr, np.int32), device=self.device)
 
+    # ---------------- COW forks ----------------
+    def _apply_copies(self, copies) -> None:
+        """Apply allocator copy-on-write forks to the device pool."""
+        if copies:
+            copy_pages(self.cache, [s for s, _ in copies],
+                       [d for _, d in copies], self.kv.n_pages)
+
     # ---------------- device block-table mirror ----------------
     def _sync_block_tables(self) -> None:
         dirty = [s for s in range(self.B)
@@ -208,6 +229,20 @@ class ServeEngine:
         for s in dirty:
             self._bt_applied[s] = self.kv.bt_version[s]
 
+    def _bt_slice(self, slot, n_tokens) -> torch.Tensor:
+        """Block-table row cut to the pages covering n_tokens, so the
+        extend path gathers only live pages (its width changes from
+        chunk to chunk; nothing caches it)."""
+        npg = self.kv.pages_for(n_tokens)
+        return self._ints(self.kv.block_tables[slot:slot + 1, :npg])
+
+    def _extend(self, tokens, start, bt, n_valid):
+        """One extend pass of one sequence: (last valid logits, cache)."""
+        logits, self.cache = extend_paged(
+            self.cfg, self.params, self.cache, self._ints(tokens[None]),
+            self._ints([start]), bt, self._ints([n_valid]))
+        return logits
+
     # ---------------- admission ----------------
     def _padded_prompt(self, prompt):
         L = len(prompt)
@@ -218,26 +253,62 @@ class ServeEngine:
 
     def _admit(self, e):
         t0 = time.time()
-        padded, L = self._padded_prompt(e.prompt)
-        tokens = self._ints(padded[None, :])
-        last = self._ints([L - 1])
-        self.stats["prefill_tokens"] += L
-        if self.cache_kind == "paged":
+        if e.shared_tokens:
+            # attach the matched prefix pages by reference before any
+            # allocation: the attach pins them (refcount >= 2) against
+            # the allocator's index reclaim
+            self.kv.share(e.slot, e.shared_pages)
+            e.prefilled = e.shared_tokens
+        if self.prefill_chunk:
+            # chunked mode: admission only reserves the slot (and any
+            # shared prefix); the prompt flows through _prefill_tick
+            self.pos[e.slot] = 0
+            self.stats["prefill_s"] += time.time() - t0
+            return
+        L = len(e.prompt)
+        if e.shared_tokens:
+            # prefix hit: prefill only the unshared suffix through the
+            # extend path, after forking the page the match ends in
+            N = e.shared_tokens
+            nv = L - N
+            C = bucket_len(nv, self.max_len) if self._bucket else nv
+            padded = np.zeros((C,), np.int32)
+            padded[:nv] = e.prompt[N:]
             self.kv.ensure(e.slot, L)
-            last_logits, row_cache = prefill(self.cfg, self.params, tokens,
-                                             len(padded), last_pos=last)
+            self._apply_copies(self.kv.cow_for_write(e.slot, N, L))
+            logits = self._extend(padded, N, self._bt_slice(e.slot, L), nv)
+            self.stats["prefill_tokens"] += nv
+        elif self._extend_prefill:
+            # sliding-window layers: the whole prompt in one extend pass
+            # writes it at absolute page slots
+            padded, L = self._padded_prompt(e.prompt)
+            self.stats["prefill_tokens"] += L
+            self.kv.ensure(e.slot, L)
+            logits = self._extend(padded, 0, self._bt_slice(e.slot, L), L)
+        elif self.cache_kind == "paged":
+            padded, L = self._padded_prompt(e.prompt)
+            self.stats["prefill_tokens"] += L
+            self.kv.ensure(e.slot, L)
+            logits, row_cache = prefill(self.cfg, self.params,
+                                        self._ints(padded[None, :]),
+                                        len(padded), last_pos=self._ints(
+                                            [L - 1]))
             npg = -(-len(padded) // self.page_size)
             ids = self.kv.owned_pages(e.slot)
             ids = (ids + [0] * npg)[:npg]       # null-page pad: never written
             scatter_prefill_cache(self.cfg, self.cache, row_cache, e.slot,
                                   ids, L)
         else:
-            last_logits, row_cache = prefill(self.cfg, self.params, tokens,
-                                             self.max_len, last_pos=last)
+            padded, L = self._padded_prompt(e.prompt)
+            self.stats["prefill_tokens"] += L
+            logits, row_cache = prefill(self.cfg, self.params,
+                                        self._ints(padded[None, :]),
+                                        self.max_len, last_pos=self._ints(
+                                            [L - 1]))
             for layer, one in zip(self.cache, row_cache):
                 for side in ("k", "v"):
                     layer[side][e.slot] = one[side][0]
-        self._emit_first_token(e, last_logits, L)
+        self._emit_first_token(e, logits, L)
         self._sync()
         self.stats["prefill_s"] += time.time() - t0
 
@@ -249,9 +320,62 @@ class ServeEngine:
         self.pos[e.slot] = prompt_len
         self.cur[e.slot] = tok
         e.prefilled = prompt_len
+        if self._prefix is not None:
+            # index the prompt's full pages at once, so concurrent
+            # same-prefix requests share them (decode writes only at
+            # positions >= prompt_len); the partial tail page is indexed
+            # at finish, since indexing it now would fork it on the very
+            # next decode token
+            nfull = prompt_len // self.page_size
+            if nfull:
+                self._prefix.insert(
+                    np.asarray(e.prompt[:nfull * self.page_size]),
+                    self.kv.owned_pages(e.slot)[:nfull])
         if (len(e.req.out) >= e.req.max_new_tokens
                 or (e.req.eos is not None and tok == e.req.eos)):
-            self.sched.finish(e.slot)
+            self._finish(e)
+
+    def _finish(self, e):
+        """Complete a request, handing the tokens whose KV its pages
+        hold (prompt + generated-minus-last) to the scheduler, so the
+        radix index can keep them for later prefix hits."""
+        slot = e.slot
+        if self._prefix is None:
+            self.sched.finish(slot)
+            return
+        n_cached = int(self.pos[slot])
+        folded = len(e.prompt) - e.metrics.n_prompt   # resumed prompts
+        toks = np.concatenate([
+            e.prompt, np.asarray(e.req.out[folded:], np.int32)])[:n_cached]
+        self.sched.finish(slot, cached_tokens=toks)
+
+    # ---------------- chunked prefill ----------------
+    def _prefill_tick(self):
+        """Advance the oldest admitted, not yet prefilled sequence by one
+        chunk (from the matched offset after a prefix hit)."""
+        pending = [e for e in self.sched.running.values()
+                   if e.prefilled < len(e.prompt)]
+        if not pending:
+            return
+        e = min(pending, key=lambda x: x.metrics.t_admit)
+        t0 = time.time()
+        C = self.prefill_chunk
+        s = e.prefilled
+        chunk = e.prompt[s:s + C]
+        nv = len(chunk)
+        padded = np.zeros((C,), np.int32)
+        padded[:nv] = chunk
+        ok, copies = self.sched.ensure_write_capacity(e.slot, s, s + nv)
+        if not ok:
+            return    # evicted while growing; it will be re-admitted
+        self._apply_copies(copies)
+        logits = self._extend(padded, s, self._bt_slice(e.slot, s + nv), nv)
+        e.prefilled = s + nv
+        self.stats["prefill_tokens"] += nv
+        if e.prefilled >= len(e.prompt):
+            self._emit_first_token(e, logits, len(e.prompt))
+        self._sync()
+        self.stats["prefill_s"] += time.time() - t0
 
     # ---------------- decode ----------------
     def _decode_tick(self):
@@ -264,13 +388,12 @@ class ServeEngine:
             for slot in ready:
                 if slot not in self.sched.running:
                     continue    # evicted while growing an earlier slot
+                # the new token lands at pos: pos + 1 tokens of capacity,
+                # and a fork first if that page is shared
                 p = int(self.pos[slot])
                 ok, copies = self.sched.ensure_write_capacity(slot, p, p + 1)
-                if copies:
-                    raise NotImplementedError(
-                        "COW page copies come with the prefix-cache slice "
-                        "(ROADMAP Queue 1 item 1)")
                 if ok:
+                    self._apply_copies(copies)
                     grown.append(slot)
             ready = [s for s in grown if s in self.sched.running]
             if not ready:
@@ -304,7 +427,7 @@ class ServeEngine:
             hit_eos = e.req.eos is not None and tok == e.req.eos
             if (len(e.req.out) >= e.req.max_new_tokens or hit_eos
                     or self.pos[slot] >= self._seq_cap() - 1):
-                self.sched.finish(slot)
+                self._finish(e)
 
     # ---------------- engine ----------------
     def _seq_cap(self) -> int:
@@ -323,6 +446,7 @@ class ServeEngine:
                     f"prompt of {len(r.prompt)} tokens cannot fit the "
                     f"engine capacity of {cap} tokens")
             if self.cache_kind == "paged":
+                # the admission gate's arithmetic with nothing shared
                 need = self.sched.admission_need(len(r.prompt))
                 if need > self.kv.usable_pages:
                     raise ValueError(
@@ -338,6 +462,8 @@ class ServeEngine:
                 if e is None:
                     break
                 self._admit(e)
+            if self.prefill_chunk:
+                self._prefill_tick()
             self._decode_tick()
         self.stats.update(self.sched.metrics_summary(self._entries))
         return requests

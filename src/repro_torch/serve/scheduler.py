@@ -1,18 +1,26 @@
 """Continuous-batching scheduler: FCFS admission gated on free KV pages,
-preemption by eviction, and per-request TTFT/TPOT metrics (the
-reference's `serve/scheduler.py` without a prefix index or chunked
-prefill).
+prefix-sharing-aware accounting, chunked prefill, preemption by
+eviction, and per-request TTFT/TPOT metrics (the reference's
+`serve/scheduler.py`, single shard).
 
 The scheduler owns the queue and the page accounting; the engine owns
 the model calls.
 
   - admission: FCFS. A request is admitted when a sequence slot is free
     AND the pool can hold its prompt pages, one decode token and
-    `watermark` spare pages.
-  - preemption: when decode growth runs out of pages, the *youngest*
-    running sequence is evicted: its pages are released and it is
+    `watermark` spare pages. With a prefix index, admission charges only
+    the unshared suffix: matched pages are attached by reference, plus
+    one fork page when the match ends mid-page (copy-on-write).
+  - prefill: optionally chunked (`prefill_chunk`): at most one chunk of
+    one admitted request runs per engine tick, so a long prompt cannot
+    stall the decode ticks of running sequences.
+  - preemption: when growth runs out of pages, the allocator first
+    reclaims the index's unused pages; only then is the *youngest*
+    running sequence evicted: its references are dropped and it is
     re-queued at the front with prompt := prompt + tokens generated so
-    far (recompute on resume, exact under greedy decoding).
+    far (recompute on resume, exact under greedy decoding; the index
+    usually still holds its prompt pages, so the resumed prompt
+    re-matches them).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ class RequestMetrics:
     n_prompt: int = 0
     n_generated: int = 0
     n_preemptions: int = 0
+    n_prefix_tokens: int = 0          # prompt tokens served from the index
 
     @property
     def ttft_s(self) -> float:
@@ -53,16 +62,21 @@ class _Entry:
     prompt: np.ndarray                # current (possibly extended) prompt
     metrics: RequestMetrics = field(default_factory=RequestMetrics)
     slot: int = -1
-    prefilled: int = 0                # prompt tokens already in the cache
+    prefilled: int = 0                # prompt tokens already in pages
+    shared_tokens: int = 0            # prefix tokens matched at admission
+    shared_pages: list = field(default_factory=list)
 
 
 class Scheduler:
     """FCFS continuous batching over a PagedKVCache (or the dense
     engine's DenseSlotPool, which speaks the same allocator protocol)."""
 
-    def __init__(self, kv, *, watermark: int = 1):
+    def __init__(self, kv, *, watermark: int = 1,
+                 prefill_chunk: int | None = None, prefix=None):
         self.kv = kv
         self.watermark = int(watermark)
+        self.prefill_chunk = prefill_chunk
+        self.prefix = prefix              # RadixPrefixCache or None
         self.waiting: deque[_Entry] = deque()
         self.running: dict[int, _Entry] = {}   # slot -> entry
         self.preemptions = 0
@@ -78,32 +92,63 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     # ---------------- admission ----------------
-    def admission_need(self, prompt_len: int, *, resumed: bool = False) -> int:
+    def admission_need(self, prompt_len: int, *, resumed: bool = False,
+                       shared_tokens: int = 0) -> int:
         """Free pages required to admit a prompt: its pages + one decode
-        token + the watermark (resumed, preempted entries skip the
-        watermark so they can get back in and finish)."""
+        token + the watermark, minus the pages covering the shared
+        prefix (attached by reference), plus one fork page when the
+        match ends mid-page. Resumed (preempted) entries skip the
+        watermark so they can get back in and finish. The engine's
+        run()-time validation uses shared_tokens=0 (sharing is
+        best-effort)."""
         wm = 0 if resumed else self.watermark
-        return self.kv.pages_for(prompt_len + 1) + wm
+        need = self.kv.pages_for(prompt_len + 1) + wm
+        if shared_tokens:
+            need -= self.kv.pages_for(shared_tokens)
+            if shared_tokens % self.kv.page_size:
+                need += 1
+        return need
 
     def try_admit(self) -> _Entry | None:
-        """Admit the queue head if a slot and its prompt pages fit."""
+        """Admit the queue head if a slot and its unshared prompt pages
+        fit, reclaiming the index's unused pages when that is what
+        stands in the way. The prefix match is re-run after every
+        reclaim round (an eviction may have dropped pages it matched),
+        and counts as one lookup however many rounds it takes."""
         if not self.waiting or len(self.running) >= self.kv.max_seqs:
             return None
         e = self.waiting[0]
-        need = self.admission_need(len(e.prompt),
-                                   resumed=e.metrics.n_preemptions > 0)
-        if need > self.kv.usable_pages:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.kv.usable_pages}; it can never be admitted")
-        if need > self.kv.free_page_count:
-            return None
+        resumed = e.metrics.n_preemptions > 0
+        count = True
+        while True:
+            shared_tokens, shared_pages = 0, []
+            if self.prefix is not None and len(e.prompt) > 1:
+                shared_tokens, shared_pages = self.prefix.lookup(
+                    e.prompt, max_tokens=len(e.prompt) - 1, count=count)
+                count = False
+            need = self.admission_need(len(e.prompt), resumed=resumed,
+                                       shared_tokens=shared_tokens)
+            if need > self.kv.usable_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool only has "
+                    f"{self.kv.usable_pages}; it can never be admitted")
+            if need <= self.kv.free_page_count:
+                break
+            if (self.prefix is None or self.prefix.evict(
+                    need - self.kv.free_page_count) == 0):
+                return None
         slot = self.kv.alloc_slot()
         if slot is None:
             return None
         self.waiting.popleft()
         e.slot = slot
         e.prefilled = 0
+        e.shared_tokens = shared_tokens
+        e.shared_pages = list(shared_pages)
+        if shared_tokens:
+            self.prefix.hits += 1
+            self.prefix.tokens_saved += shared_tokens
+            e.metrics.n_prefix_tokens += shared_tokens
         e.metrics.t_admit = time.time()
         self.running[slot] = e
         return e
@@ -119,6 +164,8 @@ class Scheduler:
                                        np.asarray(e.req.out, np.int32)])
         e.slot = -1
         e.prefilled = 0
+        e.shared_tokens = 0
+        e.shared_pages = []
         e.metrics.n_preemptions += 1
         self.preemptions += 1
         self.waiting.appendleft(e)
@@ -126,7 +173,9 @@ class Scheduler:
 
     def preempt_one(self) -> _Entry | None:
         """Evict the youngest running sequence that owns pages (LIFO
-        victim policy)."""
+        victim policy): evicting a freshly admitted page-less entry
+        (chunked mode reserves the slot before any page) frees
+        nothing."""
         if not self.running:
             return None
         owners = [s for s in self.running if self.kv.owned_pages(s)]
@@ -138,7 +187,8 @@ class Scheduler:
                               end_tok: int):
         """Grow `slot` to hold end_tok tokens and fork shared pages in
         [start_tok, end_tok), evicting other sequences while the pool is
-        dry. Returns (ok, copies): ok is False if `slot` itself got
+        dry (the allocator reclaims the index's unused pages first).
+        Returns (ok, copies): ok is False if `slot` itself got
         evicted; copies are the (src, dst) page forks to apply."""
         while True:
             try:
@@ -153,8 +203,17 @@ class Scheduler:
                     return False, []
 
     # ---------------- completion ----------------
-    def finish(self, slot: int) -> None:
+    def finish(self, slot: int, cached_tokens=None) -> None:
+        """Complete a request. `cached_tokens` (given by the engine when
+        a prefix index is attached) are the tokens whose KV the slot's
+        pages hold, prompt + generated-minus-last; they are inserted
+        into the index before the slot's references are dropped, so the
+        pages outlive the request and seed later prefix hits."""
         e = self.running.pop(slot)
+        if (self.prefix is not None and cached_tokens is not None
+                and len(cached_tokens)):
+            n = self.kv.pages_for(len(cached_tokens))
+            self.prefix.insert(cached_tokens, self.kv.owned_pages(slot)[:n])
         self.kv.release(slot)
         e.metrics.t_done = time.time()
         e.metrics.n_generated = len(e.req.out)
@@ -167,7 +226,7 @@ class Scheduler:
         done = [m for m in ms if m.t_done]
         ttft = [m.ttft_s for m in done]
         tpot = [m.tpot_s for m in done if m.n_generated > 1]
-        return {
+        out = {
             "n_done": len(done),
             "preemptions": self.preemptions,
             "ttft_avg_s": float(np.mean(ttft)) if ttft else 0.0,
@@ -178,4 +237,19 @@ class Scheduler:
             "kv_usable_pages": self.kv.usable_pages,
             "pages_allocated": getattr(self.kv, "pages_allocated", 0),
             "cow_forks": getattr(self.kv, "cow_forks", 0),
+            "prefix_hits": 0,
+            "prefix_lookups": 0,
+            "prefix_hit_rate": 0.0,
+            "prefix_tokens_saved": 0,
+            "prefix_cached_pages": 0,
+            "prefix_evictions": 0,
         }
+        if self.prefix is not None:
+            out.update({
+                "prefix_hits": self.prefix.hits,
+                "prefix_lookups": self.prefix.lookups,
+                "prefix_hit_rate": self.prefix.hit_rate,
+                "prefix_tokens_saved": self.prefix.tokens_saved,
+                "prefix_cached_pages": self.prefix.cached_pages(),
+                "prefix_evictions": self.prefix.evictions})
+        return out

@@ -1,8 +1,10 @@
 """Regenerate the reference fixture of the PyTorch port's parity tests.
 
-    PYTHONPATH=src python tests/data/torch_port/make_fixture.py [OUT_DIR]
+    PYTHONPATH=src python tests/data/torch_port/make_fixture.py [OUT_DIR] [--no-prefix]
 
-OUT_DIR defaults to this script's directory. Everything is written by
+OUT_DIR defaults to this script's directory. `--no-prefix` leaves the
+"prefix" section out (tests/test_torch_serve_prefix.py rebuilds that
+section on its own, in parallel with the rest). Everything is written by
 the JAX package (`repro`) itself:
 
   w3_pc/        packed artifact: seeded 2-layer tiny-lm, GPTQT w3
@@ -23,7 +25,8 @@ the JAX package (`repro`) itself:
       the launcher's demo prompts and the reference's greedy tokens for
       them.
 
-Only prompts whose smallest gap is at least GAP_FACTOR times the logits
+Only prompts (and prefix workloads: every logits row the engine takes a
+token from) whose smallest gap is at least GAP_FACTOR times the logits
 tolerance (LOGITS_RTOL * max|logit|) are kept, so greedy equality of the
 port with the reference cannot hinge on a near-tie. With KV bits, a
 prompt is also kept only if the reference's quantize-on-write along its
@@ -32,12 +35,14 @@ token, in every greedy sign step and every refit round of kv_quantize,
 has a margin of at least KV_TIE_MARGIN * max|x| of that write (the
 margin: twice |r| for a greedy sign, the gap between the distances to
 the two nearest levels for a refit round; an entry flips when x moves by
-half of it). A flip in a refit round changes that group's alphas by
-0.1 % and more, so on such a prompt any other fp32 summation order of
+half of it). A 4-bit prefix workload is kept only if every quantize-on-write
+of its engine run has that margin. A flip in a refit round changes
+that group's alphas by 0.1 % and more, so on such a prompt any other fp32 summation order of
 K/V, an fp64 one included, meets the reference's logits only by chance.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -62,7 +67,7 @@ from repro.models.model import (decode_step, decode_step_paged,  # noqa: E402
                                 scatter_prefill_cache)
 from repro.quant import QuantSpec  # noqa: E402
 from repro.quant import kv as jkv  # noqa: E402
-from repro.serve import Request, ServeEngine  # noqa: E402
+from repro.serve import Request, ServeEngine, compile_cache  # noqa: E402
 
 SEED = 0
 N_LAYERS = 2
@@ -91,6 +96,34 @@ LAUNCHER_SEEDS = ["the ancient city", "a famous museum", "this railway",
 LAUNCHER_MAX_NEW = 24
 # every greedy path runs in one fixed-size cache (prompt + new tokens fit)
 CACHE_LEN = 64
+# prefix workloads: PREFIX_LEN-token system prefix, one request per
+# suffix length (wave 1 the first, wave 2 the rest, both sharing the
+# prefix), wave 3 request 0's prompt + its first FORK_TOKENS tokens,
+# whose match ends inside request 0's partial tail page
+PREFIX_LEN = 21
+SUFFIXES = (3, 7, 12, 1)
+FORK_TOKENS = 3
+PREFIX_ENGINE = {"batch_size": 2, "max_len": 64, "page_size": 8}
+ENGINE_KW = {"share": {"prefix_sharing": True},
+             "chunk5": {"prefix_sharing": False, "prefill_chunk": 5},
+             "chunk16": {"prefix_sharing": False, "prefill_chunk": 16},
+             "share_chunk5": {"prefix_sharing": True, "prefill_chunk": 5},
+             "share_chunk16": {"prefix_sharing": True, "prefill_chunk": 16}}
+PREFIX_RUNS = {"w3_pc": ("share", "chunk16", "share_chunk5"),
+               "w3_g64_bf16": ("share", "share_chunk16"),
+               "w3_moe": ("share", "chunk5")}
+# 4-bit KV: one request at a time (no inactive decode row quantizes
+# garbage), a 11-token prefix and 4 new tokens keep the writes few
+# enough for the quantizer-margin filter; (artifact, group size, run)
+KV_PREFIX_RUNS = (("w3_pc", 0, "share"), ("w3_g64_bf16", 32, "share_chunk5"))
+KV_PREFIX = {"prefix_len": 11, "suffixes": (2, 3), "max_new": 4,
+             "engine": {"batch_size": 1, "max_len": 64, "page_size": 8}}
+# the sliding-window variant of tiny-lm served on w3_pc's weights
+WINDOW = 16
+COUNTERS = ("prefill_tokens", "prefix_hits", "prefix_tokens_saved",
+            "cow_forks", "pages_allocated", "preemptions",
+            "prefix_evictions", "prefix_cached_pages")
+N_CANDIDATES = 24
 
 
 def config(arch="tiny-lm"):
@@ -158,7 +191,7 @@ def _jit(cfg, what, record=False):
     """One compilation per (config, entry point, recording or not); a
     recording one is traced with the reference's kv_quantize wrapped by
     _recording_kv_quantize (the model imports it at trace time)."""
-    key = (cfg.name, what, record)
+    key = (cfg, what, record)
     if key not in _JIT:
         fn = jax.jit({
             "prefill": lambda p, t, lp: prefill(cfg, p, t, CACHE_LEN,
@@ -267,7 +300,144 @@ def select(cfg, params, candidates, kv_bits=0):
     return out
 
 
-def build(out: Path) -> dict:
+def _gap_ratio(row) -> float:
+    row = np.asarray(row, np.float64)
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0]) / (LOGITS_RTOL * float(np.abs(row).max()))
+
+
+class GapEngine(ServeEngine):
+    """The reference paged engine, recording the smallest top-1/top-2
+    gap (relative to the logits tolerance) of every logits row it takes
+    a greedy token from."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.min_gap = np.inf
+        decode = self._decode
+
+        def recorded(params, cache, toks, pos, bt, live, null_row):
+            logits, cache = decode(params, cache, toks, pos, bt, live,
+                                   null_row)
+            for row in np.asarray(logits)[np.asarray(live) > 0]:
+                self.min_gap = min(self.min_gap, _gap_ratio(row))
+            return logits, cache
+        self._decode = recorded
+
+    def _emit_first_token(self, e, last_logits, prompt_len):
+        self.min_gap = min(self.min_gap, _gap_ratio(last_logits[0]))
+        super()._emit_first_token(e, last_logits, prompt_len)
+
+
+def serve_waves(cfg, params, waves, max_new, engine_kw):
+    """Serve `waves` (lists of prompts; None: request 0's prompt + its
+    first FORK_TOKENS tokens) in turn through one reference paged
+    engine; the run's record (see build_prefix)."""
+    eng = GapEngine(cfg, params, dtype="float32", cache_kind="paged",
+                    **engine_kw)
+    served, tokens = [], []
+    for wave in waves:
+        if wave is None:
+            wave = [list(served[0][0]) + tokens[0][0][:FORK_TOKENS]]
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=max_new) for p in wave]
+        eng.run(reqs)
+        served.append([list(map(int, p)) for p in wave])
+        tokens.append([r.out for r in reqs])
+    return {"engine": engine_kw, "max_new": max_new, "waves": served,
+            "tokens": tokens,
+            "counters": {k: int(eng.stats[k]) for k in COUNTERS},
+            "gap_ratio": eng.min_gap}
+
+
+def kept_run(cfg, params, candidates, max_new, engine_kws, kv_bits=0):
+    """The runs of the first candidate workload whose every run clears
+    the gap filter (with kv_bits, the quantizer-margin filter too, over
+    every quantize-on-write of the run); the engines are traced with a
+    recording kv_quantize for that."""
+    for waves in candidates:
+        runs, margins = [], []
+        for kw in engine_kws:
+            _KV_WRITES.clear()
+            run = serve_waves(cfg, params, waves, max_new, kw)
+            if kv_bits:
+                gs = _KV_WRITES[0][1]
+                margins.append(min(
+                    float(_margins(jnp.asarray(x), kv_bits, gs).min())
+                    / float(np.abs(x).max()) for x, _ in _KV_WRITES))
+                run["quant_margin"] = margins[-1]
+            runs.append(run)
+        if (min(r["gap_ratio"] for r in runs) >= GAP_FACTOR
+                and min(margins, default=np.inf) >= KV_TIE_MARGIN):
+            return runs
+    raise RuntimeError(f"{cfg.name}: no prefix workload clears the filters")
+
+
+def build_prefix(out: Path) -> dict:
+    """The "prefix" section: every run is a dict with the engine's
+    arguments (besides dtype float32 and cache_kind paged), max_new, the
+    waves of prompts, their tokens, the counters and the smallest gap
+    ratio (and with KV bits the smallest quantizer margin)."""
+    rng = np.random.default_rng(SEED + 1)
+
+    def shared(prefix_len, suffixes, fork=True):
+        prefix = rng.integers(0, 256, prefix_len)
+        prompts = [np.concatenate([prefix, rng.integers(0, 256, n)])
+                   for n in suffixes]
+        waves = [prompts[:1], prompts[1:]]
+        return waves + [None] if fork else waves
+
+    doc = {"engine": PREFIX_ENGINE, "runs": {}}
+    params = {name: load_packed(out / name)[0] for name in ARTIFACTS}
+    cands = [shared(PREFIX_LEN, SUFFIXES) for _ in range(N_CANDIDATES)]
+    for name, runs in PREFIX_RUNS.items():
+        cfg = config(ARTIFACTS[name][0])
+        kept = kept_run(cfg, params[name], cands, MAX_NEW - 2,
+                        [{**PREFIX_ENGINE, **ENGINE_KW[r]} for r in runs])
+        doc["runs"].update({f"{name}/{r}": k for r, k in zip(runs, kept)})
+    # sliding-window layers on the paged engine: whole-prompt extend
+    # prefill, and chunked
+    cfg = config().replace(pattern=tuple(
+        dataclasses.replace(s, window=WINDOW) for s in config().pattern))
+    kept = kept_run(cfg, params["w3_pc"], cands, MAX_NEW,
+                    [{**PREFIX_ENGINE, **ENGINE_KW[r]}
+                     for r in ("share", "chunk5")])
+    doc["runs"].update({"w3_pc_window16/share": kept[0],
+                        "w3_pc_window16/chunk5": kept[1]})
+    # pool pressure: a 12-page pool of 4-token pages preempts, and the
+    # resumed request re-matches its own prompt pages; distinct prompts
+    # through a 6-page pool make admission reclaim the index
+    pressure = [[[rng.integers(0, 256, 10) for _ in range(2)]]
+                for _ in range(N_CANDIDATES)]
+    doc["runs"]["w3_pc/preempt"] = kept_run(
+        config(), params["w3_pc"], pressure, 16,
+        [{"batch_size": 2, "max_len": 64, "page_size": 4, "n_pages": 13,
+          "prefix_sharing": True}])[0]
+    distinct = [[[rng.integers(0, 256, 10) for _ in range(5)]]
+                for _ in range(N_CANDIDATES)]
+    doc["runs"]["w3_pc/reclaim"] = kept_run(
+        config(), params["w3_pc"], distinct, 4,
+        [{"batch_size": 2, "max_len": 48, "page_size": 8, "n_pages": 7,
+          "prefix_sharing": True}])[0]
+    # 4-bit KV pages, traced with the recording kv_quantize
+    kv_cands = [shared(KV_PREFIX["prefix_len"], KV_PREFIX["suffixes"],
+                       fork=False) for _ in range(N_CANDIDATES)]
+    compile_cache.clear()
+    jkv.kv_quantize = _recording_kv_quantize
+    try:
+        for name, gs, run in KV_PREFIX_RUNS:
+            kw = {**KV_PREFIX["engine"], **ENGINE_KW[run],
+                  "kv_bits": KV_BITS, "kv_group_size": gs}
+            doc["runs"][f"{name}/kv{KV_BITS}_gs{gs}_{run}"] = kept_run(
+                config(), params[name], kv_cands, KV_PREFIX["max_new"],
+                [kw], kv_bits=KV_BITS)[0]
+    finally:
+        jkv.kv_quantize = _KV_QUANTIZE
+        compile_cache.clear()
+    return doc
+
+
+def build(out: Path, prefix: bool = True) -> dict:
     key = jax.random.PRNGKey(SEED)
     rng = np.random.default_rng(SEED)
     candidates = [rng.integers(0, 256, n).astype(np.int32)
@@ -314,10 +484,14 @@ def build(out: Path) -> dict:
         "artifact": "w3_pc", "max_new": LAUNCHER_MAX_NEW,
         "prompts": LAUNCHER_SEEDS, "tokens": [t for t, _, _ in paths],
         "gap_ratio": [r for _, _, r in paths]}
+    if prefix:
+        doc["prefix"] = build_prefix(out)
     (out / "reference.json").write_text(
         json.dumps(doc, separators=(",", ":")) + "\n")
     return doc
 
 
 if __name__ == "__main__":
-    build(Path(sys.argv[1]) if len(sys.argv) > 1 else Path(__file__).parent)
+    args = [a for a in sys.argv[1:] if a != "--no-prefix"]
+    build(Path(args[0]) if args else Path(__file__).parent,
+          prefix="--no-prefix" not in sys.argv[1:])

@@ -230,12 +230,13 @@ def test_entry_points_default_to_cuda():
 def test_fixture_rebuilds_identically(tmp_path):
     """The committed fixture is what its generator writes today: same
     artifacts bit for bit, same prompts and greedy tokens, logits equal
-    to the 7 significant digits they are stored with."""
+    to the 7 significant digits they are stored with (the "prefix"
+    section is rebuilt by tests/test_torch_serve_prefix.py)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, str(FIXTURE / "make_fixture.py"),
-                        str(tmp_path)], env=env, capture_output=True,
-                       text=True, timeout=900)
+                        str(tmp_path), "--no-prefix"], env=env,
+                       capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-3000:]
     for name in ARTIFACTS:
         assert (json.loads((tmp_path / name / "manifest.json").read_text())

@@ -1,7 +1,8 @@
 """The port's serving stack (repro_torch/serve/, launch/serve.py) on the
-CPU: greedy tokens of its paged engine equal those the reference's paged
-engine (prefix_sharing=False) recorded on the committed fixture
-artifacts (tiny-lm w3, tiny-lm w3 with 4-bit binary-coded KV pages,
+CPU: greedy tokens of its paged engine (prefix_sharing=False, as the
+fixture was recorded; sharing is the default and has its own tests in
+tests/test_torch_serve_prefix.py) equal those the reference's paged
+engine recorded on the committed fixture artifacts (tiny-lm w3, tiny-lm w3 with 4-bit binary-coded KV pages,
 tiny-moe w3), its paged and dense engines agree, pages drain back to the
 pool, the allocator keeps its invariants under preemption, and the
 launcher serves the fixture with --device cpu (with --kv-bits too).
@@ -27,6 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.serve import main as launch_main
 from repro_torch.serve import (OutOfPages, PagedKVCache, Request,
                                ServeEngine, bucket_len)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "data" / "torch_port"
@@ -44,7 +46,7 @@ def _model(name):
 
 def _serve(cfg, params, prompts, max_new, **kw):
     kw = {"batch_size": 2, "max_len": 64, "dtype": "float32",
-          "page_size": 16, "device": "cpu", **kw}
+          "page_size": 16, "device": "cpu", "prefix_sharing": False, **kw}
     eng = ServeEngine(cfg, params, **kw)
     reqs = [Request(prompt=np.asarray(p, np.int32), max_new_tokens=max_new)
             for p in prompts]
@@ -53,9 +55,14 @@ def _serve(cfg, params, prompts, max_new, **kw):
 
 
 def check_drained(kv):
+    """No sequence holds a page. With a prefix index the pages it
+    retains are the only live ones, and clearing it frees them all."""
+    assert not kv.active_slots() and not kv.block_tables.any()
+    if kv.prefix_index is not None:
+        assert kv.live_pages == kv.prefix_index.cached_pages()
+        kv.prefix_index.clear()
     assert kv.free_page_count == kv.usable_pages
-    assert kv.live_pages == 0 and not kv.active_slots()
-    assert not kv.block_tables.any()
+    assert kv.live_pages == 0
 
 
 @pytest.mark.parametrize("name", ARTIFACTS + ["w3_moe"])
@@ -244,15 +251,14 @@ def test_launcher_module_entry_point():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"prefix_sharing": True}, "prefix-cache"),
-    ({"prefill_chunk": 16}, "chunked-prefill"),
     ({"kv_bits": 4, "cache_kind": "dense"}, "quantized-KV"),
     ({"speculate": 2}, "speculative"),
     ({"mesh": object()}, "multi-GPU")])
 def test_later_slices_raise(kw, slice_name):
     """Each slice still to come raises naming its ROADMAP Queue 1 item;
     binary-coded KV pages are served now, and on a dense cache they
-    raise as in the reference."""
+    raise as in the reference (prefix sharing and chunked prefill are
+    served too: tests/test_torch_serve_prefix.py)."""
     cfg, params = _model("w3_pc")
     kw = {"cache_kind": "paged", **kw}
     if slice_name == "quantized-KV":
@@ -303,8 +309,9 @@ def test_chip_smoke_refuses_without_sources_or_cuda(tmp_path):
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     """Every phase runs end to end with the plain versions on the CPU at
-    tiny size; only the launch-count requirements (no kernel launches on
-    the CPU) are unmet."""
+    tiny size (phase 6 with 4 new tokens a request); only the
+    launch-count requirements (no kernel launches on the CPU) are
+    unmet."""
     cs = _chip_smoke(monkeypatch)
     unmet = []
     monkeypatch.setattr(cs, "require",
@@ -337,8 +344,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert row["kv_bytes_per_token"] == 2 * 4 * 13 * 4 * 4
     _, row = cs.phase_moe(0, "tiny-moe", 2)
     assert row["decode_tokens"] == 4 * 31 and "2 of 2 layers" in row["depth"]
+    _, rows = cs.phase_prefix(0, cs.synthetic_llama(0, "tiny-lm"), max_new=4)
+    # 192 shared tokens each in wave 2; all but the last of wave 3's
+    # 192 + 16 + 4
+    assert rows["A"]["prefix_tokens_saved"] == 3 * 192 + 192 + 16 + 4 - 1
+    assert rows["kv"]["fork_copied_every_leaf"]
     launches = [u for u in unmet if "launch" in u]
-    assert unmet == launches and len(launches) == 7, unmet
+    assert unmet == launches and len(launches) == 13, unmet
 
 
 @pytest.mark.parametrize("bits,gs", [(2, 0), (4, 32)])
