@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-six phases; any failure is a non-zero exit.
+seven phases (phase 7 after 6 and before 5, each freeing its model);
+any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -51,9 +52,23 @@ six phases; any failure is a non-zero exit.
      extend against prefill logits, greedy tokens against the no-sharing
      engine, launches and page accounting; times TTFT per wave and the
      extend path's share of prefill.
+  7. quantize, save, load and serve at full width: seeded fp32
+     llama2-7b (init_params), cut to 8 of 32 layers, calibrated on 24
+     slices of 192 tokens of the port's wiki corpus and quantized by
+     quantize_model (GPTQT w3 per-channel, actorder), saved by
+     save_packed, loaded by load_packed and served (phase 3's requests)
+     with launch counts; then one layer at group 128 saved with bf16
+     scales. Checks every quantized matrix's finite scales and its
+     dequant against the solver's levels (1e-6 x max|w|), the save/load
+     round trip byte for byte, layer 0's wq and wd slices quantized on
+     the card against the CPU path on the card's own Hessians (picks,
+     codes and output error outside recorded near-ties), and the loaded
+     artifact's greedy tokens against the in-memory params'; prints
+     seconds per stage, layer and in total, peak memory, and per leaf
+     GPTQT's output error beside RTN's.
 
-Phases 2-5 serve without a prefix index (prefix_sharing=False), as they
-did before it existed. Each path (phases 3-6) is driven with every
+Phases 2-5 and 7 serve without a prefix index (prefix_sharing=False), as
+they did before it existed. Each path (phases 3-7) is driven with every
 launch count set to 0 just before it and read just after. The line
 before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
@@ -1718,6 +1733,334 @@ def phase_prefix(seed: int, model, kv_bits: int = 4, max_new: int = 32):
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: quantize full-width llama2-7b, save, load and serve the artifact
+# ---------------------------------------------------------------------------
+
+# the llama2-7b depth quantized in phase 7: for time, not memory (8
+# layers hold ~7.1 GB of Hessians and 6.5 GB of fp32 weights; the column
+# sweep runs ~35.6 k sequential columns a layer)
+QUANT_LAYERS = 8
+# calibration (benchmarks/common.py): 24 slices of 192 tokens of the
+# wiki train split, slice seed 1, batches of 4
+CALIB_SLICES, CALIB_LEN, CALIB_BATCH = 24, 192, 4
+# card-vs-CPU slice: the first 256 output rows of layer 0's wq and wd
+CHECK_ROWS = 256
+# near-tie thresholds of the BCchoice and multiplier picks, the parity
+# tests' (tests/test_torch_quant_core.py: CHOICE_TIE_RTOL, MULT_TIE_RTOL)
+CHOICE_TIE_RTOL = 4e-6
+MULT_TIE_RTOL = 1e-6
+# a level pick's near-tie between the card's and the CPU's sweeps, of
+# the level span: their Cholesky factors of H^-1 (cuSOLVER vs LAPACK)
+# differ at fp32 rounding times H's conditioning, which every later
+# column's compensation carries, so the two sweeps' inputs drift apart
+# over thousands of columns (on an H100 the first flips read up to
+# 2.9e-4 of the span at K=4096 and 1.6e-3 at K=11008); a wrong pick
+# lands anywhere in a level gap, ~0.14 of the span at 3 bits
+CARD_LEVEL_TIE_RTOL = 1e-2
+TOL_OUTPUT_ERR = 1e-4     # card vs CPU output error, rows without a tie
+
+
+def calibration_batches(vocab: int):
+    from repro_torch.data import calibration_slices, corpus_tokens
+    toks = corpus_tokens("wiki", split="train")
+    require(int(toks.max()) < vocab, "calibration tokens exceed the vocab")
+    sl = calibration_slices(toks, CALIB_SLICES, CALIB_LEN, seed=1)
+    return [sl[i:i + CALIB_BATCH] for i in range(0, len(sl), CALIB_BATCH)]
+
+
+class FuseCheck:
+    """Wraps the registered gptqt quantizer while installed: every
+    matrix it quantizes must have finite alphas and betas and a dequant
+    of its QuantizedTensor equal to the solver's wq_t within 1e-6 x
+    max|w| (the levels are computed as fused dequant computes them)."""
+
+    def __enter__(self):
+        from repro_torch.quant import get_quantizer
+        self.q = get_quantizer("gptqt")
+        inner = self.q.quantize
+        self.n, self.worst, self.bad = 0, 0.0, []
+
+        def checked(Wt, H, plan, *, orig_dtype="bfloat16"):
+            import torch
+            res = inner(Wt, H, plan, orig_dtype=orig_dtype)
+            qt = res.qt
+            finite = bool(torch.isfinite(qt.alphas.float()).all()
+                          and torch.isfinite(qt.betas.float()).all())
+            err = float((qt.dequant("float32").T - res.wq_t).abs().max()
+                        / Wt.abs().max())
+            self.n += 1
+            self.worst = max(self.worst, err)
+            if not finite or err > 1e-6:
+                self.bad.append((tuple(Wt.shape), finite, err))
+            return res
+        self.q.quantize = checked
+        return self
+
+    def __exit__(self, *exc):
+        del self.q.quantize                  # back to the class's method
+        return False
+
+
+def _leaves_equal(a, b) -> bool:
+    """Two params trees (the port's per-layer layout) hold the same
+    bytes leaf for leaf."""
+    import torch
+    from repro_torch.quant import QuantizedTensor
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_leaves_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(map(_leaves_equal, a, b))
+    if isinstance(a, QuantizedTensor):
+        return ((a.k_in, a.orig_dtype) == (b.k_in, b.orig_dtype)
+                and all(_leaves_equal(getattr(a, f), getattr(b, f))
+                        for f in ("codes", "alphas", "betas")))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8) if a.dtype.is_floating_point
+                            else a, b.view(torch.uint8)
+                            if b.dtype.is_floating_point else b))
+
+
+def save_and_load(cfg, qparams, spec, d: Path, scale_dtype=None):
+    """save_packed then load_packed on the card; -> (loaded, save s,
+    load s, bytes on disk)."""
+    from repro_torch.ckpt import load_packed, save_packed
+    sync()
+    t0 = time.time()
+    save_packed(d, qparams, cfg=cfg, spec=spec, scale_dtype=scale_dtype,
+                meta={"arch": cfg.name, "n_layers": cfg.n_layers})
+    save_s = time.time() - t0
+    t0 = time.time()
+    loaded, lspec, meta = load_packed(d, device=DEV)
+    sync()
+    load_s = time.time() - t0
+    require(lspec == spec.to_dict() and meta["n_layers"] == cfg.n_layers,
+            "quantize path: the artifact's spec or meta changed")
+    size = sum(f.stat().st_size for f in d.iterdir())
+    return loaded, save_s, load_s, size
+
+
+def _tie_rows(choice_margin, mult_margin, N):
+    """Rows with a BCchoice or multiplier near-tie in any group."""
+    return ((choice_margin < CHOICE_TIE_RTOL)
+            | (mult_margin < MULT_TIE_RTOL)).reshape(N, -1).any(1)
+
+
+def card_vs_cpu(name, W, H):
+    """One slice (the first CHECK_ROWS output rows of W (K, N)),
+    quantized on the card and by the CPU path from the card's own H:
+    the picks agree on every row without a choice/multiplier near-tie,
+    codes on every row without a level near-tie at its first flip, and
+    the output error of the rows without either within TOL_OUTPUT_ERR."""
+    import torch
+    from repro_torch.core.gptq import output_error
+    from repro_torch.core.gptqt import gptqt_quantize
+    from repro_torch.core.hessian import damp
+    from repro_torch.quant import unpack_signs
+    Wt = W[:, :CHECK_ROWS].T.contiguous()
+    t0 = time.time()
+    card = gptqt_quantize(Wt, H, orig_dtype="float32", margins=True)
+    sync()
+    card_s = time.time() - t0
+    Wh, Hh = Wt.cpu(), H.cpu()
+    t0 = time.time()
+    host = gptqt_quantize(Wh, Hh, orig_dtype="float32", margins=True)
+    host_s = time.time() - t0
+    N, K = Wh.shape
+    c = {f: getattr(card, f).cpu() for f in
+         ("choice_e", "choice_j", "mult", "level_margin", "levels",
+          "choice_margin", "mult_margin", "wq_t")}
+    tie = (_tie_rows(host.choice_margin, host.mult_margin, N)
+           | _tie_rows(c["choice_margin"], c["mult_margin"], N))
+    picks = ((c["choice_e"] != host.choice_e).reshape(N, -1).any(1)
+             | (c["choice_j"] != host.choice_j).reshape(N, -1).any(1)
+             | ((c["mult"] - host.mult).abs() > 2.5e-7 * host.mult)
+             .reshape(N, -1).any(1))
+    diff = (unpack_signs(card.qt.codes.cpu(), K)
+            != unpack_signs(host.qt.codes, K)).any(0).T & ~picks[:, None]
+    Hd, _ = damp(Hh)
+    order = torch.argsort(-torch.diagonal(Hd), stable=True)
+    lv = host.levels.reshape(N, -1, 2 ** card.qt.bits)
+    span = (lv.amax(-1) - lv.amin(-1)).amax(1)
+    flips, at_flip = [], []
+    for r in torch.nonzero(diff.any(1)).flatten().tolist():
+        col = int(order[torch.nonzero(diff[r, order])[0, 0]])
+        m = float(torch.minimum(host.level_margin[r, col],
+                                c["level_margin"][r, col]) / span[r])
+        at_flip.append(m)
+        if m >= CARD_LEVEL_TIE_RTOL:
+            flips.append((r, col, m))
+    same = ~(picks | tie | diff.any(1))
+
+    def errs(rows):
+        return (output_error(Wh[rows], c["wq_t"][rows], Hh),
+                output_error(Wh[rows], host.wq_t[rows], Hh))
+    e_card, e_host = errs(same)
+
+    def row_errs(Q):
+        D = Wh - Q
+        return ((D @ Hh) * D).sum(1)
+    flip = diff.any(1)
+    rel = ((row_errs(c["wq_t"]) - row_errs(host.wq_t))
+           / row_errs(host.wq_t))[flip]
+    # how far each side's factor of H^-1 is from an fp64 one (K <= 4096:
+    # the fp64 chain at K=11008 takes a minute on the host)
+    chol = None
+    if K <= 4096:
+        from repro_torch.core.gptq import _chol_inv_upper
+        Hp = Hd[order][:, order]
+        U64 = _chol_inv_upper(Hp.double())
+
+        def off(U):
+            return float((U.double() - U64).abs().max() / U64.abs().max())
+        chol = {"card": off(_chol_inv_upper(Hp.to(DEV)).cpu()),
+                "cpu": off(_chol_inv_upper(Hp))}
+    row = {"check": "quantize_card_vs_cpu", "leaf": name,
+           "shape": f"{CHECK_ROWS} rows x K={K}",
+           "card_s": card_s, "cpu_s": host_s,
+           "pick_tie_rows": int(tie.sum()),
+           "picks_differ_rows": int(picks.sum()),
+           "picks_differ_without_tie": int((picks & ~tie).sum()),
+           "level_flip_rows": len(at_flip),
+           "level_margin_at_flip_max": max(at_flip, default=None),
+           "level_flips_without_tie": len(flips),
+           "rows_compared_exactly": int(same.sum()),
+           "output_err_card": e_card, "output_err_cpu": e_host,
+           "output_err_rel": abs(e_card - e_host) / max(e_host, 1e-30),
+           # card, CPU: all rows, the rows whose picks differ, the rows
+           # that flipped a level pick (reported, not gated)
+           "output_err_all_rows": errs(torch.ones_like(same)),
+           "output_err_pick_rows": errs(picks),
+           "output_err_flip_rows": errs(flip),
+           # per flipped row, (card - CPU) / CPU output error
+           "flip_rows_rel_err_mean": float(rel.mean()) if len(rel) else None,
+           "flip_rows_rel_err_std": float(rel.std()) if len(rel) > 1
+           else None,
+           "flip_rows_card_lower": int((rel < 0).sum()),
+           "chol_inv_upper_max_rel_off_fp64": chol}
+    emit(row)
+    require(not (picks & ~tie).any(),
+            f"{name}: card and CPU picks differ without a near-tie")
+    require(not flips, f"{name}: codes differ without a level near-tie: "
+                       f"{flips[:4]}")
+    require(row["output_err_rel"] <= TOL_OUTPUT_ERR,
+            f"{name}: card vs CPU output error {row['output_err_rel']:.3g}")
+
+
+def rtn_errors(cfg, params, batches, spec):
+    """Per leaf name, RTN's output error at the same bits and group size
+    (fake mode, the same calibration)."""
+    from repro_torch.core import quantize_model
+    _, report = quantize_model(cfg, params, batches, device=DEV,
+                               spec=spec.replace(method="rtn", mode="fake"))
+    return {k: v["err"] for k, v in report.items()}
+
+
+def phase_quantize(seed: int, arch: str = "llama2-7b",
+                   n_layers: int = QUANT_LAYERS):
+    """Phase 7: quantize `arch` at full width, cut to `n_layers`, with
+    GPTQT w3 per-channel (then one layer at group 128 with bf16 scales),
+    save, load and serve the artifact through the paged engine."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import StageTimer, collect_hessians, quantize_model
+    from repro_torch.models import init_params
+    from repro_torch.quant import QuantSpec
+    cfg = get_config(arch).replace(dtype="float32", n_layers=n_layers)
+    t0 = time.time()
+    params = init_params(cfg, seed=seed + 3, dtype="float32", device=DEV)
+    sync()
+    init_s = time.time() - t0
+    batches = calibration_batches(cfg.vocab_size)
+    spec = QuantSpec.from_config(cfg.quant, method="gptqt", mode="packed")
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with FuseCheck() as fuse, StageTimer(sync) as timer:
+        t0 = time.time()
+        qparams, report = quantize_model(cfg, params, batches, spec=spec,
+                                         device=DEV)
+        sync()
+        quant_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
+            else None)
+    rtn = rtn_errors(cfg, params, batches, spec)
+    with tempfile.TemporaryDirectory() as tmp:
+        loaded, save_s, load_s, size = save_and_load(
+            cfg, qparams, spec, Path(tmp) / "w3_pc")
+        same_bytes = _leaves_equal(loaded, qparams)
+    # one layer at group 128, scales saved as bf16
+    cfg1 = cfg.replace(n_layers=1)
+    p1 = {**params, "layers": params["layers"][:1]}
+    spec128 = spec.replace(group_size=128)
+    with FuseCheck() as fuse128:
+        q128, _ = quantize_model(cfg1, p1, batches, spec=spec128, device=DEV)
+    with tempfile.TemporaryDirectory() as tmp:
+        l128, _, _, _ = save_and_load(cfg1, q128, spec128, Path(tmp) / "g128",
+                                      scale_dtype="bfloat16")
+        wd = l128["layers"][0]["mlp"]["wd"]
+        bf16_ok = (wd.alphas.dtype == torch.bfloat16 and wd.n_groups
+                   == cfg.d_ff // 128 and _leaves_equal(
+                       l128["layers"][0]["mlp"]["wd"],
+                       q128["layers"][0]["mlp"]["wd"].cast_scales("bfloat16")))
+    del q128, l128
+    stages = dict(timer.seconds)
+    row = {"check": "quantize_path_quantize", "model": cfg.name,
+           "depth": f"{n_layers} of {get_config(arch).n_layers} layers "
+                    f"(cut for time)",
+           "method": "gptqt w3 n=5 range 1, 33 points, per-channel, "
+                     "actorder",
+           "calibration": f"{CALIB_SLICES} x {CALIB_LEN} tokens, batches "
+                          f"of {CALIB_BATCH}",
+           "init_s": init_s, "quantize_s": quant_s,
+           "s_per_layer": quant_s / n_layers,
+           "stage_s": {k: v for k, v in stages.items()
+                       if not k.startswith("leaf ")},
+           "leaf_s_per_layer": {k[5:]: v / n_layers for k, v in
+                                stages.items() if k.startswith("leaf ")},
+           "save_s": save_s, "load_s": load_s, "artifact_bytes": size,
+           "peak_mem_gb": peak,
+           "matrices_fuse_checked": fuse.n + fuse128.n,
+           "fuse_max_rel_err": max(fuse.worst, fuse128.worst),
+           "roundtrip_byte_equal": same_bytes,
+           "g128_bf16_roundtrip": bf16_ok,
+           "output_err": {k: {"gptqt": v["err"], "rtn": rtn[k]}
+                          for k, v in report.items()}}
+    emit(row)
+    require(not fuse.bad and not fuse128.bad,
+            f"quantize path: fuse check failed {fuse.bad + fuse128.bad}")
+    require(fuse.n == 7 * n_layers and fuse128.n == 7,
+            f"quantize path: {fuse.n}, {fuse128.n} matrices quantized")
+    require(same_bytes, "quantize path: load_packed(save_packed(x)) != x")
+    require(bf16_ok, "quantize path: the g128 bf16 artifact did not "
+                     "round-trip")
+    # card vs CPU on layer 0's wq and wd, from the card's own Hessians
+    # (layer 0's inputs depend on nothing after it)
+    hs = collect_hessians(cfg1, p1, batches, spec=spec, device=DEV)
+    for leaf, grp in (("wq", "attn"), ("wd", "mlp")):
+        key = (0, f"['L0']['{grp}']['{leaf}']")
+        card_vs_cpu(leaf, params["layers"][0][grp][leaf], hs[key][3])
+    del hs, params, p1
+    # serve: the loaded artifact, then the in-memory params
+    counts, srow, prompts, outs = serve_path("quantize_path", cfg, loaded,
+                                             seed)
+    emit(srow)
+    _, _, _, outs_mem = serve_path("quantize_path_in_memory", cfg, qparams,
+                                   seed)
+    emit({"check": "quantize_path_tokens", "requests": len(outs),
+          "loaded_equals_in_memory": outs == outs_mem})
+    for k in ("bcq_gemv", "bcq_matmul", "paged_attention"):
+        require(counts[k] > 0, f"quantize path: {k} was never launched")
+    require(counts["paged_attention"] == cfg.n_layers * srow["decode_ticks"]
+            and counts["paged_attention_quant"] == 0
+            and counts["bcq_expert_matmul"] == 0,
+            f"quantize path: launches {counts}")
+    require(outs == outs_mem, "quantize path: the loaded artifact served "
+                              "other tokens than the in-memory params")
+    return counts, row
+
+
 def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
                    tag: str = "main"):
     """Where a path's decode step's time goes: the paged decode step at
@@ -1814,7 +2157,7 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1935,9 +2278,16 @@ def main(argv=None) -> int:
             counts, _ = phase_prefix(args.seed, llama)
             count("prefix_path", counts)
             phase_done(6, t0)
-        del llama                # free the llama weights before phase 5
+        del llama                # free the llama weights before phase 7
         gc.collect()
         torch.cuda.empty_cache()
+        if 7 in phases:
+            t0 = time.time()
+            counts, _ = phase_quantize(args.seed)
+            count("quantize_path", counts)
+            gc.collect()         # and phase 7's model before phase 5
+            torch.cuda.empty_cache()
+            phase_done(7, t0)
         if 5 in phases:
             t0 = time.time()
             counts, _ = phase_moe(args.seed)

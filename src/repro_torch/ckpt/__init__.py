@@ -1,3 +1,3 @@
-from repro_torch.ckpt.packed import load_packed, params_from_tree
+from repro_torch.ckpt.packed import load_packed, params_from_tree, save_packed
 
-__all__ = ["load_packed", "params_from_tree"]
+__all__ = ["load_packed", "save_packed", "params_from_tree"]

@@ -1,5 +1,5 @@
-"""Packed-quantized model artifacts, load side (the reference's
-`ckpt/packed.py:load_packed`), and the function that carries a
+"""Packed-quantized model artifacts (the reference's `ckpt/packed.py`:
+`save_packed` and `load_packed`), and the function that carries a
 reference parameter tree across into the port.
 
 Layout: <dir>/arrays.npz + manifest.json + COMMITTED. The manifest
@@ -22,23 +22,39 @@ leaves are unstacked into one weight dict per layer,
 with layer g * len(pattern) + i taken from block "L{i}", group g. A
 packed MoE expert stack, (G, E, bits, K/32, N) codes in the reference's
 stacked tree, becomes one QuantizedTensor of shape (E, K, N) per layer,
-which the batched-expert kernel serves in one launch. The
-spec stays the manifest's dict for now (the quantizer's QuantSpec
-arrives with the quantizer slice).
+which the batched-expert kernel serves in one launch. `load_packed`
+returns the manifest's spec as a dict (`QuantSpec.from_dict` reads it).
+
+`save_packed` is the inverse: it restacks the per-layer list into the
+reference's {"blocks": {"L{i}": (n_groups, ...) leaves}} with the keys
+below "blocks" sorted (the order the reference's stacked tree has), and
+writes format v4 as the reference does — the same array keys a0, a1, ...
+in tree order, codes as uint32 words, bf16 (dense leaves, and scales
+under `scale_dtype="bfloat16"`) as raw uint16 bits, the symbolic
+sharding block and per-leaf PartitionSpecs (ckpt/pspec.py) — into
+<dir>.tmp, renamed into place, with a fsynced COMMITTED marker last.
+The optional v4 draft block (`draft_bits`) comes with speculative
+decoding (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import json
+import os
+import shutil
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.hw import resolve_device
-from repro_torch.quant.packing import codes_from_numpy
-from repro_torch.quant.qlinear import QuantizedTensor
+from repro_torch.ckpt.pspec import SYMBOLIC_AXES, named_pspec, pspec_to_json
+from repro_torch.hw import dtype_name, resolve_device
+from repro_torch.quant.packing import codes_from_numpy, codes_to_numpy
+from repro_torch.quant.qlinear import QuantizedTensor, stack_leaves
 
 FORMAT_VERSION = 4
+SCALE_DTYPES = (None, "float32", "bfloat16")
+# the rule the manifest names for its per-leaf specs (the reference's)
+PSPEC_RULE = "repro.dist.sharding.named_pspec"
 
 
 def _host(arr) -> np.ndarray:
@@ -162,3 +178,124 @@ def load_packed(directory, *, device=None):
     with np.load(d / "arrays.npz") as arrays:
         tree = _decode(manifest["tree"], arrays, dev)
     return unstack_blocks(tree), manifest.get("spec"), manifest.get("meta", {})
+
+
+# --------------------------------------------------------------------------
+# save side
+# --------------------------------------------------------------------------
+
+def _sorted_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _zip_map(trees, fn):
+    """fn over the leaves of equally shaped nested dicts, in the first
+    tree's order."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_map([t[k] for t in trees], fn) for k in trees[0]}
+    return fn(trees)
+
+
+def _restack(params: dict, P: int) -> dict:
+    """The port's {"layers": [...]} -> the reference's {"blocks":
+    {"L{i}": stacked}}, "blocks" where "layers" stood: layer g * P + i
+    becomes group g of slot "L{i}"."""
+    layers = params["layers"]
+    blocks = {f"L{i}": _sorted_tree(_zip_map(layers[i::P], stack_leaves))
+              for i in range(P)}
+    return {("blocks" if k == "layers" else k):
+            (blocks if k == "layers" else v) for k, v in params.items()}
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.bfloat16).view(torch.int16).cpu().numpy() \
+        .view(np.uint16)
+
+
+def _store_scale(t, arrays: dict, scale_dtype):
+    """Collect one alpha/beta tensor; returns (key, flagged_bf16). bf16
+    is stored as raw uint16 bits (npz has no bfloat16); scales that are
+    already bf16 take this path whatever scale_dtype says."""
+    key = f"a{len(arrays)}"
+    bf16 = scale_dtype == "bfloat16" or t.dtype == torch.bfloat16
+    arrays[key] = (_bf16_bits(t) if bf16
+                   else np.ascontiguousarray(t.detach().cpu().numpy()))
+    return key, bf16
+
+
+def _encode(tree, arrays: dict, path=(), scale_dtype=None):
+    """Nested dict tree -> manifest node; arrays collected by key."""
+    if isinstance(tree, dict):
+        return {k: _encode(v, arrays, path + (k,), scale_dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        ent = {"kind": "qt", "k_in": tree.k_in,
+               "orig_dtype": tree.orig_dtype,
+               "groups": int(tree.n_groups),
+               "group_size": int(tree.group_size),
+               "pspec": {f: pspec_to_json(named_pspec(
+                   path + ("." + f,), getattr(tree, f).shape))
+                   for f in ("codes", "alphas", "betas")}}
+        key = f"a{len(arrays)}"
+        arrays[key] = codes_to_numpy(tree.codes)
+        ent["codes"] = key
+        for field in ("alphas", "betas"):
+            key, bf16 = _store_scale(getattr(tree, field), arrays,
+                                     scale_dtype)
+            if bf16:
+                ent["scale_dtype"] = "bfloat16"
+            ent[field] = key
+        return ent
+    key = f"a{len(arrays)}"
+    dt = dtype_name(tree.dtype)
+    arrays[key] = (_bf16_bits(tree) if dt == "bfloat16"
+                   else np.ascontiguousarray(tree.detach().cpu().numpy()))
+    return {"kind": "array", "key": key, "dtype": dt,
+            "pspec": pspec_to_json(named_pspec(path, tree.shape))}
+
+
+def save_packed(directory, params, *, cfg, spec=None,
+                meta: dict | None = None, scale_dtype: str | None = None,
+                draft_bits: int | None = None) -> Path:
+    """Write a packed model artifact from the port's params, whose
+    config `cfg` says how the layers restack into pattern slots; returns
+    the final directory. `spec` is a QuantSpec (or its dict).
+    `scale_dtype="bfloat16"` stores alphas/betas as bf16 (rounded once,
+    half the scale bytes)."""
+    if scale_dtype not in SCALE_DTYPES:
+        raise ValueError(f"scale_dtype={scale_dtype!r}; "
+                         f"expected one of {SCALE_DTYPES}")
+    if draft_bits is not None:
+        raise NotImplementedError(
+            "save_packed(draft_bits=...): the v4 draft block comes with "
+            "speculative decoding (ROADMAP Queue 1 item 4)")
+    if len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"params hold {len(params['layers'])} layers, "
+                         f"{cfg.name} {cfg.n_layers}")
+    tree = _restack(params, len(cfg.pattern))
+    final = Path(directory)
+    tmp = final.with_name(final.name + ".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    arrays: dict = {}
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "spec": (spec.to_dict() if hasattr(spec, "to_dict") else spec),
+        "meta": meta or {},
+        "sharding": {"axes": list(SYMBOLIC_AXES), "rule": PSPEC_RULE},
+        "tree": _encode(tree, arrays, scale_dtype=None
+                        if scale_dtype == "float32" else scale_dtype),
+    }
+    np.savez(tmp / "arrays.npz", **arrays)
+    (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
+    if final.exists():
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    with open(final / "COMMITTED", "w") as f:
+        f.write(str(FORMAT_VERSION))
+        f.flush()
+        os.fsync(f.fileno())
+    return final

@@ -8,8 +8,10 @@ request batch through the continuous-batching engine.
 
 The artifact is read by ckpt.packed.load_packed (manifests v1-v4, as
 the reference writes them); the model config is the registry entry its
-meta "arch" names, at the artifact's own depth. Training, quantizing
-and --mesh arrive with later slices.
+meta "arch" names, at the artifact's own depth. An artifact the port
+quantized (core.api.quantize_model, then ckpt.packed.save_packed)
+serves the same way; the quantize flags arrive with training (ROADMAP
+Queue 1 item 7) and --mesh with multi-GPU (item 6).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Shared building blocks (the reference's `models/layers.py`): plain
-functions over tensors and per-layer weight dicts."""
+functions over tensors and per-layer weight dicts, and the activation
+tap that calibration reads."""
 from __future__ import annotations
 
 import torch
@@ -41,8 +42,38 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# Activation tap: while one is open (calibration), every linear() of a
+# plain weight records its input keyed by the weight's object id, and
+# the MoE layer its per-expert inputs (models/moe.py).
+_TAP = None
+
+
+class tap_activations:
+    """with tap_activations() as rec: ... ; rec[id(w)] -> list of inputs."""
+
+    def __enter__(self):
+        global _TAP
+        self._outer = _TAP
+        self.rec = {}
+        _TAP = self.rec
+        return self.rec
+
+    def __exit__(self, *exc):
+        global _TAP
+        _TAP = self._outer
+        return False
+
+
+def record(w, x) -> None:
+    """Record x as an input of weight w when a tap is open."""
+    if _TAP is not None:
+        _TAP.setdefault(id(w), []).append(x)
+
+
 def linear(x, w):
     """Apply a (possibly quantized) weight: x (..., K) @ w (K, N)."""
+    if _TAP is not None and isinstance(w, torch.Tensor):
+        _TAP.setdefault(id(w), []).append(x.reshape(-1, x.shape[-1]))
     if hasattr(w, "quantized_matmul"):           # QuantizedTensor
         return w.quantized_matmul(x)
     return x @ w.to(x.dtype)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.hw import torch_dtype
+from repro_torch.models import layers
 from repro_torch.models.layers import init_linear
 
 
@@ -97,8 +98,11 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
     xe = xpad[slot_tok[:E * C]].reshape(E, C, D)
 
     # ---- expert computation (SwiGLU); an empty slot's h is silu(0)*0 = 0
+    layers.record(p["wg"], xe)     # calibration: per-expert inputs
+    layers.record(p["wu"], xe)
     h = torch.nn.functional.silu(_expert_matmul(xe, p["wg"], rows))
     h = h * _expert_matmul(xe, p["wu"], rows)
+    layers.record(p["wd"], h)
     ye = _expert_matmul(h, p["wd"], rows)
 
     # ---- combine: each token's k slots (the drop bin is a zero row) ----

@@ -139,3 +139,15 @@ class QuantizedTensor:
         (`rows`: live leading rows of each expert of a batched stack)."""
         from repro_torch.kernels import ops
         return ops.bcq_apply(x, self, rows)
+
+
+def stack_leaves(items):
+    """Stack equally shaped weights (tensors or QuantizedTensors) along
+    a new leading axis: per-expert matrices into an expert stack, or a
+    pattern slot's layers into the reference's group axis."""
+    if isinstance(items[0], QuantizedTensor):
+        return QuantizedTensor(torch.stack([q.codes for q in items]),
+                               torch.stack([q.alphas for q in items]),
+                               torch.stack([q.betas for q in items]),
+                               items[0].k_in, items[0].orig_dtype)
+    return torch.stack(items)

@@ -374,3 +374,27 @@ def test_chip_smoke_near_ties_match_the_parity_tests(monkeypatch, bits, gs):
     want = near_ties(x, a.numpy(), b.numpy(), bits, gs or 128).reshape(x.shape)
     np.testing.assert_array_equal(got, want)
     assert got[..., :2].all() and got.mean() < 0.05
+
+
+def test_chip_smoke_quantize_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 7 (quantize, save, load, serve) end to end on the CPU at
+    tiny size (tiny-lm, 2 layers): every check holds but the launch
+    counts, and the card-vs-CPU comparison runs both sides on the CPU."""
+    cs = _chip_smoke(monkeypatch)
+    unmet, rows = [], []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    monkeypatch.setattr(cs, "emit", rows.append)
+    counts, row = cs.phase_quantize(0, "tiny-lm", 2)
+    assert all("launch" in u for u in unmet) and len(unmet) == 4, unmet
+    assert row["matrices_fuse_checked"] == 7 * 2 + 7
+    assert row["roundtrip_byte_equal"] and row["g128_bf16_roundtrip"]
+    assert set(row["stage_s"]) == {"calibration_forward", "hessian",
+                                   "bc_choice", "reexplore", "solve", "pack"}
+    assert all(v["gptqt"] < v["rtn"] for v in row["output_err"].values())
+    cards = [r for r in rows if r["check"] == "quantize_card_vs_cpu"]
+    assert [r["leaf"] for r in cards] == ["wq", "wd"]
+    assert all(r["picks_differ_rows"] == 0 and r["output_err_rel"] == 0
+               for r in cards)
+    assert rows[-1] == {"check": "quantize_path_tokens", "requests": 4,
+                        "loaded_equals_in_memory": True}
