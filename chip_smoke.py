@@ -2,17 +2,20 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-seven phases (phase 7 after 6 and before 5, each freeing its model);
-any failure is a non-zero exit.
+eight phases (in the order 1, 2, 3, 4, 6, 8, 7, 5: phase 8 runs on phase
+3's model before it is freed, and 7 and 5 each free their own); any
+failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
      tensor-core GEMM M in {9,16,64,128} on 4096x4096, 4096x11008,
      11008x4096, the GEMV also on Qwen3-MoE's 4096x8192 and 4096x512,
-     w3 per-channel and group 128, fp32 and bf16 scales;
+     w3 per-channel and group 128, fp32 and bf16 scales; on the llama
+     shapes also draft views, 2 of the 3 stored planes with their own
+     scales, through the GEMV at M 1..8 and the GEMM at M 12 and 20;
      the batched-expert GEMM at E=128, M in {4,16}, 4096x1536 and
      1536x4096, also bit for bit against the single-matrix kernels
      expert by expert, with and without the rows of a routing; paged
@@ -65,11 +68,29 @@ any failure is a non-zero exit.
      codes and output error outside recorded near-ties), and the loaded
      artifact's greedy tokens against the in-memory params'; prints
      seconds per stage, layer and in total, peak memory, and per leaf
-     GPTQT's output error beside RTN's.
+     GPTQT's output error beside RTN's. The artifact carries the v4
+     draft block (draft_bits=2): its scales must equal a refit of the
+     loaded params on the card bit for bit, a load-then-save with the
+     block must be byte-equal, and the artifact served with speculate=4
+     from the block must give the plain serving's tokens (up to a
+     printed near-tie).
+  8. self-speculative decoding at full width: phase 3's model and
+     requests through speculative paged engines: A, a w2 view of the
+     target's codes with scales refit at boot, k=4; B, the same draft,
+     k=1 (verify at 8 rows stays on the GEMV); C, a perfect draft (the
+     target's params), k=4. Each must give phase 3's tokens (up to a
+     printed near-tie), launch the GEMV, paged attention and (A, C) the
+     GEMM and never the plain BCQ path, drain its pages, and add exactly
+     its scale bytes with codes sharing the target's storage; C must
+     accept at least 95 % of its draft tokens; one draft_propose_paged
+     call must run with no device-to-host copy. Prints a
+     `speculative_path` line an engine and a `speculative_profile` line
+     (one tick of A, propose and verify, beside phase 3's decode step).
 
-Phases 2-5 and 7 serve without a prefix index (prefix_sharing=False), as
-they did before it existed. Each path (phases 3-7) is driven with every
-launch count set to 0 just before it and read just after. The line
+Phases 2-5, 7 and 8 serve without a prefix index (prefix_sharing=False),
+as they did before it existed. Each path (phases 3-8; in phase 8 each
+engine's run) is driven with every launch count set to 0 just before it
+and read just after. The line
 before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
 error against the plain version, time, bound, plain and library
@@ -277,10 +298,18 @@ LLAMA_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096)]
 QWEN_SHAPES = [(4096, 8192), (4096, 512)]
 GEMV_MS = tuple(range(1, 9))
 GEMM_MS = (9, 16, 64, 128)
+# a speculative draft's weights: the leading DRAFT_PLANES of w3 codes
+# with their own scales, through the GEMV at every batch (M 1-8), and
+# the verify pass's rows at batch 4 through the GEMM: M = 4 (k + 1) at
+# k = 2 and 4
+DRAFT_PLANES = 2
+DRAFT_MS = GEMV_MS + (12, 20)
 # (M, K, N) of the GEMM beside its line: llama2-7b's prefill buckets 16
-# and 64, Qwen3-MoE's k/v (N=512) and q (N=8192) projections
-GEMM_SHAPES = ((16, 4096, 11008), (64, 4096, 11008), (16, 4096, 512),
-               (128, 4096, 512), (16, 4096, 8192), (128, 4096, 8192))
+# and 64, a k=4 verify at batch 4 (M=20), Qwen3-MoE's k/v (N=512) and q
+# (N=8192) projections
+GEMM_SHAPES = ((16, 4096, 11008), (64, 4096, 11008), (20, 4096, 11008),
+               (16, 4096, 512), (128, 4096, 512), (16, 4096, 8192),
+               (128, 4096, 8192))
 # (Hkv, rep, hd) of the binary-coded decode: llama2-7b, Qwen3-MoE
 QUANT_GEOMS = ((32, 1, 128), (4, 16, 128))
 PAGED_CTX = [50, 80, 110, 131]
@@ -306,12 +335,25 @@ QUANT_VARIANTS = (
 BF16_ULP = 2.0 ** -8   # bf16 rounding of an output: half an ulp, relative
 
 
-def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS):
+def draft_operands(qt, planes=DRAFT_PLANES):
+    """(codes, alphas, betas) of a draft view of `qt`: its leading
+    `planes` code planes, as kernels/ops.py slices them (no copy), with
+    the leading alphas as its scales."""
+    return (qt.codes[..., :planes, :, :],
+            qt.alphas[..., :planes].contiguous(), qt.betas)
+
+
+def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS, draft_Ms=DRAFT_MS):
+    """Each BCQ kernel against its plain version at every M of `Ms` (and
+    `draft_Ms` on draft views, 2 of 3 stored planes) on each (K, N),
+    per-channel and group 128, fp32 and bf16 scales; returns (worst
+    relative error, checks) by kernel, draft views under `<name>_draft`."""
     import torch
     from repro_torch.kernels.bcq_matmul import (_bcq_matmul_plain, bcq_gemv,
                                                 bcq_matmul)
-    worst = {"bcq_gemv": 0.0, "bcq_matmul": 0.0}
-    n_checks = {"bcq_gemv": 0, "bcq_matmul": 0}
+    worst = {"bcq_gemv": 0.0, "bcq_matmul": 0.0, "bcq_gemv_draft": 0.0,
+             "bcq_matmul_draft": 0.0}
+    n_checks = {k: 0 for k in worst}
     for K, N in shapes:
         for gs in (0, 128):
             for sdt in (torch.float32, torch.bfloat16):
@@ -367,36 +409,59 @@ def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS):
                     require(rel <= TOL_BF16, f"{name} bf16 x M={M} K={K} "
                                              f"N={N}: rel err {rel:.3g}")
                     n_checks[name] += 1
+                # draft views: the leading planes of the stored codes
+                ops = draft_operands(qt)
+                for M in draft_Ms:
+                    name = "bcq_gemv" if M <= 8 else "bcq_matmul"
+                    fn = bcq_gemv if M <= 8 else bcq_matmul
+                    x = torch.randn((M, K), generator=gen, device=DEV)
+                    y = fn(x, *ops)
+                    ref = _bcq_matmul_plain(x, *ops)
+                    sync()
+                    rel = float((y - ref).abs().max() / ref.abs().max())
+                    emit({"check": f"{name}_draft", "M": M, "K": K, "N": N,
+                          "planes": f"{DRAFT_PLANES} of 3", "group_size": gs,
+                          "scale_dtype": str(sdt).removeprefix("torch."),
+                          "rel_err": rel, "tol": TOL_FP32})
+                    require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                            f"{name} draft view M={M} K={K} N={N} gs={gs} "
+                            f"{sdt}: rel err {rel:.3g} > {TOL_FP32}")
+                    worst[f"{name}_draft"] = max(worst[f"{name}_draft"], rel)
+                    n_checks[f"{name}_draft"] += 1
                 del qts
     return worst, n_checks
 
 
-def summarize_bcq(gen, name, M, K, N):
+def summarize_bcq(gen, name, M, K, N, planes=3):
     """The kernel's line: time, bound, plain and library (torch.matmul on
-    the pre-dequantized W) at one main-path shape, w3 per-channel fp32."""
+    the pre-dequantized W) at one main-path shape, w3 per-channel fp32
+    (a draft view of its leading `planes` when planes < 3)."""
     import torch
     from repro_torch.kernels.bcq_matmul import (_bcq_matmul_plain, bcq_gemv,
                                                 bcq_matmul)
+    from repro_torch.kernels.ref import dequant_ref
     fn = bcq_gemv if name == "bcq_gemv" else bcq_matmul
     n_copy = max(2, -(-100_000_000 // (3 * K * N // 8)))
-    qts = [random_qt(gen, K, N, 0, torch.float32) for _ in range(n_copy)]
+    ops = [draft_operands(q, planes) for q in
+           (random_qt(gen, K, N, 0, torch.float32) for _ in range(n_copy))]
     x = torch.randn((M, K), generator=gen, device=DEV)
     it = [0]
 
     def run():
-        q = qts[it[0] % n_copy]
+        q = ops[it[0] % n_copy]
         it[0] += 1
-        return fn(x, q.codes, q.alphas, q.betas)
-    q0 = qts[0]
-    y = fn(x, q0.codes, q0.alphas, q0.betas)
-    ref = _bcq_matmul_plain(x, q0.codes, q0.alphas, q0.betas)
+        return fn(x, *q)
+    q0 = ops[0]
+    y = fn(x, *q0)
+    ref = _bcq_matmul_plain(x, *q0)
     err = float((y - ref).abs().max())
     t = kernel_ms(run, 50)
-    plain_ms = best_ms(kernel_ms(lambda: _bcq_matmul_plain(
-        x, q0.codes, q0.alphas, q0.betas), 5))
-    w = q0.dequant(torch.float32)
+    plain_ms = best_ms(kernel_ms(lambda: _bcq_matmul_plain(x, *q0), 5))
+    w = dequant_ref(*q0, K)
     lib_ms = best_ms(kernel_ms(lambda: torch.matmul(x, w), 20))
-    n_bytes = q0.packed_bytes() + 4 * M * K + 4 * M * N
+    # the active planes' code words, the scales, x and y
+    n_bytes = (sum(a.numel() * a.element_size() for a in q0)
+               + 4 * M * K + 4 * M * N)
     row = {}
     if name == "bcq_gemv":
         b, by = bound_ms(n_bytes, 2.0 * M * K * N)
@@ -414,7 +479,9 @@ def summarize_bcq(gen, name, M, K, N):
             "bound_ms": b, "bound_by": by, **row, "library_ms": lib_ms,
             "event_ms": t["event_ms"],
             "timing": "profiler" if t["device_ms"] else "cuda_events",
-            "shape": f"M={M} K={K} N={N} w3 per-channel fp32 scales"}
+            "shape": f"M={M} K={K} N={N} w3 per-channel fp32 scales"
+                     + (f", a draft view of {planes} of 3 planes"
+                        if planes < 3 else "")}
 
 
 def paged_case(gen, B, Hkv, rep, hd, page, ctx, dtype):
@@ -1125,10 +1192,11 @@ def _code_bytes(params) -> int:
 PROMPT_LENS = [16, 45, 77, 100]
 
 
-def serve_path(name, cfg, params, seed, kv_bits=0):
-    """Serve the path's 4 requests (32 new tokens each) through the paged
-    engine, every launch count set to 0 just before and read just
-    after; returns (counts, row, prompts, engine)."""
+def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
+    """Serve the path's 4 requests (`max_new` new tokens each) through
+    the paged engine (speculatively with `spec`: speculate, draft_bits,
+    draft_params), every launch count set to 0 just before and read just
+    after; returns (counts, row, prompts, tokens per request, engine)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1136,12 +1204,13 @@ def serve_path(name, cfg, params, seed, kv_bits=0):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
-    eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
-                      dtype="float32", cache_kind="paged", page_size=64,
-                      kv_bits=kv_bits, prefix_sharing=False, device=DEV)
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
+                      dtype="float32", cache_kind="paged", page_size=64,
+                      kv_bits=kv_bits, prefix_sharing=False, device=DEV,
+                      **spec)
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     sync()
     reset_launch_counts()
     t1 = time.time()
@@ -1151,7 +1220,8 @@ def serve_path(name, cfg, params, seed, kv_bits=0):
     counts = launch_counts()
     st = eng.stats
     row = {"check": name, "model": cfg.name, "layers": cfg.n_layers,
-           "requests": len(reqs), "prompt_lens": PROMPT_LENS, "max_new": 32,
+           "requests": len(reqs), "prompt_lens": PROMPT_LENS,
+           "max_new": max_new,
            "kv_bits": kv_bits, "packed_code_bytes": _code_bytes(params),
            "kv_bytes_per_token": eng.kv.bytes_per_page() // eng.page_size,
            "wall_s": wall, "prefill_s": st["prefill_s"],
@@ -1165,15 +1235,27 @@ def serve_path(name, cfg, params, seed, kv_bits=0):
            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                            if DEV == "cuda" else None),
            "launches": counts}
-    require(all(r.done and len(r.out) == 32 for r in reqs),
-            f"{name}: a request did not finish with 32 tokens")
+    if spec:
+        snap = eng.stats_snapshot()
+        row.update({"speculate": eng.speculate,
+                    "draft": ("the target's params" if spec.get(
+                        "draft_params") is params else
+                        f"w{eng.draft_bits} view of the target's codes"),
+                    "draft_tokens": snap.draft_tokens,
+                    "accepted_tokens": snap.accepted_tokens,
+                    "acceptance_rate": snap.acceptance_rate,
+                    "decode_ms_per_token": 1e3 * st["decode_s"]
+                    / max(st["tokens"], 1),
+                    "draft_build_s": eng.draft_build_s})
+    require(all(r.done and len(r.out) == max_new for r in reqs),
+            f"{name}: a request did not finish with {max_new} tokens")
     require(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
             f"{name}: token out of the vocabulary")
     require(counts["bcq_plain"] == 0, f"{name}: a BCQ call took the "
                                       f"plain path")
     require(eng.kv.free_page_count == eng.kv.usable_pages,
             f"{name}: pages did not drain back to the pool")
-    return counts, row, prompts, [r.out for r in reqs]
+    return counts, row, prompts, [r.out for r in reqs], eng
 
 
 def paged_vs_dense(name, cfg, params, prompt, toks, steps=8):
@@ -1238,9 +1320,11 @@ def paged_vs_dense(name, cfg, params, prompt, toks, steps=8):
 
 
 def phase_main_path(seed: int, model, build_s: float):
-    """Phase 3 on `model`, built by synthetic_llama in `build_s` s."""
+    """Phase 3 on `model`, built by synthetic_llama in `build_s` s;
+    returns (counts, row, greedy tokens per request)."""
     cfg, params = model
-    counts, row, prompts, outs = serve_path("main_path", cfg, params, seed)
+    counts, row, prompts, outs, _ = serve_path("main_path", cfg, params,
+                                               seed)
     row["weights_build_s"] = build_s
     emit(row)
     for k in ("bcq_gemv", "bcq_matmul", "paged_attention"):
@@ -1251,7 +1335,7 @@ def phase_main_path(seed: int, model, build_s: float):
             f"main path: launches {counts}")
     paged_vs_dense("main_path", cfg, params, prompts[0], outs[0])
     profile_decode(cfg, params, prompts)
-    return counts, row
+    return counts, row, outs
 
 
 def phase_kv_bits(seed: int, model, kv_bits: int = 4):
@@ -1262,8 +1346,8 @@ def phase_kv_bits(seed: int, model, kv_bits: int = 4):
                                     scatter_prefill_cache)
     from repro_torch.kernels.ref import paged_attention_quant_ref
     cfg, params = model
-    counts, row, prompts, outs = serve_path("kv_bits_path", cfg, params,
-                                            seed, kv_bits=kv_bits)
+    counts, row, prompts, outs, _ = serve_path("kv_bits_path", cfg, params,
+                                               seed, kv_bits=kv_bits)
     row["kv_bytes_per_token_fp32_pages"] = (
         2 * cfg.n_kv_heads * cfg.resolved_head_dim * 4 * cfg.n_layers)
     emit(row)
@@ -1442,7 +1526,8 @@ def phase_moe(seed: int, arch: str = "qwen3-moe-235b-a22b",
     cfg, params = synthetic_moe(seed, arch, n_layers)
     sync()
     build_s = time.time() - t0
-    counts, row, prompts, outs = serve_path("moe_path", cfg, params, seed)
+    counts, row, prompts, outs, _ = serve_path("moe_path", cfg, params,
+                                               seed)
     full = get_config(arch).n_layers
     row.update({"weights_build_s": build_s,
                 "depth": f"{n_layers} of {full} layers (cut: the full "
@@ -1822,14 +1907,16 @@ def _leaves_equal(a, b) -> bool:
                             if b.dtype.is_floating_point else b))
 
 
-def save_and_load(cfg, qparams, spec, d: Path, scale_dtype=None):
+def save_and_load(cfg, qparams, spec, d: Path, scale_dtype=None,
+                  draft_bits=None):
     """save_packed then load_packed on the card; -> (loaded, save s,
     load s, bytes on disk)."""
     from repro_torch.ckpt import load_packed, save_packed
     sync()
     t0 = time.time()
     save_packed(d, qparams, cfg=cfg, spec=spec, scale_dtype=scale_dtype,
-                meta={"arch": cfg.name, "n_layers": cfg.n_layers})
+                meta={"arch": cfg.name, "n_layers": cfg.n_layers},
+                draft_bits=draft_bits)
     save_s = time.time() - t0
     t0 = time.time()
     loaded, lspec, meta = load_packed(d, device=DEV)
@@ -1839,6 +1926,78 @@ def save_and_load(cfg, qparams, spec, d: Path, scale_dtype=None):
             "quantize path: the artifact's spec or meta changed")
     size = sum(f.stat().st_size for f in d.iterdir())
     return loaded, save_s, load_s, size
+
+
+def _qts(tree) -> list:
+    """The QuantizedTensor leaves of a params tree, in tree order."""
+    from repro_torch.quant import QuantizedTensor
+    if isinstance(tree, dict):
+        return [q for v in tree.values() for q in _qts(v)]
+    if isinstance(tree, list):
+        return [q for v in tree for q in _qts(v)]
+    return [tree] if isinstance(tree, QuantizedTensor) else []
+
+
+def _qt_pairs(a, b) -> list:
+    """The QuantizedTensor leaves of two like params trees, pairwise."""
+    return list(zip(_qts(a), _qts(b)))
+
+
+def _same_files(d1: Path, d2: Path) -> bool:
+    """Two artifacts hold the same manifest and the same arrays.npz
+    members byte for byte."""
+    import numpy as np
+    if (d1 / "manifest.json").read_text() != (d2 / "manifest.json") \
+            .read_text():
+        return False
+    with np.load(d1 / "arrays.npz") as a, np.load(d2 / "arrays.npz") as b:
+        return a.files == b.files and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+            for k in a.files)
+
+
+def draft_block_check(cfg, loaded, spec, d: Path):
+    """The artifact's v4 draft block (saved with draft_bits=DRAFT_PLANES)
+    read back by load_draft_scales against a refit of the loaded params
+    on the card (the same inputs, so bit for bit), and a load-then-save
+    round trip with the block, byte for byte. Returns (row, the draft
+    params built from the block)."""
+    from repro_torch.ckpt import load_draft_scales, save_packed
+    from repro_torch.quant import make_draft_params
+    sync()
+    t0 = time.time()
+    tree = load_draft_scales(d, device=DEV)
+    block = make_draft_params(loaded, DRAFT_PLANES, tree)
+    sync()
+    block_s = time.time() - t0
+    t0 = time.time()
+    refit = make_draft_params(loaded, DRAFT_PLANES)
+    sync()
+    refit_s = time.time() - t0
+    pairs = _qt_pairs(block, refit)
+    diff = max(float((getattr(a, f).float() - getattr(b, f).float())
+                     .abs().max()) for a, b in pairs
+               for f in ("alphas", "betas"))
+    equal = all(_leaves_equal(getattr(a, f), getattr(b, f))
+                for a, b in pairs for f in ("alphas", "betas"))
+    shared = all(a.codes is b.codes and a.bits == DRAFT_PLANES
+                 for a, b in pairs)
+    again = save_packed(d.with_name(d.name + "_resaved"), loaded, cfg=cfg,
+                        spec=spec, draft_bits=DRAFT_PLANES,
+                        meta={"arch": cfg.name, "n_layers": cfg.n_layers})
+    row = {"check": "quantize_path_draft_block", "draft_bits": DRAFT_PLANES,
+           "leaves": len(pairs), "block_draft_s": block_s,
+           "refit_draft_s": refit_s, "block_vs_refit_max_abs_diff": diff,
+           "block_equals_refit": equal, "codes_shared": shared,
+           "resave_byte_equal": _same_files(d, again)}
+    emit(row)
+    require(tree is not None and len(pairs) == 7 * cfg.n_layers,
+            f"quantize path: the draft block holds {len(pairs)} leaves")
+    require(equal and shared, f"quantize path: the block's draft scales "
+                              f"differ from a refit by {diff:.3g}")
+    require(row["resave_byte_equal"], "quantize path: load then save with "
+                                      "the draft block is not byte-equal")
+    return row, block
 
 
 def _tie_rows(choice_margin, mult_margin, N):
@@ -1987,9 +2146,13 @@ def phase_quantize(seed: int, arch: str = "llama2-7b",
             else None)
     rtn = rtn_errors(cfg, params, batches, spec)
     with tempfile.TemporaryDirectory() as tmp:
+        # with the v4 draft block: w2 re-fit scales of every leaf
         loaded, save_s, load_s, size = save_and_load(
-            cfg, qparams, spec, Path(tmp) / "w3_pc")
+            cfg, qparams, spec, Path(tmp) / "w3_pc",
+            draft_bits=DRAFT_PLANES)
         same_bytes = _leaves_equal(loaded, qparams)
+        _, block_draft = draft_block_check(cfg, loaded, spec,
+                                           Path(tmp) / "w3_pc")
     # one layer at group 128, scales saved as bf16
     cfg1 = cfg.replace(n_layers=1)
     p1 = {**params, "layers": params["layers"][:1]}
@@ -2043,13 +2206,28 @@ def phase_quantize(seed: int, arch: str = "llama2-7b",
         card_vs_cpu(leaf, params["layers"][0][grp][leaf], hs[key][3])
     del hs, params, p1
     # serve: the loaded artifact, then the in-memory params
-    counts, srow, prompts, outs = serve_path("quantize_path", cfg, loaded,
-                                             seed)
+    counts, srow, prompts, outs, _ = serve_path("quantize_path", cfg,
+                                                loaded, seed)
     emit(srow)
-    _, _, _, outs_mem = serve_path("quantize_path_in_memory", cfg, qparams,
-                                   seed)
+    _, _, _, outs_mem, _ = serve_path("quantize_path_in_memory", cfg,
+                                      qparams, seed)
     emit({"check": "quantize_path_tokens", "requests": len(outs),
           "loaded_equals_in_memory": outs == outs_mem})
+    # the loaded artifact served speculatively from its draft block
+    _, sprow, _, outs_spec, _ = serve_path(
+        "quantize_path_speculative", cfg, loaded, seed, speculate=4,
+        draft_params=block_draft)
+    emit(sprow)
+    for i, (want_t, got_t) in enumerate(zip(outs, outs_spec)):
+        div = first_divergence(cfg, loaded, prompts[i], want_t, got_t)
+        emit({"check": "quantize_path_speculative_tokens", "request": i,
+              "equal_to_plain": div is None,
+              **({} if div is None else
+                 {"first_diff": div[0], "plain_top2_gap_rel": div[1],
+                  "gap_limit": 2 * TOL_LOGITS})})
+        require(div is None or div[1] <= 2 * TOL_LOGITS,
+                f"quantize path: speculative request {i} differs at "
+                f"token {div and div[0]} with a gap of {div and div[1]}")
     for k in ("bcq_gemv", "bcq_matmul", "paged_attention"):
         require(counts[k] > 0, f"quantize path: {k} was never launched")
     require(counts["paged_attention"] == cfg.n_layers * srow["decode_ticks"]
@@ -2071,23 +2249,10 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
     through kv_quantize), host wall and device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import (decode_step_paged, init_paged_cache,
-                                    prefill, scatter_prefill_cache)
+    from repro_torch.models import decode_step_paged
     from repro_torch.quant.kv import kv_quantize
-    B, page, pps = len(prompts), 64, 3
-    pool = init_paged_cache(cfg, B * pps + 1, page, B, kv_bits=kv_bits,
-                            device=DEV)
-    bt = torch.zeros((B, pps), dtype=torch.int32)
-    for b, p in enumerate(prompts):
-        ids = list(range(1 + b * pps, 1 + (b + 1) * pps))
-        bt[b] = torch.tensor(ids, dtype=torch.int32)
-        _, row = prefill(cfg, params, torch.tensor(p[None], device=DEV),
-                         len(p))
-        scatter_prefill_cache(cfg, pool, row, b, ids[:-(-len(p) // page)],
-                              len(p))
-    bt = bt.to(DEV)
-    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                       device=DEV)
+    B = len(prompts)
+    pool, bt, pos = prefilled_pool(cfg, params, prompts, kv_bits)
     tok = torch.zeros((B, 1), dtype=torch.long, device=DEV)
 
     def run(first):
@@ -2153,11 +2318,236 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
     emit(row)
     require(DEV != "cuda" or row["splitk_reduce_per_step"] == 0,
             f"{tag} decode: a split-K reduce ran ({row})")
+    return row
+
+
+def prefilled_pool(cfg, params, prompts, kv_bits=0, page=64, pps=3):
+    """A paged pool holding each prompt in pages of its own (`pps` a
+    sequence, prefilled and scattered): (pool, block tables (B, pps),
+    positions (B,) = the prompts' lengths), on the card."""
+    import torch
+    from repro_torch.models import (init_paged_cache, prefill,
+                                    scatter_prefill_cache)
+    B = len(prompts)
+    pool = init_paged_cache(cfg, B * pps + 1, page, B, kv_bits=kv_bits,
+                            device=DEV)
+    bt = torch.zeros((B, pps), dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        ids = list(range(1 + b * pps, 1 + (b + 1) * pps))
+        bt[b] = torch.tensor(ids, dtype=torch.int32)
+        _, row = prefill(cfg, params, torch.tensor(p[None], device=DEV),
+                         len(p))
+        scatter_prefill_cache(cfg, pool, row, b, ids[:-(-len(p) // page)],
+                              len(p))
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device=DEV)
+    return pool, bt.to(DEV), pos
+
+
+# ---------------------------------------------------------------------------
+# phase 8: self-speculative decoding at full width
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_MIN_ACCEPT_PERFECT = 0.95
+
+
+def _propose_args(cfg, params, draft, prompts, k):
+    """A prefilled pool and a k-step draft_propose_paged call on it for
+    every prompt's row (its last token 0, full depth)."""
+    import torch
+    from repro_torch.models import draft_propose_paged
+    pool, bt, pos = prefilled_pool(cfg, params, prompts)
+    B = len(prompts)
+    cur = torch.zeros((B,), dtype=torch.int32, device=DEV)
+    ke = torch.full((B,), k, dtype=torch.int32, device=DEV)
+    null = torch.zeros((B,), dtype=torch.int32, device=DEV)
+
+    def propose():
+        return draft_propose_paged(cfg, draft, pool, cur, pos, bt, ke,
+                                   null, k)[0]
+    return pool, bt, pos, cur, propose
+
+
+def propose_sync_check(cfg, params, draft, prompts, k=SPEC_K):
+    """One draft_propose_paged call runs with no device-to-host copy:
+    under torch.cuda.set_sync_debug_mode("error"); should that mode
+    raise, the DtoH copies of a torch.profiler trace of the call are
+    counted instead, and must be 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    *_, propose = _propose_args(cfg, params, draft, prompts, k)
+    propose()                                  # warm-up (kernel loads)
+    sync()
+    row = {"check": "speculative_propose_sync", "k": k,
+           "batch": len(prompts)}
+    if DEV != "cuda":
+        row["method"] = "not run off the card"
+        emit(row)
+        return row
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        propose()
+        row.update(method="sync_debug_mode error", synced=False)
+    except RuntimeError as e:
+        row.update(method="profiler DtoH memcpy count",
+                   sync_debug_raised=str(e)[:200])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    if "synced" not in row:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            propose()
+            sync()
+        row["dtoh_copies"] = sum("DtoH" in e.name or "Device -> Pageable"
+                                 in e.name for e in prof.events())
+        row["synced"] = row["dtoh_copies"] > 0
+    emit(row)
+    require(not row["synced"], f"speculative path: draft_propose_paged "
+                               f"copies to the host ({row})")
+    return row
+
+
+def _device_profile(fn, steps):
+    """fn() timed untraced over `steps` calls (synchronised), then traced:
+    wall ms, device-busy ms and kernels per call, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    sync()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        sync()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": (1 - busy / wall) if busy else None,
+            "kernels": len(kernels) / steps}
+
+
+def speculative_profile(cfg, params, draft, prompts, decode_row, k=SPEC_K,
+                        steps=3):
+    """Where one tick of engine A's time goes: draft_propose_paged (k
+    draft steps) and verify_paged (k+1 positions a row) at batch 4 on a
+    prefilled pool, each timed untraced and traced; beside it the
+    non-speculative decode step (`decode_row`, profile_decode's)."""
+    import torch
+    from repro_torch.models import verify_paged
+    pool, bt, pos, cur, propose = _propose_args(cfg, params, draft,
+                                                prompts, k)
+    toks = torch.cat([cur[:, None], propose()], dim=1)
+    nv = torch.full((len(prompts),), k + 1, dtype=torch.int32, device=DEV)
+    parts = {"propose": _device_profile(propose, steps),
+             "verify": _device_profile(
+                 lambda: verify_paged(cfg, params, pool, toks, pos, bt, nv),
+                 steps)}
+    tick = {key: sum(p[key] for p in parts.values())
+            for key in ("wall_ms", "device_busy_ms", "kernels")}
+    row = {"check": "speculative_profile", "engine": "A", "k": k,
+           "batch": len(prompts), "steps": steps, **parts,
+           "tick_wall_ms": tick["wall_ms"],
+           "tick_device_busy_ms": tick["device_busy_ms"],
+           "tick_device_idle_share": (1 - tick["device_busy_ms"]
+                                      / tick["wall_ms"])
+           if tick["device_busy_ms"] else None,
+           "kernels_per_tick": tick["kernels"],
+           "decode_step": {key: decode_row[key] for key in (
+               "wall_ms_per_step", "device_busy_ms_per_step",
+               "device_idle_share", "kernels_per_step")}}
+    emit(row)
+    return row
+
+
+def phase_speculative(seed: int, model, baseline=None, max_new=32,
+                      profile_steps=4):
+    """Phase 8 on phase 3's model and requests: engines A (a w2 self-draft
+    refit at boot, k=4), B (the same draft, k=1: verify at 8 rows on the
+    GEMV) and C (a perfect draft, the target's own params, k=4), each
+    held to the non-speculative paged engine's tokens (`baseline`, phase
+    3's; run here when None) up to a printed near-tie; then the propose
+    sync check and one profiled tick of A beside the plain decode step,
+    each over `profile_steps` calls (`max_new` and `profile_steps`
+    shrink for rehearsals on the CPU). Returns (summed launch counts of
+    the three runs, rows)."""
+    import math
+    import torch
+    from repro_torch.quant import draft_extra_bytes
+    cfg, params = model
+    if baseline is None:
+        _, brow, _, baseline, _ = serve_path("speculative_path_baseline",
+                                             cfg, params, seed,
+                                             max_new=max_new)
+        emit(brow)
+    total, rows, draft_a = {}, {}, None
+    for tag, k, kw in (("A", SPEC_K, {}), ("B", 1, {}),
+                       ("C", SPEC_K, {"draft_params": params})):
+        counts, row, prompts, outs, eng = serve_path(
+            "speculative_path", cfg, params, seed, max_new=max_new,
+            speculate=k, draft_bits=DRAFT_PLANES, **kw)
+        pairs = _qt_pairs(eng.params, eng.draft_params)
+        extra = draft_extra_bytes(eng.params, eng.draft_params)
+        scale = sum(a.numel() * a.element_size() for t, q in pairs
+                    if q.alphas is not t.alphas for a in (q.alphas, q.betas))
+        shared = all(q.codes.untyped_storage().data_ptr()
+                     == t.codes.untyped_storage().data_ptr()
+                     for t, q in pairs)
+        row.update({"engine": tag, "draft_extra_bytes": extra,
+                    "draft_scale_bytes": scale,
+                    "draft_codes_share_target_storage": shared})
+        if tag == "C":
+            # a perfect draft: each tick emits k+1 of the decode tokens
+            row["ideal_ticks"] = math.ceil((max_new - 1) / (k + 1))
+        rows[tag] = row
+        emit(row)
+        require(extra == scale and shared,
+                f"speculative path {tag}: the draft adds {extra} bytes, "
+                f"its scales hold {scale}; codes shared: {shared}")
+        for name in ("bcq_gemv", "paged_attention") + (
+                ("bcq_matmul",) if k > 1 else ()):
+            require(counts[name] > 0, f"speculative path {tag}: {name} was "
+                                      f"never launched")
+        for i, (want_t, got_t) in enumerate(zip(baseline, outs)):
+            div = first_divergence(cfg, params, prompts[i], want_t, got_t)
+            emit({"check": "speculative_path_tokens", "engine": tag,
+                  "request": i, "equal_to_plain": div is None,
+                  **({} if div is None else
+                     {"first_diff": div[0], "plain_top2_gap_rel": div[1],
+                      "gap_limit": 2 * TOL_LOGITS})})
+            require(div is None or div[1] <= 2 * TOL_LOGITS,
+                    f"speculative path {tag}: request {i} differs from the "
+                    f"plain engine at token {div and div[0]} with a gap of "
+                    f"{div and div[1]}")
+        for name, v in counts.items():
+            total[name] = total.get(name, 0) + v
+        if tag == "A":
+            draft_a = eng.draft_params
+        del eng
+    require(rows["C"]["acceptance_rate"] >= SPEC_MIN_ACCEPT_PERFECT,
+            f"speculative path C: a perfect draft accepted "
+            f"{rows['C']['acceptance_rate']:.3f} of its tokens")
+    propose_sync_check(cfg, params, draft_a, prompts)
+    decode_row = profile_decode(cfg, params, prompts, steps=profile_steps,
+                                tag="speculative_plain")
+    speculative_profile(cfg, params, draft_a, prompts, decode_row,
+                        steps=profile_steps)
+    del draft_a
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return total, rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2215,7 +2605,7 @@ def main(argv=None) -> int:
         if 1 in phases:
             t0 = time.time()
             worst, n_checks = check_bcq(gen, LLAMA_SHAPES)
-            worst_q, n_q = check_bcq(gen, QWEN_SHAPES, GEMV_MS)
+            worst_q, n_q = check_bcq(gen, QWEN_SHAPES, GEMV_MS, ())
             worst["bcq_gemv"] = max(worst["bcq_gemv"], worst_q["bcq_gemv"])
             n_checks["bcq_gemv"] += n_q["bcq_gemv"]
             worst["paged_attention"] = check_paged(gen)
@@ -2236,6 +2626,11 @@ def main(argv=None) -> int:
                 n_exact
             for k in ("bcq_gemv", "bcq_matmul"):
                 lines[k]["checks"] = n_checks[k]
+                # draft views (2 of 3 stored planes), within the same
+                # tolerance
+                lines[k]["draft_view_checks"] = n_checks[f"{k}_draft"]
+                lines[k]["max_rel_err_all_checks"] = max(
+                    worst[k], worst[f"{k}_draft"])
             # the rep-16 geometry of phase 5 (Qwen3-MoE), beside the lines
             emit({"check": "paged_attention_rep16",
                   **summarize_paged(gen, Hkv=4, rep=16)})
@@ -2245,6 +2640,10 @@ def main(argv=None) -> int:
             for M in (1, 8):
                 emit({"check": "bcq_gemv_shape",
                       **summarize_bcq(gen, "bcq_gemv", M, 4096, 11008)})
+            # a draft step's GEMV: batch 4 on 2 of the 3 stored planes
+            emit({"check": "bcq_gemv_shape",
+                  **summarize_bcq(gen, "bcq_gemv", 4, 4096, 11008,
+                                  planes=DRAFT_PLANES)})
             emit({"check": "bcq_expert_matmul_prefill",
                   **summarize_expert(gen, M=16, routed=False)})
             # the GEMM at the other prefill buckets and at Qwen3-MoE's
@@ -2257,15 +2656,16 @@ def main(argv=None) -> int:
             t0 = time.time()
             phase_fixture()
             phase_done(2, t0)
-        llama = None
-        if phases & {3, 4, 6}:
+        llama, main_outs = None, None
+        if phases & {3, 4, 6, 8}:
             t0 = time.time()
             llama = synthetic_llama(args.seed)
             sync()
             llama_build_s = time.time() - t0
         if 3 in phases:
             t0 = time.time()
-            counts, _ = phase_main_path(args.seed, llama, llama_build_s)
+            counts, _, main_outs = phase_main_path(args.seed, llama,
+                                                   llama_build_s)
             count("main_path", counts)
             phase_done(3, t0)
         if 4 in phases:
@@ -2278,6 +2678,11 @@ def main(argv=None) -> int:
             counts, _ = phase_prefix(args.seed, llama)
             count("prefix_path", counts)
             phase_done(6, t0)
+        if 8 in phases:
+            t0 = time.time()
+            counts, _ = phase_speculative(args.seed, llama, main_outs)
+            count("speculative_path", counts)
+            phase_done(8, t0)
         del llama                # free the llama weights before phase 7
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,3 +1,5 @@
-from repro_torch.ckpt.packed import load_packed, params_from_tree, save_packed
+from repro_torch.ckpt.packed import (load_draft_scales, load_packed,
+                                     params_from_tree, save_packed)
 
-__all__ = ["load_packed", "save_packed", "params_from_tree"]
+__all__ = ["load_packed", "save_packed", "load_draft_scales",
+           "params_from_tree"]

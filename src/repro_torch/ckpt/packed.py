@@ -33,8 +33,12 @@ in tree order, codes as uint32 words, bf16 (dense leaves, and scales
 under `scale_dtype="bfloat16"`) as raw uint16 bits, the symbolic
 sharding block and per-leaf PartitionSpecs (ckpt/pspec.py) — into
 <dir>.tmp, renamed into place, with a fsynced COMMITTED marker last.
-The optional v4 draft block (`draft_bits`) comes with speculative
-decoding (ROADMAP Queue 1 item 4).
+`save_packed(draft_bits=d)` adds the optional v4 draft block: on every
+quantized leaf with more than d active bits, a "draft" entry {"bits",
+"alphas", "betas"} holding the LS re-fit scales of its leading d code
+planes (quant/draft.py), stored as the leaf's own scales are, and
+`manifest["draft_bits"]`. `load_draft_scales` reads the block back in
+the port's per-layer layout for quant.draft.make_draft_params.
 """
 from __future__ import annotations
 
@@ -42,12 +46,14 @@ import json
 import os
 import shutil
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.ckpt.pspec import SYMBOLIC_AXES, named_pspec, pspec_to_json
 from repro_torch.hw import dtype_name, resolve_device
+from repro_torch.quant.draft import refit_draft_scales
 from repro_torch.quant.packing import codes_from_numpy, codes_to_numpy
 from repro_torch.quant.qlinear import QuantizedTensor, stack_leaves
 
@@ -94,14 +100,36 @@ def _leaf(leaf, device):
     return _tensor(leaf).to(device)
 
 
+class _DraftScales(NamedTuple):
+    """One leaf's draft block (a leaf, so tree maps do not recurse into
+    it as they would into its dict form)."""
+    bits: int
+    alphas: torch.Tensor
+    betas: torch.Tensor
+
+
 def _group_slice(leaf, g: int):
-    """Group g of a stacked leaf (tensor or QuantizedTensor)."""
+    """Group g of a stacked leaf (tensor, QuantizedTensor, draft block
+    or None)."""
+    if leaf is None:
+        return None
     if isinstance(leaf, QuantizedTensor):
         return QuantizedTensor(leaf.codes[g].contiguous(),
                                leaf.alphas[g].contiguous(),
                                leaf.betas[g].contiguous(), leaf.k_in,
                                leaf.orig_dtype)
+    if isinstance(leaf, _DraftScales):
+        return _DraftScales(leaf.bits, leaf.alphas[g].contiguous(),
+                            leaf.betas[g].contiguous())
     return leaf[g].contiguous()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _map(tree, fn):
@@ -118,11 +146,9 @@ def unstack_blocks(tree: dict) -> dict:
     out = {k: v for k, v in tree.items() if k != "blocks"}
     blocks = tree["blocks"]
     P = len(blocks)
-    probe = blocks["L0"]
-    while isinstance(probe, dict):
-        probe = next(iter(probe.values()))
-    n_groups = (probe.codes.shape[0] if isinstance(probe, QuantizedTensor)
-                else probe.shape[0])
+    probe = next(leaf for leaf in _leaves(blocks) if leaf is not None)
+    n_groups = (probe.alphas.shape[0] if isinstance(
+        probe, (QuantizedTensor, _DraftScales)) else probe.shape[0])
     out["layers"] = [
         _map(blocks[f"L{i}"], lambda leaf, g=g: _group_slice(leaf, g))
         for g in range(n_groups) for i in range(P)]
@@ -180,6 +206,55 @@ def load_packed(directory, *, device=None):
     return unstack_blocks(tree), manifest.get("spec"), manifest.get("meta", {})
 
 
+def load_draft_scales(directory, *, device=None):
+    """The v4 draft block as a tree in the port's per-layer layout
+    ({"layers": [...]}, as load_packed returns the params) with
+    {"bits", "alphas", "betas"} dicts at quantized-leaf positions and
+    None at the others, ready for quant.draft.make_draft_params(
+    scales_tree=...); scales flagged bf16 load as bf16 tensors. Returns
+    None when the artifact has no block (pre-v4, or saved without
+    `draft_bits`); callers then refit."""
+    dev = resolve_device(device)
+    d = Path(directory)
+    if not (d / "COMMITTED").exists():
+        raise FileNotFoundError(
+            f"{d} is not a committed packed artifact (missing COMMITTED)")
+    manifest = json.loads((d / "manifest.json").read_text())
+    found = [False]
+
+    def walk(node, arrays):
+        if "kind" not in node or not isinstance(node.get("kind"), str):
+            return {k: walk(v, arrays) for k, v in node.items()}
+        blk = node.get("draft") if node["kind"] == "qt" else None
+        if blk is None:
+            return None
+        found[0] = True
+
+        def scale(key):
+            a = arrays[blk[key]]
+            t = (_bf16_from_bits(a) if blk.get("scale_dtype") == "bfloat16"
+                 else torch.from_numpy(_host(a)))
+            return t.to(dev)
+        return _DraftScales(int(blk["bits"]), scale("alphas"),
+                            scale("betas"))
+
+    with np.load(d / "arrays.npz") as arrays:
+        tree = walk(manifest["tree"], arrays)
+    if not found[0]:
+        return None
+    return _as_dicts(unstack_blocks(tree))
+
+
+def _as_dicts(node):
+    """Draft blocks -> {"bits", "alphas", "betas"} dicts, throughout a
+    tree of dicts and lists."""
+    if isinstance(node, dict):
+        return {k: _as_dicts(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_as_dicts(v) for v in node]
+    return node if node is None else node._asdict()
+
+
 # --------------------------------------------------------------------------
 # save side
 # --------------------------------------------------------------------------
@@ -225,10 +300,11 @@ def _store_scale(t, arrays: dict, scale_dtype):
     return key, bf16
 
 
-def _encode(tree, arrays: dict, path=(), scale_dtype=None):
+def _encode(tree, arrays: dict, path=(), scale_dtype=None,
+            draft_bits=None):
     """Nested dict tree -> manifest node; arrays collected by key."""
     if isinstance(tree, dict):
-        return {k: _encode(v, arrays, path + (k,), scale_dtype)
+        return {k: _encode(v, arrays, path + (k,), scale_dtype, draft_bits)
                 for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
         ent = {"kind": "qt", "k_in": tree.k_in,
@@ -247,6 +323,17 @@ def _encode(tree, arrays: dict, path=(), scale_dtype=None):
             if bf16:
                 ent["scale_dtype"] = "bfloat16"
             ent[field] = key
+        if draft_bits is not None and draft_bits < tree.bits:
+            # the v4 optional block: re-fit scales of the leading
+            # draft_bits planes (quant/draft.py), the draft's whole
+            # footprint (its codes are the target's)
+            da, db = refit_draft_scales(tree, draft_bits)
+            ka, bf16 = _store_scale(da, arrays, scale_dtype)
+            kb, _ = _store_scale(db, arrays, scale_dtype)
+            ent["draft"] = {"bits": int(draft_bits), "alphas": ka,
+                            "betas": kb}
+            if bf16:
+                ent["draft"]["scale_dtype"] = "bfloat16"
         return ent
     key = f"a{len(arrays)}"
     dt = dtype_name(tree.dtype)
@@ -263,14 +350,15 @@ def save_packed(directory, params, *, cfg, spec=None,
     config `cfg` says how the layers restack into pattern slots; returns
     the final directory. `spec` is a QuantSpec (or its dict).
     `scale_dtype="bfloat16"` stores alphas/betas as bf16 (rounded once,
-    half the scale bytes)."""
+    half the scale bytes). `draft_bits=d` also stores LS re-fit scales
+    for the leading d code planes of every quantized leaf with more
+    than d active bits (the v4 draft block), so a speculative boot
+    (`launch/serve.py --speculate k --draft-bits d`) skips the refit."""
     if scale_dtype not in SCALE_DTYPES:
         raise ValueError(f"scale_dtype={scale_dtype!r}; "
                          f"expected one of {SCALE_DTYPES}")
-    if draft_bits is not None:
-        raise NotImplementedError(
-            "save_packed(draft_bits=...): the v4 draft block comes with "
-            "speculative decoding (ROADMAP Queue 1 item 4)")
+    if draft_bits is not None and draft_bits < 1:
+        raise ValueError(f"draft_bits must be >= 1, got {draft_bits}")
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params['layers'])} layers, "
                          f"{cfg.name} {cfg.n_layers}")
@@ -287,8 +375,11 @@ def save_packed(directory, params, *, cfg, spec=None,
         "meta": meta or {},
         "sharding": {"axes": list(SYMBOLIC_AXES), "rule": PSPEC_RULE},
         "tree": _encode(tree, arrays, scale_dtype=None
-                        if scale_dtype == "float32" else scale_dtype),
+                        if scale_dtype == "float32" else scale_dtype,
+                        draft_bits=draft_bits),
     }
+    if draft_bits is not None:
+        manifest["draft_bits"] = int(draft_bits)
     np.savez(tmp / "arrays.npz", **arrays)
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():

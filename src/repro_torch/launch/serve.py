@@ -4,14 +4,19 @@ request batch through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --load-quantized DIR [--cache auto|dense|paged] [--requests N] \\
       [--batch-size B] [--max-new T] [--kv-bits BITS] \\
-      [--kv-group-size GS] [--device cuda|cpu]
+      [--kv-group-size GS] [--speculate K] [--draft-bits D] \\
+      [--device cuda|cpu]
 
 The artifact is read by ckpt.packed.load_packed (manifests v1-v4, as
 the reference writes them); the model config is the registry entry its
 meta "arch" names, at the artifact's own depth. An artifact the port
 quantized (core.api.quantize_model, then ckpt.packed.save_packed)
 serves the same way; the quantize flags arrive with training (ROADMAP
-Queue 1 item 7) and --mesh with multi-GPU (item 6).
+Queue 1 item 7) and --mesh with multi-GPU (item 6). `--speculate K`
+serves self-speculatively: a `--draft-bits D` view of the same packed
+codes proposes K tokens a tick, with the scales of the artifact's v4
+draft block when it has one and an LS re-fit otherwise (the launcher
+says which).
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ def main(argv=None):
     ap.add_argument("--cache", default="auto",
                     choices=("auto", "dense", "paged"),
                     help="cache backend; auto picks paged when --kv-bits "
-                         "asks for it and dense otherwise, as the "
-                         "reference does without a mesh or speculation")
+                         "or --speculate asks for it and dense otherwise, "
+                         "as the reference does without a mesh")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--batch-size", type=int, default=3)
     ap.add_argument("--max-new", type=int, default=24)
@@ -42,14 +47,25 @@ def main(argv=None):
     ap.add_argument("--kv-group-size", type=int, default=0,
                     help="head_dim entries per KV scale group (0 = one "
                          "group per head vector); must divide head_dim")
+    ap.add_argument("--speculate", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: a low-bit draft "
+                         "view of the SAME packed weights proposes K "
+                         "tokens per tick, one batched target pass "
+                         "verifies them (greedy acceptance); implies "
+                         "the paged cache backend")
+    ap.add_argument("--draft-bits", type=int, default=2,
+                    help="code planes the speculative draft keeps "
+                         "(< the target's bits); draft scales come "
+                         "from the artifact's v4 draft block when "
+                         "present, else an on-the-fly LS re-fit")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    paged = args.kv_bits > 0
+    paged = args.kv_bits > 0 or args.speculate > 0
     if args.cache == "paged":
         paged = True
     elif args.cache == "dense" and paged:
-        ap.error("--cache dense conflicts with --kv-bits (binary-coded "
-                 "pages need the paged backend)")
+        ap.error("--cache dense conflicts with --kv-bits/--speculate "
+                 "(each requires the paged backend)")
 
     from repro_torch.ckpt.packed import load_packed
     from repro_torch.configs import get_config
@@ -67,11 +83,24 @@ def main(argv=None):
     desc = (f"{spec['method']} w{spec['bits']}" if spec else "unknown spec")
     print(f"loaded packed model '{arch}' ({desc}) from "
           f"{args.load_quantized} on {args.device}")
+    draft_params = None
+    if args.speculate:
+        from repro_torch.ckpt.packed import load_draft_scales
+        from repro_torch.quant.draft import make_draft_params
+        scales_tree = load_draft_scales(args.load_quantized,
+                                        device=args.device)
+        print("draft scales: "
+              + ("manifest v4 draft block" if scales_tree is not None
+                 else "on-the-fly LS re-fit (no v4 draft block)"))
+        draft_params = make_draft_params(params, args.draft_bits,
+                                         scales_tree)
     eng = ServeEngine(cfg, params, batch_size=args.batch_size, max_len=160,
                       dtype="float32",
                       cache_kind="paged" if paged else "dense",
                       kv_bits=args.kv_bits,
-                      kv_group_size=args.kv_group_size, device=args.device)
+                      kv_group_size=args.kv_group_size,
+                      speculate=args.speculate, draft_bits=args.draft_bits,
+                      draft_params=draft_params, device=args.device)
     if paged:
         kv = eng.kv
         print(f"paged kv cache: {kv.n_pages} pages x {kv.page_size} tok, "
@@ -90,6 +119,11 @@ def main(argv=None):
     tput = eng.stats["tokens"] / max(eng.stats["decode_s"], 1e-9)
     print(f"served {len(reqs)} requests, {eng.stats['tokens']} tokens, "
           f"decode throughput {tput:.1f} tok/s ({args.device})")
+    if args.speculate:
+        st = eng.stats_snapshot()
+        print(f"speculation: k={args.speculate}, w{args.draft_bits} draft, "
+              f"{st.accepted_tokens}/{st.draft_tokens} draft tokens "
+              f"accepted ({st.acceptance_rate:.2f})")
     for r in reqs[:3]:
         print(" ", repr(tok.decode(r.out)))
     return eng, reqs

@@ -1,11 +1,12 @@
 from repro_torch.models.model import (copy_pages, decode_step,
-                                      decode_step_paged, embed_inputs,
-                                      extend_paged, init_cache,
+                                      decode_step_paged, draft_propose_paged,
+                                      embed_inputs, extend_paged, init_cache,
                                       init_paged_cache, init_params,
                                       is_page_leaf, prefill,
-                                      scatter_prefill_cache, unembed)
+                                      scatter_prefill_cache, unembed,
+                                      verify_paged)
 
 __all__ = ["init_params", "embed_inputs", "unembed", "prefill",
            "init_cache", "init_paged_cache", "is_page_leaf", "decode_step",
            "decode_step_paged", "extend_paged", "copy_pages",
-           "scatter_prefill_cache"]
+           "scatter_prefill_cache", "draft_propose_paged", "verify_paged"]

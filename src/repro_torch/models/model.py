@@ -23,6 +23,8 @@ Entry points:
   extend_paged / _extend_scan                         a chunk of prompt
                                                       tokens over the pages
   copy_pages                                          copy-on-write forks
+  draft_propose_paged / verify_paged                  self-speculative
+                                                      decoding
 
 MoE layers use the reference's capacities: the inference capacity
 factor in prefill (pad tokens of a bucket route and take capacity like
@@ -339,3 +341,46 @@ def extend_paged(cfg, params, cache, tokens, start_pos, block_tables,
     idx = torch.clamp(n_valid.long().to(logits.device) - 1, min=0)
     return logits[torch.arange(logits.shape[0], device=logits.device),
                   idx], cache
+
+
+def draft_propose_paged(cfg, params, cache, cur, base_pos, block_tables,
+                        k_eff, null_row, k):
+    """k greedy draft decode steps: the argmax of step j feeds step j+1
+    as a device tensor, with no host round trip between steps. cur (B,)
+    int32 last tokens, base_pos (B,) their positions, k_eff (B,) int32
+    per-row depths: step j routes rows with k_eff <= j to `null_row`'s
+    page (B,) and position 0, as any inactive decode row (their K/V
+    lands in the null page; their tokens are computed and ignored).
+    Returns (draft tokens (B, k) int32, cache written in place).
+
+    `params` is the draft tree (quant/draft.py: leading code planes of
+    the target with re-fit scales). Each step runs from the codes: a
+    QuantizedTensor with fewer alphas than stored planes goes through
+    the same fused GEMV, which reads only its active planes. The
+    reference dequantizes every draft leaf once before its steps (its
+    expansion dwarfs the matmul on the TPU); at llama2-7b that is ~26 GB
+    of fp32 weights written and re-read a tick, so the port does not."""
+    toks = []
+    for j in range(k):
+        live_j = k_eff > j
+        bt = torch.where(live_j[:, None], block_tables, null_row[:, None])
+        pos_j = torch.where(live_j, base_pos + j, torch.zeros_like(base_pos))
+        logits, cache = decode_step_paged(cfg, params, cache, cur[:, None],
+                                          pos_j, bt.contiguous())
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(cur)
+    return torch.stack(toks, dim=1), cache
+
+
+def verify_paged(cfg, params, cache, tokens, start_pos, block_tables,
+                 n_valid):
+    """Speculative verify: score C = k+1 positions in one pass and keep
+    the logits at every position ((B, C, V), cache). Position j's row
+    decides draft token j+1 (greedy acceptance: accept while the draft
+    token is the argmax of the previous row). The pass writes the
+    TARGET's K/V at all n_valid positions before attending, overwriting
+    what the draft wrote there, which makes greedy speculative decode
+    token-identical to target-only decode whatever the draft (the
+    engine holds the accept and rollback logic)."""
+    return _extend_scan(cfg, params, cache, tokens, start_pos,
+                        block_tables, n_valid)

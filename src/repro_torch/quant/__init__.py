@@ -1,3 +1,5 @@
+from repro_torch.quant.draft import (draft_extra_bytes, draft_view,
+                                     make_draft_params, refit_draft_scales)
 from repro_torch.quant.packing import (codes_from_numpy, codes_to_numpy,
                                        pack_signs, pack_signs_last, padded_k,
                                        unpack_signs, unpack_signs_last)
@@ -18,4 +20,5 @@ __all__ = ["pack_signs", "unpack_signs", "pack_signs_last",
            "is_quantizable", "Quantizer", "QuantResult", "register_quantizer",
            "get_quantizer", "available_quantizers", "LeafScore",
            "sensitivity_sweep", "suggest_overrides", "format_overrides",
-           "format_report"]
+           "format_report", "refit_draft_scales", "draft_view",
+           "make_draft_params", "draft_extra_bytes"]

@@ -33,11 +33,25 @@ row and keep an arbitrary position, so their K/V writes land in the
 null page (the reference's live-row / null-row trick,
 `serve/compile_cache.py` "decode_paged").
 
+Self-speculative decoding (`speculate=k`, paged only): a draft, by
+default a view of the target's own packed codes at `draft_bits` planes
+with re-fit scales (quant/draft.py), proposes k tokens a tick through
+k draft decode steps (models/model.py:draft_propose_paged), one target
+pass over the k+1 positions verifies them (verify_paged), and the
+engine keeps the longest agreeing prefix plus the target's own token.
+The verify pass overwrites every K/V slot the draft wrote, so greedy
+output equals target-only decode whatever the draft; rejected tokens
+roll back through `kv.truncate`. `accept_rule="typical"` keeps a draft
+token the target gives at least `typical_tau` of its argmax's
+probability (lossy for an imperfect draft, as in the reference).
+`stats_snapshot()` freezes every counter into a serve/stats.py
+EngineStats.
+
 PyTorch runs eagerly, so there is no compile cache to share and no
 shape to pad to (the reference pads copy lists and dirty-row lists to
 powers of two to bound its compilations); timing synchronizes the CUDA
-device where the reference blocks on its result. Speculative decoding
-and meshes belong to later slices and raise NotImplementedError.
+device where the reference blocks on its result. Meshes belong to the
+multi-GPU slice and raise NotImplementedError (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -49,10 +63,12 @@ import torch
 
 from repro_torch.hw import resolve_device
 from repro_torch.models.model import (copy_pages, decode_step,
-                                      decode_step_paged, extend_paged,
-                                      init_cache, prefill,
+                                      decode_step_paged, draft_propose_paged,
+                                      extend_paged, init_cache, prefill,
                                       require_attention_only,
-                                      scatter_prefill_cache)
+                                      scatter_prefill_cache, verify_paged)
+from repro_torch.quant.draft import make_draft_params
+from repro_torch.quant.qlinear import QuantizedTensor
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
@@ -76,6 +92,14 @@ def params_to(params, device):
     if isinstance(params, list):
         return [params_to(v, device) for v in params]
     return params.to(device)
+
+
+def _has_quantized(params) -> bool:
+    if isinstance(params, dict):
+        return any(_has_quantized(v) for v in params.values())
+    if isinstance(params, list):
+        return any(_has_quantized(v) for v in params)
+    return isinstance(params, QuantizedTensor)
 
 
 @dataclass
@@ -129,7 +153,8 @@ class ServeEngine:
                  page_size=64, n_pages=None, prefill_chunk=None,
                  prefix_sharing=True, prefix_max_pages=None,
                  mesh=None, kv_bits=0, kv_group_size=0, speculate=0,
-                 device=None):
+                 draft_bits=2, draft_params=None, accept_rule="greedy",
+                 typical_tau=0.3, device=None):
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind={cache_kind!r}")
         if kv_bits and cache_kind != "paged":
@@ -140,10 +165,15 @@ class ServeEngine:
         if prefill_chunk and cache_kind != "paged":
             raise NotImplementedError(
                 "chunked prefill requires cache_kind='paged'")
-        if speculate:
-            raise NotImplementedError(
-                "speculate > 0 comes with the speculative-decoding slice "
-                "(ROADMAP Queue 1 item 4)")
+        if speculate and cache_kind != "paged":
+            raise ValueError(
+                "speculate requires cache_kind='paged': draft KV is "
+                "written speculatively into the page pool and rejected "
+                "tokens roll back by page truncation")
+        if accept_rule not in ("greedy", "typical"):
+            raise ValueError(
+                f"accept_rule={accept_rule!r}; expected 'greedy' or "
+                f"'typical'")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving comes with the multi-GPU slice (ROADMAP "
@@ -187,6 +217,9 @@ class ServeEngine:
             self._bt_dev = torch.zeros((batch_size, pages_per_seq),
                                        dtype=torch.int32, device=self.device)
             self._bt_applied = np.full((batch_size,), -1, np.int64)
+            # every slot's null-page row (one shard: page 0)
+            self._null_row = torch.zeros((batch_size,), dtype=torch.int32,
+                                         device=self.device)
         else:
             # the dense engine has no pages to share: prefix_sharing is
             # accepted and ignored, as in the reference
@@ -200,9 +233,42 @@ class ServeEngine:
                                prefix=self._prefix)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
+        # self-speculative decoding: built from the params on the
+        # device, so a self-draft's codes are the target's tensors and
+        # it adds only its re-fit scales (quant/draft.py)
+        self.speculate = int(speculate)
+        self.draft_bits = int(draft_bits)
+        self.accept_rule = accept_rule
+        self.typical_tau = float(typical_tau)
+        self.draft_params = None
+        self.draft_build_s = 0.0
+        if self.speculate:
+            t0 = time.time()
+            if draft_params is None:
+                if not _has_quantized(self.params):
+                    raise ValueError(
+                        "speculate>0 needs GPTQT-quantized params (the "
+                        "draft is a code-plane prefix of the target) or "
+                        "an explicit draft_params tree")
+                draft_params = make_draft_params(self.params,
+                                                 self.draft_bits)
+            self.draft_params = params_to(draft_params, self.device)
+            self._sync()
+            self.draft_build_s = time.time() - t0
+        # raw accumulators; stats_snapshot() freezes them with the pool
+        # and index counters into an EngineStats
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0,
-                      "ticks": 0, "prefill_tokens": 0}
+                      "ticks": 0, "prefill_tokens": 0,
+                      "draft_tokens": 0, "accepted_tokens": 0}
         self._entries = []
+
+    def stats_snapshot(self):
+        """Every serving counter (engine accumulators, the scheduler's
+        request metrics with per-request TTFT/TPOT samples, page-pool and
+        prefix-index counters) as an immutable serve/stats.py
+        EngineStats; the `stats` dict stays the running accumulator."""
+        from repro_torch.serve.stats import EngineStats
+        return EngineStats.capture(self)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -378,9 +444,14 @@ class ServeEngine:
         self.stats["prefill_s"] += time.time() - t0
 
     # ---------------- decode ----------------
+    def _decode_ready(self):
+        return [s for s, e in self.sched.running.items()
+                if e.prefilled >= len(e.prompt)]
+
     def _decode_tick(self):
-        ready = [s for s, e in self.sched.running.items()
-                 if e.prefilled >= len(e.prompt)]
+        if self.speculate:
+            return self._spec_decode_tick()
+        ready = self._decode_ready()
         if not ready:
             return
         if self.cache_kind == "paged":
@@ -427,6 +498,117 @@ class ServeEngine:
             hit_eos = e.req.eos is not None and tok == e.req.eos
             if (len(e.req.out) >= e.req.max_new_tokens or hit_eos
                     or self.pos[slot] >= self._seq_cap() - 1):
+                self._finish(e)
+
+    # ---------------- speculative decode ----------------
+    def _spec_decode_tick(self):
+        """Propose, verify, accept. The draft proposes up to k tokens a
+        ready sequence (k draft decode steps writing draft K/V at
+        pos..pos+k-1), then one target pass scores the k+1 positions
+        [cur, draft...] causally and overwrites every speculatively
+        written K/V slot with the target's own, which makes greedy
+        speculative decode token-identical to target-only decode for
+        any draft. Acceptance takes the longest draft prefix the target
+        agrees with plus the target's token at the first disagreement
+        (or the bonus token after full acceptance); rejected tokens roll
+        back by truncating pos and unref'ing whole pages past the accept
+        point (kv.truncate). Stale K/V inside the kept tail page is
+        masked by the context length and overwritten by the next write,
+        as in any partial tail page. Between the draft steps nothing
+        leaves the device; the tick's device-to-host copies come after
+        verify (draft tokens, greedy tokens, and under `typical` the
+        per-position keep decisions computed on the device)."""
+        k = self.speculate
+        cap = self._seq_cap()
+        ready = self._decode_ready()
+        if not ready:
+            return
+        k_eff, grown = {}, []
+        for slot in ready:
+            if slot not in self.sched.running:
+                continue    # evicted while growing an earlier slot
+            p = int(self.pos[slot])
+            # clamp the depth at the sequence capacity: verify writes
+            # k_eff + 1 positions from pos
+            ke = min(k, cap - 1 - p)
+            ok, copies = self.sched.ensure_write_capacity(slot, p,
+                                                          p + ke + 1)
+            if ok:
+                self._apply_copies(copies)
+                k_eff[slot] = ke
+                grown.append(slot)
+        ready = [s for s in grown if s in self.sched.running]
+        if not ready:
+            return
+        t0 = time.time()
+        self._sync_block_tables()
+        base_pos = self.pos.copy()
+        ke_arr = np.zeros((self.B,), np.int32)
+        live = np.zeros((self.B,), bool)
+        for s in ready:
+            ke_arr[s] = k_eff[s]
+            live[s] = True
+        cur = self._ints(self.cur)
+        draft, self.cache = draft_propose_paged(
+            self.cfg, self.draft_params, self.cache, cur,
+            self._ints(base_pos), self._bt_dev, self._ints(ke_arr),
+            self._null_row, k)
+        # verify: dead rows read and write the null page at position 0
+        # with no valid token; the tokens are assembled on the device
+        bt = torch.where(torch.as_tensor(live, device=self.device)[:, None],
+                         self._bt_dev, self._null_row[:, None])
+        logits_all, self.cache = verify_paged(
+            self.cfg, self.params, self.cache,
+            torch.cat([cur[:, None], draft], dim=1),
+            self._ints(np.where(live, base_pos, 0)), bt.contiguous(),
+            self._ints(np.where(live, ke_arr + 1, 0)))
+        keep = None
+        if self.accept_rule == "typical":
+            # the target's probabilities of the draft tokens against its
+            # argmax's, in fp32 on the device
+            probs = torch.softmax(logits_all[:, :k].float(), dim=-1)
+            p_draft = probs.gather(-1, draft.long()[..., None])[..., 0]
+            keep = (p_draft >= self.typical_tau
+                    * probs.amax(dim=-1)).cpu().numpy()
+        draft_toks = draft.cpu().numpy()                       # (B, k)
+        greedy = torch.argmax(logits_all, dim=-1).cpu().numpy()  # (B, k+1)
+        self._sync()
+        self.stats["decode_s"] += time.time() - t0
+        self.stats["ticks"] += 1
+
+        for slot in ready:
+            e = self.sched.running[slot]
+            ke = k_eff[slot]
+            dt, g = draft_toks[slot], greedy[slot]
+            self.stats["draft_tokens"] += ke
+            m = 0
+            if keep is not None:
+                while m < ke and keep[slot, m]:
+                    m += 1
+            else:
+                while m < ke and dt[m] == g[m]:
+                    m += 1
+            self.stats["accepted_tokens"] += m
+            # the accepted draft prefix + the target's token at position
+            # m, emitted one by one under the plain stop conditions
+            burst = [int(dt[j]) for j in range(m)] + [int(g[m])]
+            emitted, fin = 0, False
+            for tok in burst:
+                e.req.out.append(tok)
+                self.stats["tokens"] += 1
+                emitted += 1
+                hit_eos = e.req.eos is not None and tok == e.req.eos
+                if (len(e.req.out) >= e.req.max_new_tokens or hit_eos
+                        or int(base_pos[slot]) + emitted >= cap - 1):
+                    fin = True
+                    break
+            new_pos = int(base_pos[slot]) + emitted
+            self.pos[slot] = new_pos
+            self.cur[slot] = burst[emitted - 1]
+            # rollback: K/V is cached for [0, new_pos); whole pages past
+            # it return to the pool (or stay with their other readers)
+            self.kv.truncate(slot, new_pos)
+            if fin:
                 self._finish(e)
 
     # ---------------- engine ----------------

@@ -92,6 +92,10 @@ class PagedKVCache:
                                    kv_bits=self.kv_bits,
                                    kv_group_size=self.kv_group_size)
 
+    def pool_bytes(self) -> int:
+        """Device bytes of the whole pool, the null page included."""
+        return self.bytes_per_page() * self.n_pages
+
     def take_pool(self):
         """Hand the device pool to the engine (compact() then takes it
         as an argument)."""

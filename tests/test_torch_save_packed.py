@@ -61,8 +61,16 @@ def test_load_then_save_rewrites_the_committed_artifact(tmp_path, name):
 def test_save_refusals_and_overwrite(tmp_path):
     params, spec, meta = load_packed(FIXTURE / "w3_pc", device="cpu")
     cfg = _cfg("tiny-lm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        save_packed(tmp_path / "a", params, cfg=cfg, draft_bits=2)
+    with pytest.raises(ValueError, match="draft_bits"):
+        save_packed(tmp_path / "a", params, cfg=cfg, draft_bits=0)
+    # draft_bits=2 writes the v4 draft block on every quantized leaf
+    d = save_packed(tmp_path / "d", params, cfg=cfg, spec=spec, meta=meta,
+                    draft_bits=2)
+    manifest = json.loads((d / "manifest.json").read_text())
+    assert manifest["format_version"] == 4 and manifest["draft_bits"] == 2
+    drafts = [leaf["draft"] for blk in manifest["tree"]["blocks"].values()
+              for grp in ("attn", "mlp") for leaf in blk[grp].values()]
+    assert len(drafts) == 7 and all(x["bits"] == 2 for x in drafts)
     with pytest.raises(ValueError):
         save_packed(tmp_path / "a", params, cfg=cfg, scale_dtype="float16")
     with pytest.raises(TypeError, match="cfg"):

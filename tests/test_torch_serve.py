@@ -239,6 +239,37 @@ def test_launcher_kv_bits_picks_paged_and_serves_fixture_on_cpu(capsys):
                      "dense"])
 
 
+def test_launcher_speculate_serves_the_same_text(capsys, tmp_path):
+    """--speculate 2 --draft-bits 2 serves the text the plain paged run
+    serves, and says where its draft scales came from: the fixture has
+    no v4 draft block (the refit), its re-save with draft_bits=2 has
+    one. --cache dense conflicts with speculation."""
+    args = ["--load-quantized", str(FIXTURE / "w3_pc"), "--device", "cpu",
+            "--requests", "3", "--batch-size", "3", "--max-new", "8"]
+    _, plain = launch_main(args + ["--cache", "paged"])
+    want = capsys.readouterr().out
+    eng, reqs = launch_main(args + ["--speculate", "2", "--draft-bits", "2"])
+    got = capsys.readouterr().out
+    assert eng.cache_kind == "paged" and eng.speculate == 2
+    assert [r.out for r in reqs] == [r.out for r in plain]
+    texts = [ln for ln in want.splitlines() if ln.startswith("  ")]
+    assert len(texts) == 3
+    assert [ln for ln in got.splitlines() if ln.startswith("  ")] == texts
+    assert "draft scales: on-the-fly LS re-fit (no v4 draft block)" in got
+    assert "speculation: k=2, w2 draft" in got
+    from repro_torch.ckpt import save_packed
+    params, spec, meta = load_packed(FIXTURE / "w3_pc", device="cpu")
+    cfg = get_config(meta["arch"]).replace(n_layers=len(params["layers"]))
+    d = save_packed(tmp_path / "w3_pc", params, cfg=cfg, spec=spec,
+                    meta=meta, draft_bits=2)
+    _, reqs = launch_main([str(d) if a == str(FIXTURE / "w3_pc") else a
+                           for a in args] + ["--speculate", "2"])
+    assert "draft scales: manifest v4 draft block" in capsys.readouterr().out
+    assert [r.out for r in reqs] == [r.out for r in plain]
+    with pytest.raises(SystemExit):
+        launch_main(args + ["--speculate", "2", "--cache", "dense"])
+
+
 def test_launcher_module_entry_point():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
@@ -252,13 +283,13 @@ def test_launcher_module_entry_point():
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"kv_bits": 4, "cache_kind": "dense"}, "quantized-KV"),
-    ({"speculate": 2}, "speculative"),
     ({"mesh": object()}, "multi-GPU")])
 def test_later_slices_raise(kw, slice_name):
     """Each slice still to come raises naming its ROADMAP Queue 1 item;
     binary-coded KV pages are served now, and on a dense cache they
     raise as in the reference (prefix sharing and chunked prefill are
-    served too: tests/test_torch_serve_prefix.py)."""
+    served too: tests/test_torch_serve_prefix.py; speculative decoding:
+    tests/test_torch_speculative.py)."""
     cfg, params = _model("w3_pc")
     kw = {"cache_kind": "paged", **kw}
     if slice_name == "quantized-KV":
@@ -318,8 +349,11 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                         lambda ok, what: ok or unmet.append(what))
     gen = torch.Generator().manual_seed(0)
     worst, n_checks = cs.check_bcq(gen, [(256, 96)])
-    assert n_checks == {"bcq_gemv": 36, "bcq_matmul": 20}
+    # draft views: 8 GEMV and 2 GEMM rows counts at each of 4 layouts
+    assert n_checks == {"bcq_gemv": 36, "bcq_matmul": 20,
+                        "bcq_gemv_draft": 32, "bcq_matmul_draft": 8}
     assert worst["bcq_gemv"] <= cs.TOL_FP32
+    assert worst["bcq_gemv_draft"] <= cs.TOL_FP32
     assert cs.check_paged(gen) <= cs.TOL_FP32
     assert cs.check_paged_quant(gen, geoms=((2, 16, 64),)) <= cs.TOL_FP32
     # the reader's grid: one case on each of the first two variants (the
@@ -335,8 +369,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                 cs.summarize_paged(gen, Hkv=2, rep=16, hd=64)):
         assert row["bound_ms"] > 0 and row["max_abs_err"] <= 1e-5
     cs.phase_fixture()
-    counts, row = cs.phase_main_path(0, cs.synthetic_llama(0, "tiny-lm"),
-                                     0.0)
+    counts, row, _ = cs.phase_main_path(0, cs.synthetic_llama(0, "tiny-lm"),
+                                        0.0)
     assert row["decode_tokens"] == 4 * 31 and row["model"] == "tiny-lm"
     _, row = cs.phase_kv_bits(0, cs.synthetic_llama(0, "tiny-lm"))
     # 2 sides x 4 heads x (4 planes x 2 words + 4 alphas + 1 beta) x 4 B
@@ -396,5 +430,15 @@ def test_chip_smoke_quantize_phase_rehearses_on_cpu(monkeypatch):
     assert [r["leaf"] for r in cards] == ["wq", "wd"]
     assert all(r["picks_differ_rows"] == 0 and r["output_err_rel"] == 0
                for r in cards)
-    assert rows[-1] == {"check": "quantize_path_tokens", "requests": 4,
-                        "loaded_equals_in_memory": True}
+    assert [r for r in rows if r["check"] == "quantize_path_tokens"] == [
+        {"check": "quantize_path_tokens", "requests": 4,
+         "loaded_equals_in_memory": True}]
+    # the artifact's v4 draft block: equal to a refit, re-saved byte for
+    # byte, and served speculatively with the plain serving's tokens
+    block, = [r for r in rows if r["check"] == "quantize_path_draft_block"]
+    assert block["leaves"] == 7 * 2 and block["block_equals_refit"]
+    assert block["codes_shared"] and block["resave_byte_equal"]
+    spec = [r for r in rows
+            if r["check"] == "quantize_path_speculative_tokens"]
+    assert [r["request"] for r in spec] == [0, 1, 2, 3]
+    assert all(r["equal_to_plain"] for r in spec)
