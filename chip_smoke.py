@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-eight phases (in the order 1, 2, 3, 4, 6, 8, 7, 5: phase 8 runs on phase
-3's model before it is freed, and 7 and 5 each free their own); any
-failure is a non-zero exit.
+nine phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9: phase 8 runs on
+phase 3's model before it is freed, and 7, 5 and 9 each free their
+own); any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -24,7 +24,13 @@ failure is a non-zero exit.
      geometries, page 64, ragged contexts, window and cap, and the
      binary-coded reader over bits 1..8 x hd {32, 64, 128, 256} x G in
      {1, 2, hd/32} and its edge layouts, with windows, caps, bf16 q and
-     contexts ending mid-partition), with times; after the build, the
+     contexts ending mid-partition), with times; then phase 9's shapes:
+     the GEMV and GEMM at minicpm3-4b's 2560->288, 256->5120 (M up to
+     768, its latent expansion) and 2560->768, gemma2-27b's
+     36864->4608, falcon-mamba-7b's 4096->16384 and 8192->4096, the
+     expert kernel at jamba-1.5-large's 16 experts of 8192<->24576, and
+     attention at gemma2's (rep 2, window, cap 50) and jamba's (rep 8)
+     geometries; after the build, the
      GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
      spill in it, and every binary-coded attention instance must copy
      by cp.async (LDGSTS in its SASS).
@@ -86,9 +92,23 @@ failure is a non-zero exit.
      call must run with no device-to-host copy. Prints a
      `speculative_path` line an engine and a `speculative_profile` line
      (one tick of A, propose and verify, beside phase 3's decode step).
+  9. the model zoo at full width: seeded synthetic w3 per-channel packs
+     (phase 3's requests, fp32 KV, 64-token pages) of minicpm3-4b (MLA
+     on latent pages, 62 layers), falcon-mamba-7b (Mamba with state
+     slabs, 64 layers), gemma2-27b (sandwich norms, caps 50 and 30,
+     alternating window 4096 prefilled through the extend path, 46
+     layers) and jamba-1.5-large-398b (one super-block, 8 of 72 layers:
+     7 Mamba, 1 attention, 4 MoE layers of 16 experts), each through the
+     paged engine with a `zoo_path` and a `decode_profile` line;
+     minicpm3 and falcon-mamba also through the dense engine, whose
+     tokens must equal the paged engine's up to a printed near-tie.
+     Every request finishes, pages and slabs drain, no BCQ call takes
+     the plain path, and paged attention launches once a decode tick
+     in every attention layer (none under MLA).
 
-Phases 2-5, 7 and 8 serve without a prefix index (prefix_sharing=False),
-as they did before it existed. Each path (phases 3-8; in phase 8 each
+Phases 2-5, 7, 8 and 9 serve without a prefix index
+(prefix_sharing=False), as they did before it existed. Each path
+(phases 3-9; in phase 8 each
 engine's run) is driven with every launch count set to 0 just before it
 and read just after. The line
 before the last is
@@ -432,6 +452,69 @@ def check_bcq(gen, shapes, Ms=GEMV_MS + GEMM_MS, draft_Ms=DRAFT_MS):
     return worst, n_checks
 
 
+# (K, N, Ms) of the linears phase 9 adds: minicpm3's wkv_a (N=288, not
+# a multiple of the GEMM's 64 columns), wkv_b (K=256: 8 words, below
+# several GEMV split sizes; M=768 is its expansion over a batch-4
+# decode's 192-token latent views) and wq_a; gemma2's wd (K=36864);
+# falcon-mamba's in_proj and out_proj
+ZOO_SHAPES = ((2560, 288, (1, 4, 8, 100)), (256, 5120, (1, 4, 8, 128, 768)),
+              (2560, 768, (1, 4, 8, 100)), (36864, 4608, (1, 4, 8, 100)),
+              (4096, 16384, (1, 4, 8, 100)), (8192, 4096, (1, 4, 8, 100)))
+# jamba-1.5-large's expert stacks: 16 experts, 8192 -> 24576 and back, at
+# a batch-4 decode's 4 rows and a 100-token prefill's 26-row capacity
+JAMBA_EXPERT_SHAPES = ((8192, 24576), (24576, 8192))
+
+
+def check_bcq_zoo(gen, shapes=ZOO_SHAPES):
+    """The GEMV (M <= 8) and the GEMM at phase 9's shapes, w3 per-channel
+    fp32 scales (as phase 9 serves them) and group 128 bf16 scales at
+    one row, each against its plain version; returns (worst relative
+    error, checks) by kernel."""
+    import torch
+    from repro_torch.hw import GEMV_ROWS
+    from repro_torch.kernels.bcq_matmul import (_bcq_matmul_plain, bcq_gemv,
+                                                bcq_matmul)
+    worst = {"bcq_gemv": 0.0, "bcq_matmul": 0.0}
+    n_checks = {"bcq_gemv": 0, "bcq_matmul": 0}
+    for K, N, Ms in shapes:
+        n_copy = max(2, -(-100_000_000 // (3 * K * N // 8)))
+        qts = [random_qt(gen, K, N, 0, torch.float32) for _ in range(n_copy)]
+        cases = [(M, qts[0]) for M in Ms]
+        if K % 128 == 0:
+            cases.append((4, random_qt(gen, K, N, 128, torch.bfloat16)))
+        for M, qt in cases:
+            name = "bcq_gemv" if M <= GEMV_ROWS else "bcq_matmul"
+            fn = bcq_gemv if M <= GEMV_ROWS else bcq_matmul
+            x = torch.randn((M, K), generator=gen, device=DEV)
+            y = fn(x, qt.codes, qt.alphas, qt.betas)
+            ref = _bcq_matmul_plain(x, qt.codes, qt.alphas, qt.betas)
+            sync()
+            err = float((y - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            row = {"check": f"{name}_zoo", "M": M, "K": K, "N": N,
+                   "group_size": qt.group_size if qt.n_groups > 1 else 0,
+                   "scale_dtype": str(qt.alphas.dtype).removeprefix(
+                       "torch."), "max_abs_err": err, "rel_err": rel,
+                   "tol": TOL_FP32}
+            if qt is qts[0]:
+                it = [0]
+
+                def run(fn=fn, x=x):
+                    q = qts[it[0] % n_copy]
+                    it[0] += 1
+                    fn(x, q.codes, q.alphas, q.betas)
+                t = kernel_ms(run, 10)
+                row.update({"ms": best_ms(t), "event_ms": t["event_ms"]})
+            emit(row)
+            require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                    f"{name} M={M} K={K} N={N}: rel err {rel:.3g} > "
+                    f"{TOL_FP32}")
+            worst[name] = max(worst[name], rel)
+            n_checks[name] += 1
+        del qts, cases
+    return worst, n_checks
+
+
 def summarize_bcq(gen, name, M, K, N, planes=3):
     """The kernel's line: time, bound, plain and library (torch.matmul on
     the pre-dequantized W) at one main-path shape, w3 per-channel fp32
@@ -527,6 +610,14 @@ def check_paged(gen):
              window=None, cap=None),
         dict(B=2, Hkv=4, rep=4, hd=128, page=16, ctx=[700, 999],
              window=301, cap=None),
+        # phase 9: gemma2-27b (rep 2, window 4096, cap 50; and a window
+        # that binds) and jamba-1.5-large's attention layer (rep 8)
+        dict(B=4, Hkv=16, rep=2, hd=128, page=64, ctx=[16, 45, 77, 131],
+             window=4096, cap=50.0),
+        dict(B=4, Hkv=16, rep=2, hd=128, page=64, ctx=[16, 45, 77, 131],
+             window=40, cap=50.0),
+        dict(B=4, Hkv=8, rep=8, hd=128, page=64, ctx=[16, 45, 77, 131],
+             window=None, cap=None),
     ]
     worst = 0.0
     for c in cases:
@@ -1115,7 +1206,7 @@ def _w3(gen, K, N, E=None):
     lead = () if E is None else (E,)
     base = torch.tensor([4.0, 2.0, 1.0], device=DEV)
     base = base / base.square().sum().sqrt()
-    codes = torch.randint(-2 ** 31, 2 ** 31, (*lead, 3, K // 32, N),
+    codes = torch.randint(-2 ** 31, 2 ** 31, (*lead, 3, -(-K // 32), N),
                           dtype=torch.int32, generator=gen, device=DEV)
     alphas = (base * K ** -0.5).expand(*lead, 1, N, 3).contiguous()
     betas = torch.zeros((*lead, 1, N), device=DEV)
@@ -2323,22 +2414,30 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
 
 def prefilled_pool(cfg, params, prompts, kv_bits=0, page=64, pps=3):
     """A paged pool holding each prompt in pages of its own (`pps` a
-    sequence, prefilled and scattered): (pool, block tables (B, pps),
-    positions (B,) = the prompts' lengths), on the card."""
+    sequence, prefilled and scattered, or with window layers written by
+    one extend pass, as the engine prefills them; a Mamba layer's state
+    lands in row b): (pool, block tables (B, pps), positions (B,) = the
+    prompts' lengths), on the card."""
     import torch
-    from repro_torch.models import (init_paged_cache, prefill,
+    from repro_torch.models import (extend_paged, init_paged_cache, prefill,
                                     scatter_prefill_cache)
     B = len(prompts)
     pool = init_paged_cache(cfg, B * pps + 1, page, B, kv_bits=kv_bits,
                             device=DEV)
     bt = torch.zeros((B, pps), dtype=torch.int32)
+    windows = any(s.window is not None for s in cfg.pattern)
     for b, p in enumerate(prompts):
         ids = list(range(1 + b * pps, 1 + (b + 1) * pps))
         bt[b] = torch.tensor(ids, dtype=torch.int32)
-        _, row = prefill(cfg, params, torch.tensor(p[None], device=DEV),
-                         len(p))
-        scatter_prefill_cache(cfg, pool, row, b, ids[:-(-len(p) // page)],
-                              len(p))
+        npg = -(-len(p) // page)
+        tok = torch.tensor(p[None], device=DEV)
+        if windows:
+            ints = lambda v: torch.tensor(v, dtype=torch.int32, device=DEV)
+            extend_paged(cfg, params, pool, tok, ints([0]),
+                         ints([ids[:npg]]), ints([len(p)]))
+            continue
+        _, row = prefill(cfg, params, tok, len(p))
+        scatter_prefill_cache(cfg, pool, row, b, ids[:npg], len(p))
     pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                        device=DEV)
     return pool, bt.to(DEV), pos
@@ -2545,9 +2644,299 @@ def phase_speculative(seed: int, model, baseline=None, max_new=32,
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model zoo at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers served or None for full depth, also through the dense
+# engine): jamba-1.5-large's 72 layers hold ~149 GB of w3 codes, more
+# than the card's 80 GB; one super-block of 8 holds ~16.5 GB
+ZOO_MODELS = (("minicpm3-4b", None, True), ("falcon-mamba-7b", None, True),
+              ("gemma2-27b", None, False), ("jamba-1.5-large-398b", 8, False))
+
+
+def _mla_weights(cfg, gen):
+    """MLA projections as seeded w3 packs; the latent norms zero."""
+    import torch
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    return {"wq_a": _w3(gen, d, m.q_lora_rank),
+            "q_a_norm": torch.zeros(m.q_lora_rank, device=DEV),
+            "wq_b": _w3(gen, m.q_lora_rank,
+                        H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "wkv_a": _w3(gen, d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_a_norm": torch.zeros(m.kv_lora_rank, device=DEV),
+            "wkv_b": _w3(gen, m.kv_lora_rank,
+                         H * (m.qk_nope_head_dim + m.v_head_dim)),
+            "wo": _w3(gen, H * m.v_head_dim, d)}
+
+
+def _mamba_weights(cfg, gen):
+    """A Mamba mixer: in_proj, dt_w and out_proj as seeded w3 packs
+    (dt_w is packed, as the reference packs it); x_proj fp32 N(0, 1/di)
+    (the config's exclude); conv, dt bias, A_log and D as init_mamba
+    draws them."""
+    import math
+    import torch
+    mc, d, di = cfg.mamba, cfg.d_model, cfg.d_inner
+    dtr = mc.resolved_dt_rank(d)
+    u = torch.rand(di, generator=gen, device=DEV)
+    dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    return {"in_proj": _w3(gen, d, 2 * di),
+            "conv_w": torch.randn((mc.d_conv, di), generator=gen,
+                                  device=DEV) * mc.d_conv ** -0.5,
+            "conv_b": torch.zeros(di, device=DEV),
+            "x_proj": torch.randn((di, dtr + 2 * mc.d_state), generator=gen,
+                                  device=DEV) * di ** -0.5,
+            "dt_w": _w3(gen, dtr, di),
+            "dt_b": torch.log(torch.expm1(dt0)),
+            "A_log": torch.log(torch.arange(1, mc.d_state + 1,
+                                            dtype=torch.float32,
+                                            device=DEV)).repeat(di, 1),
+            "D": torch.ones(di, device=DEV),
+            "out_proj": _w3(gen, di, d)}
+
+
+def synthetic_zoo(seed: int, cfg):
+    """Any decoder of the zoo at `cfg`'s widths and depth: seeded w3
+    per-channel packs for every linear the reference quantizes (GQA or
+    MLA attention, Mamba mixers, dense MLPs and expert stacks), an fp32
+    router N(0, 1/d), zero norms (sandwich norms included) and fp32
+    embeddings and head from the port's init_params."""
+    import torch
+    from repro_torch.models import init_params
+    params = init_params(cfg.replace(n_layers=0), seed=seed,
+                         dtype="float32", device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed + 3)
+    d = cfg.d_model
+    zeros = lambda: torch.zeros(d, device=DEV)
+    layers = []
+    for spec in cfg.layer_specs():
+        lp = {"ln": zeros()}
+        if spec.kind != "attn":
+            lp["mamba"] = _mamba_weights(cfg, gen)
+        elif cfg.mla is not None:
+            lp["attn"] = _mla_weights(cfg, gen)
+        else:
+            lp["attn"] = _attn_weights(cfg, gen)
+        if cfg.post_block_norms:
+            lp["post_ln"] = zeros()
+        if spec.mlp != "none":
+            lp["ln2"] = zeros()
+            if spec.mlp == "moe":
+                f, E = cfg.moe.d_ff_expert, cfg.moe.n_experts
+                lp["moe"] = {"router": torch.randn((d, E), generator=gen,
+                                                   device=DEV) * d ** -0.5,
+                             "wg": _w3(gen, d, f, E), "wu": _w3(gen, d, f, E),
+                             "wd": _w3(gen, f, d, E)}
+            else:
+                lp["mlp"] = {"wg": _w3(gen, d, cfg.d_ff),
+                             "wu": _w3(gen, d, cfg.d_ff),
+                             "wd": _w3(gen, cfg.d_ff, d)}
+            if cfg.post_block_norms:
+                lp["post_ln2"] = zeros()
+        layers.append(lp)
+    params["layers"] = layers
+    return params
+
+
+def _zoo_code_bytes(params) -> int:
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        return node.codes.numel() * 4 if hasattr(node, "codes") else 0
+    return sum(walk(lp) for lp in params["layers"])
+
+
+def _fp_bytes(params) -> int:
+    """Bytes of the fp tensors of the tree (embeddings, head, norms,
+    routers, excluded projections)."""
+    import torch
+
+    def walk(node):
+        if isinstance(node, dict):
+            return sum(walk(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(walk(v) for v in node)
+        return (node.numel() * node.element_size()
+                if torch.is_tensor(node) else 0)
+    return walk(params)
+
+
+def zoo_dense_tokens(name, cfg, params, prompts, want, max_new):
+    """The dense engine on the paged run's prompts: its greedy tokens
+    must equal the paged engine's (`want`) up to a printed near-tie."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
+                      dtype="float32", cache_kind="dense", device=DEV)
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    t0 = time.time()
+    eng.run(reqs)
+    sync()
+    wall = time.time() - t0
+    rows = []
+    for i, (r, w) in enumerate(zip(reqs, want)):
+        div = first_divergence(cfg, params, prompts[i], w, r.out)
+        rows.append({"request": i, "equal_to_paged": div is None,
+                     **({} if div is None else
+                        {"first_diff": div[0], "paged_top2_gap_rel": div[1],
+                         "gap_limit": 2 * TOL_LOGITS})})
+        require(div is None or div[1] <= 2 * TOL_LOGITS,
+                f"{name}: dense request {i} differs from paged at token "
+                f"{div and div[0]} with a gap of {div and div[1]}")
+    emit({"check": "zoo_path_dense_vs_paged", "model": cfg.name,
+          "wall_s": wall, "decode_s": eng.stats["decode_s"],
+          "decode_ticks": eng.stats["ticks"], "requests": rows})
+    del eng
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def zoo_plain_paths(cfg, params, iters: int = 10) -> dict:
+    """Device times of the plain-PyTorch hot paths the zoo adds (no TPU
+    kernel: the reference writes them in jnp): MLA's latent expansion
+    through wkv_b over a batch-4 decode's 192-token views (the BCQ GEMM
+    at M=768) and its whole attention step; the selective scan of one
+    Mamba layer at the longest prompt (100 tokens) and the whole layer.
+    Layer 0's (or the first Mamba layer's) weights; a `zoo_plain_paths`
+    line."""
+    import torch
+    from repro_torch.models import mamba as mam
+    from repro_torch.models import mla as mla_mod
+    row = {"check": "zoo_plain_paths", "model": cfg.name}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    if cfg.mla is not None:
+        m, p = cfg.mla, params["layers"][0]["attn"]
+        B, S, H = 4, 192, cfg.n_heads
+        c_kv = torch.randn((B, S, m.kv_lora_rank), generator=gen, device=DEV)
+        k_pe = torch.randn((B, S, m.qk_rope_head_dim), generator=gen,
+                           device=DEV)
+        q_nope = torch.randn((B, 1, H, m.qk_nope_head_dim), generator=gen,
+                             device=DEV)
+        q_pe = torch.randn((B, 1, H, m.qk_rope_head_dim), generator=gen,
+                           device=DEV)
+        ok = torch.ones((B, 1, 1, S), dtype=torch.bool, device=DEV)
+        t = kernel_ms(lambda: mla_mod._expand_kv(cfg, p, c_kv), iters)
+        a = kernel_ms(lambda: mla_mod._mla_attend(cfg, p, q_nope, q_pe, c_kv,
+                                                  k_pe, ok), iters)
+        row.update({"mla_expand_ms": best_ms(t),
+                    "mla_expand_shape": f"M={B * S} K={m.kv_lora_rank} "
+                                        f"N={H * (m.qk_nope_head_dim + m.v_head_dim)}",
+                    "mla_attend_step_ms": best_ms(a),
+                    "mla_expand_ms_per_decode_step": best_ms(t)
+                    * sum(s.kind == "attn" for s in cfg.layer_specs())})
+    js = [j for j, s in enumerate(cfg.layer_specs()) if s.kind == "mamba"]
+    if js:
+        mc, p = cfg.mamba, params["layers"][js[0]]["mamba"]
+        L, di, ds = 100, cfg.d_inner, cfg.mamba.d_state
+        ops = (torch.randn((1, L, di), generator=gen, device=DEV),
+               torch.rand((1, L, di), generator=gen, device=DEV) * 0.1,
+               -torch.exp(p["A_log"]),
+               torch.randn((1, L, ds), generator=gen, device=DEV),
+               torch.randn((1, L, ds), generator=gen, device=DEV),
+               torch.zeros((1, di, ds), device=DEV))
+        t = kernel_ms(lambda: mam.selective_scan(*ops, mc.chunk), iters)
+        x = torch.randn((1, L, cfg.d_model), generator=gen, device=DEV)
+        f = kernel_ms(lambda: mam.mamba_forward(cfg, p, x, return_state=True),
+                      iters)
+        row.update({"selective_scan_ms": best_ms(t),
+                    "selective_scan_shape": f"L={L} d_inner={di} "
+                                            f"d_state={ds}",
+                    "mamba_layer_prefill_ms": best_ms(f),
+                    "selective_scan_ms_per_prefill": best_ms(t) * len(js)})
+    emit(row)
+    return row
+
+
+def phase_zoo(seed: int, models=None, max_new: int = 32):
+    """Phase 9: each model of `models` ((cfg, full depth, dense too), by
+    default ZOO_MODELS from the registry at full width) built by
+    synthetic_zoo and served through the paged engine (serve_path: 4
+    requests, batch 4, 64-token pages, every launch count set to 0 just
+    before and read just after), with a `zoo_path` line and a
+    `decode_profile` line; the dense engine's tokens against the paged
+    engine's where asked. Each model is freed before the next. Returns
+    (summed launch counts, rows)."""
+    import torch
+    from repro_torch.configs import get_config
+    if models is None:
+        models = []
+        for arch, n_layers, dense in ZOO_MODELS:
+            full = get_config(arch)
+            models.append((full.replace(dtype="float32",
+                                        n_layers=n_layers or full.n_layers),
+                           full.n_layers, dense))
+    total, rows = {}, {}
+    for cfg, full_depth, dense in models:
+        t0 = time.time()
+        params = synthetic_zoo(seed, cfg)
+        sync()
+        build_s = time.time() - t0
+        counts, row, prompts, outs, eng = serve_path("zoo_path", cfg,
+                                                     params, seed,
+                                                     max_new=max_new)
+        specs = cfg.layer_specs()
+        n_attn = sum(s.kind == "attn" for s in specs)
+        n_moe = sum(s.mlp == "moe" for s in specs)
+        slab = eng.slab
+        row.update({
+            "weights_build_s": build_s,
+            "depth": (f"{cfg.n_layers} of {full_depth} layers"
+                      + ("" if cfg.n_layers == full_depth else
+                         " (cut: the full depth's w3 codes exceed the "
+                         "card's memory)")),
+            "mixers": {"attention": n_attn - (n_attn if cfg.mla else 0),
+                       "mla": n_attn if cfg.mla else 0,
+                       "mamba": len(specs) - n_attn},
+            "moe_layers": n_moe, "post_block_norms": cfg.post_block_norms,
+            "packed_code_bytes": _zoo_code_bytes(params),
+            "fp_bytes": _fp_bytes(params),
+            "pages_allocated": eng.kv.pages_allocated,
+            "kv_high_water_pages": eng.kv.high_water,
+            "latent_pages": cfg.mla is not None,
+            "slabs_allocated": slab.slabs_allocated if slab else 0,
+            "slab_high_water": slab.high_water if slab else 0,
+            "slab_bytes_per_slab": slab.bytes_per_slab() if slab else 0,
+            "engines": "paged and dense" if dense else "paged only"})
+        emit(row)
+        rows[cfg.name] = row
+        require(slab is None or (slab.live_slabs == 0 and slab.free_slab_count
+                                 == slab.usable_slabs
+                                 and slab.slabs_allocated >= 4),
+                f"zoo {cfg.name}: state slabs did not drain")
+        require((slab is not None) == (n_attn < len(specs)),
+                f"zoo {cfg.name}: a slab pool without Mamba layers or none "
+                f"with them")
+        require(counts["bcq_gemv"] > 0 and counts["bcq_matmul"] > 0,
+                f"zoo {cfg.name}: launches {counts}")
+        ticks, prefills = row["decode_ticks"], row["prefills"]
+        attn_kernel = 0 if cfg.mla is not None else n_attn * ticks
+        require(counts["paged_attention"] == attn_kernel
+                and counts["paged_attention_quant"] == 0,
+                f"zoo {cfg.name}: paged attention launched "
+                f"{counts['paged_attention']} times, expected {attn_kernel}")
+        require(counts["bcq_expert_matmul"] == 3 * n_moe * (ticks + prefills),
+                f"zoo {cfg.name}: expert launches {counts}")
+        del eng
+        if dense:
+            zoo_dense_tokens(cfg.name, cfg, params, prompts, outs, max_new)
+        profile_decode(cfg, params, prompts, tag=cfg.name)
+        if cfg.mla is not None or cfg.mamba is not None:
+            zoo_plain_paths(cfg, params)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del params
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return total, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2612,6 +3001,17 @@ def main(argv=None) -> int:
             worst["paged_attention_quant"] = max(
                 check_paged_quant(gen), check_paged_quant_grid(args.seed))
             worst["bcq_expert_matmul"], n_exact = check_expert(gen)
+            # phase 9's shapes: the zoo's linears, jamba's expert stacks
+            worst_z, n_z = check_bcq_zoo(gen)
+            for k in ("bcq_gemv", "bcq_matmul"):
+                worst[k] = max(worst[k], worst_z[k])
+                n_checks[k] += n_z[k]
+            worst_j, n_exact_j = check_expert(gen, E=16,
+                                              shapes=JAMBA_EXPERT_SHAPES,
+                                              Ms=(4, 26))
+            worst["bcq_expert_matmul"] = max(worst["bcq_expert_matmul"],
+                                             worst_j)
+            n_exact += n_exact_j
             summaries = {
                 "bcq_gemv": summarize_bcq(gen, "bcq_gemv", 4, 4096, 11008),
                 "bcq_matmul": summarize_bcq(gen, "bcq_matmul", 128, 4096,
@@ -2697,7 +3097,14 @@ def main(argv=None) -> int:
             t0 = time.time()
             counts, _ = phase_moe(args.seed)
             count("moe_path", counts)
+            gc.collect()         # and phase 5's model before phase 9
+            torch.cuda.empty_cache()
             phase_done(5, t0)
+        if 9 in phases:
+            t0 = time.time()
+            counts, _ = phase_zoo(args.seed)
+            count("zoo_path", counts)
+            phase_done(9, t0)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

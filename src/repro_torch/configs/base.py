@@ -23,6 +23,27 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0          # 0 -> ceil(d_model / 16)
+    chunk: int = 256          # chunked-scan block length
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank > 0 else -(-d_model // 16)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One layer inside the repeating super-block."""
     kind: str = "attn"          # "attn" | "mamba"
@@ -61,14 +82,13 @@ class ModelConfig:
     causal: bool = True
     post_block_norms: bool = False
     moe: Optional[MoEConfig] = None
-    # sub-module configs of later slices (Mamba, MLA); the port refuses
-    # configs that set them
-    mamba: Optional[object] = None
-    mla: Optional[object] = None
+    mamba: Optional[MambaConfig] = None
+    mla: Optional[MLAConfig] = None
     tie_embeddings: bool = True
-    embed_input: str = "tokens"
+    embed_input: str = "tokens"   # "tokens" | "frames" (not served)
     norm_eps: float = 1e-6
-    has_decode: bool = True
+    has_decode: bool = True       # encoder-only archs: False
+    subquadratic: bool = False    # eligible for long-context cells
     dtype: str = "bfloat16"
     quant: QuantConfig = field(default_factory=QuantConfig)
 
@@ -83,6 +103,12 @@ class ModelConfig:
                 f"{self.name}: n_layers={self.n_layers} not divisible by "
                 f"pattern length {len(self.pattern)}")
         return self.n_layers // len(self.pattern)
+
+    @property
+    def d_inner(self) -> int:
+        if self.mamba is None:
+            raise ValueError(f"{self.name}: d_inner needs a Mamba config")
+        return self.mamba.expand * self.d_model
 
     def layer_specs(self) -> Tuple[LayerSpec, ...]:
         """The spec of every layer in order (the pattern repeated

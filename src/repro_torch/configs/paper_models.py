@@ -1,8 +1,9 @@
-"""The paper's model families, the tiny trained-from-scratch LMs and the
-MoE configs the port serves (the port's own copy of the reference's
-`configs/paper_models.py` and `configs/qwen3_moe_235b_a22b.py`,
-attention-only members)."""
-from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
+"""The paper's model families, the tiny trained-from-scratch LMs (tiny
+MLA and MoE members included) and qwen3-moe-235b-a22b (the port's own
+copy of the reference's `configs/paper_models.py` and
+`configs/qwen3_moe_235b_a22b.py`)."""
+from repro_torch.configs.base import (LayerSpec, MLAConfig, ModelConfig,
+                                      MoEConfig)
 
 OPT_125M = ModelConfig(
     name="opt-125m", family="dense", n_layers=12, d_model=768,
@@ -29,6 +30,13 @@ TINY_LM = ModelConfig(
 TINY_LM_WIDE = TINY_LM.replace(name="tiny-lm-wide", d_model=384, n_heads=6,
                                n_kv_heads=3, d_ff=1536, n_layers=4)
 TINY_LM_DEEP = TINY_LM.replace(name="tiny-lm-deep", n_layers=8)
+# byte-vocab (258) versions of the MLA and MoE block structures
+TINY_MLA = TINY_LM.replace(
+    name="tiny-mla", n_layers=2, d_model=128, d_ff=512,
+    head_dim=24,  # qk head dim = nope(16) + rope(8)
+    mla=MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                  qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16),
+)
 TINY_MOE = TINY_LM.replace(
     name="tiny-moe", family="moe", n_layers=2, d_model=128, d_ff=512,
     pattern=(LayerSpec(kind="attn", mlp="moe"),),

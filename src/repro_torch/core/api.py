@@ -34,8 +34,10 @@ from repro_torch.core.stages import stage
 from repro_torch.hw import dtype_name, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.model import (_mlp, embed_inputs,
-                                      require_attention_only, unembed)
+from repro_torch.models import mamba as mam
+from repro_torch.models import mla as mla_mod
+from repro_torch.models.model import (_apply_layer, embed_inputs,
+                                      require_decoder, unembed)
 from repro_torch.quant.qlinear import stack_leaves
 from repro_torch.quant.registry import get_quantizer
 from repro_torch.quant.spec import (LeafPlan, QuantSpec, dotted_path,
@@ -88,17 +90,24 @@ def eligible_paths(cfg, params, include_head=False):
 
 def forward_unrolled(cfg, params, inputs):
     """The reference's training forward (`_apply_layer` without a
-    cache): every layer in turn, MoE layers at the train-time capacity
+    cache): every layer in turn (attention, MLA or Mamba, sandwich norms
+    where the config has them), MoE layers at the train-time capacity
     factor `cfg.moe.capacity_factor` (not prefill's inference factor).
     -> logits (B, S, V)."""
-    require_attention_only(cfg)
+    require_decoder(cfg)
     x = embed_inputs(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
     cf = cfg.moe.capacity_factor if cfg.moe else None
+
+    def mixer(spec, lp, h):
+        if spec.kind != "attn":
+            return mam.mamba_forward(cfg, lp["mamba"], h), None
+        if cfg.mla is not None:
+            return mla_mod.mla_forward(cfg, spec, lp["attn"], h,
+                                       positions), None
+        return attn.attn_forward(cfg, spec, lp["attn"], h, positions), None
     for spec, lp in zip(cfg.layer_specs(), params["layers"]):
-        h = L.rmsnorm(x, lp["ln"], cfg.norm_eps)
-        x = x + attn.attn_forward(cfg, spec, lp["attn"], h, positions)
-        x = _mlp(cfg, spec, lp, x, cf)
+        x, _ = _apply_layer(cfg, spec, lp, x, mixer, cf)
     x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x)
 

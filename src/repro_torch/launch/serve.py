@@ -9,7 +9,8 @@ request batch through the continuous-batching engine.
 
 The artifact is read by ckpt.packed.load_packed (manifests v1-v4, as
 the reference writes them); the model config is the registry entry its
-meta "arch" names, at the artifact's own depth. An artifact the port
+meta "arch" names (any decoder of the zoo: attention, MLA, Mamba or
+hybrid, dense or MoE MLPs), at the artifact's own depth. An artifact the port
 quantized (core.api.quantize_model, then ckpt.packed.save_packed)
 serves the same way; the quantize flags arrive with training (ROADMAP
 Queue 1 item 7) and --mesh with multi-GPU (item 6). `--speculate K`
@@ -103,8 +104,13 @@ def main(argv=None):
                       draft_params=draft_params, device=args.device)
     if paged:
         kv = eng.kv
-        print(f"paged kv cache: {kv.n_pages} pages x {kv.page_size} tok, "
-              f"{kv.bytes_per_page()} B/page")
+        kind = "latent" if cfg.mla is not None else "kv"
+        print(f"paged {kind} cache: {kv.n_pages} pages x {kv.page_size} "
+              f"tok, {kv.bytes_per_page()} B/page")
+        if eng.slab is not None:
+            sl = eng.slab
+            print(f"state slab pool: {sl.usable_slabs} usable slabs "
+                  f"({sl.n_shards} reserve), {sl.bytes_per_slab()} B/slab")
     if args.kv_bits:
         kv = eng.kv
         raw = paged_kv_page_bytes(cfg, kv.page_size, "float32")

@@ -188,9 +188,15 @@ def paged_kv_page_bytes(cfg, page_size, dtype, kv_bits=0,
                         kv_group_size=0) -> int:
     """Device bytes one page id costs across the whole model: every
     attention layer holds a K and a V page of `page_size` tokens per KV
-    head (codes and scales when binary-coded)."""
+    head (codes and scales when binary-coded); an MLA layer one latent
+    page, kv_lora_rank + qk_rope_head_dim values a token with no head
+    factor and no separate V."""
     itemsize = torch_dtype(dtype or cfg.dtype).itemsize
     n_attn = sum(1 for s in cfg.layer_specs() if s.kind == "attn")
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (page_size * (m.kv_lora_rank + m.qk_rope_head_dim)
+                * itemsize * n_attn)
     per_vec = kv_bytes_per_token_head(cfg.resolved_head_dim, kv_bits,
                                       kv_group_size, itemsize)
     return 2 * page_size * cfg.n_kv_heads * per_vec * n_attn

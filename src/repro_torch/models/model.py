@@ -1,27 +1,40 @@
-"""Model assembly for attention-only decoders with dense or MoE MLPs
-(the reference's `models/model.py`, serving entry points).
+"""Model assembly (the reference's `models/model.py`, serving entry
+points): decoders whose layers are attention (GQA or MLA) or Mamba
+mixers, each followed by a dense or MoE MLP (or none), with optional
+post-block ("sandwich") norms.
 
 Parameters are plain dicts of tensors with one weight dict per layer
 (the reference stacks each pattern position along an (n_groups, ...)
 axis and scans it; the port loops over the layers):
 
     {"embed": (V, D), "final_ln": (D,), ["lm_head": (D, V)],
-     "layers": [{"ln", "attn": {"wq","wk","wv","wo"}, "ln2",
-                 "mlp": {"wg","wu","wd"}                    (dense), or
-                 "moe": {"router","wg","wu","wd"}}, ...]}   (MoE stacks)
+     "layers": [{"ln",
+                 "attn": {"wq","wk","wv","wo"[,"qn","kn"]}     (GQA), or
+                 "attn": {"wq_a","q_a_norm","wq_b","wkv_a",
+                          "kv_a_norm","wkv_b","wo"}           (MLA), or
+                 "mamba": {"in_proj","conv_w","conv_b","x_proj",
+                           "dt_w","dt_b","A_log","D","out_proj"},
+                 ["post_ln"],
+                 ["ln2", "mlp": {"wg","wu","wd"} | "moe": {"router",
+                  "wg","wu","wd"}, ["post_ln2"]]}, ...]}
 
 Any weight may be a QuantizedTensor; `layers.linear` dispatches on it.
-Caches are lists with one dict per layer, updated in place.
+Caches are lists with one dict per layer, updated in place: K/V (or
+their pages), MLA latents (or latent pages), or a Mamba layer's
+per-slot recurrent state rows (batch / max_seqs rows, never paged).
 
 Entry points:
   init_params(cfg, seed, dtype, device)              -> params
   prefill(cfg, params, tokens, max_len, last_pos=)   -> (last logits, cache)
-  init_cache / decode_step                            dense KV cache
-  init_paged_cache / decode_step_paged                paged KV pool (fp
-                                                      or binary-coded)
+  init_cache / decode_step                            dense caches
+  init_paged_cache / decode_step_paged                page pools (fp or
+                                                      binary-coded K/V,
+                                                      MLA latents) + state
+                                                      rows
   scatter_prefill_cache                               dense prefill -> pages
   extend_paged / _extend_scan                         a chunk of prompt
                                                       tokens over the pages
+                                                      (attention and MLA)
   copy_pages                                          copy-on-write forks
   draft_propose_paged / verify_paged                  self-speculative
                                                       decoding
@@ -36,6 +49,8 @@ import torch
 
 from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (init_linear, init_swiglu, linear,
                                        rmsnorm, softcap, swiglu)
 from repro_torch.models.moe import init_moe, moe_forward
@@ -45,20 +60,22 @@ from repro_torch.models.moe import init_moe, moe_forward
 DECODE_CAPACITY_FACTOR = 4.0
 
 
-def require_attention_only(cfg) -> None:
-    """The port serves attention-only decoders (dense or MoE MLPs) so
-    far."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA comes with a later slice "
-                                  f"(ROADMAP Queue 1 item 5)")
-    if any(s.kind != "attn" for s in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: Mamba layers come with a "
-                                  f"later slice (ROADMAP Queue 1 item 5)")
+def require_decoder(cfg) -> None:
+    """The port serves token-in decoders. Frame inputs and encoder-only
+    models (hubert-xlarge) run only through the training forward, which
+    comes with training (ROADMAP Queue 1 item 7)."""
+    if cfg.embed_input != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: frame inputs come with the training forward "
+            f"(ROADMAP Queue 1 item 7)")
+    if not cfg.has_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-only model has no decode step; its "
+            f"forward comes with training (ROADMAP Queue 1 item 7)")
     if any(s.mlp == "moe" for s in cfg.pattern) and cfg.moe is None:
         raise ValueError(f"{cfg.name}: MoE layers without a MoE config")
-    if cfg.post_block_norms or cfg.embed_input != "tokens":
-        raise NotImplementedError(f"{cfg.name}: post-block norms and frame "
-                                  f"inputs are not ported yet")
+    if any(s.kind == "mamba" for s in cfg.pattern) and cfg.mamba is None:
+        raise ValueError(f"{cfg.name}: Mamba layers without a Mamba config")
 
 
 def _layers(cfg, params):
@@ -77,14 +94,23 @@ def _layers(cfg, params):
 def _init_layer(cfg, spec, gen, dtype, device):
     d = cfg.d_model
     dt = torch_dtype(dtype)
-    p = {"ln": torch.zeros((d,), dtype=dt, device=device),
-         "attn": attn.init_attn(cfg, gen, dtype, device)}
+    p = {"ln": torch.zeros((d,), dtype=dt, device=device)}
+    if spec.kind == "attn":
+        p["attn"] = (mla_mod.init_mla(cfg, gen, dtype, device)
+                     if cfg.mla is not None
+                     else attn.init_attn(cfg, gen, dtype, device))
+    else:
+        p["mamba"] = mam.init_mamba(cfg, gen, dtype, device)
+    if cfg.post_block_norms:
+        p["post_ln"] = torch.zeros((d,), dtype=dt, device=device)
     if spec.mlp != "none":
         p["ln2"] = torch.zeros((d,), dtype=dt, device=device)
         if spec.mlp == "moe":
             p["moe"] = init_moe(cfg, gen, dtype, device)
         else:
             p["mlp"] = init_swiglu(gen, d, cfg.d_ff, dtype, device)
+        if cfg.post_block_norms:
+            p["post_ln2"] = torch.zeros((d,), dtype=dt, device=device)
     return p
 
 
@@ -93,7 +119,7 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
     target device (the same distributions as the reference's init; the
     numbers differ, so parity tests carry the reference's weights across
     with ckpt.params_from_tree instead)."""
-    require_attention_only(cfg)
+    require_decoder(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev)
@@ -154,17 +180,39 @@ def _attn_prefill(cfg, spec, p, h, positions, max_len):
     return y, {"k": ck.contiguous(), "v": cv.contiguous()}
 
 
+def _mla_prefill(cfg, spec, p, h, positions, max_len):
+    y, c_kv, k_pe = mla_mod.mla_prefill(cfg, spec, p, h, positions)
+    pad = max_len - h.shape[1]
+    return y, {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
+               "k_pe": torch.nn.functional.pad(k_pe, (0, 0, 0, pad))}
+
+
 def _mlp(cfg, spec, lp, x, moe_capacity_factor):
     """x + the layer's MLP (dense SwiGLU or MoE at the given capacity
-    factor; the aux loss is not used in serving)."""
+    factor; the aux loss is not used in serving), post-normed when the
+    config has sandwich norms."""
     if spec.mlp == "none":
         return x
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if spec.mlp == "moe":
         y, _ = moe_forward(cfg, lp["moe"], h,
                            capacity_factor=moe_capacity_factor)
-        return x + y
-    return x + swiglu(lp["mlp"], h)
+    else:
+        y = swiglu(lp["mlp"], h)
+    if cfg.post_block_norms:
+        y = rmsnorm(y, lp["post_ln2"], cfg.norm_eps)
+    return x + y
+
+
+def _apply_layer(cfg, spec, lp, x, mixer, moe_capacity_factor):
+    """One layer: norm, the mixer (attention, MLA or Mamba; `mixer(spec,
+    lp, h)` -> (y, cache)), post-norm, residual, then the MLP. Returns
+    (x, the mixer's cache)."""
+    h = rmsnorm(x, lp["ln"], cfg.norm_eps)
+    y, c = mixer(spec, lp, h)
+    if cfg.post_block_norms:
+        y = rmsnorm(y, lp["post_ln"], cfg.norm_eps)
+    return _mlp(cfg, spec, lp, x + y, moe_capacity_factor), c
 
 
 def _last_positions(x, last_pos):
@@ -177,19 +225,25 @@ def _last_positions(x, last_pos):
 
 
 def prefill(cfg, params, tokens, max_len, *, last_pos=None):
-    """Run the prompt, return (last-position logits (B, V), dense cache
-    with every layer's K/V padded to max_len). `last_pos` ((B,)) picks
-    the logits row of bucket-padded prompts."""
-    require_attention_only(cfg)
+    """Run the prompt, return (last-position logits (B, V), dense cache:
+    every attention layer's K/V or MLA latents padded to max_len, every
+    Mamba layer's state after the prompt). `last_pos` ((B,)) picks the
+    logits row of bucket-padded prompts."""
+    require_decoder(cfg)
     x = embed_inputs(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def mixer(spec, lp, h):
+        if spec.kind != "attn":
+            return mam.mamba_forward(cfg, lp["mamba"], h, return_state=True)
+        if cfg.mla is not None:
+            return _mla_prefill(cfg, spec, lp["attn"], h, positions, max_len)
+        return _attn_prefill(cfg, spec, lp["attn"], h, positions, max_len)
     cache = []
+    cf = cfg.moe.inference_capacity_factor if cfg.moe else None
     for spec, lp in _layers(cfg, params):
-        h = rmsnorm(x, lp["ln"], cfg.norm_eps)
-        y, c = _attn_prefill(cfg, spec, lp["attn"], h, positions, max_len)
+        x, c = _apply_layer(cfg, spec, lp, x, mixer, cf)
         cache.append(c)
-        x = _mlp(cfg, spec, lp, x + y,
-                 cfg.moe.inference_capacity_factor if cfg.moe else None)
     x = rmsnorm(_last_positions(x, last_pos), params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0], cache
 
@@ -199,42 +253,70 @@ def prefill(cfg, params, tokens, max_len, *, last_pos=None):
 # --------------------------------------------------------------------------
 
 def init_cache(cfg, batch, max_len, dtype=None, device=None):
-    """Dense KV cache: one {"k","v"} (batch, Hkv, max_len, hd) per layer."""
-    require_attention_only(cfg)
+    """Dense caches: per attention layer {"k","v"} (batch, Hkv, max_len
+    or window, hd), per MLA layer {"c_kv","k_pe"} (batch, max_len, .),
+    per Mamba layer its state rows {"ssm","conv"} (batch, ...)."""
+    require_decoder(cfg)
     dev = resolve_device(device)
-    return [attn.init_kv_cache(cfg, spec, batch, max_len, dtype or cfg.dtype,
-                               dev) for spec in cfg.layer_specs()]
+    dtype = dtype or cfg.dtype
+    out = []
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn":
+            out.append(mam.init_mamba_cache(cfg, batch, dtype, dev))
+        elif cfg.mla is not None:
+            out.append(mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                              dev))
+        else:
+            out.append(attn.init_kv_cache(cfg, spec, batch, max_len, dtype,
+                                          dev))
+    return out
 
 
 def init_paged_cache(cfg, n_pages, page_size, max_seqs, dtype=None,
                      kv_bits=0, kv_group_size=0, device=None):
-    """Paged cache: one pool per layer, shared by all sequences —
+    """Paged cache: per attention layer a pool shared by all sequences,
     {"k_pages","v_pages"} (n_pages, page_size, Hkv, hd), or with
     `kv_bits > 0` the binary-coded {"k_codes","k_alphas","k_betas",
-    "v_..."} (attention.init_paged_kv). max_seqs is the reference's
-    argument for per-slot recurrent state, unused by attention-only
-    patterns."""
-    require_attention_only(cfg)
+    "v_..."} (attention.init_paged_kv); per MLA layer a latent pool
+    {"ckv_pages","kpe_pages"} (n_pages, page_size, 1, .); per Mamba
+    layer `max_seqs` state rows indexed by slot (recurrent state does not
+    page). MLA latents are already compressed and take no kv_bits."""
+    require_decoder(cfg)
+    if cfg.mla is not None and kv_bits:
+        raise NotImplementedError(
+            "binary-coded pages code per-head K/V vectors; the MLA latent "
+            "cache is already compressed and serves with kv_bits=0")
     dev = resolve_device(device)
-    return [attn.init_paged_kv(cfg, n_pages, page_size, dtype or cfg.dtype,
-                               dev, kv_bits=kv_bits,
-                               kv_group_size=kv_group_size)
-            for _ in cfg.layer_specs()]
+    dtype = dtype or cfg.dtype
+    out = []
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn":
+            out.append(mam.init_mamba_cache(cfg, max_seqs, dtype, dev))
+        elif cfg.mla is not None:
+            out.append(mla_mod.init_mla_paged(cfg, n_pages, page_size, dtype,
+                                              dev))
+        else:
+            out.append(attn.init_paged_kv(cfg, n_pages, page_size, dtype,
+                                          dev, kv_bits=kv_bits,
+                                          kv_group_size=kv_group_size))
+    return out
 
 
 def is_page_leaf(leaf, n_pages) -> bool:
-    """A page-pool leaf: page axis at dim 0 of the per-layer pool. Both
-    fp pages (ndim 4) and the binary-coded code/alpha/beta leaves
-    (ndim 4-5) match."""
+    """A page-pool leaf: page axis at dim 0 of the per-layer pool. fp
+    pages and MLA latent pages (ndim 4) and the binary-coded
+    code/alpha/beta leaves (ndim 4-5) match; a Mamba layer's state rows
+    (ndim 3, whatever max_seqs is) never do."""
     return leaf.dim() >= 4 and leaf.shape[0] == n_pages
 
 
 def copy_pages(cache, src, dst, n_pages):
     """Copy-on-write forks: page src[i] -> dst[i] in every layer's pool,
-    in place. On a binary-coded pool the codes AND the alpha/beta leaves
-    all copy (a fork that missed the scales would decode the old page's
-    magnitudes under the new page's signs). src/dst: (n,) page ids; every
-    source is read before any destination is written."""
+    in place (K/V pages, latent pages; state rows are left alone). On a
+    binary-coded pool the codes AND the alpha/beta leaves all copy (a
+    fork that missed the scales would decode the old page's magnitudes
+    under the new page's signs). src/dst: (n,) page ids; every source is
+    read before any destination is written."""
     dev = next(iter(cache[0].values())).device
     src = torch.as_tensor(src, dtype=torch.long, device=dev)
     dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
@@ -250,12 +332,17 @@ def copy_pages(cache, src, dst, n_pages):
 # --------------------------------------------------------------------------
 
 def _decode_layers(cfg, params, cache, x, attn_step):
-    """Shared single-step decode: every layer with the attention flavour
-    injected (dense cache / paged pool)."""
+    """Shared decode / extend pass: every layer with the attention
+    flavour injected (dense cache, page pool, extend chunk); Mamba
+    layers step their state rows. Returns (logits (B, S, V), cache)."""
+    def mixer(spec, lp, h, lc):
+        if spec.kind != "attn":
+            return mam.mamba_decode(cfg, lp["mamba"], h, lc)
+        return attn_step(spec, lp["attn"], h, lc)
     for (spec, lp), lc in zip(_layers(cfg, params), cache):
-        h = rmsnorm(x, lp["ln"], cfg.norm_eps)
-        y, _ = attn_step(spec, lp["attn"], h, lc)
-        x = _mlp(cfg, spec, lp, x + y, DECODE_CAPACITY_FACTOR)
+        x, _ = _apply_layer(cfg, spec, lp, x,
+                            lambda s, p, h, lc=lc: mixer(s, p, h, lc),
+                            DECODE_CAPACITY_FACTOR)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), cache
 
@@ -263,45 +350,63 @@ def _decode_layers(cfg, params, cache, x, attn_step):
 def decode_step(cfg, params, cache, tokens, pos):
     """One decode step. tokens: (B, 1); pos: (B,) absolute positions.
     Returns (logits (B, V), cache) with the cache written in place."""
-    require_attention_only(cfg)
+    require_decoder(cfg)
     x = embed_inputs(cfg, params, tokens)
-    logits, cache = _decode_layers(
-        cfg, params, cache, x,
-        lambda spec, p, h, c: attn.attn_decode(cfg, spec, p, h, c, pos))
+    if cfg.mla is not None:
+        step = lambda spec, p, h, c: mla_mod.mla_decode(cfg, spec, p, h, c,
+                                                        pos)
+    else:
+        step = lambda spec, p, h, c: attn.attn_decode(cfg, spec, p, h, c,
+                                                      pos)
+    logits, cache = _decode_layers(cfg, params, cache, x, step)
     return logits[:, 0], cache
 
 
 def decode_step_paged(cfg, params, cache, tokens, pos, block_tables):
     """One decode step against a paged cache (init_paged_cache layout).
     block_tables: (B, T) int32 page ids, row b = sequence in slot b."""
-    require_attention_only(cfg)
+    require_decoder(cfg)
     x = embed_inputs(cfg, params, tokens)
-    logits, cache = _decode_layers(
-        cfg, params, cache, x,
-        lambda spec, p, h, c: attn.attn_decode_paged(cfg, spec, p, h, c,
-                                                     block_tables, pos))
+    if cfg.mla is not None:
+        step = lambda spec, p, h, c: mla_mod.mla_decode_paged(
+            cfg, spec, p, h, c, block_tables, pos)
+    else:
+        step = lambda spec, p, h, c: attn.attn_decode_paged(
+            cfg, spec, p, h, c, block_tables, pos)
+    logits, cache = _decode_layers(cfg, params, cache, x, step)
     return logits[:, 0], cache
 
 
 def scatter_prefill_cache(cfg, paged_cache, row_cache, slot, page_ids,
                           n_valid):
     """Write one sequence's dense prefill cache (prefill() on a single
-    padded row: {"k","v"} (1, Hkv, S_pad, hd) per layer) into its pages:
-    token t lands in page page_ids[t // page] at offset t % page, for
-    the n_valid real tokens only (padding never reaches a page). On a
-    binary-coded pool each token's K/V is quantized here (quantize on
-    write), so pages never hold raw values. `slot` is the reference's
-    argument for per-slot recurrent state, unused by attention-only
-    patterns. Writes in place; returns the cache."""
+    padded row: {"k","v"} (1, Hkv, S_pad, hd) or {"c_kv","k_pe"} (1,
+    S_pad, .) per attention layer) into its pages: token t lands in page
+    page_ids[t // page] at offset t % page, for the n_valid real tokens
+    only (padding never reaches a page). On a binary-coded pool each
+    token's K/V is quantized here (quantize on write), so pages never
+    hold raw values. Mamba state rows land at `slot`. Writes in place;
+    returns the cache."""
     ids = torch.as_tensor(page_ids, dtype=torch.long)
     n = int(n_valid)
-    for pooled, row in zip(paged_cache, row_cache):
-        quant = attn.paged_kv_bits(pooled) > 0
-        lead = pooled["k_codes" if quant else "k_pages"]
+    for spec, pooled, row in zip(cfg.layer_specs(), paged_cache, row_cache):
+        if spec.kind != "attn":
+            for name, leaf in pooled.items():
+                leaf[slot] = row[name][0].to(leaf.dtype)
+            continue
+        mla = "ckv_pages" in pooled
+        quant = not mla and attn.paged_kv_bits(pooled) > 0
+        lead = pooled["ckv_pages" if mla else
+                      "k_codes" if quant else "k_pages"]
         page = lead.shape[1]
         t = torch.arange(n)
         pid = ids[t // page].to(lead.device)
         off = (t % page).to(lead.device)
+        if mla:
+            for name, side in (("ckv_pages", "c_kv"), ("kpe_pages", "k_pe")):
+                pool = pooled[name]
+                pool[pid, off, 0] = row[side][0, :n].to(pool.dtype)
+            continue
         rows = [row[side][0, :, :n].transpose(0, 1) for side in ("k", "v")]
         if quant:
             attn._quant_scatter(pooled, torch.stack(rows), pid, off)
@@ -316,19 +421,27 @@ def _extend_scan(cfg, params, cache, tokens, start_pos, block_tables,
                  n_valid):
     """Shared multi-token paged pass: C tokens (tokens (B, C), padded;
     n_valid (B,) counts the real ones) at absolute positions start_pos +
-    [0..C) write their K/V into the sequences' pages and attend over
-    pages + chunk causally. Every layer runs as in decode (MoE at the
-    decode capacity factor, so the expert GEMM sees B*C rows). Returns
-    the logits at every chunk position ((B, C, V), cache)."""
-    require_attention_only(cfg)
+    [0..C) write their K/V (or MLA latents) into the sequences' pages
+    and attend over pages + chunk causally. Every layer runs as in
+    decode (MoE at the decode capacity factor, so the expert GEMM sees
+    B*C rows). Attention and MLA patterns only: recurrent Mamba state
+    would need the chunk threaded token by token. Returns the logits at
+    every chunk position ((B, C, V), cache)."""
+    require_decoder(cfg)
+    if any(spec.kind != "attn" for spec in cfg.pattern):
+        raise NotImplementedError(
+            "multi-token paged passes require an attention-only pattern")
     C = tokens.shape[1]
     chunk_mask = (torch.arange(C, device=tokens.device)[None, :]
                   < n_valid.to(tokens.device)[:, None])
     x = embed_inputs(cfg, params, tokens)
-    return _decode_layers(
-        cfg, params, cache, x,
-        lambda spec, p, h, c: attn.attn_extend_paged(
-            cfg, spec, p, h, c, block_tables, start_pos, chunk_mask))
+    if cfg.mla is not None:
+        step = lambda spec, p, h, c: mla_mod.mla_extend_paged(
+            cfg, spec, p, h, c, block_tables, start_pos, chunk_mask)
+    else:
+        step = lambda spec, p, h, c: attn.attn_extend_paged(
+            cfg, spec, p, h, c, block_tables, start_pos, chunk_mask)
+    return _decode_layers(cfg, params, cache, x, step)
 
 
 def extend_paged(cfg, params, cache, tokens, start_pos, block_tables,

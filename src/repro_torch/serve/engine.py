@@ -18,14 +18,20 @@ decode with two cache backends behind one switch (the reference's
     pages; a shared page forks copy-on-write before any write.
     `prefill_chunk` prefills prompts through the same extend path, one
     chunk of one sequence per engine tick, so long prompts do not stall
-    decode; sliding-window layers always prefill through it.
+    decode; sliding-window layers always prefill through it. MLA pages
+    its compressed latents through the same block tables, forks and
+    prefix index; Mamba layers keep their recurrent state in per-slot
+    rows, and a StateSlabPool (serve/state_slab.py) admits a sequence
+    only when a state slab is free, as pages gate K/V.
 
 Both run on the FCFS Scheduler (serve/scheduler.py). Works with plain
 weights or GPTQT-packed QuantizedTensor weights (dense or MoE expert
-stacks): `layers.linear` and `models/moe.py` dispatch per leaf. Prompt lengths are padded to power-of-two buckets
-(attention-only, no-window configs), as the reference does to bound its
-compilations; the port keeps the buckets so that both run the same
-shapes.
+stacks): `layers.linear` and `models/moe.py` dispatch per leaf. Prompt
+lengths are padded to power-of-two buckets (attention-only patterns
+without windows), as the reference does to bound its compilations; the
+port keeps the buckets so that both run the same shapes. Padding would
+mix pad tokens into rolling windows and recurrent state, so window and
+Mamba configs prefill at exact length, as in the reference.
 
 Decode always runs the full (batch_size,) row batch: rows without a
 ready sequence are routed to the null page 0 through their block-table
@@ -65,13 +71,14 @@ from repro_torch.hw import resolve_device
 from repro_torch.models.model import (copy_pages, decode_step,
                                       decode_step_paged, draft_propose_paged,
                                       extend_paged, init_cache, prefill,
-                                      require_attention_only,
+                                      require_decoder,
                                       scatter_prefill_cache, verify_paged)
 from repro_torch.quant.draft import make_draft_params
 from repro_torch.quant.qlinear import QuantizedTensor
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.state_slab import StateSlabPool
 
 MIN_BUCKET = 8
 
@@ -154,7 +161,7 @@ class ServeEngine:
                  prefix_sharing=True, prefix_max_pages=None,
                  mesh=None, kv_bits=0, kv_group_size=0, speculate=0,
                  draft_bits=2, draft_params=None, accept_rule="greedy",
-                 typical_tau=0.3, device=None):
+                 typical_tau=0.3, state_slabs=None, device=None):
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind={cache_kind!r}")
         if kv_bits and cache_kind != "paged":
@@ -178,7 +185,16 @@ class ServeEngine:
             raise NotImplementedError(
                 "mesh serving comes with the multi-GPU slice (ROADMAP "
                 "Queue 1 item 6)")
-        require_attention_only(cfg)
+        require_decoder(cfg)
+        # MLA counts as attention here: its latent pages ride the same
+        # block tables, forks and prefix index, and it has an extend path
+        attn_only = all(s.kind == "attn" for s in cfg.pattern)
+        no_window = all(s.window is None for s in cfg.pattern)
+        if speculate and (not attn_only or cfg.mla is not None):
+            raise NotImplementedError(
+                "speculate>0 verifies k+1 positions through the paged "
+                "extend path, which needs a standard attention-only "
+                "pattern (MLA drafts are not wired up)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -188,15 +204,22 @@ class ServeEngine:
         self.kv_bits = int(kv_bits)
         self.prefill_chunk = prefill_chunk
         dtype = dtype or cfg.dtype
-        no_window = all(s.window is None for s in cfg.pattern)
-        self._bucket = no_window
+        # bucketed prefill needs harmless padding: causal attention masks
+        # it and decode overwrites its slots, but rolling windows and
+        # recurrent state mix pad tokens in
+        self._bucket = attn_only and no_window
         # window layers: prefill()'s rolling buffer cannot be scattered
         # into absolute page slots, so the paged engine prefills them
         # through the extend path
         self._extend_prefill = cache_kind == "paged" and \
             (bool(prefill_chunk) or not no_window)
         self._prefix = None
+        self.slab = None
         if cache_kind == "paged":
+            if self._extend_prefill and not attn_only:
+                raise NotImplementedError(
+                    "paged prefill via extend (chunked or sliding-window) "
+                    "needs an attention-only pattern")
             pages_per_seq = -(-max_len // page_size)
             if n_pages is None:
                 # the dense engine's byte budget + the null page
@@ -208,7 +231,16 @@ class ServeEngine:
                                    kv_group_size=kv_group_size,
                                    device=self.device)
             self.page_size = page_size
-            if prefix_sharing:
+            # recurrent layers: one state slab a sequence, under the
+            # page allocator's invariants (+1: the reserve slab)
+            if not attn_only:
+                self.slab = StateSlabPool(
+                    cfg, n_slabs=(batch_size + 1 if state_slabs is None
+                                  else int(state_slabs)),
+                    max_seqs=batch_size, dtype=dtype)
+            # prefix sharing skips matched prefill through the extend
+            # path, so it needs an attention-only pattern too
+            if prefix_sharing and attn_only:
                 self._prefix = RadixPrefixCache(
                     self.kv, max_cached_pages=prefix_max_pages)
             self.cache = self.kv.take_pool()
@@ -230,7 +262,7 @@ class ServeEngine:
         self.sched = Scheduler(self.kv,
                                watermark=1 if cache_kind == "paged" else 0,
                                prefill_chunk=prefill_chunk,
-                               prefix=self._prefix)
+                               prefix=self._prefix, slab=self.slab)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
         # self-speculative decoding: built from the params on the
@@ -372,8 +404,8 @@ class ServeEngine:
                                         self.max_len, last_pos=self._ints(
                                             [L - 1]))
             for layer, one in zip(self.cache, row_cache):
-                for side in ("k", "v"):
-                    layer[side][e.slot] = one[side][0]
+                for name, leaf in layer.items():
+                    leaf[e.slot] = one[name][0].to(leaf.dtype)
         self._emit_first_token(e, logits, L)
         self._sync()
         self.stats["prefill_s"] += time.time() - t0

@@ -5,7 +5,10 @@ device pool built by models.model.init_paged_cache (the reference's
 Layout:
   - device pool, per attention layer: k/v pages (n_pages, page_size,
     Hkv, hd), or with kv_bits > 0 their binary-coded codes, alphas and
-    betas (quant/kv.py). Page 0 is the *null page*, never allocated:
+    betas (quant/kv.py); per MLA layer latent pages (n_pages,
+    page_size, 1, kv_lora_rank | qk_rope_head_dim); per Mamba layer
+    max_seqs state rows, which are not pages (serve/state_slab.py
+    accounts for them). Page 0 is the *null page*, never allocated:
     inactive batch rows write there, so the decode step's scatter needs
     no branch.
   - block table: (max_seqs, max_pages_per_seq) int32, row = sequence
@@ -87,7 +90,8 @@ class PagedKVCache:
 
     def bytes_per_page(self) -> int:
         """Device bytes one page id costs across all attention layers
-        (K + V, codes + scales when binary-coded)."""
+        (K + V, codes + scales when binary-coded; one latent page a
+        layer under MLA)."""
         return paged_kv_page_bytes(self.cfg, self.page_size, self._dtype,
                                    kv_bits=self.kv_bits,
                                    kv_group_size=self.kv_group_size)
@@ -281,8 +285,9 @@ class PagedKVCache:
         """Remap live pages onto the lowest page ids (slots' pages in
         slot order, then the index's, then any other live page), rewrite
         the block tables and the prefix index, and move every page leaf
-        of `pool` (codes and scales too on a binary-coded pool) by one
-        `index_select` over the page axis. Pass the pool when the engine
+        of `pool` (codes and scales too on a binary-coded pool, latent
+        pages; never a Mamba layer's state rows, which are indexed by
+        slot) by one `index_select` over the page axis. Pass the pool when the engine
         took it (take_pool); returns the compacted pool."""
         if pool is None:
             if self._pool_taken:

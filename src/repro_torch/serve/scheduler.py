@@ -21,6 +21,10 @@ the model calls.
     far (recompute on resume, exact under greedy decoding; the index
     usually still holds its prompt pages, so the resumed prompt
     re-matches them).
+  - recurrent state: with a StateSlabPool (`slab=`, Mamba layers),
+    admission also claims one state slab; slab exhaustion declines the
+    admission like page exhaustion, and the slab returns at finish and
+    at preemption.
 """
 from __future__ import annotations
 
@@ -72,11 +76,13 @@ class Scheduler:
     engine's DenseSlotPool, which speaks the same allocator protocol)."""
 
     def __init__(self, kv, *, watermark: int = 1,
-                 prefill_chunk: int | None = None, prefix=None):
+                 prefill_chunk: int | None = None, prefix=None,
+                 slab=None):
         self.kv = kv
         self.watermark = int(watermark)
         self.prefill_chunk = prefill_chunk
         self.prefix = prefix              # RadixPrefixCache or None
+        self.slab = slab                  # StateSlabPool or None
         self.waiting: deque[_Entry] = deque()
         self.running: dict[int, _Entry] = {}   # slot -> entry
         self.preemptions = 0
@@ -140,6 +146,14 @@ class Scheduler:
         slot = self.kv.alloc_slot()
         if slot is None:
             return None
+        if self.slab is not None:
+            try:
+                self.slab.alloc(slot)
+            except OutOfPages:
+                # no free slab: give the slot back (nothing was
+                # allocated) and wait for a running sequence's slab
+                self.kv.release(slot)
+                return None
         self.waiting.popleft()
         e.slot = slot
         e.prefilled = 0
@@ -159,6 +173,8 @@ class Scheduler:
         prompt := prompt + generated-so-far."""
         e = self.running.pop(slot)
         self.kv.release(slot)
+        if self.slab is not None:
+            self.slab.release(slot)
         if e.req.out:
             e.prompt = np.concatenate([np.asarray(e.req.prompt, np.int32),
                                        np.asarray(e.req.out, np.int32)])
@@ -215,6 +231,8 @@ class Scheduler:
             n = self.kv.pages_for(len(cached_tokens))
             self.prefix.insert(cached_tokens, self.kv.owned_pages(slot)[:n])
         self.kv.release(slot)
+        if self.slab is not None:
+            self.slab.release(slot)
         e.metrics.t_done = time.time()
         e.metrics.n_generated = len(e.req.out)
         e.req.done = True
@@ -243,7 +261,15 @@ class Scheduler:
             "prefix_tokens_saved": 0,
             "prefix_cached_pages": 0,
             "prefix_evictions": 0,
+            "slab_usable_slabs": 0,
+            "slab_high_water": 0,
+            "slabs_allocated": 0,
         }
+        if self.slab is not None:
+            out.update({
+                "slab_usable_slabs": self.slab.usable_slabs,
+                "slab_high_water": self.slab.high_water,
+                "slabs_allocated": self.slab.slabs_allocated})
         if self.prefix is not None:
             out.update({
                 "prefix_hits": self.prefix.hits,

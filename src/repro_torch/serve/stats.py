@@ -9,11 +9,10 @@ Every field is a real field: a mistyped stats key is an AttributeError
 here, not a silent 0 from `.get()`, and `as_dict()` gives the
 JSON-ready form. The field names are the reference's.
 
-Two groups of fields read 0 on the port, and are kept so that records
-of both packages have one schema: the port has no recurrent-state slab
-pool (Mamba layers are not ported, ROADMAP Queue 1 item 5), and no jit
-compile cache (PyTorch runs eagerly, so there is nothing to compile or
-share between engines).
+The compile-cache fields read 0 on the port, and are kept so that
+records of both packages have one schema: PyTorch runs eagerly, so
+there is nothing to compile or share between engines. The slab fields
+read 0 unless the engine holds a state slab pool (Mamba layers, paged).
 """
 from __future__ import annotations
 
@@ -58,7 +57,7 @@ class EngineStats:
     accepted_tokens: int = 0
     acceptance_rate: float = 0.0
 
-    # recurrent state slab pool: always 0 on the port (no Mamba layers)
+    # recurrent state slab pool (0 == no recurrent layers / dense)
     slab_usable_slabs: int = 0
     slab_high_water: int = 0
     slabs_allocated: int = 0
@@ -134,6 +133,12 @@ class EngineStats:
             "draft_tokens": drafted,
             "accepted_tokens": accepted,
             "acceptance_rate": accepted / max(drafted, 1),
+            "slab_usable_slabs": int(s.get("slab_usable_slabs", 0)),
+            "slab_high_water": int(s.get("slab_high_water", 0)),
+            "slabs_allocated": int(s.get("slabs_allocated", 0)),
+            "slab_bytes_per_slab": (
+                int(engine.slab.bytes_per_slab())
+                if getattr(engine, "slab", None) is not None else 0),
             "prefix_hits": int(s.get("prefix_hits", 0)),
             "prefix_lookups": int(s.get("prefix_lookups", 0)),
             "prefix_hit_rate": float(s.get("prefix_hit_rate", 0.0)),

@@ -1,11 +1,13 @@
 """Regenerate the reference fixture of the PyTorch port's parity tests.
 
     PYTHONPATH=src python tests/data/torch_port/make_fixture.py [OUT_DIR] [--no-prefix]
+    PYTHONPATH=src python tests/data/torch_port/make_fixture.py [OUT_DIR] --zoo
 
 OUT_DIR defaults to this script's directory. `--no-prefix` leaves the
 "prefix" section out (tests/test_torch_serve_prefix.py rebuilds that
-section on its own, in parallel with the rest). Everything is written by
-the JAX package (`repro`) itself:
+section on its own, in parallel with the rest). `--zoo` writes only the
+model-zoo section, OUT_DIR/zoo/ (see build_zoo). Everything is written
+by the JAX package (`repro`) itself:
 
   w3_pc/        packed artifact: seeded 2-layer tiny-lm, GPTQT w3
                 per-channel, fp32 scales (ckpt/packed.py:save_packed)
@@ -491,7 +493,144 @@ def build(out: Path, prefix: bool = True) -> dict:
     return doc
 
 
+# ---------------------------------------------------------------------------
+# the model zoo (tests/test_torch_model_zoo_serve.py)
+# ---------------------------------------------------------------------------
+
+# label -> (registry name, packed bits or None for fp only), the smoke
+# configs of tests/test_model_zoo_serve.py plus gemma2 and falcon-mamba
+ZOO = {"attention": ("tiny-lm", 3), "mla": ("minicpm3-4b", 3),
+       "mamba-mix": ("jamba-1.5-large-398b", 4), "moe": ("mixtral-8x7b", 4),
+       "gemma2": ("gemma2-27b", None), "mamba": ("falcon-mamba-7b", None)}
+ZOO_ENGINE = {"batch_size": 2, "max_len": 64, "dtype": "float32"}
+ZOO_PAGE = 8
+ZOO_MAX_NEW = 5
+
+
+def zoo_config(arch, bits=None):
+    from repro.configs import smoke_config
+    cfg = smoke_config(arch).replace(dtype="float32", remat="none")
+    if bits is not None and cfg.quant.bits != bits:
+        cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, bits=bits))
+    return cfg
+
+
+def zoo_requests(cfg, seed, n=3):
+    """tests/test_model_zoo_serve.py's prompts (mixed lengths 4/7/10)."""
+    return [((np.arange(4 + 3 * ((i + seed) % 3)) * 7 + 11 * i + seed)
+             % cfg.vocab_size).astype(np.int32) for i in range(n)]
+
+
+def zoo_gap_ratio(cfg, params, prompt, toks) -> float:
+    """Smallest top-1/top-2 logit gap along a greedy path, relative to
+    the logits tolerance: the exact-length prefill, then dense decode
+    steps at batch 1 fed the path's tokens."""
+    logits, cache = prefill(cfg, params, jnp.asarray(prompt[None]), 64)
+    steps = [np.asarray(logits[0])]
+    for t, tok in enumerate(toks[:-1]):
+        logits, cache = decode_step(cfg, params, cache,
+                                    jnp.asarray([[tok]], jnp.int32),
+                                    jnp.asarray([len(prompt) + t], jnp.int32))
+        steps.append(np.asarray(logits[0]))
+    return min(float(np.diff(np.sort(s)[-2:])[0])
+               / (LOGITS_RTOL * float(np.abs(s).max())) for s in steps)
+
+
+def zoo_serve(cfg, params, prompts, max_new, **kw):
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    eng = ServeEngine(cfg, params, **{**ZOO_ENGINE, **kw})
+    eng.run(reqs)
+    return [r.out for r in reqs], eng
+
+
+def build_zoo(out: Path) -> dict:
+    """OUT/zoo/: per architecture its smoke config's seeded fp params
+    (init_params(cfg, PRNGKey(SEED)), saved by save_packed as a packed
+    artifact with no quantized leaf) and, where ZOO gives bits, their
+    GPTQT-packed quantization (the zoo test's calibration), and zoo.json:
+    per artifact the prompts (the first seed whose greedy paths all
+    clear GAP_FACTOR), the reference's dense and paged engine tokens and
+    the smallest gap ratio; then MLA preemption (5 pages of 8 tokens)
+    and prefix attach (a 32-token prefix), with their counters."""
+    key = jax.random.PRNGKey(SEED)
+    zdir = out / "zoo"
+    zdir.mkdir(parents=True, exist_ok=True)
+    doc = {"generator": "tests/data/torch_port/make_fixture.py --zoo",
+           "seed": SEED, "engine": ZOO_ENGINE, "page_size": ZOO_PAGE,
+           "max_new": ZOO_MAX_NEW, "logits_rtol": LOGITS_RTOL,
+           "gap_factor": GAP_FACTOR, "artifacts": {}}
+    for label, (arch, bits) in ZOO.items():
+        cfg = zoo_config(arch, bits)
+        p = init_params(cfg, key)
+        models = {"fp": p}
+        if bits is not None:
+            calib = [jax.random.randint(jax.random.fold_in(key, i), (2, 32),
+                                        0, cfg.vocab_size) for i in range(2)]
+            spec = QuantSpec.from_config(cfg.quant, method="gptqt",
+                                         mode="packed")
+            models["quant"] = quantize_model(cfg, p, calib, spec=spec)[0]
+        for kind, params in models.items():
+            name = f"{label}_{kind}"
+            save_packed(zdir / name, params,
+                        spec=spec if kind == "quant" else None,
+                        meta={"arch": arch + "-smoke",
+                              "n_layers": cfg.n_layers})
+            params, _, _ = load_packed(zdir / name)
+            for seed in range(N_CANDIDATES):
+                prompts = zoo_requests(cfg, seed)
+                dense, _ = zoo_serve(cfg, params, prompts, ZOO_MAX_NEW)
+                ratio = min(zoo_gap_ratio(cfg, params, pr, t)
+                            for pr, t in zip(prompts, dense))
+                if ratio >= GAP_FACTOR:
+                    break
+            else:
+                raise RuntimeError(f"{name}: no seed clears the gap filter")
+            paged, _ = zoo_serve(cfg, params, prompts, ZOO_MAX_NEW,
+                                 cache_kind="paged", page_size=ZOO_PAGE)
+            doc["artifacts"][name] = {
+                "arch": arch, "bits": bits if kind == "quant" else None,
+                "seed": seed, "prompts": [x.tolist() for x in prompts],
+                "dense": dense, "paged": paged, "gap_ratio": ratio}
+    # MLA: preemption exactness and prefix attach on the latent cache
+    cfg = zoo_config("minicpm3-4b", 3)
+    params, _, _ = load_packed(zdir / "mla_fp")
+    prompts = [((np.arange(6) * 3 + i) % cfg.vocab_size).astype(np.int32)
+               for i in range(2)]
+    dense, _ = zoo_serve(cfg, params, prompts, 14)
+    paged, eng = zoo_serve(cfg, params, prompts, 14, cache_kind="paged",
+                           page_size=ZOO_PAGE, n_pages=5)
+    doc["mla_preempt"] = {
+        "prompts": [x.tolist() for x in prompts], "max_new": 14,
+        "n_pages": 5, "dense": dense, "paged": paged,
+        "preemptions": eng.sched.preemptions,
+        "gap_ratio": min(zoo_gap_ratio(cfg, params, pr, t)
+                         for pr, t in zip(prompts, dense))}
+    prefix = (np.arange(4 * ZOO_PAGE, dtype=np.int32) * 3 + 5) % cfg.vocab_size
+    prompts = [np.concatenate([prefix, np.arange(100 + i * 7,
+                                                 100 + i * 7 + ZOO_PAGE)
+                               % cfg.vocab_size]).astype(np.int32)
+               for i in range(2)]
+    runs = {}
+    for sharing in (False, True):
+        toks, eng = zoo_serve(cfg, params, prompts, 5, cache_kind="paged",
+                              page_size=ZOO_PAGE, prefix_sharing=sharing)
+        runs["share" if sharing else "plain"] = {
+            "tokens": toks, "prefix_hits": eng.stats["prefix_hits"],
+            "prefix_tokens_saved": eng.stats["prefix_tokens_saved"],
+            "pages_allocated": eng.kv.pages_allocated,
+            "cow_forks": eng.stats["cow_forks"]}
+    doc["mla_prefix"] = {
+        "prompts": [x.tolist() for x in prompts], "max_new": 5, **runs,
+        "gap_ratio": min(zoo_gap_ratio(cfg, params, pr, t)
+                         for pr, t in zip(prompts, runs["plain"]["tokens"]))}
+    (zdir / "zoo.json").write_text(json.dumps(doc, indent=1) + "\n")
+    return doc
+
+
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--no-prefix"]
-    build(Path(args[0]) if args else Path(__file__).parent,
-          prefix="--no-prefix" not in sys.argv[1:])
+    args = [a for a in sys.argv[1:] if a not in ("--no-prefix", "--zoo")]
+    out = Path(args[0]) if args else Path(__file__).parent
+    if "--zoo" in sys.argv[1:]:
+        build_zoo(out)
+    else:
+        build(out, prefix="--no-prefix" not in sys.argv[1:])

@@ -254,18 +254,28 @@ def test_init_params_layout_matches_reference_shapes():
 
 
 def test_attention_only_and_fp_pages_in_this_slice():
-    """Binary-coded pages and MoE layers are served now (their parity
-    tests are tests/test_torch_kv_quant.py and test_torch_moe.py); Mamba
-    and MLA layers still raise, and a MoE pattern needs its config."""
+    """Binary-coded pages, MoE, MLA and Mamba layers are served now
+    (their parity tests are tests/test_torch_kv_quant.py,
+    test_torch_moe.py, test_torch_mla.py and test_torch_mamba.py); frame
+    inputs and encoder-only configs raise citing training (item 7), and
+    a MoE or Mamba pattern needs its config."""
+    from repro_torch.configs import smoke_config
     cfg = get_config("tiny-lm").replace(n_layers=1)
     pool = tmodel.init_paged_cache(cfg, 4, 8, 1, kv_bits=4, device="cpu")
     assert pool[0]["k_codes"].shape == (4, 8, 4, 4, 2)
     assert "k_pages" not in pool[0]
-    with pytest.raises(NotImplementedError, match="Mamba"):
+    for arch, key in (("minicpm3-4b", "attn"), ("falcon-mamba-7b", "mamba")):
+        p = tmodel.init_params(smoke_config(arch), device="cpu")
+        assert key in p["layers"][0]
+    hubert = get_config("hubert-xlarge").replace(n_layers=1)
+    with pytest.raises(NotImplementedError, match="frame inputs.*item 7"):
+        tmodel.init_params(hubert, device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder-only.*item 7"):
+        tmodel.init_params(hubert.replace(embed_input="tokens"),
+                           device="cpu")
+    with pytest.raises(ValueError, match="Mamba"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(kind="mamba"),)),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tmodel.init_params(cfg.replace(mla=object()), device="cpu")
     with pytest.raises(ValueError, match="MoE"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(mlp="moe"),)),
                            device="cpu")

@@ -308,10 +308,11 @@ def test_eligible_paths_and_head(models):
 # quantize_model against the committed artifacts
 # ---------------------------------------------------------------------------
 
-def _matrices(params, art, hs):
-    """(report key, g, expert, W (K, N), H, port leaf, artifact leaf)."""
+def _matrices(params, art, hs, P=1):
+    """(report key, g, expert, W (K, N), H, port leaf, artifact leaf);
+    P is the pattern length (layer j = g * P + slot)."""
     for (g, pstr), (path, _, leaf, H) in sorted(hs.items()):
-        j = g                                   # one pattern slot
+        j = g * P + int(path[0][1:])
         mine, theirs = params["layers"][j], art["layers"][j]
         for k in path[1:]:
             mine, theirs = mine[k], theirs[k]
@@ -343,11 +344,18 @@ def test_quantize_model_reproduces_committed_artifact(models, name):
     assert spec.to_dict() == aspec
     qp, report = quantize_model(cfg, params, calib, spec=spec, device="cpu")
     hs = collect_hessians(cfg, params, calib, spec=spec, device="cpu")
+    _hold_to_artifact(name, qp, report, hs, art, gs, name.endswith("bf16"))
+
+
+def _hold_to_artifact(name, qp, report, hs, art, gs, bf16, P=1, bits=3):
+    """The port's quantization `qp` against the artifact's, matrix by
+    matrix: equal codes and scales except on rows the port's own record
+    shows a near-tie, and the per-leaf output errors within the stated
+    tolerances."""
     assert set(report) == {k for _, k in hs}
-    bf16 = name.endswith("bf16")
     n_rows = n_pick = n_level = 0
     errs: dict = {}
-    for pstr, g, e, W, H, mine, theirs in _matrices(qp, art, hs):
+    for pstr, g, e, W, H, mine, theirs in _matrices(qp, art, hs, P):
         assert mine.orig_dtype == theirs.orig_dtype == "float32"
         assert mine.codes.shape == theirs.codes.shape
         c1, a1, b1, w1 = _part(mine.cast_scales("bfloat16") if bf16
@@ -366,8 +374,8 @@ def test_quantize_model_reproduces_committed_artifact(models, name):
         if not (scale_diff.any() or code_diff.any()):
             continue
         # explain from the port's own record of its picks
-        res = gptqt_quantize(Wt, H, group_size=gs, orig_dtype="float32",
-                             margins=True)
+        res = gptqt_quantize(Wt, H, bits=bits, group_size=gs,
+                             orig_dtype="float32", margins=True)
         assert torch.equal(res.qt.codes, mine.codes if e is None
                            else mine.codes[e])
         pick_tie = ((res.choice_margin < CHOICE_TIE_RTOL)
@@ -396,6 +404,43 @@ def test_quantize_model_reproduces_committed_artifact(models, name):
     print(f"{name}: {n_rows} rows, {n_pick} differ at a choice/multiplier "
           f"near-tie, {n_level} at a level near-tie")
     assert n_pick + n_level <= 0.02 * n_rows
+
+
+@pytest.mark.parametrize("name", ["mla_quant", "mamba-mix_quant"])
+def test_quantize_model_reproduces_zoo_artifact(name):
+    """MLA (minicpm3-4b smoke, w3) and the hybrid Mamba + MoE pattern
+    (jamba smoke, w4), quantized by the port from the reference's
+    init_params and calibration, against the reference's quantization
+    of the same (tests/data/torch_port/zoo/, make_fixture.py --zoo).
+    As in the reference, conv_w, A_log and x_proj (the config's
+    exclude) stay fp and dt_w is packed: the exclude's "dt_proj" names
+    no leaf."""
+    from test_torch_model_zoo_serve import DOC, ZOO, artifact
+    from torch_zoo import calibration
+    cfg, fp = artifact(name.replace("_quant", "_fp"))
+    cfg = artifact(name)[0]
+    art, aspec, _ = load_packed(ZOO / name, device="cpu")
+    spec = QuantSpec.from_config(cfg.quant, method="gptqt", mode="packed")
+    assert spec.to_dict() == aspec
+    calib = calibration(cfg.vocab_size)
+    qp, report = quantize_model(cfg, fp, calib, spec=spec, device="cpu")
+    hs = collect_hessians(cfg, fp, calib, spec=spec, device="cpu")
+    _hold_to_artifact(name, qp, report, hs, art, 0, False, len(cfg.pattern),
+                      cfg.quant.bits)
+    for j, spec_j in enumerate(cfg.layer_specs()):
+        if spec_j.kind == "mamba":
+            m = qp["layers"][j]["mamba"]
+            assert hasattr(m["dt_w"], "codes") and hasattr(m["in_proj"],
+                                                           "codes")
+            for leaf in ("conv_w", "A_log", "x_proj", "dt_b", "D"):
+                assert torch.is_tensor(m[leaf]) and torch.equal(
+                    m[leaf], fp["layers"][j]["mamba"][leaf])
+        elif cfg.mla is not None:
+            a = qp["layers"][j]["attn"]
+            assert all(hasattr(a[w], "codes") for w in
+                       ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"))
+            assert torch.is_tensor(a["q_a_norm"])
+    assert DOC["artifacts"][name]["bits"] == cfg.quant.bits
 
 
 def test_quantize_model_modes_and_refusals(models):

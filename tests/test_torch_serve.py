@@ -387,6 +387,41 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert unmet == launches and len(launches) == 13, unmet
 
 
+def test_chip_smoke_zoo_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 9 end to end on the CPU at the smoke configs of its four
+    models (the dense engine for minicpm3 and falcon-mamba): every
+    request finishes with the paged and dense tokens equal, pages and
+    slabs drain; only the launch-count requirements are unmet. Phase 1's
+    zoo checks at two small shapes and jamba's expert geometry at 4
+    experts."""
+    from repro_torch.configs import smoke_config
+    cs = _chip_smoke(monkeypatch)
+    unmet = []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    gen = torch.Generator().manual_seed(0)
+    worst, n = cs.check_bcq_zoo(gen, shapes=((128, 40, (4, 9)),
+                                             (32, 80, (1, 20))))
+    assert n == {"bcq_gemv": 3, "bcq_matmul": 2}
+    assert max(worst.values()) <= cs.TOL_FP32
+    models = [(smoke_config(arch).replace(dtype="float32"), full, dense)
+              for arch, full, dense in (("minicpm3-4b", 62, True),
+                                        ("falcon-mamba-7b", 64, True),
+                                        ("gemma2-27b", 46, False),
+                                        ("jamba-1.5-large-398b", 72, False))]
+    total, rows = cs.phase_zoo(0, models, max_new=4)
+    assert set(rows) == {c.name for c, _, _ in models}
+    jamba = rows["jamba-1.5-large-398b-smoke"]
+    assert jamba["mixers"] == {"attention": 1, "mla": 0, "mamba": 7}
+    assert jamba["slabs_allocated"] == 4 and jamba["moe_layers"] == 4
+    assert "8 of 72 layers (cut" in jamba["depth"]
+    assert rows["minicpm3-4b-smoke"]["latent_pages"]
+    assert rows["gemma2-27b-smoke"]["post_block_norms"]
+    assert all(r["decode_tokens"] == 4 * 3 for r in rows.values())
+    launches = [u for u in unmet if "launch" in u]
+    assert unmet == launches and len(launches) == 7, unmet
+
+
 @pytest.mark.parametrize("bits,gs", [(2, 0), (4, 32)])
 def test_chip_smoke_near_ties_match_the_parity_tests(monkeypatch, bits, gs):
     """The near-ties chip_smoke's whole-model KV witness counts are the
