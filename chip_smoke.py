@@ -2,11 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-nine phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9: phase 8 runs on
-phase 3's model before it is freed, and 7, 5 and 9 each free their
+ten phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9, 10: phase 8 runs on
+phase 3's model before it is freed, and 7, 5, 9 and 10 each free their
 own); any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
@@ -30,7 +30,9 @@ own); any failure is a non-zero exit.
      36864->4608, falcon-mamba-7b's 4096->16384 and 8192->4096, the
      expert kernel at jamba-1.5-large's 16 experts of 8192<->24576, and
      attention at gemma2's (rep 2, window, cap 50) and jamba's (rep 8)
-     geometries; after the build, the
+     geometries; the GEMM at phase 10's perplexity shape (M = 2048 on
+     llama2-7b's three shapes) and at MLA's latent expansion (M = 768,
+     256 -> 5120), with plain and torch.matmul times; after the build, the
      GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
      spill in it, and every binary-coded attention instance must copy
      by cp.async (LDGSTS in its SASS).
@@ -105,11 +107,29 @@ own); any failure is a non-zero exit.
      Every request finishes, pages and slabs drain, no BCQ call takes
      the plain path, and paged attention launches once a decode tick
      in every attention layer (none under MLA).
+ 10. training and perplexity at full width: (a) llama2-7b cut to 4 of
+     32 layers, fp32, remat full, AdamW (lr 1e-3), wiki batches of 4 x
+     512 in 2 microbatches: run A trains 4 steps; run B trains 2, saves
+     a checkpoint (12.86 GB, in a temporary directory the phase
+     deletes), and a new Trainer resumes it to 4, landing within 1e-5
+     x max|p| of A (`train_path`: ms, tokens/s and model-FLOP share a
+     step, peak memory, checkpoint bytes, save and restore seconds);
+     (b) A's model quantized to RTN w3 per-channel (packed, the RTN
+     grid as its exact binary coding) and its perplexity on 4 eval
+     batches of 4 x 512 through the BCQ GEMM at M = 2048, equal to its
+     dequantized weights' through torch.matmul within 1e-5 relative
+     (`eval_path`); (c) tiny-lm trained 300 steps on the card and its
+     perplexity fp / RTN w3 / GPTQT w3 (`ppl_table`, each packed one
+     held to its dequantized weights), and the fixture's w3_moe through
+     the batched-expert kernel; (d) hubert-xlarge at full width (48
+     layers, frames (2, 256, 1280)): one loss and its gradients, finite
+     (`train_path_encoder`). The packed evaluations launch the GEMM and
+     the expert kernel and nothing else, never the plain BCQ path.
 
 Phases 2-5, 7, 8 and 9 serve without a prefix index
 (prefix_sharing=False), as they did before it existed. Each path
-(phases 3-9; in phase 8 each
-engine's run) is driven with every launch count set to 0 just before it
+(phases 3-10; in phase 8 each engine's run, in phase 10 each packed
+evaluation) is driven with every launch count set to 0 just before it
 and read just after. The line
 before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
@@ -123,6 +143,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2934,9 +2955,415 @@ def phase_zoo(seed: int, models=None, max_new: int = 32):
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training and perplexity at full width
+# ---------------------------------------------------------------------------
+
+# (a) llama2-7b at full width cut to TRAIN_LAYERS of 32 layers (for the
+# checkpoint's bytes and time: 4 layers hold 12.86 GB of params and
+# AdamW moments), fp32, remat "full"
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SPLIT = 4, 2, 2
+TOL_RESUME = 1e-5      # run B vs run A, of max|p| (atomics in the backward)
+TOL_PPL = 1e-5         # packed vs dequantized perplexity, relative
+EVAL_BATCH, EVAL_SEQ, EVAL_BATCHES = 4, 512, 4
+# (c) the tiny LMs' table: benchmarks/common.py's eval windows
+TABLE_BATCH, TABLE_SEQ, TABLE_BATCHES = 8, 192, 6
+TABLE_STEPS = 300
+# (d) hubert-xlarge at full width: one loss and its gradients
+ENCODER_BATCH, ENCODER_FRAMES = 2, 256
+
+
+def _timed(obj, name, log):
+    """Wrap obj.name so each call appends its seconds (synchronised) to
+    `log`."""
+    inner = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        sync()
+        t0 = time.time()
+        out = inner(*a, **kw)
+        sync()
+        log.append(time.time() - t0)
+        return out
+    setattr(obj, name, wrapped)
+
+
+def _tree_numel(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(a.numel() for a in leaves(tree))
+
+
+def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
+               split=TRAIN_SPLIT):
+    """(a) Run A trains `steps` steps; run B trains `split` steps, saves,
+    and a new Trainer resumes it to `steps`. Returns (A's params in the
+    stacked layout, cfg, row)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import batches, token_stream
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    cfg = get_config(arch).replace(dtype="float32", n_layers=n_layers,
+                                   remat="full")
+    toks = token_stream("wiki")
+    opt = AdamWConfig(lr=1e-3, master_fp32=False)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    du = shutil.disk_usage(root)
+    emit({"check": "train_path_disk", "dir": str(root),
+          "total_gb": du.total / 1e9, "free_gb": du.free / 1e9})
+    saves, restores = [], []
+
+    def trainer(name, n_steps, data, write=True):
+        """A Trainer checkpointing into root/name; with write=False its
+        end-of-run save is skipped (no run reads it: 20 s of I/O at
+        llama2-7b's 4 layers)."""
+        tr = Trainer(cfg, TrainerConfig(
+            steps=n_steps, ckpt_every=10 ** 9, ckpt_dir=str(root / name),
+            keep_n=1, log_every=10 ** 9, microbatches=TRAIN_MICRO,
+            warmup=TRAIN_WARMUP, seed=seed, opt=opt), data,
+            dtype="float32", device=DEV)
+        if write:
+            _timed(tr.ckpt, "save", saves)
+        else:
+            tr.ckpt.save = lambda *a, **kw: None
+        _timed(tr.ckpt, "restore", restores)
+        return tr
+    try:
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        a = trainer("a", steps, batches(toks, batch, seq, seed=0),
+                    write=False)
+        n_params = _tree_numel(a.params)
+        a.run()
+        peak = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
+                else None)
+        p_a, log_a = a.params, a.metrics_log
+        del a
+        b1 = trainer("b", split, batches(toks, batch, seq, seed=0))
+        b1.run()
+        del b1
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (root / "b").rglob("*") if f.is_file())
+        it = batches(toks, batch, seq, seed=0)
+        for _ in range(split):          # replay the stream, as a restart
+            next(it)
+        b2 = trainer("b", steps, it, write=False)
+        out = b2.run()
+        from repro_torch.tree import leaves_with_paths
+        worst, scale = 0.0, 0.0
+        pb = dict(leaves_with_paths(b2.params))
+        for path, x in leaves_with_paths(p_a):
+            worst = max(worst, float((x - pb[path]).abs().max()))
+            scale = max(scale, float(x.abs().max()))
+        log_b = b2.metrics_log
+        del b2, pb
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tokens = batch * seq
+    step_rows = [{"step": m["step"], "loss": m["loss"], "ms": 1e3 * m["sec"],
+                  "tokens_per_s": tokens / m["sec"],
+                  "model_flop_share_fp32_peak":
+                      6.0 * n_params * tokens / m["sec"] / FP32_FLOPS}
+                 for m in log_a]
+    row = {"check": "train_path", "model": cfg.name,
+           "depth": f"{n_layers} of {get_config(arch).n_layers} layers "
+                    f"(cut for checkpoint bytes and time)",
+           "params": n_params, "batch": batch, "seq": seq,
+           "microbatches": TRAIN_MICRO, "remat": cfg.remat,
+           "optimizer": "AdamW lr 1e-3, fp32 params, no master copy",
+           "steps": step_rows, "peak_mem_gb": peak,
+           "checkpoint_bytes": ckpt_bytes, "save_s": saves,
+           "restore_s": restores, "resumed": out["resumed"],
+           "losses_b": [m["loss"] for m in log_b],
+           "resume_max_abs_diff": worst, "max_abs_param": scale,
+           "resume_tol": TOL_RESUME * scale}
+    emit(row)
+    losses = [m["loss"] for m in log_a] + row["losses_b"]
+    require(all(math.isfinite(v) for v in losses),
+            f"train path: a loss is not finite: {losses}")
+    require(out["resumed"] and len(log_b) == steps - split,
+            "train path: run B did not resume from its checkpoint")
+    require(worst <= TOL_RESUME * scale,
+            f"train path: run B lies {worst:.3g} from run A (tolerance "
+            f"{TOL_RESUME * scale:.3g})")
+    return p_a, cfg, row
+
+
+def _packed_ppl(name, cfg, params, windows, n_batches, counts):
+    """Perplexity of a packed model with every launch count set to 0
+    just before and read (and added to `counts`) just after, and of its
+    dequantized fp32 weights through torch.matmul; they must agree
+    within TOL_PPL. Returns the row."""
+    from repro_torch.data.evaluate import perplexity
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quant import dequantize_params
+    sync()
+    reset_launch_counts()
+    t0 = time.time()
+    ppl = perplexity(cfg, params, windows(), max_batches=n_batches,
+                     device=DEV)
+    sync()
+    wall = time.time() - t0
+    got = launch_counts()
+    for k, v in got.items():
+        counts[k] = counts.get(k, 0) + v
+    deq = dequantize_params(params)
+    ppl_fp = perplexity(cfg, deq, windows(), max_batches=n_batches,
+                        device=DEV)
+    del deq
+    rel = abs(ppl - ppl_fp) / ppl_fp
+    row = {"model": name, "ppl_packed": ppl, "ppl_dequantized": ppl_fp,
+           "rel_diff": rel, "tol": TOL_PPL, "eval_s": wall,
+           "forward_ms_per_batch": 1e3 * wall / n_batches,
+           "launches": got}
+    require(math.isfinite(ppl) and rel <= TOL_PPL,
+            f"eval path {name}: packed perplexity {ppl} vs dequantized "
+            f"{ppl_fp} (rel {rel:.3g} > {TOL_PPL})")
+    require(got["bcq_plain"] == 0, f"eval path {name}: a BCQ call took "
+                                   f"the plain path")
+    return row
+
+
+def _gemm_profile(cfg, params, windows):
+    """Device ms of one packed forward of the first eval batch, and of
+    the BCQ GEMM kernels in it (torch.profiler)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    batch = next(iter(windows()))
+    x = torch.from_numpy(np.asarray(batch["inputs"])).to(DEV)
+    if DEV != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        forward(cfg, params, x, remat="none")
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward(cfg, params, x, remat="none")
+            sync()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemm = [e for e in ev if "bcq_tc_gemm" in e.name]
+    return {"forward_device_ms": sum(e.time_range.elapsed_us()
+                                     for e in ev) / 1e3,
+            "bcq_matmul_device_ms": sum(e.time_range.elapsed_us()
+                                        for e in gemm) / 1e3,
+            "bcq_matmul_kernels": len(gemm), "kernels": len(ev)}
+
+
+class RTNPacked:
+    """While entered, the packed RTN baseline is installed under
+    "rtn_packed" (outside, the registry holds the reference's names
+    only)."""
+
+    def __enter__(self):
+        from repro_torch.core.quantizers import RTNPackedQuantizer
+        from repro_torch.quant import register_quantizer
+        register_quantizer("rtn_packed")(RTNPackedQuantizer)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.quant import registry
+        registry._REGISTRY.pop("rtn_packed", None)
+        return False
+
+
+def eval_path(cfg, params, counts):
+    """(b) A's trained model quantized to RTN w3 per-channel, packed;
+    perplexity of the fp model, the packed one (the BCQ GEMM at M = B*S)
+    and its dequantized weights."""
+    from repro_torch.core import quantize_model
+    from repro_torch.data import corpus_tokens, eval_batches
+    from repro_torch.data.evaluate import perplexity
+    from repro_torch.quant import QuantSpec
+
+    toks = corpus_tokens(split="eval")
+
+    def windows():
+        return eval_batches(toks, EVAL_BATCH, EVAL_SEQ)
+    t0 = time.time()
+    ppl_fp = perplexity(cfg, params, windows(), max_batches=EVAL_BATCHES,
+                        device=DEV)
+    sync()
+    fp_s = time.time() - t0
+    spec = QuantSpec.from_config(cfg.quant, method="rtn_packed",
+                                 mode="packed", bits=3)
+    t0 = time.time()
+    with RTNPacked():
+        q, _ = quantize_model(cfg, params,
+                              calibration_batches(cfg.vocab_size),
+                              spec=spec, device=DEV)
+    sync()
+    quant_s = time.time() - t0
+    row = _packed_ppl(cfg.name, cfg, q, windows, EVAL_BATCHES, counts)
+    row.update({"check": "eval_path", "ppl_fp": ppl_fp,
+                "fp_eval_s": fp_s, "quantize_s": quant_s,
+                "method": "rtn w3 per-channel, packed",
+                "windows": f"{EVAL_BATCHES} batches of {EVAL_BATCH} x "
+                           f"{EVAL_SEQ} (M = {EVAL_BATCH * EVAL_SEQ})",
+                **_gemm_profile(cfg, q, windows)})
+    emit(row)
+    require(row["launches"]["bcq_matmul"] > 0,
+            "eval path: bcq_matmul was never launched")
+    return row
+
+
+def ppl_table(steps=TABLE_STEPS, arch="tiny-lm", counts=None):
+    """(c) The paper's table on the card: `arch` trained by the port's
+    Trainer for `steps` steps (a fresh cache directory, so it always
+    trains), quantized to RTN w3 and GPTQT w3 (packed), each held to its
+    dequantized weights; then the fixture's w3_moe artifact through the
+    batched-expert kernel."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import load_packed
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantize_model
+    from repro_torch.data import corpus_tokens, eval_batches, pretrained
+    from repro_torch.data.evaluate import perplexity
+    from repro_torch.quant import QuantSpec
+
+    toks = corpus_tokens(split="eval")
+
+    def windows():
+        return eval_batches(toks, TABLE_BATCH, TABLE_SEQ)
+    cache = Path(tempfile.mkdtemp(prefix="chip_smoke_models_"))
+    old = pretrained.MODELS_DIR
+    pretrained.MODELS_DIR = cache
+    try:
+        t0 = time.time()
+        cfg, params = pretrained.get_trained_lm(arch, steps=steps,
+                                                device=DEV)
+        sync()
+        train_s = time.time() - t0
+    finally:
+        pretrained.MODELS_DIR = old
+        shutil.rmtree(cache, ignore_errors=True)
+    table = {"fp": perplexity(cfg, params, windows(),
+                              max_batches=TABLE_BATCHES, device=DEV)}
+    rows = []
+    for method in ("rtn_packed", "gptqt"):
+        spec = QuantSpec.from_config(cfg.quant, method=method,
+                                     mode="packed", bits=3)
+        t0 = time.time()
+        with RTNPacked():
+            q, _ = quantize_model(cfg, params,
+                                  calibration_batches(cfg.vocab_size),
+                                  spec=spec, device=DEV)
+        sync()
+        r = _packed_ppl(f"{arch} {method} w3", cfg, q, windows,
+                        TABLE_BATCHES, counts)
+        r["quantize_s"] = time.time() - t0
+        rows.append(r)
+        table[method.removesuffix("_packed")] = r["ppl_packed"]
+        del q
+    mp, _, meta = load_packed(FIXTURE / "w3_moe", device=DEV)
+    mcfg = get_config(meta["arch"]).replace(dtype="float32",
+                                            n_layers=len(mp["layers"]))
+    r = _packed_ppl("fixture w3_moe", mcfg, mp, windows, TABLE_BATCHES,
+                    counts)
+    rows.append(r)
+    require(r["launches"]["bcq_expert_matmul"] > 0,
+            "eval path: bcq_expert_matmul was never launched on w3_moe")
+    for r in rows:
+        emit({"check": "eval_path", **r})
+    row = {"check": "ppl_table", "model": arch, "train_steps": steps,
+           "train_s": train_s, "windows": f"{TABLE_BATCHES} batches of "
+                                          f"{TABLE_BATCH} x {TABLE_SEQ}",
+           "ppl": table, "w3_moe_ppl": r["ppl_packed"]}
+    emit(row)
+    require(all(math.isfinite(v) for v in table.values()),
+            f"ppl table: {table}")
+    return row
+
+
+def encoder_path(seed, arch="hubert-xlarge", n_layers=None,
+                 batch=ENCODER_BATCH, frames=ENCODER_FRAMES):
+    """(d) One loss_fn value and its gradients of the encoder at full
+    width on seeded frames."""
+    import torch
+    from repro_torch.ckpt import stack_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train import global_norm
+    from repro_torch.tree import leaves, tree_map, unflatten
+    cfg = get_config(arch).replace(dtype="float32")
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    params = stack_params(cfg, init_params(cfg, seed=seed, device=DEV))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    x = torch.randn((batch, frames, cfg.d_model), generator=gen, device=DEV)
+    y = torch.randint(0, cfg.vocab_size, (batch, frames), generator=gen,
+                      device=DEV)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    live = tree_map(lambda a: a.requires_grad_(), params)
+    sync()
+    t0 = time.time()
+    loss, _ = loss_fn(cfg, live, {"inputs": x, "labels": y})
+    grads = torch.autograd.grad(loss, leaves(live))
+    sync()
+    ms = (time.time() - t0) * 1e3
+    g = unflatten(params, grads)
+    finite = all(bool(torch.isfinite(a).all()) for a in grads)
+    gnorm = float(global_norm(g))
+    row = {"check": "train_path_encoder", "model": cfg.name,
+           "layers": cfg.n_layers, "params": _tree_numel(params),
+           "frames": [batch, frames, cfg.d_model], "remat": cfg.remat,
+           "loss": float(loss.detach()), "grads_finite": finite,
+           "grad_global_norm": gnorm, "ms": ms,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if DEV == "cuda" else None)}
+    emit(row)
+    require(math.isfinite(row["loss"]) and finite and gnorm > 0,
+            f"encoder path: loss {row['loss']}, finite grads {finite}, "
+            f"norm {gnorm}")
+    return row
+
+
+def phase_train_eval(seed, arch="llama2-7b", n_layers=TRAIN_LAYERS,
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, table_steps=TABLE_STEPS,
+                     table_arch="tiny-lm", encoder_layers=None):
+    """Phase 10: (a) train, checkpoint and resume `arch` at full width,
+    (b) its perplexity fp / packed RTN w3 through the BCQ GEMM, (c) the
+    tiny LM's perplexity table and the MoE fixture through the expert
+    kernel, (d) the encoder's loss and gradients. Returns (the launch
+    counts of the packed evaluations, rows)."""
+    import gc
+    import torch
+    from repro_torch.ckpt import unstack_blocks
+    from repro_torch.kernels import launch_counts
+    counts = {k: 0 for k in launch_counts()}
+    p_a, cfg, train_row = train_path(seed, arch, n_layers, batch, seq)
+    params = unstack_blocks(p_a)
+    del p_a
+    eval_row = eval_path(cfg, params, counts)
+    del params
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    table_row = ppl_table(table_steps, table_arch, counts)
+    encoder_row = encoder_path(seed, n_layers=encoder_layers)
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    require(counts["bcq_plain"] == 0,
+            "phase 10: a BCQ call took the plain path")
+    for k in ("bcq_matmul", "bcq_expert_matmul"):
+        require(counts[k] > 0, f"phase 10: {k} was never launched")
+    for k in ("bcq_gemv", "paged_attention", "paged_attention_quant"):
+        require(counts[k] == 0, f"phase 10: {k} was launched")
+    return counts, {"train": train_row, "eval": eval_row,
+                    "table": table_row, "encoder": encoder_row}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3047,10 +3474,16 @@ def main(argv=None) -> int:
             emit({"check": "bcq_expert_matmul_prefill",
                   **summarize_expert(gen, M=16, routed=False)})
             # the GEMM at the other prefill buckets and at Qwen3-MoE's
-            # attention projections (k/v N=512, q N=8192)
-            for M, K, N in GEMM_SHAPES:
+            # attention projections (k/v N=512, q N=8192), and MLA's
+            # latent expansion (minicpm3-4b's wkv_b at M=768)
+            for M, K, N in GEMM_SHAPES + ((768, 256, 5120),):
                 emit({"check": "bcq_matmul_shape",
                       **summarize_bcq(gen, "bcq_matmul", M, K, N)})
+            # phase 10's perplexity forward: M = 4 x 512 on llama2-7b
+            for K, N in LLAMA_SHAPES:
+                emit({"check": "bcq_matmul_eval_shape",
+                      **summarize_bcq(gen, "bcq_matmul",
+                                      EVAL_BATCH * EVAL_SEQ, K, N)})
             phase_done(1, t0)
         if 2 in phases:
             t0 = time.time()
@@ -3104,7 +3537,14 @@ def main(argv=None) -> int:
             t0 = time.time()
             counts, _ = phase_zoo(args.seed)
             count("zoo_path", counts)
+            gc.collect()         # and phase 9's models before phase 10
+            torch.cuda.empty_cache()
             phase_done(9, t0)
+        if 10 in phases:
+            t0 = time.time()
+            counts, _ = phase_train_eval(args.seed)
+            count("train_eval_path", counts)
+            phase_done(10, t0)
         torch.cuda.synchronize()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

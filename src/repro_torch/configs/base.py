@@ -1,5 +1,5 @@
 """Model configuration dataclasses (the port's own copy of the
-reference's `configs/base.py`, trimmed to what the serving slices read).
+reference's `configs/base.py`, trimmed to what the port reads).
 
 A ModelConfig fully determines a model: the block *pattern* (a repeating
 super-block of layer specs, `n_groups` repeats), attention details,
@@ -85,11 +85,13 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
     mla: Optional[MLAConfig] = None
     tie_embeddings: bool = True
-    embed_input: str = "tokens"   # "tokens" | "frames" (not served)
+    embed_input: str = "tokens"   # "tokens" | "frames" (train forward only)
     norm_eps: float = 1e-6
     has_decode: bool = True       # encoder-only archs: False
     subquadratic: bool = False    # eligible for long-context cells
     dtype: str = "bfloat16"
+    # activation remat policy for training: "none" | "dots" | "full"
+    remat: str = "full"
     quant: QuantConfig = field(default_factory=QuantConfig)
 
     @property

@@ -2,9 +2,9 @@
 
 48L d_model=1280 16H d_ff=5120 vocab=504 [arXiv:2106.07447]. Inputs are
 precomputed frame embeddings (B, T, d_model); bidirectional attention,
-no decode step. The port registers the config; serving refuses it
-(frame inputs and encoder-only models come with training, ROADMAP
-Queue 1 item 7).
+no decode step. It runs through the training forward and loss
+(models/model.py: forward, loss_fn); serving refuses it, as the
+reference has no decode step for it.
 """
 from repro_torch.configs.base import LayerSpec, ModelConfig
 

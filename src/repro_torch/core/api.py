@@ -1,5 +1,5 @@
 """quantize_model(): calibrate per-weight Hessians by tapping linear()
-inputs on an unrolled forward, and quantize every eligible weight
+inputs on the training forward, and quantize every eligible weight
 through the quantizer registry (the reference's `core/api.py`, over the
 port's per-layer params).
 
@@ -32,22 +32,13 @@ from repro_torch.core.gptq import output_error
 from repro_torch.core.hessian import HessianAccumulator
 from repro_torch.core.stages import stage
 from repro_torch.hw import dtype_name, resolve_device
-from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models import mamba as mam
-from repro_torch.models import mla as mla_mod
-from repro_torch.models.model import (_apply_layer, embed_inputs,
-                                      require_decoder, unembed)
+from repro_torch.models.model import forward
 from repro_torch.quant.qlinear import stack_leaves
 from repro_torch.quant.registry import get_quantizer
 from repro_torch.quant.spec import (LeafPlan, QuantSpec, dotted_path,
                                     is_quantizable, leaf_name)
-
-
-def keystr(path) -> str:
-    """("L0", "attn", "wq") -> "['L0']['attn']['wq']" (the reference's
-    report keys, jax.tree_util.keystr of its paths)."""
-    return "".join(f"[{k!r}]" for k in path)
+from repro_torch.tree import keystr
 
 
 def _leaves(tree, prefix=()):
@@ -89,27 +80,12 @@ def eligible_paths(cfg, params, include_head=False):
 # --------------------------------------------------------------------------
 
 def forward_unrolled(cfg, params, inputs):
-    """The reference's training forward (`_apply_layer` without a
-    cache): every layer in turn (attention, MLA or Mamba, sandwich norms
-    where the config has them), MoE layers at the train-time capacity
-    factor `cfg.moe.capacity_factor` (not prefill's inference factor).
-    -> logits (B, S, V)."""
-    require_decoder(cfg)
-    x = embed_inputs(cfg, params, inputs)
-    positions = torch.arange(x.shape[1], device=x.device)
-    cf = cfg.moe.capacity_factor if cfg.moe else None
-
-    def mixer(spec, lp, h):
-        if spec.kind != "attn":
-            return mam.mamba_forward(cfg, lp["mamba"], h), None
-        if cfg.mla is not None:
-            return mla_mod.mla_forward(cfg, spec, lp["attn"], h,
-                                       positions), None
-        return attn.attn_forward(cfg, spec, lp["attn"], h, positions), None
-    for spec, lp in zip(cfg.layer_specs(), params["layers"]):
-        x, _ = _apply_layer(cfg, spec, lp, x, mixer, cf)
-    x = L.rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    return unembed(cfg, params, x)
+    """Calibration's forward: the training forward (models/model.py:
+    forward, MoE layers at the train-time capacity factor, as the
+    reference calibrates) with no activation checkpoint, so every
+    linear() of a plain weight reaches the open tap once. -> logits
+    (B, S, V)."""
+    return forward(cfg, params, inputs, remat="none")[0]
 
 
 def _fold(ent, xs):

@@ -37,6 +37,20 @@ class RTNQuantizer(Quantizer):
         return QuantResult(wq_t=wq)
 
 
+class RTNPackedQuantizer(RTNQuantizer):
+    """RTN emitted as its exact binary coding (rtn.rtn_binary_coding),
+    so an RTN baseline serves through the same kernels as GPTQT. Not in
+    the registry, whose names and packability are the reference's (it
+    has no packed RTN); install it under a name of your own with
+    `register_quantizer("rtn_packed")(RTNPackedQuantizer)`."""
+    supports_packed = True
+
+    def quantize(self, Wt, H, plan, *, orig_dtype="bfloat16"):
+        wq, qt = rtn_mod.rtn_binary_coding(Wt, plan.bits, plan.group_size,
+                                           orig_dtype)
+        return QuantResult(wq_t=wq, qt=qt if plan.mode == "packed" else None)
+
+
 @register_quantizer("bcq")
 class BCQQuantizer(Quantizer):
     supports_packed = True

@@ -101,3 +101,27 @@ def minmse_grid(Wt, bits: int, n_grid: int = 32, lo: float = 0.4):
     best = torch.argmin(errs, dim=0)                     # (N,)
     S, center = row_grid(Wt, bits)
     return (S * ratios[best]).float(), center
+
+
+def rtn_binary_coding(Wt, bits: int, group_size: int = 0,
+                      orig_dtype="float32"):
+    """RTN's linear grid as its exact binary coding: a code c in
+    {0 .. 2^n - 1} with bits b_j has c - off = sum_j 2^(j-1) (2 b_j - 1),
+    so level(c) = center + sum_j S 2^(j-1) s_j. Plane 0 holds the most
+    significant bit (alpha 2^(n-2) S, the leading plane a draft view
+    keeps), beta = center. -> (wq (N, K) as quantize_rtn gives it, the
+    QuantizedTensor of layer layout (K, N))."""
+    from repro_torch.quant.packing import pack_signs
+    from repro_torch.quant.qlinear import QuantizedTensor
+    N, K = Wt.shape
+    wq, q = quantize_rtn(Wt, bits, group_size=group_size)
+    Wg, G = group_rows(Wt, group_size)
+    S, center = row_grid(Wg, bits)                       # (N * G,)
+    shifts = torch.arange(bits - 1, -1, -1, device=Wt.device)
+    alphas = S[:, None] * torch.exp2(shifts.float() - 1.0)[None, :]
+    alphas = alphas.reshape(N, G, bits).transpose(0, 1).contiguous()
+    betas = center.reshape(N, G).T.contiguous()
+    signs = ((q[None] >> shifts[:, None, None]) & 1).bool()  # (n, N, K)
+    codes = pack_signs(signs.transpose(1, 2))            # (n, K/32, N)
+    return wq, QuantizedTensor(codes, alphas, betas, k_in=K,
+                               orig_dtype=orig_dtype)

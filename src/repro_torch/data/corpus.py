@@ -4,7 +4,9 @@ port's copy of the reference's `data/corpus.py`).
 The "wiki" and "ptb" corpora are drawn from two probabilistic grammars
 by a numpy `default_rng`, so for one name, length and seed the port's
 text is byte-equal to the reference's. `calibration_slices` cuts the
-random fixed-length windows that calibrate the quantizer's Hessians.
+random fixed-length windows that calibrate the quantizer's Hessians,
+`batches` the training batches and `eval_batches` the perplexity
+windows, with the reference's draws (equal arrays).
 """
 from __future__ import annotations
 
@@ -117,3 +119,33 @@ def calibration_slices(tokens: np.ndarray, n_slices: int, slice_len: int,
     rng = np.random.default_rng(seed)
     starts = rng.integers(0, len(tokens) - slice_len, n_slices)
     return np.stack([tokens[s:s + slice_len] for s in starts]).astype(np.int32)
+
+
+def batches(tokens: np.ndarray, batch: int, seq: int, *, seed: int = 0,
+            n_batches: int | None = None):
+    """Next-token LM batches: inputs/labels shifted by one."""
+    rng = np.random.default_rng(seed)
+    i = 0
+    while n_batches is None or i < n_batches:
+        starts = rng.integers(0, len(tokens) - seq - 1, batch)
+        x = np.stack([tokens[s:s + seq] for s in starts])
+        y = np.stack([tokens[s + 1:s + seq + 1] for s in starts])
+        yield {"inputs": x.astype(np.int32), "labels": y.astype(np.int32)}
+        i += 1
+
+
+def eval_batches(tokens: np.ndarray, batch: int, seq: int):
+    """Deterministic non-overlapping windows for perplexity."""
+    n = (len(tokens) - 1) // seq
+    xs, ys = [], []
+    for w in range(n):
+        s = w * seq
+        xs.append(tokens[s:s + seq])
+        ys.append(tokens[s + 1:s + seq + 1])
+        if len(xs) == batch:
+            yield {"inputs": np.stack(xs).astype(np.int32),
+                   "labels": np.stack(ys).astype(np.int32)}
+            xs, ys = [], []
+    if xs:
+        yield {"inputs": np.stack(xs).astype(np.int32),
+               "labels": np.stack(ys).astype(np.int32)}

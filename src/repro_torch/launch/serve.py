@@ -1,23 +1,38 @@
-"""Serving launcher: boots a GPTQT-packed artifact and serves a demo
-request batch through the continuous-batching engine.
+"""Serving launcher: loads a packed artifact, or trains (or restores)
+a tiny LM and optionally quantizes it, then serves a demo request batch
+through the continuous-batching engine (the reference's
+`launch/serve.py`).
 
+  # quantize once, save the packed artifact, serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --quant 3 \\
+      --save-quantized artifacts/packed/tiny-w3 [--arch tiny-lm] \\
+      [--method gptqt] [--group-size G] [--train-steps 300]
+
+  # every later launch boots the artifact as-is
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --load-quantized DIR [--cache auto|dense|paged] [--requests N] \\
       [--batch-size B] [--max-new T] [--kv-bits BITS] \\
       [--kv-group-size GS] [--speculate K] [--draft-bits D] \\
       [--device cuda|cpu]
 
-The artifact is read by ckpt.packed.load_packed (manifests v1-v4, as
-the reference writes them); the model config is the registry entry its
-meta "arch" names (any decoder of the zoo: attention, MLA, Mamba or
-hybrid, dense or MoE MLPs), at the artifact's own depth. An artifact the port
-quantized (core.api.quantize_model, then ckpt.packed.save_packed)
-serves the same way; the quantize flags arrive with training (ROADMAP
-Queue 1 item 7) and --mesh with multi-GPU (item 6). `--speculate K`
-serves self-speculatively: a `--draft-bits D` view of the same packed
-codes proposes K tokens a tick, with the scales of the artifact's v4
-draft block when it has one and an LS re-fit otherwise (the launcher
-says which).
+  # the sensitivity sweep: print paste-ready OverrideRules, serve nothing
+  PYTHONPATH=src python -m repro_torch.launch.serve --suggest-overrides \\
+      [--bytes-budget BYTES]
+
+Without --load-quantized the model is data/pretrained.py:get_trained_lm
+(--arch trained for --train-steps steps, or its cached checkpoint,
+either package's), quantized with --quant by core.api.quantize_model
+(packed, calibrated on 24 windows of 192 tokens of the wiki train split)
+and saved by ckpt.packed.save_packed with a w--draft-bits draft block.
+An artifact is read by ckpt.packed.load_packed (manifests v1-v4, as the
+reference writes them); the model config is the registry entry its meta
+"arch" names (any decoder of the zoo: attention, MLA, Mamba or hybrid,
+dense or MoE MLPs), at the artifact's own depth. --mesh arrives with
+multi-GPU (ROADMAP Queue 1 item 6). `--speculate K` serves
+self-speculatively: a `--draft-bits D` view of the same packed codes
+proposes K tokens a tick, with the scales of the artifact's v4 draft
+block when it has one and an LS re-fit otherwise (the launcher says
+which).
 """
 from __future__ import annotations
 
@@ -25,14 +40,82 @@ import argparse
 
 SEEDS = ["the ancient city", "a famous museum", "this railway",
          "the council", "another region", "the early dynasty"]
+# the reference's calibration (benchmarks/common.py): 24 slices of 192
+# tokens of the wiki train split, slice seed 1, batches of 4
+N_CALIB, CALIB_LEN, CALIB_BATCH = 24, 192, 4
+
+
+def calibration_batches(corpus: str = "wiki"):
+    from repro_torch.data import calibration_slices, corpus_tokens
+    sl = calibration_slices(corpus_tokens(corpus, split="train"), N_CALIB,
+                            CALIB_LEN, seed=1)
+    return [sl[i:i + CALIB_BATCH] for i in range(0, len(sl), CALIB_BATCH)]
+
+
+def suggest(args, get_trained_lm) -> None:
+    """--suggest-overrides: the sensitivity sweep's report and rules."""
+    from repro_torch.quant import (QuantSpec, format_overrides,
+                                   format_report, sensitivity_sweep,
+                                   suggest_overrides)
+    from repro_torch.quant.search import bump_cost_bytes
+    cfg, params = get_trained_lm(args.arch, steps=args.train_steps,
+                                 device=args.device)
+    spec = QuantSpec.from_config(cfg.quant, method=args.method or "gptqt",
+                                 bits=args.quant or cfg.quant.bits,
+                                 group_size=args.group_size)
+    scores = sensitivity_sweep(cfg, params, calibration_batches("wiki"),
+                               spec=spec, device=args.device)
+    print(format_report(scores))
+    rules = suggest_overrides(scores, base_bits=spec.bits,
+                              bytes_budget=args.bytes_budget)
+    if args.bytes_budget is not None:
+        spent = sum(bump_cost_bytes(s, spec.bits, spec.bits + 1)
+                    for s in scores if any(r.pattern == s.path
+                                           for r in rules))
+        print(f"\n# bytes budget {args.bytes_budget}: bumped "
+              f"{len(rules)}/{len(scores)} leaves from w{spec.bits} to "
+              f"w{spec.bits + 1} ({spent} bytes spent); paste into "
+              f"QuantSpec(..., overrides=...):")
+    else:
+        print(f"\n# most sensitive {len(rules)}/{len(scores)} leaves "
+              f"bumped from w{spec.bits} to w{spec.bits + 1}; paste into "
+              f"QuantSpec(..., overrides=...):")
+    print(format_overrides(rules))
+    return rules
 
 
 def main(argv=None):
     """Parse `argv`, serve, print a summary; returns the engine and its
-    finished requests."""
+    finished requests (with --suggest-overrides, the suggested rules)."""
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--load-quantized", required=True, metavar="DIR",
-                    help="packed artifact directory (ckpt/packed.py)")
+    ap.add_argument("--arch", default="tiny-lm",
+                    help="registry name of the model get_trained_lm "
+                         "trains (ignored with --load-quantized)")
+    ap.add_argument("--quant", type=int, default=0,
+                    help="quantization bits (0 = serve the fp model)")
+    ap.add_argument("--method", default=None,
+                    help="registered quantizer name (default gptqt)")
+    ap.add_argument("--group-size", type=int, default=0,
+                    help="K entries per scale group (0 = per-channel); "
+                         "must divide every quantized leaf's K_in")
+    ap.add_argument("--suggest-overrides", action="store_true",
+                    help="run the FineQuant-style sensitivity sweep and "
+                         "print a paste-ready OverrideRule tuple instead "
+                         "of serving")
+    ap.add_argument("--bytes-budget", type=int, default=None,
+                    metavar="BYTES",
+                    help="with --suggest-overrides: spend this many extra "
+                         "checkpoint bytes greedily by error reduction "
+                         "per byte (default: bump the top-quantile "
+                         "sensitive leaves regardless of size)")
+    ap.add_argument("--save-quantized", default=None, metavar="DIR",
+                    help="write the packed model artifact after quantizing")
+    ap.add_argument("--load-quantized", default=None, metavar="DIR",
+                    help="boot from a packed artifact (ckpt/packed.py; "
+                         "skips training, calibration and quantization)")
+    ap.add_argument("--train-steps", type=int, default=300,
+                    help="tiny-LM training steps (ignored with "
+                         "--load-quantized)")
     ap.add_argument("--cache", default="auto",
                     choices=("auto", "dense", "paged"),
                     help="cache backend; auto picks paged when --kv-bits "
@@ -71,25 +154,47 @@ def main(argv=None):
     from repro_torch.ckpt.packed import load_packed
     from repro_torch.configs import get_config
     from repro_torch.data import ByteTokenizer
+    from repro_torch.data.pretrained import get_trained_lm
     from repro_torch.models.attention import paged_kv_page_bytes
     from repro_torch.serve import Request, ServeEngine
 
-    params, spec, meta = load_packed(args.load_quantized, device=args.device)
-    arch = meta.get("arch")
-    if arch is None:
-        ap.error(f"{args.load_quantized}: the artifact's meta names no arch")
-    # the artifact's depth wins over the registry's (fixtures cut n_layers)
-    cfg = get_config(arch).replace(dtype="float32",
-                                   n_layers=len(params["layers"]))
-    desc = (f"{spec['method']} w{spec['bits']}" if spec else "unknown spec")
-    print(f"loaded packed model '{arch}' ({desc}) from "
-          f"{args.load_quantized} on {args.device}")
+    if args.suggest_overrides:
+        return suggest(args, get_trained_lm)
+    if args.load_quantized:
+        if (args.quant or args.save_quantized or args.group_size
+                or args.method):
+            ap.error("--load-quantized boots the artifact as-is; it is "
+                     "incompatible with --quant/--save-quantized/"
+                     "--group-size/--method (re-quantize and re-save to "
+                     "change them)")
+        params, spec, meta = load_packed(args.load_quantized,
+                                         device=args.device)
+        arch = meta.get("arch")
+        if arch is None:
+            ap.error(f"{args.load_quantized}: the artifact's meta names "
+                     f"no arch")
+        # the artifact's depth wins over the registry's (fixtures cut
+        # n_layers)
+        cfg = get_config(arch).replace(dtype="float32",
+                                       n_layers=len(params["layers"]))
+        desc = (f"{spec['method']} w{spec['bits']}" if spec
+                else "unknown spec")
+        print(f"loaded packed model '{arch}' ({desc}) from "
+              f"{args.load_quantized} on {args.device}")
+    else:
+        if args.save_quantized and not args.quant:
+            ap.error("--save-quantized requires --quant")
+        cfg, params = get_trained_lm(args.arch, steps=args.train_steps,
+                                     device=args.device)
+        if args.quant:
+            params = quantize(args, cfg, params)
     draft_params = None
     if args.speculate:
         from repro_torch.ckpt.packed import load_draft_scales
         from repro_torch.quant.draft import make_draft_params
-        scales_tree = load_draft_scales(args.load_quantized,
-                                        device=args.device)
+        scales_tree = (load_draft_scales(args.load_quantized,
+                                         device=args.device)
+                       if args.load_quantized else None)
         print("draft scales: "
               + ("manifest v4 draft block" if scales_tree is not None
                  else "on-the-fly LS re-fit (no v4 draft block)"))
@@ -133,6 +238,31 @@ def main(argv=None):
     for r in reqs[:3]:
         print(" ", repr(tok.decode(r.out)))
     return eng, reqs
+
+
+def quantize(args, cfg, params):
+    """--quant: packed quantization of the trained model, saved with
+    --save-quantized (with a w--draft-bits draft block whenever a draft
+    is expressible)."""
+    from repro_torch.core import quantize_model
+    from repro_torch.quant import QuantSpec
+    spec = QuantSpec.from_config(cfg.quant, method=args.method or "gptqt",
+                                 mode="packed", bits=args.quant,
+                                 group_size=args.group_size)
+    gdesc = f", group_size={spec.group_size}" if spec.group_size else ""
+    print(f"quantizing with {spec.method} to {spec.bits} bits "
+          f"(packed{gdesc}) ...")
+    params, _ = quantize_model(cfg, params, calibration_batches("wiki"),
+                               spec=spec, device=args.device)
+    if args.save_quantized:
+        from repro_torch.ckpt.packed import save_packed
+        d_bits = (args.draft_bits if 0 < args.draft_bits < args.quant
+                  else None)
+        out = save_packed(args.save_quantized, params, cfg=cfg, spec=spec,
+                          meta={"arch": args.arch}, draft_bits=d_bits)
+        print(f"saved packed artifact to {out}"
+              + (f" (w{d_bits} draft scales included)" if d_bits else ""))
+    return params
 
 
 if __name__ == "__main__":

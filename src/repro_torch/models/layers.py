@@ -1,6 +1,6 @@
 """Shared building blocks (the reference's `models/layers.py`): plain
-functions over tensors and per-layer weight dicts, and the activation
-tap that calibration reads."""
+functions over tensors and per-layer weight dicts, the training loss,
+and the activation tap that calibration reads."""
 from __future__ import annotations
 
 import torch
@@ -97,3 +97,26 @@ def init_swiglu(gen, d, f, dtype, device):
     return {"wg": init_linear(gen, d, f, dtype, device),
             "wu": init_linear(gen, d, f, dtype, device),
             "wd": init_linear(gen, f, d, dtype, device)}
+
+
+def cross_entropy(logits, labels, *, final_cap=None, mask=None, z_loss=0.0):
+    """Mean token cross-entropy, accumulated in fp32; labels < 0 (and
+    positions where `mask` is False) are ignored. The max subtracted for
+    stability carries no gradient, as in the reference; the gold logit
+    is gathered (the reference's masked vocab reduction picks the same
+    value)."""
+    logits = softcap(logits, final_cap)
+    lmax = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = (logits - lmax).float()
+    sumexp = torch.sum(torch.exp(shifted), dim=-1)
+    gold = torch.gather(shifted, -1,
+                        torch.clamp(labels.long(), min=0)[..., None])[..., 0]
+    nll = torch.log(sumexp) - gold
+    if z_loss:
+        lse = torch.log(sumexp) + lmax[..., 0].float()
+        nll = nll + z_loss * lse ** 2
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask
+    valid = valid.float()
+    return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)

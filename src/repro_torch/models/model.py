@@ -1,7 +1,7 @@
-"""Model assembly (the reference's `models/model.py`, serving entry
-points): decoders whose layers are attention (GQA or MLA) or Mamba
-mixers, each followed by a dense or MoE MLP (or none), with optional
-post-block ("sandwich") norms.
+"""Model assembly (the reference's `models/model.py`): decoders and
+encoders whose layers are attention (GQA or MLA) or Mamba mixers, each
+followed by a dense or MoE MLP (or none), with optional post-block
+("sandwich") norms; token or frame inputs.
 
 Parameters are plain dicts of tensors with one weight dict per layer
 (the reference stacks each pattern position along an (n_groups, ...)
@@ -19,12 +19,18 @@ axis and scans it; the port loops over the layers):
                   "wg","wu","wd"}, ["post_ln2"]]}, ...]}
 
 Any weight may be a QuantizedTensor; `layers.linear` dispatches on it.
+`forward` and `loss_fn` also take the reference's stacked layout of fp
+weights ({"blocks": {"L{i}": (n_groups, ...) leaves}}, what training
+keeps and checkpoints hold): each stacked leaf is unbound into
+per-layer views, so gradients land on the stacked leaves.
 Caches are lists with one dict per layer, updated in place: K/V (or
 their pages), MLA latents (or latent pages), or a Mamba layer's
 per-slot recurrent state rows (batch / max_seqs rows, never paged).
 
 Entry points:
   init_params(cfg, seed, dtype, device)              -> params
+  forward(cfg, params, inputs, remat=)               -> (logits, aux)
+  loss_fn(cfg, params, batch, aux_coef=, remat=)     -> (loss, metrics)
   prefill(cfg, params, tokens, max_len, last_pos=)   -> (last logits, cache)
   init_cache / decode_step                            dense caches
   init_paged_cache / decode_step_paged                page pools (fp or
@@ -39,11 +45,17 @@ Entry points:
   draft_propose_paged / verify_paged                  self-speculative
                                                       decoding
 
-MoE layers use the reference's capacities: the inference capacity
-factor in prefill (pad tokens of a bucket route and take capacity like
-real ones, as in the reference) and 4.0 in decode and extend.
+MoE layers use the reference's capacities: the train-time capacity
+factor in `forward`, the inference capacity factor in prefill (pad
+tokens of a bucket route and take capacity like real ones, as in the
+reference) and 4.0 in decode and extend. The serving entry points take
+token-in decoders only (`require_decoder`); `forward` takes every
+config of the registry, frame inputs and encoders (hubert-xlarge)
+included.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -51,8 +63,9 @@ from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import mla as mla_mod
-from repro_torch.models.layers import (init_linear, init_swiglu, linear,
-                                       rmsnorm, softcap, swiglu)
+from repro_torch.models.layers import (cross_entropy, init_linear,
+                                       init_swiglu, linear, rmsnorm, softcap,
+                                       swiglu)
 from repro_torch.models.moe import init_moe, moe_forward
 
 # decode dispatch capacity of MoE layers (the reference's 4x slack
@@ -60,31 +73,57 @@ from repro_torch.models.moe import init_moe, moe_forward
 DECODE_CAPACITY_FACTOR = 4.0
 
 
-def require_decoder(cfg) -> None:
-    """The port serves token-in decoders. Frame inputs and encoder-only
-    models (hubert-xlarge) run only through the training forward, which
-    comes with training (ROADMAP Queue 1 item 7)."""
-    if cfg.embed_input != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: frame inputs come with the training forward "
-            f"(ROADMAP Queue 1 item 7)")
-    if not cfg.has_decode:
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-only model has no decode step; its "
-            f"forward comes with training (ROADMAP Queue 1 item 7)")
+def check_config(cfg) -> None:
+    """MoE and Mamba layers need their sub-configs."""
     if any(s.mlp == "moe" for s in cfg.pattern) and cfg.moe is None:
         raise ValueError(f"{cfg.name}: MoE layers without a MoE config")
     if any(s.kind == "mamba" for s in cfg.pattern) and cfg.mamba is None:
         raise ValueError(f"{cfg.name}: Mamba layers without a Mamba config")
 
 
+def require_decoder(cfg) -> None:
+    """The serving entry points take token-in decoders. Frame inputs and
+    encoder-only models (hubert-xlarge) have no decode step, as in the
+    reference: they run through `forward` and `loss_fn` only."""
+    if cfg.embed_input != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: frame inputs run through forward/loss_fn only; "
+            f"serving takes token-in decoders")
+    if not cfg.has_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-only model has no decode step; it "
+            f"runs through forward/loss_fn only")
+    check_config(cfg)
+
+
+def _unbind_tree(tree):
+    """A slot's stacked weight dict -> one dict of views per group."""
+    if not isinstance(tree, dict):
+        return list(tree.unbind(0))
+    parts = {k: _unbind_tree(v) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+
+
+def layer_params(cfg, params) -> list:
+    """The per-layer weight dicts of either layout: params["layers"] as
+    they are, or views into the reference's stacked params["blocks"]
+    (layer g * len(pattern) + i is group g of slot "L{i}")."""
+    if "layers" in params:
+        return list(params["layers"])
+    P = len(cfg.pattern)
+    slots = [_unbind_tree(params["blocks"][f"L{i}"]) for i in range(P)]
+    return [slots[i][g] for g in range(len(slots[0])) for i in range(P)]
+
+
 def _layers(cfg, params):
     """(spec, layer weights) for every layer; the weights must have the
     config's depth."""
-    if len(params["layers"]) != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: params hold {len(params['layers'])} "
+    layers = layer_params(cfg, params)
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: params hold {len(layers)} "
                          f"layers, the config {cfg.n_layers}")
-    return zip(cfg.layer_specs(), params["layers"])
+    return zip(cfg.layer_specs(), layers)
 
 
 # --------------------------------------------------------------------------
@@ -118,8 +157,9 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
     """Random init from a `torch.Generator` seeded with `seed` on the
     target device (the same distributions as the reference's init; the
     numbers differ, so parity tests carry the reference's weights across
-    with ckpt.params_from_tree instead)."""
-    require_decoder(cfg)
+    with ckpt.params_from_tree instead). Frame-input configs get the
+    learned (D, D) input projection as "embed"."""
+    check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     gen = torch.Generator(device=dev)
@@ -127,9 +167,12 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
     d = cfg.d_model
     params = {"final_ln": torch.zeros((d,), dtype=torch_dtype(dtype),
                                       device=dev)}
-    params["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
-                                   dtype=torch.float32, device=dev)
-                       * 0.02).to(torch_dtype(dtype))
+    if cfg.embed_input == "tokens":
+        params["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen,
+                                       dtype=torch.float32, device=dev)
+                           * 0.02).to(torch_dtype(dtype))
+    else:   # precomputed frame embeddings -> learned input projection
+        params["embed"] = init_linear(gen, d, d, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, d, cfg.vocab_size, dtype, dev)
     params["layers"] = [_init_layer(cfg, spec, gen, dtype, dev)
@@ -141,8 +184,12 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
 # embedding / unembedding
 # --------------------------------------------------------------------------
 
-def embed_inputs(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+def embed_inputs(cfg, params, inputs):
+    """Token ids (B, S) -> their embedding rows; frames (B, S, D) ->
+    the learned input projection."""
+    if cfg.embed_input == "tokens":
+        return params["embed"][inputs.long()]
+    return linear(inputs, params["embed"])
 
 
 def unembed(cfg, params, x):
@@ -188,31 +235,100 @@ def _mla_prefill(cfg, spec, p, h, positions, max_len):
 
 
 def _mlp(cfg, spec, lp, x, moe_capacity_factor):
-    """x + the layer's MLP (dense SwiGLU or MoE at the given capacity
-    factor; the aux loss is not used in serving), post-normed when the
+    """(x + the layer's MLP, the MoE router's aux loss or None): dense
+    SwiGLU or MoE at the given capacity factor, post-normed when the
     config has sandwich norms."""
     if spec.mlp == "none":
-        return x
+        return x, None
     h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    aux = None
     if spec.mlp == "moe":
-        y, _ = moe_forward(cfg, lp["moe"], h,
-                           capacity_factor=moe_capacity_factor)
+        y, aux = moe_forward(cfg, lp["moe"], h,
+                             capacity_factor=moe_capacity_factor)
     else:
         y = swiglu(lp["mlp"], h)
     if cfg.post_block_norms:
         y = rmsnorm(y, lp["post_ln2"], cfg.norm_eps)
-    return x + y
+    return x + y, aux
 
 
 def _apply_layer(cfg, spec, lp, x, mixer, moe_capacity_factor):
     """One layer: norm, the mixer (attention, MLA or Mamba; `mixer(spec,
     lp, h)` -> (y, cache)), post-norm, residual, then the MLP. Returns
-    (x, the mixer's cache)."""
+    (x, the mixer's cache, the MoE aux loss or None)."""
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
     y, c = mixer(spec, lp, h)
     if cfg.post_block_norms:
         y = rmsnorm(y, lp["post_ln"], cfg.norm_eps)
-    return _mlp(cfg, spec, lp, x + y, moe_capacity_factor), c
+    x, aux = _mlp(cfg, spec, lp, x + y, moe_capacity_factor)
+    return x, c, aux
+
+
+# --------------------------------------------------------------------------
+# training / scoring forward
+# --------------------------------------------------------------------------
+
+# matmul outputs the "dots" policy keeps for the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _remat(fn, policy: str):
+    """fn wrapped in the activation checkpoint of `policy`: "none" keeps
+    every activation, "full" only the inputs (recomputing the rest in
+    the backward), "dots" the inputs and every matmul output."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                list(_DOTS))
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    raise ValueError(f"unknown remat policy {policy!r}; expected none, "
+                     f"dots or full")
+
+
+def forward(cfg, params, inputs, *, remat=None):
+    """The training and scoring forward: tokens (B, S) or frames (B, S,
+    D) -> (logits (B, S, V), the summed MoE aux loss (fp32 scalar)).
+    Every layer in turn (attention causal or bidirectional as the config
+    says, MLA or Mamba, sandwich norms), MoE layers at the train-time
+    capacity factor, each layer under the activation checkpoint of
+    `remat` (default cfg.remat) while autograd records. `params` in
+    either layout (`layer_params`)."""
+    check_config(cfg)
+    x = embed_inputs(cfg, params, inputs)
+    positions = torch.arange(x.shape[1], device=x.device)
+    cf = cfg.moe.capacity_factor if cfg.moe else None
+    policy = remat if remat is not None else cfg.remat
+
+    def mixer(spec, lp, h):
+        if spec.kind != "attn":
+            return mam.mamba_forward(cfg, lp["mamba"], h), None
+        if cfg.mla is not None:
+            return mla_mod.mla_forward(cfg, spec, lp["attn"], h,
+                                       positions), None
+        return attn.attn_forward(cfg, spec, lp["attn"], h, positions), None
+
+    def layer(spec, lp, x, aux):
+        x, _, a = _apply_layer(cfg, spec, lp, x, mixer, cf)
+        return x, aux if a is None else aux + a
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, lp in _layers(cfg, params):
+        x, aux = _remat(functools.partial(layer, spec, lp), policy)(x, aux)
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    return unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg, params, batch, *, aux_coef=0.01, remat=None):
+    """Next-token (or frame-label) cross-entropy plus `aux_coef` x the
+    MoE aux loss. batch = {"inputs": (B, S) or (B, S, D), "labels": (B,
+    S)} tensors. -> (loss, {"xent", "aux"})."""
+    logits, aux = forward(cfg, params, batch["inputs"], remat=remat)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + aux_coef * aux, {"xent": loss, "aux": aux}
 
 
 def _last_positions(x, last_pos):
@@ -242,7 +358,7 @@ def prefill(cfg, params, tokens, max_len, *, last_pos=None):
     cache = []
     cf = cfg.moe.inference_capacity_factor if cfg.moe else None
     for spec, lp in _layers(cfg, params):
-        x, c = _apply_layer(cfg, spec, lp, x, mixer, cf)
+        x, c, _ = _apply_layer(cfg, spec, lp, x, mixer, cf)
         cache.append(c)
     x = rmsnorm(_last_positions(x, last_pos), params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x)[:, 0], cache
@@ -340,9 +456,9 @@ def _decode_layers(cfg, params, cache, x, attn_step):
             return mam.mamba_decode(cfg, lp["mamba"], h, lc)
         return attn_step(spec, lp["attn"], h, lc)
     for (spec, lp), lc in zip(_layers(cfg, params), cache):
-        x, _ = _apply_layer(cfg, spec, lp, x,
-                            lambda s, p, h, lc=lc: mixer(s, p, h, lc),
-                            DECODE_CAPACITY_FACTOR)
+        x, _, _ = _apply_layer(cfg, spec, lp, x,
+                               lambda s, p, h, lc=lc: mixer(s, p, h, lc),
+                               DECODE_CAPACITY_FACTOR)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), cache
 

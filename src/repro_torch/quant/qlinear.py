@@ -151,3 +151,14 @@ def stack_leaves(items):
                                torch.stack([q.betas for q in items]),
                                items[0].k_in, items[0].orig_dtype)
     return torch.stack(items)
+
+
+def dequantize_params(tree, dtype="float32"):
+    """A params tree (dicts and lists) with every QuantizedTensor
+    replaced by its dequantized weight in `dtype`: the same function in
+    plain matmuls (the kernels' reference on a whole model)."""
+    if isinstance(tree, dict):
+        return {k: dequantize_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantize_params(v, dtype) for v in tree]
+    return tree.dequant(dtype) if isinstance(tree, QuantizedTensor) else tree

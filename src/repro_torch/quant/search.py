@@ -15,8 +15,8 @@ contributes at a given width, without running the (much slower) GPTQ
 solves per leaf. Scores are comparable across leaves because they are
 normalized by the leaf's own weighted energy.
 
-Typical use (the launcher's `--suggest-overrides` flag comes with the
-training slice, ROADMAP Queue 1 item 7):
+Typical use (the launcher's `--suggest-overrides` flag runs it on a
+trained tiny LM):
 
     scores = sensitivity_sweep(cfg, params, calib_batches)
     rules = suggest_overrides(scores, base_bits=cfg.quant.bits)

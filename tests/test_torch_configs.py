@@ -54,9 +54,10 @@ def test_config_and_smoke_config_match_the_reference(name):
 
 
 def test_port_fields_are_the_references():
-    """The port keeps a subset of the reference's fields (training-only
-    ones, scan_unroll and remat, are left out) and nothing else."""
+    """The port keeps a subset of the reference's fields (scan_unroll,
+    the unroll flag of the reference's layer scan, is left out: the port
+    loops over its layers) and nothing else."""
     from repro.configs.base import ModelConfig as JaxModelConfig
     mine = {f.name for f in dataclasses.fields(ModelConfig)}
     ref = {f.name for f in dataclasses.fields(JaxModelConfig)}
-    assert mine <= ref and ref - mine == {"scan_unroll", "remat"}
+    assert mine <= ref and ref - mine == {"scan_unroll"}

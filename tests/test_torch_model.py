@@ -257,8 +257,9 @@ def test_attention_only_and_fp_pages_in_this_slice():
     """Binary-coded pages, MoE, MLA and Mamba layers are served now
     (their parity tests are tests/test_torch_kv_quant.py,
     test_torch_moe.py, test_torch_mla.py and test_torch_mamba.py); frame
-    inputs and encoder-only configs raise citing training (item 7), and
-    a MoE or Mamba pattern needs its config."""
+    inputs and encoder-only configs initialise for the training forward
+    (tests/test_torch_loss.py) and the serving entry points refuse them,
+    and a MoE or Mamba pattern needs its config."""
     from repro_torch.configs import smoke_config
     cfg = get_config("tiny-lm").replace(n_layers=1)
     pool = tmodel.init_paged_cache(cfg, 4, 8, 1, kv_bits=4, device="cpu")
@@ -268,11 +269,14 @@ def test_attention_only_and_fp_pages_in_this_slice():
         p = tmodel.init_params(smoke_config(arch), device="cpu")
         assert key in p["layers"][0]
     hubert = get_config("hubert-xlarge").replace(n_layers=1)
-    with pytest.raises(NotImplementedError, match="frame inputs.*item 7"):
-        tmodel.init_params(hubert, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-only.*item 7"):
-        tmodel.init_params(hubert.replace(embed_input="tokens"),
-                           device="cpu")
+    hp = tmodel.init_params(hubert, device="cpu")
+    assert hp["embed"].shape == (hubert.d_model, hubert.d_model)
+    assert hp["lm_head"].shape == (hubert.d_model, hubert.vocab_size)
+    with pytest.raises(NotImplementedError, match="frame inputs"):
+        tmodel.prefill(hubert, hp, torch.zeros((1, 4, hubert.d_model)), 8)
+    with pytest.raises(NotImplementedError, match="encoder-only"):
+        tmodel.init_cache(hubert.replace(embed_input="tokens"), 1, 8,
+                          device="cpu")
     with pytest.raises(ValueError, match="Mamba"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(kind="mamba"),)),
                            device="cpu")

@@ -357,5 +357,5 @@ def test_refusals():
     assert ServeEngine(mix, xp, cache_kind="paged",
                        device="cpu")._prefix is None
     hubert = smoke_config("hubert-xlarge")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="frame inputs"):
         ServeEngine(hubert, {}, device="cpu")
