@@ -126,6 +126,23 @@ own); any failure is a non-zero exit.
      (`train_path_encoder`). The packed evaluations launch the GEMM and
      the expert kernel and nothing else, never the plain BCQ path.
 
+Phases 2-9 serve through ServeEngine, whose decode step, draft
+propose pass and verify come from serve/compile_cache.py: on the card
+each is a CUDA graph captured on its first call and replayed after that,
+so every token, launch-count and drain gate of those phases holds on the
+graphs. Each `decode_profile` line times the eager step beside its
+replayed graph on the same pool (graph_* fields; logits within
+TOL_GRAPH of the eager step's, expected equal), phase 8's
+`speculative_profile` does the same for a propose + verify tick, and
+`decode_step_sync` lines (phases 3 and 4) hold one eager step and one
+replay to no device-to-host copy. After each path's models are freed a
+`compile_cache` line gives the cache's stats, graphs captured, capture
+seconds, replays and the kernel launches inside them, and the memory
+allocated and reserved before and after clear(): no graph may outlive
+the params and pool it reads. The GEMV, the GEMM, the expert kernel and
+both attention kernels must each run inside a replayed graph on some
+path.
+
 Phases 2-5, 7, 8 and 9 serve without a prefix index
 (prefix_sharing=False), as they did before it existed. Each path
 (phases 3-10; in phase 8 each engine's run, in phase 10 each packed
@@ -162,6 +179,13 @@ TF32_FLOPS = 495e12       # tensor cores: the GEMM's TF32 passes
 TOL_FP32 = 2e-5       # fp32 sums of up to 11008 products in another order
 TOL_BF16 = 1e-2       # bf16 outputs: one bf16 ulp is 2^-8 of |y|
 TOL_LOGITS = 1e-4     # whole-model logits vs the reference (fixture's own)
+# a replayed CUDA graph against the eager step it captured: the same
+# kernels in the same order on the same inputs (expected 0.0)
+TOL_GRAPH = 1e-6
+# what may stay allocated on the card once a path's models are freed
+# (cuBLAS workspaces, the smoke's own small tensors); any model's params
+# are several GB
+FREED_ALLOCATED_GB = 1.0
 
 KERNEL_ROWS = {
     "bcq_gemv": ("src/repro_torch/csrc/bcq_matmul.cu",
@@ -1312,7 +1336,7 @@ def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request, ServeEngine, compile_cache
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
@@ -1325,12 +1349,16 @@ def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     sync()
     reset_launch_counts()
+    g0 = compile_cache.graph_stats()
     t1 = time.time()
     eng.run(reqs)
     sync()
     wall = time.time() - t1
     counts = launch_counts()
+    g1 = compile_cache.graph_stats()
     st = eng.stats
+    # the first decode tick captures the run's graphs (warm-up included)
+    capture_s = g1["capture_s"] - g0["capture_s"]
     row = {"check": name, "model": cfg.name, "layers": cfg.n_layers,
            "requests": len(reqs), "prompt_lens": PROMPT_LENS,
            "max_new": max_new,
@@ -1343,6 +1371,11 @@ def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
            "decode_tokens": st["tokens"],
            "decode_tok_per_s": st["tokens"] / max(st["decode_s"], 1e-9),
            "decode_ms_per_tick": 1e3 * st["decode_s"] / max(st["ticks"], 1),
+           "graphs_captured": g1["captured"] - g0["captured"],
+           "graph_capture_s": capture_s,
+           "graph_replays": g1["replays"] - g0["replays"],
+           "decode_ms_per_tick_without_capture":
+               1e3 * (st["decode_s"] - capture_s) / max(st["ticks"], 1),
            "ttft_avg_s": st["ttft_avg_s"], "tpot_avg_s": st["tpot_avg_s"],
            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                            if DEV == "cuda" else None),
@@ -1447,6 +1480,7 @@ def phase_main_path(seed: int, model, build_s: float):
             f"main path: launches {counts}")
     paged_vs_dense("main_path", cfg, params, prompts[0], outs[0])
     profile_decode(cfg, params, prompts)
+    decode_step_sync(cfg, params, prompts)
     return counts, row, outs
 
 
@@ -1501,6 +1535,7 @@ def phase_kv_bits(seed: int, model, kv_bits: int = 4):
             f"kv_bits path: kernel vs plain differ by {max(errs):.3g}")
     kv_divergence_witness(cfg, params, prompts[0], outs[0], kv_bits)
     profile_decode(cfg, params, prompts, kv_bits=kv_bits, tag="kv_bits")
+    decode_step_sync(cfg, params, prompts, kv_bits)
     return counts, row
 
 
@@ -2351,12 +2386,80 @@ def phase_quantize(seed: int, arch: str = "llama2-7b",
     return counts, row
 
 
+def _traced_kernels(prof):
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _state_snapshot(pool, n_pages):
+    """Copies of a pool's leaves that a decode step advances rather than
+    rewrites (Mamba state rows), to put back with _restore."""
+    from repro_torch.models import is_page_leaf
+    return [(leaf, leaf.clone()) for layer in pool for leaf in layer.values()
+            if not is_page_leaf(leaf, n_pages)]
+
+
+def _restore(saved):
+    for leaf, copy in saved:
+        leaf.copy_(copy)
+
+
+def graph_decode_profile(cfg, params, pool, bt, pos, steps):
+    """The same decode step borrowed from serve/compile_cache.py (on the
+    card a CUDA graph captured on its first call, then replayed) on the
+    pool profile_decode prefilled: its logits against the eager step's
+    on the same pool and inputs (Mamba state rows put back between the
+    two), then timed as profile_decode times the eager step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step_paged
+    from repro_torch.serve import compile_cache
+    B = len(pos)
+    step = compile_cache.get("decode_paged", cfg)
+    tok_np = np.zeros((B, 1), np.int32)
+    pos_np = pos.cpu().numpy()
+    live = np.ones((B,), np.int32)
+    null = torch.zeros((B,), dtype=torch.int32, device=DEV)
+    n_pages = next(iter(pool[0].values())).shape[0]
+    saved = _state_snapshot(pool, n_pages)
+    want = decode_step_paged(cfg, params, pool, torch.tensor(tok_np,
+                                                             device=DEV),
+                             pos, bt)[0].clone()
+    _restore(saved)
+    got = step(params, pool, tok_np, pos_np, bt, live, null)[0].clone()
+    dlogit = float((got - want).abs().max() / want.abs().max())
+
+    def run(first):
+        for i in range(first, first + steps):
+            step(params, pool, tok_np, pos_np + i, bt, live, null)
+        sync()
+    run(0)
+    t0 = time.perf_counter()
+    run(steps)
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(2 * steps)
+    kernels = _traced_kernels(prof)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return {"graph_wall_ms_per_step": wall,
+            "graph_device_busy_ms_per_step": busy,
+            "graph_device_idle_share": (1 - busy / wall) if busy else None,
+            "graph_kernels_per_step": len(kernels) / steps,
+            "graph_max_dlogit_rel": dlogit,
+            "graph_dlogit_tol": TOL_GRAPH}
+
+
 def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
                    tag: str = "main"):
     """Where a path's decode step's time goes: the paged decode step at
     batch 4 (each prompt already in its pages), timed untraced, then
     traced with torch.profiler: device busy time per step, kernels per
-    step and the kernels that take the most device time. With kv_bits,
+    step and the kernels that take the most device time; beside it the
+    same step replayed from its CUDA graph (graph_decode_profile), whose
+    logits must equal the eager step's within TOL_GRAPH. With kv_bits,
     also the quantize-on-write of one step alone (every layer's new K/V
     through kv_quantize), host wall and device time."""
     import torch
@@ -2380,8 +2483,7 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
         t0 = time.perf_counter()
         run(2 * steps)
         traced = (time.perf_counter() - t0) / steps
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _traced_kernels(prof)
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -2401,6 +2503,7 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
                                          for e in kernels) / steps,
            "top_kernels_ms_per_step": [
                {"name": n[:80], "ms": us / 1e3 / steps} for n, us in top]}
+    row.update(graph_decode_profile(cfg, params, pool, bt, pos, steps))
     if kv_bits:
         new = torch.randn((2, B, cfg.n_kv_heads, cfg.resolved_head_dim),
                           device=DEV)
@@ -2430,6 +2533,9 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
     emit(row)
     require(DEV != "cuda" or row["splitk_reduce_per_step"] == 0,
             f"{tag} decode: a split-K reduce ran ({row})")
+    require(row["graph_max_dlogit_rel"] <= TOL_GRAPH,
+            f"{tag} decode: the graph's logits differ from the eager "
+            f"step's by {row['graph_max_dlogit_rel']:.3g} of max|logit|")
     return row
 
 
@@ -2489,25 +2595,17 @@ def _propose_args(cfg, params, draft, prompts, k):
     return pool, bt, pos, cur, propose
 
 
-def propose_sync_check(cfg, params, draft, prompts, k=SPEC_K):
-    """One draft_propose_paged call runs with no device-to-host copy:
-    under torch.cuda.set_sync_debug_mode("error"); should that mode
-    raise, the DtoH copies of a torch.profiler trace of the call are
-    counted instead, and must be 0."""
+def host_copy_check(fn) -> dict:
+    """Run fn() once with no device-to-host copy allowed: under
+    torch.cuda.set_sync_debug_mode("error"); should that mode raise, the
+    DtoH copies of a torch.profiler trace of the call are counted
+    instead. Returns {"method", "synced", ...}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    *_, propose = _propose_args(cfg, params, draft, prompts, k)
-    propose()                                  # warm-up (kernel loads)
-    sync()
-    row = {"check": "speculative_propose_sync", "k": k,
-           "batch": len(prompts)}
-    if DEV != "cuda":
-        row["method"] = "not run off the card"
-        emit(row)
-        return row
+    row = {}
     torch.cuda.set_sync_debug_mode("error")
     try:
-        propose()
+        fn()
         row.update(method="sync_debug_mode error", synced=False)
     except RuntimeError as e:
         row.update(method="profiler DtoH memcpy count",
@@ -2518,14 +2616,100 @@ def propose_sync_check(cfg, params, draft, prompts, k=SPEC_K):
     if "synced" not in row:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            propose()
+            fn()
             sync()
         row["dtoh_copies"] = sum("DtoH" in e.name or "Device -> Pageable"
                                  in e.name for e in prof.events())
         row["synced"] = row["dtoh_copies"] > 0
+    return row
+
+
+def propose_sync_check(cfg, params, draft, prompts, k=SPEC_K):
+    """One draft_propose_paged call runs with no device-to-host copy
+    (host_copy_check)."""
+    *_, propose = _propose_args(cfg, params, draft, prompts, k)
+    propose()                                  # warm-up (kernel loads)
+    sync()
+    row = {"check": "speculative_propose_sync", "k": k,
+           "batch": len(prompts)}
+    if DEV != "cuda":
+        row["method"] = "not run off the card"
+        emit(row)
+        return row
+    row.update(host_copy_check(propose))
     emit(row)
     require(not row["synced"], f"speculative path: draft_propose_paged "
                                f"copies to the host ({row})")
+    return row
+
+
+def decode_step_sync(cfg, params, prompts, kv_bits=0):
+    """One decode step runs with no device-to-host copy (host_copy_check):
+    decode_step_paged eagerly, and the compile cache's `decode_paged`
+    (host inputs in, the graph replayed), at batch 4 on a prefilled
+    pool; both warmed up (and the graph captured) first."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step_paged
+    from repro_torch.serve import compile_cache
+    pool, bt, pos = prefilled_pool(cfg, params, prompts, kv_bits)
+    B = len(prompts)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    step = compile_cache.get("decode_paged", cfg)
+    args = (np.zeros((B, 1), np.int32), pos.cpu().numpy(), bt,
+            np.ones((B,), np.int32),
+            torch.zeros((B,), dtype=torch.int32, device=DEV))
+    calls = {"eager": lambda: decode_step_paged(cfg, params, pool, tok, pos,
+                                                bt),
+             "graph": lambda: step(params, pool, *args)}
+    for fn in calls.values():
+        fn()
+    sync()
+    row = {"check": "decode_step_sync", "kv_bits": kv_bits, "batch": B}
+    if DEV != "cuda":
+        row["method"] = "not run off the card"
+        emit(row)
+        return row
+    for name, fn in calls.items():
+        row[name] = host_copy_check(fn)
+    emit(row)
+    require(not row["eager"]["synced"] and not row["graph"]["synced"],
+            f"decode step (kv_bits {kv_bits}) copies to the host ({row})")
+    return row
+
+
+def compile_cache_report(path: str) -> dict:
+    """The compile cache after a path's models are freed: its stats(),
+    graphs captured, capture seconds, replays and the kernel launches
+    inside them, the graphs still alive (must be 0: a graph goes with
+    the params or pool it reads), allocated memory, and the memory
+    reserved before and after clear()."""
+    import torch
+    from repro_torch.serve import compile_cache
+    gc.collect()
+    sync()
+    gs = compile_cache.graph_stats()
+    row = {"check": "compile_cache", "path": path,
+           "stats": compile_cache.stats(),
+           "graphs_captured": gs["captured"], "capture_s": gs["capture_s"],
+           "replays": gs["replays"], "launches_in_replays": gs["launches"],
+           "graphs_alive_after_models_freed": gs["live"]}
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        row.update(allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                   reserved_before_clear_gb=torch.cuda.memory_reserved()
+                   / 1e9)
+    compile_cache.clear()
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        row["reserved_after_clear_gb"] = torch.cuda.memory_reserved() / 1e9
+    emit(row)
+    require(gs["live"] == 0, f"{path}: {gs['live']} graphs outlived the "
+                             f"models they read")
+    require(DEV != "cuda" or row["allocated_gb"] < FREED_ALLOCATED_GB,
+            f"{path}: {row.get('allocated_gb')} GB still allocated after "
+            f"its models were freed")
     return row
 
 
@@ -2559,13 +2743,39 @@ def speculative_profile(cfg, params, draft, prompts, decode_row, k=SPEC_K,
     """Where one tick of engine A's time goes: draft_propose_paged (k
     draft steps) and verify_paged (k+1 positions a row) at batch 4 on a
     prefilled pool, each timed untraced and traced; beside it the
-    non-speculative decode step (`decode_row`, profile_decode's)."""
+    non-speculative decode step (`decode_row`, profile_decode's), and the
+    whole tick through the compile cache's `draft_propose` and
+    `verify_paged` (CUDA graphs on the card), whose draft tokens must
+    equal the eager tick's and its logits within TOL_GRAPH."""
+    import numpy as np
     import torch
     from repro_torch.models import verify_paged
+    from repro_torch.serve import compile_cache
     pool, bt, pos, cur, propose = _propose_args(cfg, params, draft,
                                                 prompts, k)
+    B = len(prompts)
     toks = torch.cat([cur[:, None], propose()], dim=1)
-    nv = torch.full((len(prompts),), k + 1, dtype=torch.int32, device=DEV)
+    nv = torch.full((B,), k + 1, dtype=torch.int32, device=DEV)
+    g_propose = compile_cache.get("draft_propose", cfg)
+    g_verify = compile_cache.get("verify_paged", cfg)
+    cur_np, pos_np = cur.cpu().numpy(), pos.cpu().numpy()
+    ke_np = np.full((B,), k, np.int32)
+    nv_np = np.full((B,), k + 1, np.int32)
+    live = np.ones((B,), np.int32)
+    null = torch.zeros((B,), dtype=torch.int32, device=DEV)
+
+    def graph_tick():
+        d = g_propose(draft, pool, cur_np, pos_np, bt, ke_np, null, k)[0]
+        t = torch.cat([cur[:, None], d], dim=1)
+        return t, g_verify(params, pool, t, pos_np, bt, nv_np, live,
+                           null)[0]
+    want_logits = verify_paged(cfg, params, pool, toks, pos, bt, nv)[0]
+    want_logits = want_logits.clone()
+    got_toks, got_logits = graph_tick()
+    graph = {"draft_tokens_equal": bool(torch.equal(got_toks, toks)),
+             "max_dlogit_rel": float((got_logits - want_logits).abs().max()
+                                     / want_logits.abs().max()),
+             **_device_profile(graph_tick, steps)}
     parts = {"propose": _device_profile(propose, steps),
              "verify": _device_profile(
                  lambda: verify_paged(cfg, params, pool, toks, pos, bt, nv),
@@ -2580,10 +2790,23 @@ def speculative_profile(cfg, params, draft, prompts, decode_row, k=SPEC_K,
                                       / tick["wall_ms"])
            if tick["device_busy_ms"] else None,
            "kernels_per_tick": tick["kernels"],
+           "graph_tick_wall_ms": graph["wall_ms"],
+           "graph_tick_device_busy_ms": graph["device_busy_ms"],
+           "graph_tick_device_idle_share": graph["device_idle_share"],
+           "graph_kernels_per_tick": graph["kernels"],
+           "graph_draft_tokens_equal": graph["draft_tokens_equal"],
+           "graph_max_dlogit_rel": graph["max_dlogit_rel"],
+           "graph_dlogit_tol": TOL_GRAPH,
            "decode_step": {key: decode_row[key] for key in (
                "wall_ms_per_step", "device_busy_ms_per_step",
-               "device_idle_share", "kernels_per_step")}}
+               "device_idle_share", "kernels_per_step",
+               "graph_wall_ms_per_step", "graph_device_busy_ms_per_step",
+               "graph_device_idle_share", "graph_kernels_per_step")}}
     emit(row)
+    require(graph["draft_tokens_equal"]
+            and graph["max_dlogit_rel"] <= TOL_GRAPH,
+            f"speculative tick: the graphs differ from the eager tick "
+            f"({graph})")
     return row
 
 
@@ -3406,7 +3629,7 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     lines = {k: {"name": k, "route": "cuda", "source": KERNEL_ROWS[k][0],
                  "replaces": KERNEL_ROWS[k][1], "launches": 0,
-                 "launches_by_path": {}}
+                 "launches_by_path": {}, "launches_in_graphs": 0}
              for k in KERNEL_ROWS}
 
     def phase_done(n, t0):
@@ -3417,6 +3640,14 @@ def main(argv=None) -> int:
         for k in lines:
             lines[k]["launches_by_path"][path] = counts[k]
             lines[k]["launches"] += counts[k]
+
+    def graphs(path):
+        """The compile cache once `path`'s models are freed; the kernel
+        launches its graphs replayed (each also counted in its path)."""
+        row = compile_cache_report(path)
+        for k in lines:
+            lines[k]["launches_in_graphs"] += row["launches_in_replays"].get(
+                k, 0)
     try:
         if 1 in phases:
             t0 = time.time()
@@ -3488,6 +3719,7 @@ def main(argv=None) -> int:
         if 2 in phases:
             t0 = time.time()
             phase_fixture()
+            graphs("fixture")
             phase_done(2, t0)
         llama, main_outs = None, None
         if phases & {3, 4, 6, 8}:
@@ -3519,12 +3751,15 @@ def main(argv=None) -> int:
         del llama                # free the llama weights before phase 7
         gc.collect()
         torch.cuda.empty_cache()
+        if phases & {3, 4, 6, 8}:
+            graphs("llama2-7b: phases 3, 4, 6, 8")
         if 7 in phases:
             t0 = time.time()
             counts, _ = phase_quantize(args.seed)
             count("quantize_path", counts)
             gc.collect()         # and phase 7's model before phase 5
             torch.cuda.empty_cache()
+            graphs("quantize_path")
             phase_done(7, t0)
         if 5 in phases:
             t0 = time.time()
@@ -3532,6 +3767,7 @@ def main(argv=None) -> int:
             count("moe_path", counts)
             gc.collect()         # and phase 5's model before phase 9
             torch.cuda.empty_cache()
+            graphs("moe_path")
             phase_done(5, t0)
         if 9 in phases:
             t0 = time.time()
@@ -3539,13 +3775,25 @@ def main(argv=None) -> int:
             count("zoo_path", counts)
             gc.collect()         # and phase 9's models before phase 10
             torch.cuda.empty_cache()
+            graphs("zoo_path")
             phase_done(9, t0)
         if 10 in phases:
             t0 = time.time()
             counts, _ = phase_train_eval(args.seed)
             count("train_eval_path", counts)
+            graphs("train_eval_path")
             phase_done(10, t0)
         torch.cuda.synchronize()
+        # every kernel of the served paths ran inside a replayed graph:
+        # the GEMV in each decode step, the GEMM in verify (phase 8), the
+        # expert kernel in MoE decode (phase 5), fp and binary-coded
+        # attention (phases 3 and 4)
+        for k, need in (("bcq_gemv", {3}), ("bcq_matmul", {8}),
+                        ("bcq_expert_matmul", {5}),
+                        ("paged_attention", {3}),
+                        ("paged_attention_quant", {4})):
+            require(not need <= phases or lines[k]["launches_in_graphs"] > 0,
+                    f"{k} never ran inside a replayed CUDA graph")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,11 +1,14 @@
 """Perplexity evaluation (the reference's `data/evaluate.py`), the
 paper's metric for every results table.
 
-The logits-only training forward runs under torch.inference_mode; on a
-packed model every quantized linear goes through kernels/ops.py:
-bcq_apply (on the card the BCQ GEMM at M = B*S, and the batched-expert
-kernel in MoE layers). The reference borrows a jitted forward from its
-compile cache; the port calls the forward directly.
+The logits-only forward is borrowed from the process-wide step cache
+(serve/compile_cache.py, kind "eval_forward"), as the reference borrows
+its jitted forward, so repeated evaluations of one config share one
+wrapper and its accounting. It runs eagerly under
+torch.inference_mode (each batch's shape is its own); on a packed model
+every quantized linear goes through kernels/ops.py:bcq_apply (on the
+card the BCQ GEMM at M = B*S, and the batched-expert kernel in MoE
+layers).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.hw import resolve_device
-from repro_torch.models.model import forward
+from repro_torch.serve import compile_cache
 
 
 def perplexity(cfg, params, batch_iter, *, max_batches=None,
@@ -28,6 +31,7 @@ def perplexity(cfg, params, batch_iter, *, max_batches=None,
         raise ValueError(f"the params live on {params['embed'].device} and "
                          f"the evaluation runs on {dev}: pass device= or "
                          f"move the params")
+    fwd = compile_cache.get("eval_forward", cfg)
     total_nll, total_tok = 0.0, 0
     with torch.inference_mode():
         for bi, batch in enumerate(batch_iter):
@@ -35,7 +39,7 @@ def perplexity(cfg, params, batch_iter, *, max_batches=None,
                 break
             inputs = torch.from_numpy(np.asarray(batch["inputs"])).to(dev)
             labels = torch.from_numpy(np.asarray(batch["labels"])).to(dev)
-            logits = forward(cfg, params, inputs, remat="none")[0].float()
+            logits = fwd(params, inputs).float()
             lse = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
             total_nll += float(torch.sum(lse - gold))

@@ -55,6 +55,16 @@ def _expert_matmul(v, w, rows=None):
     return torch.einsum("eck,ekn->ecn", v, w.to(v.dtype))
 
 
+def expert_counts(topi, E: int) -> torch.Tensor:
+    """Choices routed to each expert, (E,) int64: torch.bincount's
+    counts, made by a scatter-add that stays on the device (on CUDA
+    bincount reads the maximum back to the host to size its output,
+    which a captured CUDA graph cannot hold)."""
+    flat = topi.reshape(-1)
+    return torch.zeros(E, dtype=torch.long, device=topi.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def moe_forward(cfg, p, x, *, capacity_factor=None):
     """x: (B, S, D) -> (out, aux_loss). Capacity C = ceil(T*k/E) * cf
     slots per expert (capped at T)."""
@@ -72,7 +82,7 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)
-    counts = torch.bincount(topi.reshape(-1), minlength=E)
+    counts = expert_counts(topi, E)
     ce = counts.float() / (T * K)
     aux = E * torch.sum(me * ce)
     # filled slots of each expert, on the device (no host sync)

@@ -53,10 +53,18 @@ probability (lossy for an imperfect draft, as in the reference).
 `stats_snapshot()` freezes every counter into a serve/stats.py
 EngineStats.
 
-PyTorch runs eagerly, so there is no compile cache to share and no
-shape to pad to (the reference pads copy lists and dirty-row lists to
-powers of two to bound its compilations); timing synchronizes the CUDA
-device where the reference blocks on its result. Meshes belong to the
+Every step function is borrowed from the process-wide
+serve/compile_cache.py, with the reference's kinds in the reference's
+order, so engines of one config share their wrappers. On the card the
+decode step, the draft's propose pass and verify replay CUDA graphs
+captured on their first call (one launch a step instead of a Python
+loop of ~2,000), fed from the engine's host arrays through pinned
+memory; prefill, extend, scatter, page copies and block-table pushes
+run eagerly, as everything does on the CPU. Nothing but graphs pads to
+a shape, so copy lists and dirty-row lists are not padded to powers of
+two as the reference pads them to bound its compilations; timing
+synchronizes the CUDA device where the reference blocks on its result.
+Only greedy decode exists (`greedy=False` raises). Meshes belong to the
 multi-GPU slice and raise NotImplementedError (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
@@ -68,13 +76,10 @@ import numpy as np
 import torch
 
 from repro_torch.hw import resolve_device
-from repro_torch.models.model import (copy_pages, decode_step,
-                                      decode_step_paged, draft_propose_paged,
-                                      extend_paged, init_cache, prefill,
-                                      require_decoder,
-                                      scatter_prefill_cache, verify_paged)
+from repro_torch.models.model import init_cache, require_decoder
 from repro_torch.quant.draft import make_draft_params
 from repro_torch.quant.qlinear import QuantizedTensor
+from repro_torch.serve import compile_cache
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.scheduler import Scheduler
@@ -156,12 +161,17 @@ class DenseSlotPool:
 
 class ServeEngine:
     def __init__(self, cfg, params, *, batch_size=4, max_len=512,
-                 dtype=None, cache_kind="dense",
+                 dtype=None, greedy=True, cache_kind="dense",
                  page_size=64, n_pages=None, prefill_chunk=None,
-                 prefix_sharing=True, prefix_max_pages=None,
-                 mesh=None, kv_bits=0, kv_group_size=0, speculate=0,
-                 draft_bits=2, draft_params=None, accept_rule="greedy",
-                 typical_tau=0.3, state_slabs=None, device=None):
+                 bucket_prompts=True, watermark=1, prefix_sharing=True,
+                 prefix_max_pages=None, mesh=None, kv_bits=0,
+                 kv_group_size=0, speculate=0, draft_bits=2,
+                 draft_params=None, accept_rule="greedy", typical_tau=0.3,
+                 state_slabs=None, device=None):
+        if not greedy:
+            raise NotImplementedError(
+                "greedy=False: only greedy decode exists (the reference "
+                "stores the flag and never reads it)")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind={cache_kind!r}")
         if kv_bits and cache_kind != "paged":
@@ -200,6 +210,7 @@ class ServeEngine:
         self.params = params_to(params, self.device)
         self.B = batch_size
         self.max_len = max_len
+        self.greedy = greedy
         self.cache_kind = cache_kind
         self.kv_bits = int(kv_bits)
         self.prefill_chunk = prefill_chunk
@@ -207,7 +218,7 @@ class ServeEngine:
         # bucketed prefill needs harmless padding: causal attention masks
         # it and decode overwrites its slots, but rolling windows and
         # recurrent state mix pad tokens in
-        self._bucket = attn_only and no_window
+        self._bucket = bool(bucket_prompts and attn_only and no_window)
         # window layers: prefill()'s rolling buffer cannot be scattered
         # into absolute page slots, so the paged engine prefills them
         # through the extend path
@@ -252,19 +263,31 @@ class ServeEngine:
             # every slot's null-page row (one shard: page 0)
             self._null_row = torch.zeros((batch_size,), dtype=torch.int32,
                                          device=self.device)
+            self._bt_update = compile_cache.get("bt_update", None, mesh)
+            self._decode = compile_cache.get("decode_paged", cfg, mesh)
+            self._scatter = compile_cache.get("scatter_prefill", cfg, mesh)
+            self._extend = compile_cache.get("extend_paged", cfg, mesh)
+            self._copy = compile_cache.get("copy_pages", None, mesh)
+            if speculate:
+                self._draft_propose = compile_cache.get("draft_propose",
+                                                        cfg, mesh)
+                self._verify = compile_cache.get("verify_paged", cfg, mesh)
         else:
             # the dense engine has no pages to share: prefix_sharing is
             # accepted and ignored, as in the reference
             self.kv = DenseSlotPool(batch_size)
             self.cache = init_cache(cfg, batch_size, max_len, dtype,
                                     device=self.device)
-        # one spare page keeps a decode tick's growth from starving at once
-        self.sched = Scheduler(self.kv,
-                               watermark=1 if cache_kind == "paged" else 0,
+            self._decode = compile_cache.get("decode_dense", cfg, mesh)
+        # spare pages (the watermark) keep a decode tick's growth from
+        # starving at once; the dense engine has none
+        self.sched = Scheduler(self.kv, watermark=watermark
+                               if cache_kind == "paged" else 0,
                                prefill_chunk=prefill_chunk,
                                prefix=self._prefix, slab=self.slab)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
+        self._prefill = compile_cache.get("prefill", cfg, mesh)
         # self-speculative decoding: built from the params on the
         # device, so a self-draft's codes are the target's tensors and
         # it adds only its re-fit scales (quant/draft.py)
@@ -313,8 +336,8 @@ class ServeEngine:
     def _apply_copies(self, copies) -> None:
         """Apply allocator copy-on-write forks to the device pool."""
         if copies:
-            copy_pages(self.cache, [s for s, _ in copies],
-                       [d for _, d in copies], self.kv.n_pages)
+            self.cache = self._copy(self.cache, [s for s, _ in copies],
+                                    [d for _, d in copies], self.kv.n_pages)
 
     # ---------------- device block-table mirror ----------------
     def _sync_block_tables(self) -> None:
@@ -322,23 +345,26 @@ class ServeEngine:
                  if self._bt_applied[s] != self.kv.bt_version[s]]
         if not dirty:
             return
-        self._bt_dev[self._ints(dirty).long()] = self._ints(
-            self.kv.block_tables[dirty])
+        self._bt_dev = self._bt_update(
+            self._bt_dev, np.asarray(dirty, np.int32),
+            np.asarray(self.kv.block_tables[dirty], np.int32))
         for s in dirty:
             self._bt_applied[s] = self.kv.bt_version[s]
 
-    def _bt_slice(self, slot, n_tokens) -> torch.Tensor:
+    def _bt_slice(self, slot, n_tokens) -> np.ndarray:
         """Block-table row cut to the pages covering n_tokens, so the
         extend path gathers only live pages (its width changes from
-        chunk to chunk; nothing caches it)."""
+        chunk to chunk)."""
         npg = self.kv.pages_for(n_tokens)
-        return self._ints(self.kv.block_tables[slot:slot + 1, :npg])
+        return np.asarray(self.kv.block_tables[slot:slot + 1, :npg],
+                          np.int32)
 
-    def _extend(self, tokens, start, bt, n_valid):
+    def _extend_pass(self, tokens, start, bt, n_valid):
         """One extend pass of one sequence: (last valid logits, cache)."""
-        logits, self.cache = extend_paged(
-            self.cfg, self.params, self.cache, self._ints(tokens[None]),
-            self._ints([start]), bt, self._ints([n_valid]))
+        logits, self.cache = self._extend(
+            self.params, self.cache, tokens[None],
+            np.asarray([start], np.int32), bt,
+            np.asarray([n_valid], np.int32))
         return logits
 
     # ---------------- admission ----------------
@@ -374,7 +400,8 @@ class ServeEngine:
             padded[:nv] = e.prompt[N:]
             self.kv.ensure(e.slot, L)
             self._apply_copies(self.kv.cow_for_write(e.slot, N, L))
-            logits = self._extend(padded, N, self._bt_slice(e.slot, L), nv)
+            logits = self._extend_pass(padded, N,
+                                       self._bt_slice(e.slot, L), nv)
             self.stats["prefill_tokens"] += nv
         elif self._extend_prefill:
             # sliding-window layers: the whole prompt in one extend pass
@@ -382,27 +409,25 @@ class ServeEngine:
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
             self.kv.ensure(e.slot, L)
-            logits = self._extend(padded, 0, self._bt_slice(e.slot, L), L)
+            logits = self._extend_pass(padded, 0,
+                                       self._bt_slice(e.slot, L), L)
         elif self.cache_kind == "paged":
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
             self.kv.ensure(e.slot, L)
-            logits, row_cache = prefill(self.cfg, self.params,
-                                        self._ints(padded[None, :]),
-                                        len(padded), last_pos=self._ints(
-                                            [L - 1]))
+            logits, row_cache = self._prefill(
+                self.params, padded[None, :], np.asarray([L - 1], np.int32),
+                len(padded))
             npg = -(-len(padded) // self.page_size)
             ids = self.kv.owned_pages(e.slot)
             ids = (ids + [0] * npg)[:npg]       # null-page pad: never written
-            scatter_prefill_cache(self.cfg, self.cache, row_cache, e.slot,
-                                  ids, L)
+            self.cache = self._scatter(self.cache, row_cache, e.slot, ids, L)
         else:
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
-            logits, row_cache = prefill(self.cfg, self.params,
-                                        self._ints(padded[None, :]),
-                                        self.max_len, last_pos=self._ints(
-                                            [L - 1]))
+            logits, row_cache = self._prefill(
+                self.params, padded[None, :], np.asarray([L - 1], np.int32),
+                self.max_len)
             for layer, one in zip(self.cache, row_cache):
                 for name, leaf in layer.items():
                     leaf[e.slot] = one[name][0].to(leaf.dtype)
@@ -467,7 +492,8 @@ class ServeEngine:
         if not ok:
             return    # evicted while growing; it will be re-admitted
         self._apply_copies(copies)
-        logits = self._extend(padded, s, self._bt_slice(e.slot, s + nv), nv)
+        logits = self._extend_pass(padded, s,
+                                   self._bt_slice(e.slot, s + nv), nv)
         e.prefilled = s + nv
         self.stats["prefill_tokens"] += nv
         if e.prefilled >= len(e.prompt):
@@ -502,20 +528,16 @@ class ServeEngine:
             if not ready:
                 return
         t0 = time.time()
-        toks = self._ints(self.cur[:, None])
-        pos = self._ints(self.pos)
         if self.cache_kind == "paged":
             self._sync_block_tables()
-            live = np.zeros((self.B,), bool)
-            live[ready] = True
-            # inactive rows read and write the null page 0
-            bt = torch.where(torch.as_tensor(live, device=self.device)[:, None],
-                             self._bt_dev, 0)
-            logits, self.cache = decode_step_paged(
-                self.cfg, self.params, self.cache, toks, pos, bt.contiguous())
+            live = np.zeros((self.B,), np.int32)
+            live[ready] = 1       # inactive rows read and write the null page
+            logits, self.cache = self._decode(
+                self.params, self.cache, self.cur[:, None], self.pos,
+                self._bt_dev, live, self._null_row)
         else:
-            logits, self.cache = decode_step(self.cfg, self.params,
-                                             self.cache, toks, pos)
+            logits, self.cache = self._decode(self.params, self.cache,
+                                              self.cur[:, None], self.pos)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         self._sync()
         self.stats["decode_s"] += time.time() - t0
@@ -576,24 +598,24 @@ class ServeEngine:
         self._sync_block_tables()
         base_pos = self.pos.copy()
         ke_arr = np.zeros((self.B,), np.int32)
-        live = np.zeros((self.B,), bool)
+        live = np.zeros((self.B,), np.int32)
         for s in ready:
             ke_arr[s] = k_eff[s]
-            live[s] = True
-        cur = self._ints(self.cur)
-        draft, self.cache = draft_propose_paged(
-            self.cfg, self.draft_params, self.cache, cur,
-            self._ints(base_pos), self._bt_dev, self._ints(ke_arr),
-            self._null_row, k)
+            live[s] = 1
+        draft, self.cache = self._draft_propose(
+            self.draft_params, self.cache, self.cur, base_pos, self._bt_dev,
+            ke_arr, self._null_row, k)
         # verify: dead rows read and write the null page at position 0
-        # with no valid token; the tokens are assembled on the device
-        bt = torch.where(torch.as_tensor(live, device=self.device)[:, None],
-                         self._bt_dev, self._null_row[:, None])
-        logits_all, self.cache = verify_paged(
-            self.cfg, self.params, self.cache,
-            torch.cat([cur[:, None], draft], dim=1),
-            self._ints(np.where(live, base_pos, 0)), bt.contiguous(),
-            self._ints(np.where(live, ke_arr + 1, 0)))
+        # with no valid token. The tokens are assembled on the device, in
+        # a tensor of the engine's own: on the card `draft` is a graph's
+        # output, which the verify replay may overwrite
+        toks = torch.cat([self._ints(self.cur)[:, None], draft], dim=1)
+        draft = toks[:, 1:]
+        logits_all, self.cache = self._verify(
+            self.params, self.cache, toks,
+            np.where(live > 0, base_pos, 0).astype(np.int32), self._bt_dev,
+            np.where(live > 0, ke_arr + 1, 0).astype(np.int32), live,
+            self._null_row)
         keep = None
         if self.accept_rule == "typical":
             # the target's probabilities of the draft tokens against its

@@ -127,6 +127,9 @@ class PagedKVCache:
     def refcount(self, pid: int) -> int:
         return int(self._refcount[pid])
 
+    def utilization(self) -> float:
+        return self.used_pages / max(self.usable_pages, 1)
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-max(n_tokens, 1) // self.page_size)
 

@@ -90,6 +90,9 @@ class StateSlabPool:
         n_mamba = sum(1 for s in self.cfg.layer_specs() if s.kind != "attn")
         return (ssm + conv) * n_mamba
 
+    def pool_bytes(self) -> int:
+        return self.bytes_per_slab() * self.n_slabs
+
     # ---------------- lifecycle ----------------
     def alloc(self, slot: int) -> int:
         """Claim a slab for `slot`; raises OutOfPages (allocating

@@ -9,10 +9,10 @@ Every field is a real field: a mistyped stats key is an AttributeError
 here, not a silent 0 from `.get()`, and `as_dict()` gives the
 JSON-ready form. The field names are the reference's.
 
-The compile-cache fields read 0 on the port, and are kept so that
-records of both packages have one schema: PyTorch runs eagerly, so
-there is nothing to compile or share between engines. The slab fields
-read 0 unless the engine holds a state slab pool (Mamba layers, paged).
+The compile-cache fields are serve/compile_cache.py's process-wide
+entries, hits and misses, counted as the reference counts its own. The
+slab fields read 0 unless the engine holds a state slab pool (Mamba
+layers, paged).
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ class EngineStats:
     prefix_cached_pages: int = 0
     prefix_evictions: int = 0
 
-    # jit compile cache: always 0 on the port (eager PyTorch)
+    # process-wide step cache (serve/compile_cache.py)
     compile_cache_entries: int = 0
     compile_cache_hits: int = 0
     compile_cache_misses: int = 0
@@ -99,13 +99,17 @@ class EngineStats:
     def capture(cls, engine) -> "EngineStats":
         """Snapshot a ServeEngine now: its accumulator dict, a fresh
         scheduler summary (so mid-run captures see current requests,
-        not the last run()'s), and the pool and index counters."""
+        not the last run()'s), and the pool, index and compile-cache
+        counters."""
+        from repro_torch.serve import compile_cache
+
         s = dict(engine.stats)
         s.update(engine.sched.metrics_summary(engine._entries))
         speculate = int(getattr(engine, "speculate", 0))
         drafted = int(s.get("draft_tokens", 0))
         accepted = int(s.get("accepted_tokens", 0))
         kv = engine.kv
+        cc = compile_cache.stats()
         fields = {
             "prefill_s": float(s.get("prefill_s", 0.0)),
             "decode_s": float(s.get("decode_s", 0.0)),
@@ -145,5 +149,8 @@ class EngineStats:
             "prefix_tokens_saved": int(s.get("prefix_tokens_saved", 0)),
             "prefix_cached_pages": int(s.get("prefix_cached_pages", 0)),
             "prefix_evictions": int(s.get("prefix_evictions", 0)),
+            "compile_cache_entries": int(cc["entries"]),
+            "compile_cache_hits": int(cc["hits"]),
+            "compile_cache_misses": int(cc["misses"]),
         }
         return cls(**fields)

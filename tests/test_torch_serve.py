@@ -22,12 +22,23 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import smoke_config as jax_smoke_config
+from repro.models import init_params as jax_init_params
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeEngine as JaxServeEngine
 from repro.serve.engine import bucket_len as jax_bucket_len
-from repro_torch.ckpt import load_packed
-from repro_torch.configs import get_config
+from repro.serve.kv_cache import OutOfPages as JaxOutOfPages
+from repro.serve.kv_cache import PagedKVCache as JaxPagedKVCache
+from repro.serve.state_slab import StateSlabPool as JaxStateSlabPool
+from repro_torch.ckpt import load_packed, params_from_tree
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch.serve import main as launch_main
 from repro_torch.serve import (OutOfPages, PagedKVCache, Request,
                                ServeEngine, bucket_len)
+from repro_torch.serve.state_slab import StateSlabPool
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -147,6 +158,136 @@ def test_preemption_keeps_greedy_output():
     assert eng.sched.preemptions > 0
     assert tight == roomy
     check_drained(eng.kv)
+
+
+# ---------------------------------------------------------------------------
+# the reference's engine arguments and pool accounting
+# ---------------------------------------------------------------------------
+
+_TINY: dict = {}
+
+
+def _tiny():
+    """tiny-lm cut as the reference's serving tests cut it, in both
+    packages, with the reference's init_params carried across."""
+    if not _TINY:
+        kw = {"dtype": "float32", "n_layers": 2, "d_model": 64, "d_ff": 128}
+        jcfg = jax_get_config("tiny-lm").replace(remat="none", **kw)
+        jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
+        _TINY.update(cfg=get_config("tiny-lm").replace(**kw), jcfg=jcfg,
+                     jp=jp, p=params_from_tree(jax.tree.map(np.asarray, jp),
+                                               device="cpu"))
+    return _TINY
+
+
+def test_exact_length_prefill_gives_the_bucketed_tokens():
+    """bucket_prompts=False prefills at the prompt's exact length and
+    gives the bucketed engine's tokens, which are the reference's
+    (tests/test_serve.py:63)."""
+    m = _tiny()
+    kw = dict(batch_size=2, max_len=64, dtype="float32")
+    for L in (9, 10, 13):
+        prompt = (np.arange(L) * 5 + L).astype(np.int32) % m["cfg"].vocab_size
+        outs = []
+        for bucket in (True, False):
+            eng = ServeEngine(m["cfg"], m["p"], bucket_prompts=bucket,
+                              device="cpu", **kw)
+            req = Request(prompt=prompt, max_new_tokens=5)
+            eng.run([req])
+            assert eng._bucket is bucket
+            outs.append(req.out)
+        jreq = JaxRequest(prompt=prompt, max_new_tokens=5)
+        JaxServeEngine(m["jcfg"], m["jp"], bucket_prompts=False,
+                       **kw).run([jreq])
+        assert outs[0] == outs[1] == jreq.out, L
+
+
+@pytest.mark.parametrize("watermark", [0, 2])
+def test_watermark_admits_like_the_reference(watermark):
+    """A small page pool under the scheduler's watermark: the same
+    admissions, preemptions, page counts and tokens as the reference's
+    engine at that watermark."""
+    m = _tiny()
+    kw = dict(batch_size=4, max_len=64, dtype="float32", cache_kind="paged",
+              page_size=8, n_pages=9, watermark=watermark,
+              prefix_sharing=False)
+    prompts = [(np.arange(L) * 7 + L).astype(np.int32) % m["cfg"].vocab_size
+               for L in (12, 15, 9, 14, 11)]
+    eng = ServeEngine(m["cfg"], m["p"], device="cpu", **kw)
+    jeng = JaxServeEngine(m["jcfg"], m["jp"], **kw)
+    reqs = [Request(prompt=p, max_new_tokens=10) for p in prompts]
+    jreqs = [JaxRequest(prompt=p, max_new_tokens=10) for p in prompts]
+    eng.run(reqs)
+    jeng.run(jreqs)
+    assert eng.sched.watermark == jeng.sched.watermark == watermark
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    for key in ("n_done", "preemptions", "kv_high_water_pages",
+                "pages_allocated", "ticks", "tokens", "prefill_tokens"):
+        assert eng.stats[key] == jeng.stats[key], key
+    admits = lambda e: [x.req.prompt.tolist() for x in sorted(
+        e._entries, key=lambda x: x.metrics.t_admit)]
+    assert admits(eng) == admits(jeng)
+    assert ServeEngine(m["cfg"], m["p"], batch_size=2, max_len=64,
+                       watermark=3, device="cpu").sched.watermark == 0
+
+
+def test_greedy_false_raises():
+    m = _tiny()
+    with pytest.raises(NotImplementedError, match="only greedy decode"):
+        ServeEngine(m["cfg"], m["p"], greedy=False, device="cpu")
+    assert ServeEngine(m["cfg"], m["p"], greedy=True, device="cpu").greedy
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_kv_utilization_matches_reference(seed):
+    """PagedKVCache.utilization() op by op against the reference's under
+    random alloc / ensure / release traffic."""
+    cfg = get_config("tiny-lm").replace(n_layers=1)
+    jcfg = jax_get_config("tiny-lm").replace(n_layers=1)
+    kw = dict(n_pages=9, page_size=4, max_seqs=3, max_pages_per_seq=4,
+              create_pool=False)
+    kv, jkv = PagedKVCache(cfg, **kw), JaxPagedKVCache(jcfg, **kw)
+    rng = np.random.default_rng(seed)
+    lens = {}
+    for _ in range(150):
+        op = rng.integers(0, 3)
+        if op == 0:
+            s = kv.alloc_slot()
+            assert s == jkv.alloc_slot()
+            if s is not None:
+                lens[s] = 0
+        elif op == 1 and lens:
+            s = int(rng.choice(list(lens)))
+            n = lens[s] + int(rng.integers(1, 6))
+            raised = []
+            for pool, err in ((kv, OutOfPages), (jkv, JaxOutOfPages)):
+                try:
+                    pool.ensure(s, n)
+                except err:
+                    raised.append(pool)
+            assert len(raised) in (0, 2)
+            if not raised:
+                lens[s] = n
+        elif op == 2 and lens:
+            s = int(rng.choice(list(lens)))
+            kv.release(s)
+            jkv.release(s)
+            del lens[s]
+        assert kv.utilization() == jkv.utilization()
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "tiny-lm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slab_pool_bytes_match_reference(arch, dtype):
+    cfg = (get_config if arch == "tiny-lm" else smoke_config)(arch)
+    jcfg = (jax_get_config if arch == "tiny-lm" else jax_smoke_config)(arch)
+    for n in (2, 5):
+        mine = StateSlabPool(cfg, n_slabs=n, max_seqs=4, dtype=dtype)
+        ref = JaxStateSlabPool(jcfg, n_slabs=n, max_seqs=4, dtype=dtype)
+        assert mine.pool_bytes() == ref.pool_bytes()
+        assert mine.pool_bytes() == n * mine.bytes_per_slab()
+    assert (mine.pool_bytes() > 0) == (arch != "tiny-lm")
 
 
 def test_allocator_invariants_under_random_traffic():

@@ -46,13 +46,14 @@ from repro.models import init_params as jax_init_params
 from repro.models import model as jmodel
 from repro.quant import draft as jdraft
 from repro.serve import Request as JaxRequest
+from repro.serve import compile_cache as jax_compile_cache
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.ckpt import load_draft_scales, load_packed, params_from_tree
 from repro_torch.configs import get_config
 from repro_torch.models import model as tmodel
 from repro_torch.quant import (QuantizedTensor, draft_extra_bytes,
                                make_draft_params)
-from repro_torch.serve import EngineStats, Request, ServeEngine
+from repro_torch.serve import EngineStats, Request, ServeEngine, compile_cache
 from test_torch_ckpt import FIXTURE, _flat_port
 from test_torch_extend import _check_pools
 from test_torch_model import close_logits, port_cfg
@@ -332,11 +333,9 @@ def artifact(tmp_path_factory):
 
 
 # fields the port's EngineStats reads as 0 by construction, and timings
-NOT_COMPARED = {"compile_cache_entries", "compile_cache_hits",
-                "compile_cache_misses", "slab_usable_slabs",
-                "slab_high_water", "slabs_allocated", "slab_bytes_per_slab",
-                "prefill_s", "decode_s", "ttft_avg_s", "tpot_avg_s",
-                "ttft_samples_s", "tpot_samples_s"}
+NOT_COMPARED = {"slab_usable_slabs", "slab_high_water", "slabs_allocated",
+                "slab_bytes_per_slab", "prefill_s", "decode_s", "ttft_avg_s",
+                "tpot_avg_s", "ttft_samples_s", "tpot_samples_s"}
 
 
 def test_speculative_engine_matches_reference(artifact):
@@ -351,6 +350,10 @@ def test_speculative_engine_matches_reference(artifact):
     reqs = [(p, REF["max_new"]) for p in prompts]
     kw = dict(batch_size=BATCH, max_len=64, dtype="float32",
               cache_kind="paged", page_size=8, speculate=2)
+    # both process-wide step caches from empty, so their counters (the
+    # compile_cache_* fields) count these two engines alone
+    jax_compile_cache.clear()
+    compile_cache.clear()
     jeng = JaxServeEngine(jcfg, artifact["jp"],
                           draft_params=artifact["jdp"], **kw)
     teng = ServeEngine(cfg, artifact["params"], draft_params=artifact["dp"],
