@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-ten phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9, 10: phase 8 runs on
-phase 3's model before it is freed, and 7, 5, 9 and 10 each free their
-own); any failure is a non-zero exit.
+eleven phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9, 10, 11: phase 8
+runs on phase 3's model before it is freed, and 7, 5, 9 and 10 each
+free their own); any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -30,7 +30,9 @@ own); any failure is a non-zero exit.
      36864->4608, falcon-mamba-7b's 4096->16384 and 8192->4096, the
      expert kernel at jamba-1.5-large's 16 experts of 8192<->24576, and
      attention at gemma2's (rep 2, window, cap 50) and jamba's (rep 8)
-     geometries; the GEMM at phase 10's perplexity shape (M = 2048 on
+     geometries, and fp attention at head_dim 16 (the zoo's smoke
+     configs: rep 1, 2, 4 and 16, windows, caps, long contexts); the
+     GEMM at phase 10's perplexity shape (M = 2048 on
      llama2-7b's three shapes) and at MLA's latent expansion (M = 768,
      256 -> 5120), with plain and torch.matmul times; after the build, the
      GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
@@ -46,7 +48,11 @@ own); any failure is a non-zero exit.
   3. main path at full width: seeded synthetic w3 per-channel packed
      llama2-7b (32 layers) served by the paged engine, 4 requests with
      16-100 token prompts and 32 new tokens each, with per-kernel launch
-     counts.
+     counts; a `dryrun_check` line: the dry run's w3 stand-ins
+     (quant/abstract.py) have the served leaves' shapes and their code
+     and scale bytes, exactly, and its FLOPs, memory term and bound of
+     the batch-4 decode step stand beside the graph's measured device
+     ms a step.
   4. binary-coded KV at full width: phase 3's model and requests with
      4-bit KV pages (one group per head vector).
   5. MoE at full width: seeded synthetic w3 per-channel qwen3-moe-235b-a22b
@@ -124,7 +130,18 @@ own); any failure is a non-zero exit.
      the batched-expert kernel; (d) hubert-xlarge at full width (48
      layers, frames (2, 256, 1280)): one loss and its gradients, finite
      (`train_path_encoder`). The packed evaluations launch the GEMM and
-     the expert kernel and nothing else, never the plain BCQ path.
+     the expert kernel and nothing else, never the plain BCQ path. A
+     `dryrun_check` line: the dry run of (a)'s step has the Trainer's
+     parameter and AdamW element counts, its model FLOPs are what the
+     model-FLOP share divides by, and its peak of live storages stands
+     beside the measured peak memory.
+ 11. the dry run (launch/dryrun.py) on the meta device: the 32 (arch x
+     shape) cells of the ten pool architectures at bf16, then the 22
+     inference cells w3 packed, DRYRUN_JOBS at once in worker
+     processes, a `dryrun` line each (bytes of params, cache and train
+     state, peak of live storages against the card's 80 GB, the three
+     roofline terms and the bound); a cell that fails fails the run.
+     Nothing runs on the card.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
 propose pass and verify come from serve/compile_cache.py: on the card
@@ -169,11 +186,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_port"
-
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12        # CUDA cores: the GEMV, attention
-TF32_FLOPS = 495e12       # tensor cores: the GEMM's TF32 passes
 
 # tolerances, relative to max|reference| of each output
 TOL_FP32 = 2e-5       # fp32 sums of up to 11008 products in another order
@@ -257,6 +269,8 @@ def kernel_ms(fn, iters: int) -> dict:
     holds no kernel ("device_ms" None) only the event time is known."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
     event = cuda_ms(fn, iters)
     if DEV != "cuda":
         return {"device_ms": None, "event_ms": event}
@@ -264,28 +278,12 @@ def kernel_ms(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    us = sum(kernel_time_by_name(traced_kernels(prof)).values())
     return {"device_ms": us / 1e3 / iters if us else None, "event_ms": event}
 
 
 def best_ms(t: dict) -> float:
     return t["device_ms"] if t["device_ms"] is not None else t["event_ms"]
-
-
-def bound_ms(n_bytes: float, flops: float, peak: float = FP32_FLOPS):
-    """The least time of the work: its bytes at the HBM rate or its
-    operations at `peak`, whichever is longer, and which it was."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def gemm_arithmetic(x_dtype) -> tuple:
-    """The tensor-core GEMM's arithmetic for x of `x_dtype`: three TF32
-    passes for fp32 x (3xTF32), one for bf16 x; (name, passes)."""
-    import torch
-    return ("tf32", 1) if x_dtype == torch.bfloat16 else ("tf32x3", 3)
 
 
 def sass_functions(out: Path, lib: str) -> list:
@@ -568,6 +566,7 @@ def summarize_bcq(gen, name, M, K, N, planes=3):
     from repro_torch.kernels.bcq_matmul import (_bcq_matmul_plain, bcq_gemv,
                                                 bcq_matmul)
     from repro_torch.kernels.ref import dequant_ref
+    from repro_torch.roofline.analysis import bcq_bound_ms, bcq_work
     fn = bcq_gemv if name == "bcq_gemv" else bcq_matmul
     n_copy = max(2, -(-100_000_000 // (3 * K * N // 8)))
     ops = [draft_operands(q, planes) for q in
@@ -588,21 +587,15 @@ def summarize_bcq(gen, name, M, K, N, planes=3):
     w = dequant_ref(*q0, K)
     lib_ms = best_ms(kernel_ms(lambda: torch.matmul(x, w), 20))
     # the active planes' code words, the scales, x and y
-    n_bytes = (sum(a.numel() * a.element_size() for a in q0)
-               + 4 * M * K + 4 * M * N)
-    row = {}
-    if name == "bcq_gemv":
-        b, by = bound_ms(n_bytes, 2.0 * M * K * N)
-        row["arithmetic"] = "fp32"
-    else:
+    b, by, arith = bcq_bound_ms(bcq_work(M, K, N, planes, 1), M)
+    row = {"arithmetic": arith}
+    if name == "bcq_matmul":
         from repro_torch.kernels.bcq_matmul import gemm_launch_shape
-        arith, passes = gemm_arithmetic(x.dtype)
-        b, by = bound_ms(n_bytes, passes * 2.0 * M * K * N, TF32_FLOPS)
         tile, ntiles, splits = gemm_launch_shape(
             M, K // 32, N, torch.cuda.get_device_properties(
                 0).multi_processor_count if DEV == "cuda" else 132)
-        row.update({"arithmetic": arith, "token_tile": tile,
-                    "token_tiles": ntiles, "k_splits": splits})
+        row.update({"token_tile": tile, "token_tiles": ntiles,
+                    "k_splits": splits})
     return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, **row, "library_ms": lib_ms,
             "event_ms": t["event_ms"],
@@ -634,11 +627,29 @@ def paged_case(gen, B, Hkv, rep, hd, page, ctx, dtype):
     return q, kp, vp, bt, cl
 
 
-def check_paged(gen):
+# head_dim 16, every smoke config of the zoo: jamba's (Hkv 2, rep 2) and
+# rep 1 (half of the P . V threads idle), 4 and 16, windows, caps,
+# several partitions a block
+HD16_CASES = (
+    dict(B=4, Hkv=2, rep=2, hd=16, page=64, ctx=[16, 45, 77, 131],
+         window=None, cap=None),
+    dict(B=3, Hkv=2, rep=1, hd=16, page=16, ctx=[700, 1, 333],
+         window=None, cap=None),
+    dict(B=3, Hkv=3, rep=4, hd=16, page=16, ctx=[40, 23, 9],
+         window=8, cap=5.0),
+    dict(B=2, Hkv=2, rep=16, hd=16, page=16, ctx=[700, 999],
+         window=301, cap=30.0),
+)
+
+
+def check_paged(gen, cases=None):
+    """paged_attention against its plain version at each case (default:
+    the main paths' geometries); a case whose second context is 1 runs
+    that row on the null page only."""
     import torch
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    cases = [
+    cases = cases or [
         # main path: llama2-7b decode, batch 4, ragged contexts
         dict(B=4, Hkv=32, rep=1, hd=128, page=64, ctx=[17, 64, 100, 160],
              window=None, cap=None),
@@ -696,6 +707,7 @@ def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.roofline.analysis import bound_ms, paged_attention_work
     B = len(ctx)
     q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
                                    torch.float32)
@@ -714,10 +726,9 @@ def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX):
     qs = q.reshape(B, Hkv * rep, 1, hd)
     lib_ms = best_ms(kernel_ms(lambda: F.scaled_dot_product_attention(
         qs, k, v, attn_mask=mask, enable_gqa=True), 200))
-    tokens = sum(ctx)
-    n_bytes = (2 * tokens * Hkv * hd * 4 + 2 * q.numel() * 4
-               + bt.numel() * 4 + cl.numel() * 4)
-    b, by = bound_ms(n_bytes, 4.0 * tokens * Hkv * rep * hd)
+    w = paged_attention_work(sum(ctx), B, Hkv, rep, hd, T,
+                             kv_bytes_per_token_head=hd * 4)
+    b, by = bound_ms(w["bytes"], w["flops"])
     return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
             "event_ms": t["event_ms"],
@@ -845,6 +856,7 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
     from repro_torch.kernels.paged_attention import paged_attention_quant
     from repro_torch.kernels.ref import paged_attention_quant_ref
     from repro_torch.quant.kv import kv_bytes_per_token_head, kv_dequantize
+    from repro_torch.roofline.analysis import bound_ms, paged_attention_work
     B = len(ctx)
     q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
                                    torch.float32)
@@ -876,10 +888,10 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
         return F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask,
                                               enable_gqa=True)
     full = kernel_ms(whole, 50)
-    tokens = sum(ctx)
-    n_bytes = (2 * tokens * Hkv * kv_bytes_per_token_head(hd, bits, hd // G)
-               + 2 * q.numel() * 4 + bt.numel() * 4 + cl.numel() * 4)
-    b, by = bound_ms(n_bytes, 4.0 * tokens * Hkv * rep * hd)
+    w = paged_attention_work(
+        sum(ctx), B, Hkv, rep, hd, T,
+        kv_bytes_per_token_head=kv_bytes_per_token_head(hd, bits, hd // G))
+    b, by = bound_ms(w["bytes"], w["flops"])
     return {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
             "library_gets": "K/V gathered and expanded to fp32 beforehand",
@@ -986,9 +998,9 @@ def summarize_expert(gen, E=128, M=4, K=4096, N=1536, routed=True):
     is written whole), and the line also times every row (rows=None).
     M > 8 runs the tensor-core GEMM body: its bound is its TF32 passes."""
     import torch
-    from repro_torch.hw import GEMV_ROWS
     from repro_torch.kernels.bcq_matmul import (_bcq_expert_plain,
                                                 bcq_expert_matmul)
+    from repro_torch.roofline.analysis import bcq_bound_ms, bcq_work
     qt = random_qt(gen, K, N, 0, torch.float32, E=E)
     c, a, b = qt.codes, qt.alphas, qt.betas
     x = torch.randn((E, M, K), generator=gen, device=DEV)
@@ -1004,15 +1016,8 @@ def summarize_expert(gen, E=128, M=4, K=4096, N=1536, routed=True):
     del w
     live = [M] * E if rows is None else rows.tolist()
     used = sum(n > 0 for n in live)
-    n_bytes = (qt.packed_bytes() * used / E + 4 * sum(live) * K
-               + 4 * E * M * N)
-    if M <= GEMV_ROWS:
-        bd, by = bound_ms(n_bytes, 2.0 * sum(live) * K * N)
-        arith = "fp32"
-    else:
-        arith, passes = gemm_arithmetic(x.dtype)
-        bd, by = bound_ms(n_bytes, passes * 2.0 * sum(live) * K * N,
-                          TF32_FLOPS)
+    bd, by, arith = bcq_bound_ms(bcq_work(M, K, N, 3, 1, live_rows=live,
+                                          E=E), M)
     row = {"max_abs_err": err, "ms": best_ms(t), "plain_ms": plain_ms,
            "bound_ms": bd, "bound_by": by, "arithmetic": arith,
            "library_ms": lib_ms,
@@ -1022,14 +1027,14 @@ def summarize_expert(gen, E=128, M=4, K=4096, N=1536, routed=True):
            "timing": "profiler" if t["device_ms"] else "cuda_events",
            "shape": f"E={E} M={M} K={K} N={N} w3 per-channel fp32 scales"}
     if rows is not None:
-        whole = qt.packed_bytes() + 4 * E * M * K + 4 * E * M * N
         row.update({
             "rows": f"batch-4 top-8 routing, {used} live experts, "
                     f"{sum(live)} live rows",
             "live_experts": used,
             "ms_every_row": best_ms(kernel_ms(
                 lambda: bcq_expert_matmul(x, c, a, b), 50)),
-            "bound_ms_every_row": bound_ms(whole, 2.0 * E * M * K * N)[0]})
+            "bound_ms_every_row": bcq_bound_ms(bcq_work(M, K, N, 3, 1, E=E),
+                                               M)[0]})
     return row
 
 
@@ -1326,6 +1331,7 @@ def _code_bytes(params) -> int:
 
 
 PROMPT_LENS = [16, 45, 77, 100]
+SERVE_MAX_LEN = 160       # the engines' max_len (phases 3-5, 8 and 9)
 
 
 def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
@@ -1342,7 +1348,7 @@ def serve_path(name, cfg, params, seed, kv_bits=0, max_new=32, **spec):
                for n in PROMPT_LENS]
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
                       dtype="float32", cache_kind="paged", page_size=64,
                       kv_bits=kv_bits, prefix_sharing=False, device=DEV,
                       **spec)
@@ -1479,9 +1485,86 @@ def phase_main_path(seed: int, model, build_s: float):
             and counts["bcq_expert_matmul"] == 0,
             f"main path: launches {counts}")
     paged_vs_dense("main_path", cfg, params, prompts[0], outs[0])
-    profile_decode(cfg, params, prompts)
+    prof = profile_decode(cfg, params, prompts)
+    decode_dryrun_check(cfg, params, len(prompts), SERVE_MAX_LEN, prof)
     decode_step_sync(cfg, params, prompts)
     return counts, row, outs
+
+
+def decode_dryrun_check(cfg, params, batch, max_len, prof):
+    """The dry run (launch/dryrun.py) of the served model's decode step
+    on the meta device: w3 stand-ins from quant/abstract.py with the
+    served leaves' shapes leaf by leaf, their code bytes equal to
+    _code_bytes(params) and their scale bytes to the served scales',
+    exactly; then its FLOPs, bytes, memory term and bound (fp32, as
+    served; a dense cache of `max_len`) beside the graph's measured
+    device ms a step (`prof`, profile_decode's row) and the codes-only
+    bound."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.quant import QuantizedTensor
+    from repro_torch.roofline.analysis import (FP32_FLOPS, HBM_BYTES_PER_S,
+                                               CollectiveStats,
+                                               roofline_terms)
+    shape = ShapeSpec("decode_served", max_len, batch, "decode")
+    step, args, meta = dryrun.lower_cell(cfg, shape, quant_bits=3,
+                                         dtype="float32")
+    abstract = args[0]
+    fields = ("codes", "alphas", "betas")
+    mismatched, n_packed, code_b, scale_b, served_scale_b = [], 0, 0, 0, 0
+    for j, (la, ls) in enumerate(zip(abstract["layers"], params["layers"])):
+        for g in ("attn", "mlp", "moe"):
+            for k, w in ls.get(g, {}).items():
+                a = la[g][k]
+                if isinstance(w, QuantizedTensor) != isinstance(
+                        a, QuantizedTensor):
+                    mismatched.append(f"layers.{j}.{g}.{k}: packed "
+                                      f"{isinstance(w, QuantizedTensor)}")
+                    continue
+                if not isinstance(w, QuantizedTensor):
+                    continue
+                n_packed += 1
+                if any(tuple(getattr(a, f).shape) != tuple(getattr(w, f)
+                                                           .shape)
+                       for f in fields) or a.k_in != w.k_in:
+                    mismatched.append(f"layers.{j}.{g}.{k}")
+                code_b += a.codes.numel() * a.codes.element_size()
+                scale_b += sum(t.numel() * t.element_size()
+                               for t in (a.alphas, a.betas))
+                served_scale_b += sum(t.numel() * t.element_size()
+                                      for t in (w.alphas, w.betas))
+    traced = dryrun.trace_cell(step, args)
+    cost = traced["cost"]
+    terms = roofline_terms({"flops": cost["flops"],
+                            "bytes accessed": cost["bytes"]},
+                           CollectiveStats(), FP32_FLOPS)
+    row = {"check": "dryrun_check", "path": "main_path decode", "model":
+           cfg.name, "shape": f"decode, batch {batch}, dense cache of "
+                              f"{max_len} (the engine's max_len), fp32",
+           "packed_leaves": n_packed, "mismatched_leaves": mismatched,
+           "code_bytes_abstract": code_b,
+           "code_bytes_served": _code_bytes(params),
+           "scale_bytes_abstract": scale_b,
+           "scale_bytes_served": served_scale_b,
+           "params_bytes_packed": meta["params_bytes_packed"],
+           "dryrun_flops": cost["flops"], "dryrun_bytes": cost["bytes"],
+           "kernel_calls": cost["kernels"]["calls"],
+           "t_memory_ms": 1e3 * terms["t_memory_s"],
+           "t_compute_ms_fp32": 1e3 * terms["t_compute_s"],
+           "bound_ms": 1e3 * terms["t_bound_s"], "bound": terms["bound"],
+           "codes_only_bound_ms": 1e3 * code_b / HBM_BYTES_PER_S,
+           "measured_graph_device_ms_per_step":
+               prof.get("graph_device_busy_ms_per_step"),
+           "peak_live_bytes_est": traced["memory"]["peak_live_bytes_est"]}
+    emit(row)
+    require(n_packed > 0 and not mismatched,
+            f"dry run: packed leaves differ from the served ones: "
+            f"{mismatched[:4]}")
+    require(code_b == row["code_bytes_served"]
+            and scale_b == served_scale_b,
+            f"dry run: code / scale bytes {code_b} / {scale_b} against the "
+            f"served {row['code_bytes_served']} / {served_scale_b}")
+    return row
 
 
 def phase_kv_bits(seed: int, model, kv_bits: int = 4):
@@ -2386,12 +2469,6 @@ def phase_quantize(seed: int, arch: str = "llama2-7b",
     return counts, row
 
 
-def _traced_kernels(prof):
-    import torch
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 def _state_snapshot(pool, n_pages):
     """Copies of a pool's leaves that a decode step advances rather than
     rewrites (Mamba state rows), to put back with _restore."""
@@ -2415,6 +2492,8 @@ def graph_decode_profile(cfg, params, pool, bt, pos, steps):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step_paged
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
     from repro_torch.serve import compile_cache
     B = len(pos)
     step = compile_cache.get("decode_paged", cfg)
@@ -2442,8 +2521,8 @@ def graph_decode_profile(cfg, params, pool, bt, pos, steps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(2 * steps)
-    kernels = _traced_kernels(prof)
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    kernels = traced_kernels(prof)
+    busy = sum(kernel_time_by_name(kernels).values()) / 1e3 / steps
     return {"graph_wall_ms_per_step": wall,
             "graph_device_busy_ms_per_step": busy,
             "graph_device_idle_share": (1 - busy / wall) if busy else None,
@@ -2466,6 +2545,8 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step_paged
     from repro_torch.quant.kv import kv_quantize
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 top_kernels, traced_kernels)
     B = len(prompts)
     pool, bt, pos = prefilled_pool(cfg, params, prompts, kv_bits)
     tok = torch.zeros((B, 1), dtype=torch.long, device=DEV)
@@ -2483,12 +2564,9 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
         t0 = time.perf_counter()
         run(2 * steps)
         traced = (time.perf_counter() - t0) / steps
-    kernels = _traced_kernels(prof)
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernels = traced_kernels(prof)
+    by_name = kernel_time_by_name(kernels)
     busy = sum(by_name.values()) / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     row = {"check": "decode_profile", "path": tag, "batch": B,
            "kv_bits": kv_bits, "steps": steps,
            "wall_ms_per_step": untraced * 1e3,
@@ -2501,8 +2579,7 @@ def profile_decode(cfg, params, prompts, steps: int = 4, kv_bits: int = 0,
            # the GEMM's split-K second pass; the decode GEMV has none
            "splitk_reduce_per_step": sum("splitk_reduce" in e.name
                                          for e in kernels) / steps,
-           "top_kernels_ms_per_step": [
-               {"name": n[:80], "ms": us / 1e3 / steps} for n, us in top]}
+           "top_kernels_ms_per_step": top_kernels(by_name, steps)}
     row.update(graph_decode_profile(cfg, params, pool, bt, pos, steps))
     if kv_bits:
         new = torch.randn((2, B, cfg.n_kv_heads, cfg.resolved_head_dim),
@@ -2716,8 +2793,9 @@ def compile_cache_report(path: str) -> dict:
 def _device_profile(fn, steps):
     """fn() timed untraced over `steps` calls (synchronised), then traced:
     wall ms, device-busy ms and kernels per call, and the idle share."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
     fn()
     sync()
     t0 = time.perf_counter()
@@ -2730,9 +2808,8 @@ def _device_profile(fn, steps):
         for _ in range(steps):
             fn()
         sync()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    kernels = traced_kernels(prof)
+    busy = sum(kernel_time_by_name(kernels).values()) / 1e3 / steps
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall) if busy else None,
             "kernels": len(kernels) / steps}
@@ -3012,7 +3089,7 @@ def zoo_dense_tokens(name, cfg, params, prompts, want, max_new):
     must equal the paged engine's (`want`) up to a printed near-tie."""
     import torch
     from repro_torch.serve import Request, ServeEngine
-    eng = ServeEngine(cfg, params, batch_size=4, max_len=160,
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
                       dtype="float32", cache_kind="dense", device=DEV)
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     t0 = time.time()
@@ -3218,6 +3295,38 @@ def _tree_numel(tree) -> int:
     return sum(a.numel() for a in leaves(tree))
 
 
+def train_dryrun_check(cfg, trainer, batch, seq):
+    """The dry run (launch/dryrun.py) of the Trainer's step on the meta
+    device, at its config, batch, microbatches and optimizer: parameter
+    and AdamW state element counts equal the Trainer's tensors'; the
+    model FLOPs (roofline/analysis.py) the model-FLOP share divides by,
+    beside the traced step's FLOPs; the step's peak of live storages.
+    The row is emitted by train_path with the measured peak beside it."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.analysis import model_flops
+    shape = ShapeSpec("train_path", seq, batch, "train")
+    step, args, _ = dryrun.lower_cell(
+        cfg, shape, microbatches=trainer.tcfg.microbatches,
+        dtype=cfg.dtype, opt_cfg=trainer.tcfg.opt)
+    params, opt, _ = args
+    traced = dryrun.trace_cell(step, args)
+    row = {"check": "dryrun_check", "path": "train_path", "model": cfg.name,
+           "layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "params_elements": _tree_numel(params),
+           "trainer_params_elements": _tree_numel(trainer.params),
+           "adamw_elements": _tree_numel(opt),
+           "trainer_adamw_elements": _tree_numel(trainer.opt_state),
+           "model_flops": model_flops(cfg, shape),
+           "dryrun_flops": traced["cost"]["flops"],
+           "dryrun_bytes": traced["cost"]["bytes"],
+           "peak_live_bytes_est": traced["memory"]["peak_live_bytes_est"]}
+    require(row["params_elements"] == row["trainer_params_elements"]
+            and row["adamw_elements"] == row["trainer_adamw_elements"],
+            f"dry run: element counts differ from the Trainer's: {row}")
+    return row
+
+
 def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
                split=TRAIN_SPLIT):
     """(a) Run A trains `steps` steps; run B trains `split` steps, saves,
@@ -3228,6 +3337,7 @@ def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import batches, token_stream
+    from repro_torch.roofline.analysis import FP32_FLOPS
     from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
     cfg = get_config(arch).replace(dtype="float32", n_layers=n_layers,
                                    remat="full")
@@ -3260,6 +3370,7 @@ def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
         a = trainer("a", steps, batches(toks, batch, seq, seed=0),
                     write=False)
         n_params = _tree_numel(a.params)
+        dry = train_dryrun_check(cfg, a, batch, seq)
         a.run()
         peak = (torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda"
                 else None)
@@ -3289,8 +3400,11 @@ def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
     step_rows = [{"step": m["step"], "loss": m["loss"], "ms": 1e3 * m["sec"],
                   "tokens_per_s": tokens / m["sec"],
                   "model_flop_share_fp32_peak":
-                      6.0 * n_params * tokens / m["sec"] / FP32_FLOPS}
+                      dry["model_flops"] / m["sec"] / FP32_FLOPS}
                  for m in log_a]
+    dry.update({"peak_mem_gb_measured": peak,
+                "peak_live_gb_est": dry["peak_live_bytes_est"] / 1e9})
+    emit(dry)
     row = {"check": "train_path", "model": cfg.name,
            "depth": f"{n_layers} of {get_config(arch).n_layers} layers "
                     f"(cut for checkpoint bytes and time)",
@@ -3361,20 +3475,21 @@ def _gemm_profile(cfg, params, windows):
     if DEV != "cuda":
         return {}
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
     with torch.inference_mode():
         forward(cfg, params, x, remat="none")
         sync()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             forward(cfg, params, x, remat="none")
             sync()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    gemm = [e for e in ev if "bcq_tc_gemm" in e.name]
-    return {"forward_device_ms": sum(e.time_range.elapsed_us()
-                                     for e in ev) / 1e3,
-            "bcq_matmul_device_ms": sum(e.time_range.elapsed_us()
-                                        for e in gemm) / 1e3,
-            "bcq_matmul_kernels": len(gemm), "kernels": len(ev)}
+    ev = traced_kernels(prof)
+    by_name = kernel_time_by_name(ev)
+    return {"forward_device_ms": sum(by_name.values()) / 1e3,
+            "bcq_matmul_device_ms": sum(us for n, us in by_name.items()
+                                        if "bcq_tc_gemm" in n) / 1e3,
+            "bcq_matmul_kernels": sum("bcq_tc_gemm" in e.name for e in ev),
+            "kernels": len(ev)}
 
 
 class RTNPacked:
@@ -3584,9 +3699,61 @@ def phase_train_eval(seed, arch="llama2-7b", n_layers=TRAIN_LAYERS,
                     "table": table_row, "encoder": encoder_row}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dry run of every cell on the meta device
+# ---------------------------------------------------------------------------
+
+# cells traced at once, each in a process of its own (the host's cores;
+# no cell touches the card)
+DRYRUN_JOBS = 8
+
+
+def phase_dryrun(jobs=DRYRUN_JOBS):
+    """launch/dryrun.py's cells on the meta device, sized against the
+    card: the 32 (arch x shape) cells at bf16 and the 22 inference cells
+    w3 packed, `jobs` at once; a `dryrun` line each, and a failing cell
+    fails the phase. The costs are the full-depth trace's own count,
+    without the 2/3-group probes (`python -m repro_torch.launch.dryrun
+    --all` extrapolates them from the probes, to the same numbers)."""
+    from repro_torch.launch import dryrun
+    tasks = [(arch, shape, {"quant_bits": bits, "probe": False,
+                            "save": False})
+             for bits in (None, 3) for arch, shape in dryrun.cells(bits)]
+    rows = []
+    for r in dryrun.run_cells(tasks, jobs):
+        row = {"check": "dryrun", "arch": r["arch"], "shape": r["shape"],
+               "quant_bits": r["quant_bits"], "ok": r["ok"]}
+        if r["ok"]:
+            rf, mem = r["roofline"], r["memory"]
+            row.update({k: r[k] for k in (
+                "params_bytes_bf16", "params_bytes_packed", "cache_bytes",
+                "state_bytes", "t_trace_s", "t_probe_s") if k in r})
+            row.update({
+                "peak_live_bytes_est": mem["peak_live_bytes_est"],
+                "argument_bytes": mem["argument_bytes"],
+                "fits_device": mem["fits_device"],
+                "devices_for_peak": mem["devices_for_peak"],
+                "flops": rf["flops_per_device"],
+                "bytes": rf["bytes_per_device"],
+                "t_compute_s": rf["t_compute_s"],
+                "t_memory_s": rf["t_memory_s"],
+                "t_collective_s": rf["t_collective_s"],
+                "bound": rf["bound"], "t_bound_s": rf["t_bound_s"],
+                "model_flops": r["model_flops_global"],
+                "useful_flops_ratio": rf["useful_flops_ratio"]})
+        else:
+            row["error"] = r["error"]
+        emit(row)
+        rows.append(row)
+    bad = [(r["arch"], r["shape"], r["quant_bits"]) for r in rows
+           if not r["ok"]]
+    require(not bad, f"dry run: cells failed: {bad}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3655,7 +3822,11 @@ def main(argv=None) -> int:
             worst_q, n_q = check_bcq(gen, QWEN_SHAPES, GEMV_MS, ())
             worst["bcq_gemv"] = max(worst["bcq_gemv"], worst_q["bcq_gemv"])
             n_checks["bcq_gemv"] += n_q["bcq_gemv"]
-            worst["paged_attention"] = check_paged(gen)
+            # head_dim 16 from a generator of its own, so the later
+            # phase-1 lines get the inputs they would get without it
+            worst["paged_attention"] = max(check_paged(gen), check_paged(
+                torch.Generator(device=DEV).manual_seed(args.seed + 16),
+                HD16_CASES))
             worst["paged_attention_quant"] = max(
                 check_paged_quant(gen), check_paged_quant_grid(args.seed))
             worst["bcq_expert_matmul"], n_exact = check_expert(gen)
@@ -3783,6 +3954,10 @@ def main(argv=None) -> int:
             count("train_eval_path", counts)
             graphs("train_eval_path")
             phase_done(10, t0)
+        if 11 in phases:
+            t0 = time.time()
+            phase_dryrun()
+            phase_done(11, t0)
         torch.cuda.synchronize()
         # every kernel of the served paths ran inside a replayed graph:
         # the GEMV in each decode step, the GEMM in verify (phase 8), the

@@ -6,8 +6,10 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import paper_models as _paper
-from repro_torch.configs.base import (LayerSpec, MambaConfig, MLAConfig,
-                                      ModelConfig, MoEConfig, QuantConfig)
+from repro_torch.configs.base import (SHAPES, LayerSpec, MambaConfig,
+                                      MLAConfig, ModelConfig, MoEConfig,
+                                      QuantConfig, ShapeSpec,
+                                      runnable_shapes)
 from repro_torch.configs.chameleon_34b import CONFIG as _chameleon
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma2
@@ -76,5 +78,6 @@ def smoke_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "LayerSpec", "MoEConfig", "MambaConfig",
-           "MLAConfig", "QuantConfig", "ASSIGNED", "EXTRA", "REGISTRY",
-           "get_config", "smoke_config"]
+           "MLAConfig", "QuantConfig", "ShapeSpec", "SHAPES",
+           "runnable_shapes", "ASSIGNED", "EXTRA", "REGISTRY", "get_config",
+           "smoke_config"]

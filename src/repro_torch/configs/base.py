@@ -3,8 +3,10 @@ reference's `configs/base.py`, trimmed to what the port reads).
 
 A ModelConfig fully determines a model: the block *pattern* (a repeating
 super-block of layer specs, `n_groups` repeats), attention details,
-and the quantization defaults. Pure data — importing it touches no
-device.
+and the quantization defaults. `param_counts` is the analytic parameter
+count the roofline's model FLOPs read; `SHAPES` are the four input
+shapes of the dry run's cells and `runnable_shapes` those that apply to
+a config. Pure data — importing it touches no device.
 """
 from __future__ import annotations
 
@@ -120,3 +122,90 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_counts(self) -> dict:
+        """Analytic parameter counts (the reference's, term for term):
+        embed, lm_head (untied only), blocks_total / blocks_active (MoE
+        layers count top_k experts as active), total and active. The
+        embedding counts once when tied."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nh, nkv = self.n_heads, self.n_kv_heads
+        counts = {"embed": self.vocab_size * d}
+        if not self.tie_embeddings:
+            counts["lm_head"] = self.vocab_size * d
+        total = active = 0
+        for spec in self.pattern:
+            p = 0
+            if spec.kind == "attn":
+                if self.mla is not None:
+                    m = self.mla
+                    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                    p += d * m.q_lora_rank + m.q_lora_rank * nh * qk_hd
+                    p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    p += m.kv_lora_rank * nh * (m.qk_nope_head_dim
+                                                + m.v_head_dim)
+                    p += nh * m.v_head_dim * d
+                else:
+                    p += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+            elif spec.kind == "mamba":
+                mc = self.mamba
+                di = mc.expand * d
+                dtr = mc.resolved_dt_rank(d)
+                p += d * 2 * di                      # in_proj (x and z)
+                p += mc.d_conv * di                  # conv
+                p += di * (dtr + 2 * mc.d_state)     # x_proj
+                p += dtr * di + di                   # dt_proj (+bias)
+                p += di * mc.d_state + di            # A_log, D
+                p += di * d                          # out_proj
+            a = p
+            if spec.mlp == "dense":
+                p += 3 * d * self.d_ff
+                a += 3 * d * self.d_ff
+            elif spec.mlp == "moe":
+                w1 = 3 * d * self.moe.d_ff_expert
+                p += self.moe.n_experts * w1 + d * self.moe.n_experts
+                a += self.moe.top_k * w1 + d * self.moe.n_experts
+            # norms
+            p += 2 * d + (2 * d if self.post_block_norms else 0)
+            a += 2 * d
+            total += p
+            active += a
+        counts["blocks_total"] = total * self.n_groups
+        counts["blocks_active"] = active * self.n_groups
+        head = counts["embed"] + counts.get("lm_head", 0)
+        counts["total"] = head + counts["blocks_total"]
+        counts["active"] = head + counts["blocks_active"]
+        return counts
+
+
+# ---------------------------------------------------------------------------
+# the input shapes of the dry run's cells (seq_len, global_batch, kind)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def runnable_shapes(cfg: ModelConfig):
+    """The shapes of SHAPES that apply to `cfg`: no decode cell for an
+    encoder-only model, long_500k only for a sub-quadratic one."""
+    out = []
+    for s in SHAPES.values():
+        if s.kind == "decode" and not cfg.has_decode:
+            continue
+        if s.name == "long_500k" and not cfg.subquadratic:
+            continue
+        out.append(s)
+    return out

@@ -371,35 +371,53 @@ struct QuantPages {
 
 // Shared memory of one block (floats unless said): the block-table row
 // (n_table ints), the ring of `stages` slots (the page reader's
-// stage_bytes each), binary-coded pages' expanded K/V tile pair, q (REP x
-// HD), the score parts (DP x REP x kTile), P ([kTile][REP]), the running
-// max, denominator and correction (REP each, in 4 REP floats to keep
-// 16-byte alignment), and the state the cluster reads (REP x HD).
+// stage_bytes each; for fp pages at least the token groups' accumulators
+// it also holds at the end, `ring_bytes`), binary-coded pages' expanded
+// K/V tile pair, q (REP x HD), the score parts (DP x REP x kTile), P
+// ([kTile][REP]), the running max, denominator and correction (REP each,
+// in 4 REP floats to keep 16-byte alignment), and the state the cluster
+// reads (REP x HD).
 template <typename Elem, int HD, int REP>
 struct PaCfg {
   static constexpr int kRow = tile_row<Elem, HD>();
   static constexpr int kTileBytes = kTile * kRow * (int)sizeof(Elem);
-  // scores: warps over NRG row groups of RS heads and DP parts of hd
+  // scores: warps over NRG row groups of RS heads and DP parts of hd, each
+  // part at least 4 entries (one float4): at hd 16 and few heads some
+  // warps sit the product out
   static constexpr int NRG = REP < kWarps ? REP : kWarps;
   static constexpr int RS = REP / NRG;
-  static constexpr int DP = kWarps / NRG;
+  static constexpr int DP = kWarps / NRG < HD / 4 ? kWarps / NRG : HD / 4;
   static constexpr int DPL = HD / DP;
   // P . V: a thread holds 4 adjacent entries (d-chunk) of RT heads, for
-  // one of JG groups of the partition's tokens
+  // one of JG groups of the partition's tokens (at most a token a group:
+  // at hd 16 and one head the threads past kPvThreads sit it out)
   static constexpr int NDC = HD / 4;
   static constexpr int F = kThreads / NDC;
   static constexpr int RG = REP < F ? REP : F;
   static constexpr int RT = REP / RG;
-  static constexpr int JG = F / RG;
+  static constexpr int JG = F / RG < kTile ? F / RG : kTile;
   static constexpr int JPT = kTile / JG;
-  static_assert(NDC * F == kThreads && RG * RT == REP && JG * JPT == kTile,
+  static constexpr int kPvThreads = NDC * RG * JG;
+  static_assert(NDC * F == kThreads && RG * RT == REP && JG * JPT == kTile &&
+                    kPvThreads <= kThreads && DP * DPL == HD && DPL % 4 == 0,
                 "thread mapping");
   static_assert(DP * kTile >= 2 * kMaxCluster + 1,
                 "the merge reuses the score parts for the ranks' states");
+  // the token groups' accumulators, added up at the end through the free
+  // ring (fp pages) or the expanded tile pair (binary-coded pages)
+  static constexpr int kGroupBytes = JG > 1 ? JG * REP * HD * 4 : 0;
+  static_assert(kGroupBytes <= 2 * kTile * (HD + 4) * 4,
+                "the expanded fp32 tile pair holds the token groups' sums");
   static constexpr int kFloats =
       REP * HD + DP * REP * kTile + kTile * REP + 4 * REP + REP * HD;
+  __host__ __device__ static int ring_bytes(int stages, int stage_bytes,
+                                            bool expands) {
+    const int ring = stages * stage_bytes;
+    return expands || ring >= kGroupBytes ? ring : kGroupBytes;
+  }
   static int bytes(int n_table, int stages, int stage_bytes, bool expands) {
-    return ((n_table * 4 + 15) / 16) * 16 + stages * stage_bytes +
+    return ((n_table * 4 + 15) / 16) * 16 +
+           ring_bytes(stages, stage_bytes, expands) +
            (expands ? 2 * kTileBytes : 0) + 4 * kFloats;
   }
 };
@@ -440,7 +458,9 @@ __global__ void __launch_bounds__(kThreads)
   const int sb = pages.stage_bytes();
   uint8_t* ring =
       reinterpret_cast<uint8_t*>(pa_smem4) + ((n_table * 4 + 15) / 16) * 16;
-  float* xt = reinterpret_cast<float*>(ring + stages * sb);  // expanded K/V
+  // expanded K/V (binary-coded pages)
+  float* xt = reinterpret_cast<float*>(
+      ring + C::ring_bytes(stages, sb, Pages::kExpands));
   float* q_s = xt + (Pages::kExpands ? 2 * kTile * C::kRow : 0);
   float* s_part = q_s + REP * HD;
   float* p_s = s_part + C::DP * REP * kTile;
@@ -502,7 +522,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     const Elem* sv = sk + kTile * C::kRow;
 
-    {  // scores: lane = token, warp = (row group, hd part)
+    // scores: lane = token, warp = (row group, hd part)
+    if (warp < C::NRG * C::DP) {
       const int grp = warp % C::NRG, dp = warp / C::NRG;
       const Elem* kr = sk + lane * C::kRow + dp * C::DPL;
       const float* qr = q_s + grp * C::RS * HD + dp * C::DPL;
@@ -551,7 +572,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    {  // acc = acc * corr + P . V
+    if (tid < C::kPvThreads) {  // acc = acc * corr + P . V
 #pragma unroll
       for (int i = 0; i < C::RT; ++i) {
         const float c = corr_s[rg * C::RT + i];
@@ -582,11 +603,13 @@ __global__ void __launch_bounds__(kThreads)
   float* dst = C::JG == 1           ? acc_s
                : Pages::kExpands ? xt
                                  : reinterpret_cast<float*>(ring);
+  if (tid < C::kPvThreads) {
 #pragma unroll
-  for (int i = 0; i < C::RT; ++i)
-    *reinterpret_cast<float4*>(dst + ((jg * REP) + rg * C::RT + i) * HD +
-                               dc * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int i = 0; i < C::RT; ++i)
+      *reinterpret_cast<float4*>(dst + ((jg * REP) + rg * C::RT + i) * HD +
+                                 dc * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
   if (C::JG > 1) {
     __syncthreads();
     for (int i = tid; i < REP * HD; i += kThreads) {
@@ -708,6 +731,7 @@ cudaError_t launch_fp(int hd, const void* q, const void* k, const void* v,
                       const int* bt, const int* ctx, void* out,
                       const Geometry& g, cudaStream_t st) {
   switch (hd) {
+    case 16: return launch_pages<TQ>(q, fp_pages<TQ, 16>(k, v), bt, ctx, out, g, st);
     case 32: return launch_pages<TQ>(q, fp_pages<TQ, 32>(k, v), bt, ctx, out, g, st);
     case 64: return launch_pages<TQ>(q, fp_pages<TQ, 64>(k, v), bt, ctx, out, g, st);
     case 128: return launch_pages<TQ>(q, fp_pages<TQ, 128>(k, v), bt, ctx, out, g, st);
@@ -782,11 +806,12 @@ bool geometry_ok(const Geometry& g) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes); the Python wrappers check
-// shapes, dtypes, hd in {32, 64, 128, 256} and (binary-coded) bits <= 8
-// and G dividing hd, and choose `clusters` (blocks splitting a context,
-// 1..8) and `stages` (partitions a block stages, 1..4: those whose loads
-// are in flight at once). window <= 0 and cap <= 0 mean "none". Each
-// returns the launch's error or cudaGetLastError().
+// shapes, dtypes, hd in {16, 32, 64, 128, 256} (binary-coded pages: {32,
+// 64, 128, 256}, bits <= 8 and G dividing hd), and choose `clusters`
+// (blocks splitting a context, 1..8) and `stages` (partitions a block
+// stages, 1..4: those whose loads are in flight at once). window <= 0
+// and cap <= 0 mean "none". Each returns the launch's error or
+// cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,

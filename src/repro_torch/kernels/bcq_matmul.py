@@ -39,8 +39,10 @@ it would alone.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain version (`_bcq_matmul_plain`, `_bcq_expert_plain` below), which
-is the same math in PyTorch ops. `LAUNCHES` counts kernel launches
-only.
+is the same math in PyTorch ops; a meta tensor launches nothing and
+returns an empty output of the kernel's shape, reporting the kernel's
+own bytes and operations (`_meta_call`, kernels/work.py). `LAUNCHES`
+counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ import torch
 from repro_torch.hw import (GEMM_COLS, GEMM_PAIRED_TILE, GEMM_TILE_MAX,
                            GEMV_COLS, GEMV_MAX_SPLITS, GEMV_ROWS,
                            GEMV_WARPS, H100_SMS, WORD, sm_count)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import dequant_ref
+from repro_torch.roofline.analysis import bcq_work
 
 LAUNCHES = {"bcq_gemv": 0, "bcq_matmul": 0, "bcq_expert_matmul": 0}
 MAX_BITS = 8
@@ -277,11 +280,29 @@ def _gemm(x, codes, alphas, betas, rows=None):
     return y
 
 
+def _meta_call(name, x, codes, alphas):
+    """A call on meta tensors: the kernel's work reported (every row of
+    every expert: a meta tensor holds no routing), its output (E, M, N)
+    or (M, N) empty in x.dtype, nothing launched."""
+    if any(t.device != x.device for t in (codes, alphas)):
+        raise ValueError(f"x on meta, codes on {codes.device}, alphas on "
+                         f"{alphas.device}: all operands on one device")
+    *lead, M, K = x.shape
+    G, N, nb = alphas.shape[-3:]
+    E = lead[0] if lead else 1
+    work.report(name, bcq_work(M, K, N, nb, G, E=E,
+                               x_itemsize=x.element_size(),
+                               scale_itemsize=alphas.element_size()))
+    return torch.empty((*lead, M, N), dtype=x.dtype, device=x.device)
+
+
 def bcq_gemv(x, codes, alphas, betas):
     """Decode-shaped entry: M <= GEMV_ROWS rows."""
     _check(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_matmul_plain(x, codes, alphas, betas)
+    if x.device.type == "meta":
+        return _meta_call("bcq_gemv", x, codes, alphas)
     y = _gemv(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_gemv"] += 1
     return y
@@ -293,6 +314,8 @@ def bcq_matmul(x, codes, alphas, betas):
     _check(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_matmul_plain(x, codes, alphas, betas)
+    if x.device.type == "meta":
+        return _meta_call("bcq_matmul", x, codes, alphas)
     y = _gemm(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_matmul"] += 1
     return y
@@ -308,6 +331,8 @@ def bcq_expert_matmul(x, codes, alphas, betas, rows=None):
     _check_expert(x, codes, alphas, betas)
     if x.device.type == "cpu":
         return _bcq_expert_plain(x, codes, alphas, betas, rows)
+    if x.device.type == "meta":
+        return _meta_call("bcq_expert_matmul", x, codes, alphas)
     fn = _gemv if x.shape[1] <= GEMV_ROWS else _gemm
     y = fn(x, codes, alphas, betas, rows)
     LAUNCHES["bcq_expert_matmul"] += 1

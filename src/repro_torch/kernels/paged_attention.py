@@ -29,8 +29,10 @@ units, the bytes of one stage (`quant_stage_bytes` for binary-coded
 pages) and the card's SM count.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain version, `ref.paged_attention_ref` / `ref.paged_attention_quant_ref`.
-`LAUNCHES` counts kernel launches only.
+plain version, `ref.paged_attention_ref` / `ref.paged_attention_quant_ref`;
+a meta tensor launches nothing and returns an empty output of q's shape,
+reporting the kernel's own bytes and operations over every page its
+table names (kernels/work.py). `LAUNCHES` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -41,12 +43,15 @@ import torch
 from repro_torch.hw import (ATTN_MAX_CLUSTER, ATTN_MAX_REP, ATTN_MAX_STAGES,
                            ATTN_QUANT_SCALES_MAX, ATTN_TILE, H100_SMS,
                            sm_count)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.ref import (paged_attention_quant_ref,
                                      paged_attention_ref)
+from repro_torch.roofline.analysis import paged_attention_work
 
 LAUNCHES = {"paged_attention": 0, "paged_attention_quant": 0}
-HEAD_DIMS = (32, 64, 128, 256)
+# head_dims of the fp kernel; binary-coded pages pack hd in 32-bit words
+HEAD_DIMS = (16, 32, 64, 128, 256)
+QUANT_HEAD_DIMS = (32, 64, 128, 256)
 MAX_KV_BITS = 8
 # block-table entries a block keeps in shared memory at most (32 KB)
 MAX_TABLE = 8192
@@ -140,7 +145,25 @@ def _check_options(window, cap):
                          f"and cap > 0 (or None)")
 
 
-def _check_launch(q, block_tables, ctx_lens, tensors):
+def _meta_call(name, q, block_tables, page, row_bytes):
+    """A call on meta tensors: the kernel's work over every token its
+    tables name (a meta tensor holds no context length), `row_bytes` a
+    (token, KV head) vector of K or of V; q's shape out empty, nothing
+    launched."""
+    if block_tables.device != q.device:
+        raise ValueError(f"q on meta, block tables on "
+                         f"{block_tables.device}: all operands on one "
+                         f"device")
+    B, Hkv, rep, hd = q.shape
+    T = block_tables.shape[1]
+    work.report(name, paged_attention_work(
+        B * T * page, B, Hkv, rep, hd, T, kv_bytes_per_token_head=row_bytes,
+        q_itemsize=q.element_size()))
+    return torch.empty_like(q)
+
+
+def _check_launch(q, block_tables, ctx_lens, tensors,
+                  head_dims=HEAD_DIMS):
     """Checks shared by both kernels on the CUDA side; returns
     (B, Hkv, rep, hd)."""
     if q.device.type != "cuda":
@@ -150,9 +173,9 @@ def _check_launch(q, block_tables, ctx_lens, tensors):
             or tuple(ctx_lens.shape) != (B,):
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"ctx_lens {tuple(ctx_lens.shape)} for batch {B}")
-    if hd not in HEAD_DIMS or rep < 1:
+    if hd not in head_dims or rep < 1:
         raise ValueError(f"head_dim {hd} / rep {rep}: the kernel takes "
-                         f"head_dim in {HEAD_DIMS} and rep >= 1")
+                         f"head_dim in {head_dims} and rep >= 1")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes fp32 or bf16")
     if block_tables.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
@@ -179,6 +202,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    ctx_lens, window=window, cap=cap)
+    if q.device.type == "meta":
+        P, page, Hkv, hd = k_pages.shape
+        return _meta_call("paged_attention", q, block_tables, page,
+                          hd * k_pages.element_size())
     B, Hkv, rep, hd = _check_launch(q, block_tables, ctx_lens,
                                     (k_pages, v_pages))
     P, page, hk, hdk = k_pages.shape
@@ -212,7 +239,13 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
             q, k_codes, k_alphas, k_betas, v_codes, v_alphas, v_betas,
             block_tables, ctx_lens, window=window, cap=cap)
     pool = (k_codes, k_alphas, k_betas, v_codes, v_alphas, v_betas)
-    B, Hkv, rep, hd = _check_launch(q, block_tables, ctx_lens, pool)
+    if q.device.type == "meta":
+        row = sum(t[0, 0, 0].numel() * t.element_size()
+                  for t in (k_codes, k_alphas, k_betas))
+        return _meta_call("paged_attention_quant", q, block_tables,
+                          k_codes.shape[1], row)
+    B, Hkv, rep, hd = _check_launch(q, block_tables, ctx_lens, pool,
+                                    QUANT_HEAD_DIMS)
     P, page, hk, bits, hdw = k_codes.shape
     G = k_betas.shape[-1]
     if (hk, hdw * 32) != (Hkv, hd) or hd % G \

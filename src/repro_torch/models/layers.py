@@ -85,12 +85,22 @@ def swiglu(p, x):
     return linear(h, p["wd"])
 
 
+def init_normal(gen, shape, scale, dtype, device):
+    """N(0, scale^2) drawn in fp32 from `gen`, then rounded to `dtype`.
+    On the meta device no number is drawn: an empty tensor of the shape
+    and dtype (each op on meta costs host time, and the dry run builds
+    models of hundreds of billions of weights)."""
+    dt = torch_dtype(dtype)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dt, device=device)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device) * scale).to(dt)
+
+
 def init_linear(gen, d_in, d_out, dtype, device, scale=None):
     """N(0, scale^2) weight (default scale d_in^-0.5) from `gen`."""
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=device) * scale
-    return w.to(torch_dtype(dtype))
+    return init_normal(gen, (d_in, d_out), scale, dtype, device)
 
 
 def init_swiglu(gen, d, f, dtype, device):

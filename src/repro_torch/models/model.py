@@ -48,10 +48,12 @@ Entry points:
 MoE layers use the reference's capacities: the train-time capacity
 factor in `forward`, the inference capacity factor in prefill (pad
 tokens of a bucket route and take capacity like real ones, as in the
-reference) and 4.0 in decode and extend. The serving entry points take
-token-in decoders only (`require_decoder`); `forward` takes every
-config of the registry, frame inputs and encoders (hubert-xlarge)
-included.
+reference) and 4.0 in decode and extend. The decode and paged entry
+points take token-in decoders only (`require_decoder`); `forward`,
+`prefill` and `init_cache` take every config of the registry, frame
+inputs and encoders (hubert-xlarge) included, as the reference's do.
+With device="meta", `init_params` and `init_cache` make tensors with
+shapes and no data (the dry run, launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -82,17 +84,18 @@ def check_config(cfg) -> None:
 
 
 def require_decoder(cfg) -> None:
-    """The serving entry points take token-in decoders. Frame inputs and
-    encoder-only models (hubert-xlarge) have no decode step, as in the
-    reference: they run through `forward` and `loss_fn` only."""
+    """The decode and paged entry points take token-in decoders. Frame
+    inputs and encoder-only models (hubert-xlarge) have no decode step,
+    as in the reference: they run through `forward`, `loss_fn`,
+    `prefill` and `init_cache` only."""
     if cfg.embed_input != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: frame inputs run through forward/loss_fn only; "
-            f"serving takes token-in decoders")
+            f"{cfg.name}: frame inputs run through forward, loss_fn and "
+            f"prefill only; decoding takes token-in decoders")
     if not cfg.has_decode:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-only model has no decode step; it "
-            f"runs through forward/loss_fn only")
+            f"runs through forward, loss_fn and prefill only")
     check_config(cfg)
 
 
@@ -158,12 +161,16 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
     target device (the same distributions as the reference's init; the
     numbers differ, so parity tests carry the reference's weights across
     with ckpt.params_from_tree instead). Frame-input configs get the
-    learned (D, D) input projection as "embed"."""
+    learned (D, D) input projection as "embed". On the meta device no
+    number is drawn and no generator is made: the tree holds the leaves'
+    shapes and dtypes only."""
     check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d = cfg.d_model
     params = {"final_ln": torch.zeros((d,), dtype=torch_dtype(dtype),
                                       device=dev)}
@@ -344,8 +351,10 @@ def prefill(cfg, params, tokens, max_len, *, last_pos=None):
     """Run the prompt, return (last-position logits (B, V), dense cache:
     every attention layer's K/V or MLA latents padded to max_len, every
     Mamba layer's state after the prompt). `last_pos` ((B,)) picks the
-    logits row of bucket-padded prompts."""
-    require_decoder(cfg)
+    logits row of bucket-padded prompts. `tokens` are frames (B, S, D)
+    for a frame-input config; an encoder attends bidirectionally, as in
+    `forward`, and its cache holds the K/V of every position."""
+    check_config(cfg)
     x = embed_inputs(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
 
@@ -371,8 +380,9 @@ def prefill(cfg, params, tokens, max_len, *, last_pos=None):
 def init_cache(cfg, batch, max_len, dtype=None, device=None):
     """Dense caches: per attention layer {"k","v"} (batch, Hkv, max_len
     or window, hd), per MLA layer {"c_kv","k_pe"} (batch, max_len, .),
-    per Mamba layer its state rows {"ssm","conv"} (batch, ...)."""
-    require_decoder(cfg)
+    per Mamba layer its state rows {"ssm","conv"} (batch, ...). Any
+    config, an encoder's included (the cache its prefill returns)."""
+    check_config(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     out = []

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.hw import torch_dtype
 from repro_torch.models import layers
-from repro_torch.models.layers import init_linear
+from repro_torch.models.layers import init_linear, init_normal
 
 
 def init_moe(cfg, gen, dtype, device):
@@ -29,14 +29,13 @@ def init_moe(cfg, gen, dtype, device):
     d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
     scale = d ** -0.5
 
-    def ew(a, b):
-        return torch.randn((e, a, b), generator=gen, dtype=torch.float32,
-                           device=device) * scale
+    def ew(a, b, dt=dtype):
+        return init_normal(gen, (e, a, b), scale, dt, device)
 
-    dt = torch_dtype(dtype)
     return {"router": init_linear(gen, d, e, "float32", device),
-            "wg": ew(d, f).to(dt), "wu": ew(d, f).to(dt),
-            "wd": (ew(f, d) * (f ** -0.5) / scale).to(dt)}
+            "wg": ew(d, f), "wu": ew(d, f),
+            "wd": (ew(f, d, "float32") * (f ** -0.5) / scale).to(
+                torch_dtype(dtype))}
 
 
 def capacity(cfg, T: int, capacity_factor=None) -> int:

@@ -36,7 +36,7 @@ import math
 import torch
 
 from repro_torch.quant.packing import unpack_signs
-from repro_torch.quant.qlinear import QuantizedTensor
+from repro_torch.quant.qlinear import QuantizedTensor, tree_tensors
 
 # Tikhonov floor for the (d+1)x(d+1) normal equations: sign columns can
 # be linearly dependent on tiny groups (gs < d+1), where the system is
@@ -140,19 +140,6 @@ def make_draft_params(params, draft_bits: int, scales_tree=None):
     return walk(params, scales_tree)
 
 
-def _tensors(tree):
-    if isinstance(tree, QuantizedTensor):
-        yield from (tree.codes, tree.alphas, tree.betas)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-    elif isinstance(tree, torch.Tensor):
-        yield tree
-
-
 def _storage_key(t: torch.Tensor):
     return (t.device, t.untyped_storage().data_ptr())
 
@@ -161,9 +148,9 @@ def draft_extra_bytes(target_params, draft_params) -> int:
     """Bytes the draft tree adds beyond the target: every storage a
     draft tensor lives in that no target tensor shares, counted once.
     For a proper draft view this is exactly the re-fit scales."""
-    seen = {_storage_key(t) for t in _tensors(target_params)}
+    seen = {_storage_key(t) for t in tree_tensors(target_params)}
     extra = 0
-    for t in _tensors(draft_params):
+    for t in tree_tensors(draft_params):
         key = _storage_key(t)
         if key not in seen:
             seen.add(key)

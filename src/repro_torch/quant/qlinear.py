@@ -153,6 +153,21 @@ def stack_leaves(items):
     return torch.stack(items)
 
 
+def tree_tensors(tree):
+    """Every tensor of a tree of dicts, lists and tuples, in order, a
+    QuantizedTensor's codes, alphas and betas included."""
+    if isinstance(tree, QuantizedTensor):
+        yield from (tree.codes, tree.alphas, tree.betas)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
 def dequantize_params(tree, dtype="float32"):
     """A params tree (dicts and lists) with every QuantizedTensor
     replaced by its dequantized weight in `dtype`: the same function in

@@ -321,10 +321,21 @@ PAGED_CASES = [
     (64, [1000, 1, 130], 4, 16, 128, 200, 30.0, (1,)),
     (16, [257, 31, 64], 1, 1, 32, 40, 5.0, (1,)),
 ]
+# head_dim 16 (every smoke config of the zoo), fp pages only: rep 1 (half
+# the P . V threads idle), 2 (the smoke configs' 4 over 2), 4, 8 and 16;
+# windows, caps, several partitions a block, inactive rows
+HD16_CASES = [
+    (16, [17, 40, 5], 2, 1, 16, None, None, ()),
+    (8, [30, 9, 64], 2, 2, 16, 32, None, ()),
+    (16, [700, 1, 333], 2, 2, 16, None, 30.0, (1,)),
+    (4, [40, 23, 9], 3, 4, 16, 8, 5.0, ()),
+    (16, [257, 31, 64], 1, 8, 16, 40, None, (1,)),
+    (64, [50, 80, 110, 131], 2, 16, 16, None, None, ()),
+]
 
 
 @pytest.mark.parametrize("page,ctx,Hkv,rep,hd,window,cap,inactive",
-                         PAGED_CASES)
+                         PAGED_CASES + HD16_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_matches_plain(cuda, page, ctx, Hkv, rep, hd,
                                        window, cap, inactive, dtype):

@@ -133,12 +133,12 @@ def _close(got, want):
     assert err <= TOL * float(want.float().abs().max()), err
 
 
-# Mamba paged on falcon-mamba's smoke artifact (fp weights): the jamba
-# smoke's head_dim 16 is below what the attention kernel takes, so its
-# hybrid runs the dense engine, whose attention is plain torch
+# Mamba paged on falcon-mamba's smoke artifact (fp weights) and on the
+# jamba smoke's hybrid, whose attention layer runs the fp kernel at
+# head_dim 16
 CASES = [("w3_pc", 0, "paged"), ("w3_pc", 4, "paged"), ("w3_pc", 0, "dense"),
          ("w3_moe", 0, "paged"), ("zoo/mla_quant", 0, "paged"),
-         ("zoo/mamba_fp", 0, "paged"), ("zoo/mamba-mix_quant", 0, "dense")]
+         ("zoo/mamba_fp", 0, "paged"), ("zoo/mamba-mix_quant", 0, "paged")]
 
 
 @pytest.mark.parametrize("name,kv_bits,kind", CASES)
@@ -180,7 +180,7 @@ def test_decode_graph_replays_the_eager_step(cuda, name, kv_bits, kind):
         _assert_pools_equal(graphed, eager)
     assert compile_cache.graph_stats()["captured"] == 1
     assert compile_cache.graph_stats()["replays"] == 3
-    if kind == "paged" and cfg.moe is None and cfg.mla is None \
+    if kind == "paged" and cfg.mla is None \
             and any(s.kind == "attn" for s in cfg.pattern):
         kernel = "paged_attention_quant" if kv_bits else "paged_attention"
         assert n_graph[kernel] > 0

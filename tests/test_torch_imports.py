@@ -76,6 +76,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert set(loaded) == set(mods)
     assert all(v == [] for v in loaded.values()), loaded
     assert len(mods) >= 20
+    assert {"repro_torch.launch.dryrun", "repro_torch.quant.abstract",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.op_profile",
+            "repro_torch.kernels.work"} <= set(mods)
 
 
 def test_scan_catches_a_forbidden_import():

@@ -258,8 +258,9 @@ def test_attention_only_and_fp_pages_in_this_slice():
     (their parity tests are tests/test_torch_kv_quant.py,
     test_torch_moe.py, test_torch_mla.py and test_torch_mamba.py); frame
     inputs and encoder-only configs initialise for the training forward
-    (tests/test_torch_loss.py) and the serving entry points refuse them,
-    and a MoE or Mamba pattern needs its config."""
+    (tests/test_torch_loss.py) and prefill (test_frame_input_prefill_
+    matches_reference), the decode step and the engine refuse them, and
+    a MoE or Mamba pattern needs its config."""
     from repro_torch.configs import smoke_config
     cfg = get_config("tiny-lm").replace(n_layers=1)
     pool = tmodel.init_paged_cache(cfg, 4, 8, 1, kv_bits=4, device="cpu")
@@ -272,11 +273,18 @@ def test_attention_only_and_fp_pages_in_this_slice():
     hp = tmodel.init_params(hubert, device="cpu")
     assert hp["embed"].shape == (hubert.d_model, hubert.d_model)
     assert hp["lm_head"].shape == (hubert.d_model, hubert.vocab_size)
+    cache = tmodel.init_cache(hubert, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="frame inputs"):
-        tmodel.prefill(hubert, hp, torch.zeros((1, 4, hubert.d_model)), 8)
+        tmodel.decode_step(hubert, hp, cache, torch.zeros((1, 1)),
+                           torch.zeros((1,), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="encoder-only"):
-        tmodel.init_cache(hubert.replace(embed_input="tokens"), 1, 8,
-                          device="cpu")
+        tmodel.decode_step(hubert.replace(embed_input="tokens"), hp, cache,
+                           torch.zeros((1, 1), dtype=torch.int32),
+                           torch.zeros((1,), dtype=torch.int32))
+    from repro_torch.serve import ServeEngine
+    for c in (hubert, hubert.replace(embed_input="tokens")):
+        with pytest.raises(NotImplementedError, match="decod"):
+            ServeEngine(c, hp, batch_size=1, max_len=8, device="cpu")
     with pytest.raises(ValueError, match="Mamba"):
         tmodel.init_params(cfg.replace(pattern=(LayerSpec(kind="mamba"),)),
                            device="cpu")
@@ -286,6 +294,38 @@ def test_attention_only_and_fp_pages_in_this_slice():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tmodel.init_params(cfg)
+
+
+@pytest.mark.parametrize("S,max_len", [(12, 12), (12, 20)])
+def test_frame_input_prefill_matches_reference(S, max_len):
+    """hubert-xlarge's smoke config (frames in, bidirectional attention,
+    no decode step): the port's prefill logits within 1e-4 x max|logit|
+    and its cache within 1e-5 x max|entry| of the reference's, on the
+    reference's own weights and the same frames (a numpy seed); the
+    port's init_cache has the reference's cache shapes."""
+    from repro.configs import smoke_config as jax_smoke_config
+    from repro_torch.configs import smoke_config
+    jcfg = jax_smoke_config("hubert-xlarge").replace(dtype="float32")
+    cfg = smoke_config("hubert-xlarge").replace(dtype="float32")
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_tree(jax.tree.map(np.asarray, jp), device="cpu")
+    frames = np.random.default_rng(S + max_len).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    want, jcache = jmodel.prefill(jcfg, jp, jnp.asarray(frames), max_len)
+    got, cache = tmodel.prefill(cfg, params, torch.from_numpy(frames),
+                                max_len)
+    close_logits(got, want)
+    P = len(cfg.pattern)
+    empty = tmodel.init_cache(cfg, 2, max_len, device="cpu")
+    jempty = jmodel.init_cache(jcfg, 2, max_len)
+    for j, (layer, blank) in enumerate(zip(cache, empty)):
+        ref = jcache[f"L{j % P}"]
+        for k, t in layer.items():
+            r = np.asarray(ref[k][j // P])
+            assert tuple(t.shape) == r.shape == tuple(blank[k].shape)
+            assert blank[k].shape == jempty[f"L{j % P}"][k].shape[1:]
+            np.testing.assert_allclose(t.numpy(), r, rtol=0,
+                                       atol=1e-5 * np.abs(r).max())
 
 
 def test_params_must_have_the_config_depth():

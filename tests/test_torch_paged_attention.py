@@ -228,7 +228,7 @@ def test_quant_launch_fits_shared_memory():
     every query-head bucket: the table row, the ring of stages, the
     expanded fp32 tile pair, and the kernel's own floats (q, score
     parts, P, softmax state, the merged state)."""
-    for hd in tpa.HEAD_DIMS:
+    for hd in tpa.QUANT_HEAD_DIMS:
         pair = tpa.tile_pair_bytes(hd, 4)
         for bits in range(1, 9):
             for G in (1 << i for i in range(hd.bit_length())):

@@ -496,6 +496,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert worst["bcq_gemv"] <= cs.TOL_FP32
     assert worst["bcq_gemv_draft"] <= cs.TOL_FP32
     assert cs.check_paged(gen) <= cs.TOL_FP32
+    assert cs.check_paged(gen, cs.HD16_CASES[:1]) <= cs.TOL_FP32
     assert cs.check_paged_quant(gen, geoms=((2, 16, 64),)) <= cs.TOL_FP32
     # the reader's grid: one case on each of the first two variants (the
     # second with bf16 q and a 4-entry scale group)
