@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-eleven phases (in the order 1, 2, 3, 4, 6, 8, 7, 5, 9, 10, 11: phase 8
-runs on phase 3's model before it is freed, and 7, 5, 9 and 10 each
-free their own); any failure is a non-zero exit.
+twelve phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11:
+phases 8 and 12 run on phase 3's model before it is freed, and 7, 5, 9
+and 10 each free their own); any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -138,10 +138,26 @@ free their own); any failure is a non-zero exit.
  11. the dry run (launch/dryrun.py) on the meta device: the 32 (arch x
      shape) cells of the ten pool architectures at bf16, then the 22
      inference cells w3 packed, DRYRUN_JOBS at once in worker
-     processes, a `dryrun` line each (bytes of params, cache and train
+     processes (the longest traces handed out first), a `dryrun` line each (bytes of params, cache and train
      state, peak of live storages against the card's 80 GB, the three
      roofline terms and the bound); a cell that fails fails the run.
      Nothing runs on the card.
+ 12. meshes of ranks on the one card (torch.distributed over gloo, the
+     ranks sharing cuda:0, dist/context.py): phase 3's model saved by
+     save_packed and served (phase 3's requests) on (data, model)
+     meshes (1, 2), (2, 1) and (2, 2), each rank loading its slice with
+     load_packed(mesh=); then Qwen3-MoE cut to 4 of 94 layers with its
+     experts on a (1, 2) model axis, each rank cutting the seeded model
+     with shard_params. One spawn of four ranks serves the meshes in
+     turn. Every mesh must give the single-device engine's greedy tokens
+     (up to a printed near-tie) with every logits row within TOL_LOGITS
+     x max|logit| of its, drain every shard, keep each rank's page ids
+     in its block, and launch the GEMV, the GEMM, paged attention (and
+     the expert kernel) on every rank at its shard's shapes with no
+     plain BCQ call. A `mesh_path` line a mesh: backend and devices,
+     the card, per rank the load seconds, the decode step's wall ms and
+     traced device-busy ms, collectives a step, one all-reduce's ms
+     (timed alone), parameter and pool bytes.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
 propose pass and verify come from serve/compile_cache.py: on the card
@@ -160,12 +176,15 @@ the params and pool it reads. The GEMV, the GEMM, the expert kernel and
 both attention kernels must each run inside a replayed graph on some
 path.
 
-Phases 2-5, 7, 8 and 9 serve without a prefix index
+Phases 2-5, 7, 8, 9 and 12 serve without a prefix index
 (prefix_sharing=False), as they did before it existed. Each path
-(phases 3-10; in phase 8 each engine's run, in phase 10 each packed
-evaluation) is driven with every launch count set to 0 just before it
-and read just after. The line
-before the last is
+(phases 3-10 and 12; in phase 8 each engine's run, in phase 10 each
+packed evaluation, in phase 12 each rank's run, its counts summed over
+the ranks) is driven with every launch count set to 0 just before it
+and read just after. Phase 12's steps run eagerly on a model axis > 1
+(the model group's gloo collectives cannot be captured in a CUDA
+graph); the data-only (2, 1) mesh replays graphs as one device does.
+The line before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
 error against the plain version, time, bound, plain and library
 times); the last line is {"ok": true, "device": {...}}. It exits
@@ -218,6 +237,8 @@ MOE_LAYERS = 16
 
 # the card; rehearsals of the control flow set this to "cpu"
 DEV = "cuda"
+# the card's name and power limit (nvidia-smi), beside phase 12's figures
+CARD = ""
 
 
 def sync() -> None:
@@ -2019,8 +2040,8 @@ def phase_prefix(seed: int, model, kv_bits: int = 4, max_new: int = 32):
     def check_first_fork(eng):
         apply = eng._apply_copies
 
-        def run(copies):
-            apply(copies)
+        def run(slot, copies):
+            apply(slot, copies)
             if copies and not forks:
                 src = [a for a, _ in copies]
                 dst = [b for _, b in copies]
@@ -2966,6 +2987,425 @@ def phase_speculative(seed: int, model, baseline=None, max_new=32,
 
 
 # ---------------------------------------------------------------------------
+# phase 12: meshes of ranks on the one card
+# ---------------------------------------------------------------------------
+
+# (data, model) meshes of phase 3's model; Qwen3-MoE serves on (1, 2).
+# No mesh serves 4-bit KV pages here: quantize-on-write flips a code at
+# a near-tie whenever a rank's K/V differs from the single device's in
+# the last bit, which no logits tolerance covers (the CPU tests hold
+# 4-bit KV on every mesh to the fixture, whose prompts have no tie)
+MESHES = ((1, 2), (2, 1), (2, 2))
+MOE_MESH = (1, 2)
+# Qwen3-MoE's depth in phase 12: for time (the ranks each build the
+# whole synthetic model before keeping their experts)
+MESH_MOE_LAYERS = 4
+MESH_TIMEOUT_S = 400
+# decode calls of a rank traced by torch.profiler (device busy time),
+# and all-reduces timed alone a rank
+MESH_TRACE_FROM, MESH_TRACE_STEPS = 8, 2
+ALLREDUCE_ITERS = 20
+
+
+def _tree_bytes(tree) -> int:
+    """Device bytes of a param tree (QuantizedTensors' three fields)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    if hasattr(tree, "codes"):
+        return sum(t.numel() * t.element_size()
+                   for t in (tree.codes, tree.alphas, tree.betas))
+    return tree.numel() * tree.element_size()
+
+
+def path_prompts(seed, vocab):
+    """serve_path's four prompts."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def record_logits(eng, requests) -> list:
+    """Wrap a paged engine's first-token and decode paths so that every
+    logits row a token of `requests` is taken from on this rank lands in
+    the returned list as (request index, token index, row)."""
+    import numpy as np
+    index = {id(r): i for i, r in enumerate(requests)}
+    log, emit, decode = [], eng._emit_first_token, eng._decode
+
+    def first(e, last_logits, prompt_len):
+        if last_logits is not None:
+            log.append((index[id(e.req)], len(e.req.out),
+                        last_logits[0].float().cpu()))
+        return emit(e, last_logits, prompt_len)
+
+    def step(*args):
+        logits, cache = decode(*args)
+        for r in np.flatnonzero(np.asarray(args[5])):   # the live rows
+            req = eng.sched.running[eng.lo + int(r)].req
+            log.append((index[id(req)], len(req.out),
+                        logits[r].float().cpu()))
+        return logits, cache
+    eng._emit_first_token, eng._decode = first, step
+    return log
+
+
+def serve_recorded(cfg, params, prompts, path, max_new=32):
+    """The single-device paged engine on `prompts`, every logits row a
+    token was taken from recorded and saved to `path` (for the ranks to
+    hold theirs against); returns (tokens, ms a decode tick)."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
+                      dtype="float32", cache_kind="paged", page_size=64,
+                      prefix_sharing=False, device=DEV)
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    log = record_logits(eng, reqs)
+    eng.run(reqs)
+    sync()
+    torch.save({"tokens": [r.out for r in reqs],
+                "logits": {(i, t): row for i, t, row in log}},
+               path)
+    return ([r.out for r in reqs],
+            1e3 * eng.stats["decode_s"] / max(eng.stats["ticks"], 1))
+
+
+def _rank_tokens_check(reqs, logits_log, want):
+    """A rank's tokens and logits rows against the single device's: the
+    first token index each request differs at (None: equal), the top-2
+    gap there relative to max|logit| of the single device's row, and the
+    worst |Δlogit| / max|logit| over the rows up to the divergence."""
+    first = {}
+    for i, r in enumerate(reqs):
+        w = want["tokens"][i]
+        diff = [t for t, (a, b) in enumerate(zip(r.out, w)) if a != b]
+        if len(r.out) != len(w) and not diff:
+            diff = [min(len(r.out), len(w))]
+        first[i] = diff[0] if diff else None
+    worst, rows = 0.0, 0
+    for i, t, row in logits_log:
+        if first[i] is not None and t > first[i]:
+            continue
+        ref = want["logits"][(i, t)]
+        worst = max(worst, float((row - ref).abs().max() / ref.abs().max()))
+        rows += 1
+    gaps = {}
+    for i, t in first.items():
+        if t is not None:
+            top = want["logits"][(i, t)].double().topk(2).values
+            gaps[i] = (t, float((top[0] - top[1])
+                                / want["logits"][(i, t)].abs().max()))
+    return worst, rows, gaps
+
+
+def _mesh_rank(mesh, spec):
+    """One rank of a phase-12 mesh: its slice of the model (load_packed(
+    mesh=) from the saved artifact, or the synthetic MoE built and cut
+    by shard_params), the path's requests served with every decode call
+    timed, a window of them traced, and the launches' shapes logged;
+    then the model group's all-reduce timed alone. -> the rank's row."""
+    from repro_torch.dist.context import mesh_context
+    with mesh_context(mesh):
+        return _mesh_rank_row(mesh, spec)
+
+
+def _mesh_rank_row(mesh, spec):
+    global DEV
+    DEV = spec["dev"]
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.ckpt.packed import load_packed
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import reduce_model
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.work import launch_shapes
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
+    from repro_torch.serve import Request, ServeEngine
+    t0 = time.time()
+    if spec["artifact"]:
+        params, _, _ = load_packed(spec["artifact"], mesh=mesh)
+        cfg = get_config(spec["arch"]).replace(
+            dtype="float32", n_layers=len(params["layers"]))
+    else:
+        cfg, full = synthetic_moe(spec["seed"], spec["arch"],
+                                  spec["n_layers"])
+        params = shard_params(cfg, full, mesh)
+        del full
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    sync()
+    load_s = time.time() - t0
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
+                      dtype="float32", cache_kind="paged", page_size=64,
+                      prefix_sharing=False, mesh=mesh)
+    kv, d = eng.kv, mesh.coords[0]
+    decode, calls, trace, in_block = eng._decode, [], {}, [True]
+
+    def timed(*args):
+        # this rank's rows hold pages of its own block only
+        rows = kv.block_tables[eng.lo:eng.lo + eng.rows]
+        in_block[0] &= bool(((rows == 0) | (rows // kv.pages_per_shard
+                                           == d)).all())
+        i = len(calls)
+        if i == MESH_TRACE_FROM:
+            trace["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            trace["prof"].__enter__()
+        sync()
+        before = dict(mesh.counts)
+        t = time.perf_counter()
+        out = decode(*args)
+        sync()
+        calls.append((time.perf_counter() - t,
+                      {k: v - before.get(k, 0)
+                       for k, v in mesh.counts.items()}))
+        if i == MESH_TRACE_FROM + MESH_TRACE_STEPS - 1:
+            trace["prof"].__exit__(None, None, None)
+        return out
+    eng._decode = timed
+    reqs = [Request(prompt=p, max_new_tokens=spec["max_new"])
+            for p in spec["prompts"]]
+    log = record_logits(eng, reqs)
+    sync()
+    reset_launch_counts()
+    mesh.counts.clear()
+    with launch_shapes() as shapes:
+        t0 = time.time()
+        eng.run(reqs)
+        sync()
+        wall = time.time() - t0
+    counts = launch_counts()
+    token_collectives = {k: v for k, v in mesh.counts.items()
+                         if k.endswith("_host")}
+    busy = None
+    if "prof" in trace:
+        kernels = traced_kernels(trace["prof"])
+        if kernels:
+            busy = sum(kernel_time_by_name(kernels).values()) / 1e3 \
+                / MESH_TRACE_STEPS
+    untraced = [c for i, c in enumerate(calls)
+                if not MESH_TRACE_FROM <= i < MESH_TRACE_FROM
+                + MESH_TRACE_STEPS]
+    per_step = {}
+    for _, n in calls:
+        for k, v in n.items():
+            per_step[k] = per_step.get(k, 0) + v / len(calls)
+    ar_ms = None
+    if mesh.shape[1] > 1:
+        x = torch.randn((eng.rows, 1, cfg.d_model), device=DEV)
+        for _ in range(3):
+            reduce_model(x)
+        sync()
+        t = time.perf_counter()
+        for _ in range(ALLREDUCE_ITERS):
+            reduce_model(x)
+        sync()
+        ar_ms = (time.perf_counter() - t) / ALLREDUCE_ITERS * 1e3
+    want = torch.load(spec["want"])
+    worst, n_rows, gaps = _rank_tokens_check(reqs, log, want)
+    drained = all(kv.free_in_shard(s) == kv.usable_in_shard(s)
+                  for s in range(kv.n_shards))
+    return {"rank": mesh.rank, "coords": list(mesh.coords),
+            "mesh": mesh.describe(), "backend": mesh.backend,
+            "device": str(mesh.device), "load_s": load_s, "wall_s": wall,
+            "tokens": [r.out for r in reqs],
+            "max_dlogit_rel": worst, "logit_rows_compared": n_rows,
+            "first_diff": gaps,
+            "decode_calls": len(calls),
+            "decode_wall_ms_per_step": (1e3 * sum(c[0] for c in untraced)
+                                        / max(len(untraced), 1)),
+            "decode_device_busy_ms_per_step": busy,
+            "collectives_per_decode_step": per_step,
+            "token_collectives_in_run": token_collectives,
+            "all_reduce_ms": ar_ms, "all_reduce_shape": [eng.rows, 1,
+                                                         cfg.d_model],
+            "param_bytes": _tree_bytes(eng.params),
+            "pool_bytes": sum(t.numel() * t.element_size()
+                              for layer in eng.cache for t in layer.values()),
+            "pages_in_own_block": in_block[0], "drained": drained,
+            "launches": counts,
+            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+
+
+def _expected_shapes(cfg, rows, pps):
+    """(K, N) of every quantized linear (not expert) a rank runs, and
+    attention's {(rows, Hkv, rep, hd, pages)}, at a rank's shard
+    config."""
+    hd = cfg.resolved_head_dim
+    q, kv_ = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    kn = {(cfg.d_model, q), (cfg.d_model, kv_), (q, cfg.d_model)}
+    if cfg.moe is None:
+        kn |= {(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+    attn = {(rows, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd,
+             pps)}
+    return kn, attn
+
+
+def check_mesh_shapes(name, cfg, mesh_shape, row, pps):
+    """The rank's launches ran at its shard's shapes: the GEMV (decode)
+    and the GEMM (prefill) at the shard config's (K, N) pairs, paged
+    attention at its heads, rows and pool block, the expert kernel (MoE)
+    at its E / M experts."""
+    from repro_torch.models.model import shard_config
+    D, M = mesh_shape
+    rcfg = shard_config(cfg, M)
+    rows = 4 // D
+    kn, want_attn = _expected_shapes(rcfg, rows, pps)
+    sh = {k: {tuple(s) for s in v} for k, v in row["shapes"].items()}
+    got_gemv = {s[1:] for s in sh.get("bcq_gemv", ())}
+    got_gemm = {s[1:] for s in sh.get("bcq_matmul", ())}
+    ok = (got_gemv == kn and got_gemm == kn
+          and all(s[0] == rows for s in sh.get("bcq_gemv", ()))
+          and sh.get("paged_attention") == want_attn)
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts // M
+        f = cfg.moe.d_ff_expert
+        got = {(s[0], s[2], s[3]) for s in sh.get("bcq_expert_matmul", ())}
+        ok &= got == {(E, cfg.d_model, f), (E, f, cfg.d_model)}
+    require(ok, f"{name} rank {row['rank']}: launch shapes {row['shapes']} "
+                f"are not the shard's ({sorted(kn)}, {sorted(want_attn)})")
+
+
+def _mesh_ranks(world, plan):
+    """Every phase-12 mesh in one spawn: for each (mesh shape, spec) of
+    `plan` the world's ranks make its sub-mesh (its first D x M ranks);
+    those serve (_mesh_rank) while the rest wait at a barrier. -> a row
+    or None for each mesh."""
+    import torch
+    import torch.distributed as dist
+    rows = []
+    for shape, spec in plan:
+        sub = world.submesh(*shape)
+        rows.append(None if sub is None else _mesh_rank(sub, spec))
+        # the mesh's engine and params go before the next mesh's load
+        gc.collect()
+        if spec["dev"] == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return rows
+
+
+def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
+    """Hold one mesh's ranks to the single device and to the shard's
+    shapes; emit its `mesh_path` line; returns the kernel launches
+    summed over its ranks."""
+    D, M = mesh_shape
+    print(f"{name}: {ranks[0]['mesh']}", flush=True)
+    pps = -(-(4 * -(-SERVE_MAX_LEN // 64) + D) // D)
+    gaps = {}
+    for r in ranks:
+        require(r["tokens"] == ranks[0]["tokens"],
+                f"{name}: ranks 0 and {r['rank']} hold other tokens")
+        gaps.update(r["first_diff"])
+        check_mesh_shapes(name, cfg, mesh_shape, r, pps)
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    worst = max(r["max_dlogit_rel"] for r in ranks)
+    row = {"check": "mesh_path", "path": name, "model": cfg.name,
+           "layers": cfg.n_layers, "mesh": {"data": D, "model": M},
+           "backend": ranks[0]["backend"], "card": CARD,
+           "tokens_equal": not gaps,
+           "first_diff": {str(i): {"token": t, "single_top2_gap_rel": g}
+                          for i, (t, g) in gaps.items()},
+           "gap_limit": 2 * TOL_LOGITS, "max_dlogit_rel": worst,
+           "tol": TOL_LOGITS, "single_device_decode_ms_per_tick": single_ms,
+           "ranks": [{k: v for k, v in r.items()
+                      if k not in ("tokens", "shapes", "first_diff")}
+                     for r in ranks]}
+    emit(row)
+    require(all(g <= 2 * TOL_LOGITS for _, g in gaps.values()),
+            f"{name}: tokens differ from the single device's beyond a "
+            f"near-tie: {gaps}")
+    require(worst <= TOL_LOGITS, f"{name}: logits off by {worst:.3g} of "
+                                 f"max|logit|")
+    require(all(r["drained"] and r["pages_in_own_block"] for r in ranks),
+            f"{name}: a shard did not drain or a rank's pages left its "
+            f"block")
+    need = ["bcq_gemv", "bcq_matmul", "paged_attention"]
+    if cfg.moe is not None:
+        need.append("bcq_expert_matmul")
+    for r in ranks:
+        require(all(r["launches"][k] > 0 for k in need)
+                and r["launches"]["bcq_plain"] == 0,
+                f"{name} rank {r['rank']}: launches {r['launches']}")
+    return counts
+
+
+def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
+               moe_arch: str = "qwen3-moe-235b-a22b",
+               moe_layers: int = MESH_MOE_LAYERS):
+    """Phase 12 on `model` (phase 3's): save it as an artifact and serve
+    the path's requests from it on MESHES, every rank loading its slice
+    with load_packed(mesh=); then Qwen3-MoE cut to `moe_layers` on
+    MOE_MESH; each against a single-device engine in this process. One
+    spawn of the largest mesh's ranks serves every mesh in turn.
+    Returns the launches summed over every rank."""
+    import tempfile
+    from repro_torch.ckpt.packed import save_packed
+    from repro_torch.dist.context import spawn
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg, params = model
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="mesh_path_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.time()
+        art = save_packed(tmp / cfg.name, params, cfg=cfg,
+                          meta={"arch": cfg.name, "n_layers": cfg.n_layers})
+        save_s = time.time() - t0
+        prompts = path_prompts(seed, cfg.vocab_size)
+        want, single_ms = serve_recorded(cfg, params, prompts,
+                                         tmp / "single.pt", max_new)
+        emit({"check": "mesh_path_single_device", "model": cfg.name,
+              "save_packed_s": save_s, "decode_ms_per_tick": single_ms,
+              "card": CARD,
+              "tokens_equal_phase_3": (None if want_outs is None
+                                       else want == want_outs)})
+        require(want_outs is None or want == want_outs,
+                "mesh path: the single-device engine's tokens are not "
+                "phase 3's")
+        moe_cfg, moe_params = synthetic_moe(seed, moe_arch, moe_layers)
+        moe_prompts = path_prompts(seed, moe_cfg.vocab_size)
+        _, moe_ms = serve_recorded(moe_cfg, moe_params, moe_prompts,
+                                   tmp / "moe.pt", max_new)
+        del moe_params
+        if DEV == "cuda":
+            import torch
+            torch.cuda.empty_cache()
+        llama = {"artifact": str(art), "arch": cfg.name,
+                 "prompts": prompts, "max_new": max_new,
+                 "want": str(tmp / "single.pt"), "dev": DEV}
+        moe = {"artifact": None, "arch": moe_arch, "n_layers": moe_layers,
+               "seed": seed, "prompts": moe_prompts, "max_new": max_new,
+               "want": str(tmp / "moe.pt"), "dev": DEV}
+        plan = [(shape, llama) for shape in MESHES] + [(MOE_MESH, moe)]
+        n = max(D * M for (D, M), _ in plan)
+        world = make_serve_mesh(2, n // 2, [f"{DEV}:0" if DEV == "cuda"
+                                            else DEV] * n)
+        print(f"mesh path: one spawn of {world.describe()}", flush=True)
+        t0 = time.time()
+        # one torch thread a rank on the CPU (rehearsals): ranks share cores
+        rows = spawn(_mesh_ranks, world, (plan,),
+                     threads=1 if DEV == "cpu" else None,
+                     timeout_s=MESH_TIMEOUT_S)
+        emit({"check": "mesh_path_spawn", "ranks": n, "card": CARD,
+              "seconds": time.time() - t0})
+        for j, ((D, M), spec) in enumerate(plan):
+            ranks = [r[j] for r in rows if r[j] is not None]
+            tag, c, single = (("llama", cfg, single_ms) if spec is llama
+                              else ("moe", moe_cfg, moe_ms))
+            counts = report_mesh(f"{tag}_{D}x{M}", c, (D, M), ranks, single)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the model zoo at full width
 # ---------------------------------------------------------------------------
 
@@ -3711,10 +4151,11 @@ DRYRUN_JOBS = 8
 def phase_dryrun(jobs=DRYRUN_JOBS):
     """launch/dryrun.py's cells on the meta device, sized against the
     card: the 32 (arch x shape) cells at bf16 and the 22 inference cells
-    w3 packed, `jobs` at once; a `dryrun` line each, and a failing cell
-    fails the phase. The costs are the full-depth trace's own count,
-    without the 2/3-group probes (`python -m repro_torch.launch.dryrun
-    --all` extrapolates them from the probes, to the same numbers)."""
+    w3 packed, `jobs` at once, the longest traces handed out first; a
+    `dryrun` line each, and a failing cell fails the phase. The costs
+    are the full-depth trace's own count, without the 2/3-group probes
+    (`python -m repro_torch.launch.dryrun --all` extrapolates them from
+    the probes, to the same numbers)."""
     from repro_torch.launch import dryrun
     tasks = [(arch, shape, {"quant_bits": bits, "probe": False,
                             "save": False})
@@ -3753,7 +4194,7 @@ def phase_dryrun(jobs=DRYRUN_JOBS):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3773,6 +4214,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    global CARD
+    CARD = card
     print(card, flush=True)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
@@ -3893,7 +4336,7 @@ def main(argv=None) -> int:
             graphs("fixture")
             phase_done(2, t0)
         llama, main_outs = None, None
-        if phases & {3, 4, 6, 8}:
+        if phases & {3, 4, 6, 8, 12}:
             t0 = time.time()
             llama = synthetic_llama(args.seed)
             sync()
@@ -3919,11 +4362,17 @@ def main(argv=None) -> int:
             counts, _ = phase_speculative(args.seed, llama, main_outs)
             count("speculative_path", counts)
             phase_done(8, t0)
+        if 12 in phases:
+            t0 = time.time()
+            count("mesh_path", phase_mesh(args.seed, llama, main_outs))
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_done(12, t0)
         del llama                # free the llama weights before phase 7
         gc.collect()
         torch.cuda.empty_cache()
-        if phases & {3, 4, 6, 8}:
-            graphs("llama2-7b: phases 3, 4, 6, 8")
+        if phases & {3, 4, 6, 8, 12}:
+            graphs("llama2-7b: phases 3, 4, 6, 8, 12")
         if 7 in phases:
             t0 = time.time()
             counts, _ = phase_quantize(args.seed)

@@ -24,6 +24,11 @@ packed MoE expert stack, (G, E, bits, K/32, N) codes in the reference's
 stacked tree, becomes one QuantizedTensor of shape (E, K, N) per layer,
 which the batched-expert kernel serves in one launch. `load_packed`
 returns the manifest's spec as a dict (`QuantSpec.from_dict` reads it).
+`load_packed(mesh=)` loads one rank's slice of every leaf: each leaf's
+manifest spec without the data axis (serving replicates weights over
+the data ranks), guarded against the real mesh and cut by
+dist/sharding.py (shard_array, shard_qt), contiguous, so no rank ever
+holds another rank's block on its device.
 
 `save_packed` is the inverse: it restacks the per-layer list into the
 reference's {"blocks": {"L{i}": (n_groups, ...) leaves}} with the keys
@@ -45,6 +50,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import warnings
 from pathlib import Path
 from typing import NamedTuple
 
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.pspec import SYMBOLIC_AXES, named_pspec, pspec_to_json
+from repro_torch.dist.sharding import pspec_from_json, shard_array, shard_qt
 from repro_torch.hw import dtype_name, resolve_device
 from repro_torch.quant.draft import refit_draft_scales
 from repro_torch.quant.packing import codes_from_numpy, codes_to_numpy
@@ -163,34 +170,80 @@ def params_from_tree(tree, device=None) -> dict:
     return unstack_blocks(_map(tree, lambda leaf: _leaf(leaf, dev)))
 
 
-def _decode(node, arrays, device):
+def _leaf_spec(node, names, shape, field=None):
+    """A leaf's symbolic spec: the manifest's (v3+), else the rule's."""
+    if "pspec" in node:
+        entries = node["pspec"][field] if field else node["pspec"]
+        return pspec_from_json(entries)
+    return named_pspec(names + ((f".{field}",) if field else ()), shape)
+
+
+def _decode(node, arrays, device, mesh=None, names=()):
+    """A manifest node -> port leaves on `device`; with `mesh`, this
+    rank's slice of each (cut in host memory, before the copy)."""
     if "kind" not in node or not isinstance(node.get("kind"), str):
-        return {k: _decode(v, arrays, device) for k, v in node.items()}
+        return {k: _decode(v, arrays, device, mesh, names + (k,))
+                for k, v in node.items()}
     if node["kind"] == "qt":
-        def scales(field):
-            a = arrays[node[field]]
-            t = (_bf16_from_bits(a) if node.get("scale_dtype") == "bfloat16"
-                 else torch.from_numpy(_host(a)))
-            return t.to(device)
-        alphas = scales("alphas")
+        codes = arrays[node["codes"]]
+        alphas, betas = arrays[node["alphas"]], arrays[node["betas"]]
         if "groups" in node and alphas.shape[-3] != node["groups"]:
             raise ValueError(
                 f"corrupt packed artifact: manifest says {node['groups']} "
                 f"scale groups but alphas have shape {tuple(alphas.shape)}")
+        k_in = node["k_in"]
+        if mesh is not None:
+            specs = {f: _leaf_spec(node, names, a.shape, f) for f, a in
+                     (("codes", codes), ("alphas", alphas),
+                      ("betas", betas))}
+            codes, alphas, betas, k_in = shard_qt(
+                names, codes, alphas, betas, k_in, specs, mesh)
+
+        def scales(a):
+            t = (_bf16_from_bits(a) if node.get("scale_dtype") == "bfloat16"
+                 else torch.from_numpy(_host(a)))
+            return t.to(device)
         return QuantizedTensor(
-            codes=codes_from_numpy(arrays[node["codes"]]).to(device),
-            alphas=alphas, betas=scales("betas"),
-            k_in=node["k_in"], orig_dtype=node["orig_dtype"])
+            codes=codes_from_numpy(codes).to(device),
+            alphas=scales(alphas), betas=scales(betas),
+            k_in=k_in, orig_dtype=node["orig_dtype"])
     arr = arrays[node["key"]]
+    if mesh is not None:
+        arr = shard_array(names, arr, _leaf_spec(node, names, arr.shape),
+                          mesh)
     if node["dtype"] == "bfloat16":
         return _bf16_from_bits(arr).to(device)
     return torch.from_numpy(_host(arr)).to(device)
 
 
-def load_packed(directory, *, device=None):
+def load_packed(directory, *, mesh=None, fsdp: bool = False, device=None):
     """-> (params, spec dict or None, meta dict), params in the port's
-    per-layer layout on `device` (default cuda). Refuses uncommitted
-    (crashed mid-save) and too-new artifacts."""
+    per-layer layout on `device` (default cuda; on a mesh, the rank's
+    device). Refuses uncommitted (crashed mid-save) and too-new
+    artifacts.
+
+    With `mesh` (a bound ServeMesh: call it in each rank) every leaf is
+    this rank's slice under its manifest spec, the data axis dropped
+    (`fsdp=False`, the reference's default: weights replicate over data
+    ranks) and the guard re-applied against the mesh (dist/sharding.py).
+    A pre-v3 artifact records no specs: the reference replicates every
+    leaf onto its mesh and warns once; the port warns the same and cuts
+    the leaves by the rule itself (the specs a v3 manifest would hold),
+    since its steps need their slices. `fsdp=True` keeps the data axis
+    on the weights, which needs the per-layer all-gather FSDP training
+    does: it raises until the training slice (ROADMAP Queue 1 item 6)."""
+    if fsdp:
+        raise NotImplementedError(
+            "load_packed(fsdp=True): weights sharded over the data axis "
+            "need FSDP's per-layer all-gather, which comes with the "
+            "training slice of multi-GPU (ROADMAP Queue 1 item 6, still "
+            "to do); serving loads with fsdp=False")
+    if mesh is not None:
+        if mesh.rank is None:
+            raise ValueError("load_packed(mesh=) takes a bound mesh: call "
+                             "it in each rank (dist.context.spawn)")
+        if device is None:
+            device = mesh.device
     dev = resolve_device(device)
     d = Path(directory)
     if not (d / "COMMITTED").exists():
@@ -201,9 +254,26 @@ def load_packed(directory, *, device=None):
         raise ValueError(
             f"packed artifact format {manifest['format_version']} is newer "
             f"than this code ({FORMAT_VERSION})")
+    if mesh is not None and manifest["format_version"] < 3:
+        _warn_no_pspec(d, manifest["format_version"])
     with np.load(d / "arrays.npz") as arrays:
-        tree = _decode(manifest["tree"], arrays, dev)
+        tree = _decode(manifest["tree"], arrays, dev, mesh)
     return unstack_blocks(tree), manifest.get("spec"), manifest.get("meta", {})
+
+
+_WARNED_NO_PSPEC = []
+
+
+def _warn_no_pspec(d, version) -> None:
+    """One warning a process: a pre-v3 artifact has no per-leaf specs."""
+    if _WARNED_NO_PSPEC:
+        return
+    _WARNED_NO_PSPEC.append(True)
+    warnings.warn(
+        f"packed artifact {d} is format v{version} (pre-sharding-"
+        f"metadata): it records no per-leaf PartitionSpecs, so its leaves "
+        f"are cut by the sharding rule's specs; re-save with this code to "
+        f"record them", UserWarning, stacklevel=3)
 
 
 def load_draft_scales(directory, *, device=None):

@@ -1,0 +1,312 @@
+"""Meshes of `torch.distributed` ranks for serving (the counterpart of
+the reference's `dist/context.py` and its `jax.sharding.Mesh`).
+
+One process a mesh position: a (data, model) mesh of D x M ranks, rank
+r at coordinates (d, m) = (r // M, r % M), as a jax mesh orders its
+devices. A bound ServeMesh holds this rank's coordinates and its
+process groups beside the world: the model group (the M ranks of its
+data row, which split heads, MLP width and experts; the mesh's backend)
+and the data group (the D ranks of its model column, which split the
+batch and the page pool; always gloo, since the serving loop exchanges
+only sampled tokens over it, as CPU tensors).
+
+The backend follows from the devices the caller named, never silently:
+NCCL when every rank has a CUDA device of its own, gloo when the ranks
+are on the CPU or when the caller named one card for several ranks (the
+one-card rehearsal, the counterpart of the reference's `--devices N`
+host devices). Gloo takes CUDA tensors for all_reduce, all_gather and
+broadcast (it stages them through host memory itself).
+
+`reduce_model`, `gather_model` and `gather_data` are the model-side
+hooks: exact no-ops outside a mesh or over an axis of size 1, as the
+reference's `constrain_batch` is, so models/ calls them unconditionally.
+`spawn(fn, mesh)` runs `fn(bound_mesh, *args)` on every rank of a mesh
+in processes of its own (spawned, rendezvous through a file store in a
+temporary directory) and returns each rank's result; a rank that raises
+fails the whole call with its traceback, and the other ranks are
+stopped.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+_MESH_STACK: list = []
+
+
+def _backend(devices) -> str:
+    """The backend the named devices call for (see the module doc)."""
+    kinds = {torch.device(d).type for d in devices}
+    if kinds == {"cpu"}:
+        return "gloo"
+    if kinds != {"cuda"}:
+        raise ValueError(f"devices {list(devices)}: a mesh takes CPU ranks "
+                         f"or CUDA ranks, not both")
+    names = [str(torch.device(d)) for d in devices]
+    return "nccl" if len(set(names)) == len(names) else "gloo"
+
+
+class ServeMesh:
+    """A (data, model) mesh of ranks. Unbound (`rank` None) it is the
+    description the launcher spawns from; `bind(rank)` inside a rank's
+    process gives the mesh that rank serves with."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, data: int, model: int, devices, *, rank=None):
+        devices = [str(torch.device(d)) for d in devices]
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh {data}x{model}: axes must be >= 1")
+        if len(devices) != data * model:
+            raise ValueError(f"mesh {data}x{model} needs {data * model} "
+                             f"devices, {len(devices)} named")
+        self.shape = (int(data), int(model))
+        self.devices = np.array(devices, dtype=object).reshape(self.shape)
+        self.backend = _backend(devices)
+        self.rank = rank
+        self._groups = None
+        # collectives this rank ran, by kind: {"all_reduce": n, ...}
+        self.counts: dict = {}
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def coords(self) -> tuple:
+        """(d, m) of this rank."""
+        return divmod(self.rank, self.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.devices.reshape(-1)[self.rank])
+
+    def describe(self) -> str:
+        return (f"mesh (data={self.shape[0]}, model={self.shape[1]}) "
+                f"backend={self.backend} devices="
+                f"{','.join(self.devices.reshape(-1))}")
+
+    def bind(self, rank: int) -> "ServeMesh":
+        """This mesh as rank `rank` sees it, with its process groups
+        (every rank creates every group, in one order, as
+        torch.distributed requires). A mesh of one rank needs no
+        process group."""
+        out = ServeMesh(*self.shape, self.devices.reshape(-1), rank=rank)
+        if out.size > 1:
+            out._groups = out._new_groups(rank)
+        return out
+
+    def submesh(self, data: int, model: int):
+        """The (data, model) mesh of this bound mesh's first data*model
+        ranks, bound, with groups of its own: one spawn serves several
+        meshes in turn. Every rank of this mesh must call it (each
+        creates every group); the ranks outside get None."""
+        n = data * model
+        if n > self.size:
+            raise ValueError(f"a {data}x{model} mesh needs {n} of this "
+                             f"mesh's {self.size} ranks")
+        sub = ServeMesh(data, model, self.devices.reshape(-1)[:n],
+                        rank=self.rank)
+        groups = sub._new_groups(self.rank) if n > 1 else None
+        if self.rank >= n:
+            return None
+        sub._groups = groups
+        return sub
+
+    def _new_groups(self, rank: int) -> dict:
+        """Create every model and data group of this mesh over the world
+        (ranks 0 .. size-1); returns those of `rank`."""
+        D, M = self.shape
+        d, m = divmod(rank, M)
+        groups = {}
+        for dd in range(D):
+            g = dist.new_group([dd * M + j for j in range(M)])
+            if dd == d:
+                groups["model"] = g
+        for mm in range(M):
+            # the data axis carries host tensors only (tokens): gloo
+            g = dist.new_group([i * M + mm for i in range(D)],
+                               backend="gloo")
+            if mm == m:
+                groups["data_host"] = g
+        return groups
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def _count(self, kind: str) -> None:
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+
+
+def current_mesh():
+    return _MESH_STACK[-1] if _MESH_STACK else None
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Install `mesh` (bound) as the active mesh (stacked; reentrant)."""
+    _MESH_STACK.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH_STACK.pop()
+
+
+def model_coords() -> tuple:
+    """(index, size) of this rank on the model axis; (0, 1) outside a
+    mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 0, 1
+    return mesh.coords[1], mesh.shape[1]
+
+
+def reduce_model(y: torch.Tensor) -> torch.Tensor:
+    """Sum the partial outputs of a contracting projection over the
+    model group (in place); the identity outside a mesh or when the
+    model axis has size 1."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape[1] == 1:
+        return y
+    y = y.contiguous()
+    dist.all_reduce(y, group=mesh.group("model"))
+    mesh._count("all_reduce")
+    return y
+
+
+def _gather(x, group, n, dim):
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Concatenate each model rank's block of `x` along `dim` (the
+    vocabulary of split logits); the identity outside a mesh."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape[1] == 1:
+        return x
+    mesh._count("all_gather")
+    return _gather(x.contiguous(), mesh.group("model"), mesh.shape[1], dim)
+
+
+def gather_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Concatenate each data rank's block of the host tensor `x` along
+    dim 0 (the sampled tokens of every data shard's batch rows, in slot
+    order); the identity outside a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.shape[0] == 1:
+        return x
+    mesh._count("all_gather_host")
+    return _gather(x.contiguous(), mesh.group("data_host"), mesh.shape[0], 0)
+
+
+def broadcast_data(x: torch.Tensor, src_d: int, mesh=None) -> torch.Tensor:
+    """The host tensor `x` of data rank `src_d` (same model coordinate)
+    on every data rank; the identity outside a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.shape[0] == 1:
+        return x
+    mesh._count("broadcast_host")
+    x = x.contiguous()
+    src = src_d * mesh.shape[1] + mesh.coords[1]
+    dist.broadcast(x, src=src, group=mesh.group("data_host"))
+    return x
+
+
+# --------------------------------------------------------------------------
+# spawning the ranks of a mesh
+# --------------------------------------------------------------------------
+
+def _rank_main(fn, mesh, rank, store, args, threads, timeout_s, results):
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        if mesh.size > 1:
+            dist.init_process_group(
+                mesh.backend, init_method=f"file://{store}", rank=rank,
+                world_size=mesh.size,
+                timeout=datetime.timedelta(seconds=timeout_s))
+        bound = mesh.bind(rank)
+        if bound.device.type == "cuda":
+            torch.cuda.set_device(bound.device)
+        with mesh_context(bound):
+            out = fn(bound, *args)
+        results.put((rank, True, out))
+    except BaseException:
+        # the parent stops the other ranks on this report
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, mesh: ServeMesh, args=(), *, threads=None,
+          timeout_s: float = 600.0) -> list:
+    """Run `fn(bound_mesh, *args)` on every rank of `mesh`, each in a
+    spawned process with the mesh installed (mesh_context), and return
+    the results in rank order. `fn` and `args` must pickle (a module-
+    level function). `threads` sets each rank's torch thread count
+    (default for CPU ranks: the cores split among them, so they do not
+    oversubscribe the machine). A rank that raises, or a run longer than
+    `timeout_s`, raises RuntimeError here after every rank has been
+    stopped."""
+    import multiprocessing as mp
+
+    if threads is None and mesh.backend == "gloo" and all(
+            torch.device(d).type == "cpu" for d in mesh.devices.reshape(-1)):
+        threads = max(1, (os.cpu_count() or 1) // mesh.size)
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="mesh_store_")
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, mesh, r, store, args, threads, timeout_s,
+                               results), daemon=True)
+             for r in range(mesh.size)]
+    out: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while len(out) < mesh.size:
+            left = deadline - time.monotonic()
+            try:
+                rank, ok, val = results.get(timeout=max(min(left, 5.0), 0.01))
+            except queue.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in out]
+                if dead:
+                    raise RuntimeError(f"{mesh.describe()}: rank {dead[0]} "
+                                       f"exited with code "
+                                       f"{procs[dead[0]].exitcode}")
+                if left <= 0:
+                    late = sorted(set(range(mesh.size)) - set(out))
+                    raise RuntimeError(f"{mesh.describe()}: ranks {late} "
+                                       f"did not finish in {timeout_s} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"{mesh.describe()}: rank {rank} "
+                                   f"failed:\n{val}")
+            out[rank] = val
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(mesh.size)]

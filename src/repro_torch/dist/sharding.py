@@ -1,0 +1,480 @@
+"""Sharding rules for params and caches over a ("data", "model") mesh
+(the port's copy of the reference's `dist/sharding.py`).
+
+One rule set, two consumers: the packed-artifact manifest writer
+(ckpt/packed.py, at the symbolic mesh) and mesh serving (each rank
+keeps its own slice of every leaf: ckpt/packed.py:load_packed(mesh=),
+shard_params below, and the engine's shard-local page pools). Rules are
+total functions of (config, path, leaf shape, mesh) with a divisibility
+guard: an axis is applied only when the dim is divisible by the mesh
+axis size, otherwise it is dropped (the dim replicates).
+
+Specs are plain tuples, one entry a dim: None (replicated), an axis name
+or a tuple of axis names. A mesh is anything with `.axis_names` and a
+`.devices` array whose shape gives the axis sizes: the port's ServeMesh
+(dist/context.py), the symbolic mesh below, or a shape-only stand-in.
+
+Conventions (2-axis mesh ("data", "model")):
+  - "expand" projections (wq/wk/wv/wg/wu/...):  K on data (FSDP), N on model
+  - "contract" projections (wo/wd/out_proj):    K on model, N on data
+  - embed (V, D): vocab on model, d_model on data; lm_head transposed
+  - MoE expert stacks (G, E, K, N): experts on model when E % model == 0
+    (expert parallelism), else TP inside each expert
+  - KV caches (G, B, H, S, hd): batch on data; heads on model when
+    divisible, else *sequence* on model; B=1 shards sequence over both
+  - paged KV pools (G, P, page, H, hd): pages on data, heads on model
+  - QuantizedTensor leaves shard like the dense weight they replace
+    (codes: K on data / N on model; alphas/betas: N on model)
+
+Shapes are the reference's stacked ones (a leading n_groups axis on
+block leaves); `local_slices` cuts one rank's block of a leaf by a spec.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# projections whose *input* dim carries the model axis (the output of a
+# model-sharded matmul feeds them, so no reshard between the pair)
+_CONTRACT = {"wo", "wd", "out_proj"}
+# matmul-weight leaves (everything else replicates): any name starting
+# with "w" plus these
+_MATMUL_EXTRA = {"in_proj", "x_proj", "dt_w", "out_proj", "router",
+                 "embed", "lm_head"}
+_QT_LEAVES = {".codes", ".alphas", ".betas"}
+# Leaves models/ constructs that intentionally replicate (norm scales,
+# per-channel vectors, SSM decay params): a new leaf either matches a
+# placement rule below or is declared here, so replication is always a
+# decision, never a silent default.
+REPLICATED_LEAVES = frozenset({
+    "ln", "ln2", "post_ln", "post_ln2", "final_ln",   # rmsnorm scales
+    "qn", "kn", "q_a_norm", "kv_a_norm",              # qk / latent norms
+    "conv_w", "conv_b", "dt_b", "A_log", "D",         # mamba per-channel
+})
+
+
+def _is_matmul(name: str) -> bool:
+    return name.startswith("w") or name in _MATMUL_EXTRA
+
+
+# --------------------------------------------------------------------------
+# mesh helpers
+# --------------------------------------------------------------------------
+
+def mesh_axis_sizes(mesh) -> dict:
+    """axis name -> size, for a ServeMesh or any shape-only stand-in
+    with .axis_names and .devices. The one derivation: engine and
+    launcher shard counts read it."""
+    return dict(zip(tuple(mesh.axis_names), np.shape(mesh.devices)))
+
+
+def _div(n: int, axis, sizes) -> bool:
+    if axis is None:
+        return True
+    total = 1
+    for a in (axis if isinstance(axis, tuple) else (axis,)):
+        total *= sizes[a]
+    return n % total == 0
+
+
+def _guard(shape, spec, sizes) -> tuple:
+    return tuple(a if _div(d, a, sizes) else None
+                 for d, a in zip(shape, spec))
+
+
+def batch_pspec(mesh, batch: int, rest=(None,)) -> tuple:
+    """Batch-dim spec: all data-ish axes when divisible, the plain data
+    axis as fallback, replicated otherwise. `rest` fills trailing dims."""
+    sizes = mesh_axis_sizes(mesh)
+    combo = tuple(a for a in ("pod", "data") if a in sizes)
+    ax = None
+    if combo and _div(batch, combo, sizes):
+        ax = combo if len(combo) > 1 else combo[0]
+    elif "data" in sizes and _div(batch, "data", sizes):
+        ax = "data"
+    return (ax, *rest)
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+def named_pspec(cfg, names, leaf, mesh, *, fsdp: bool = True) -> tuple:
+    """The spec of the parameter leaf at string path `names` (the
+    reference's stacked layout: "blocks", "L{i}", ...). QuantizedTensor
+    children are addressed by appending ".codes" / ".alphas" / ".betas"
+    to the weight's path. `leaf` needs only a .shape."""
+    sizes = mesh_axis_sizes(mesh)
+    name = names[-1]
+    shape = tuple(leaf.shape)
+    data_ax = "data" if (fsdp and "data" in sizes) else None
+    model_ax = "model" if "model" in sizes else None
+
+    if name in _QT_LEAVES:
+        return _qt_pspec(name, names[-2] if len(names) > 1 else "", shape,
+                         sizes, data_ax, model_ax,
+                         is_expert=any(n == "moe" for n in names))
+
+    if len(shape) < 2 or not _is_matmul(name):
+        return (None,) * len(shape)
+
+    if name == "embed" and len(shape) == 2:
+        return _guard(shape, (model_ax, data_ax), sizes)
+    if name == "lm_head":
+        return _guard(shape, (None,) * (len(shape) - 2) + (data_ax, model_ax),
+                      sizes)
+
+    is_expert = any(n == "moe" for n in names) and len(shape) >= 3 \
+        and name != "router"
+    if is_expert:
+        lead = (None,) * (len(shape) - 3)
+        E = shape[-3]
+        if (model_ax is not None and sizes[model_ax]
+                and E % sizes[model_ax] == 0):
+            # expert parallelism: E on model, FSDP on K, N replicated
+            return _guard(shape, lead + (model_ax, data_ax, None), sizes)
+        if name in _CONTRACT:
+            return _guard(shape, lead + (None, model_ax, data_ax), sizes)
+        return _guard(shape, lead + (None, data_ax, model_ax), sizes)
+
+    lead = (None,) * (len(shape) - 2)
+    if name in _CONTRACT:
+        return _guard(shape, lead + (model_ax, data_ax), sizes)
+    return _guard(shape, lead + (data_ax, model_ax), sizes)
+
+
+def _qt_pspec(leaf_name, base_name, shape, sizes, data_ax, model_ax,
+              is_expert=False):
+    """QuantizedTensor children shard like the dense weight they stand
+    in for: codes (..., bits, K/32, N), alphas (..., G, N, bits), betas
+    (..., G, N). Batched-expert stacks (a leading E dim under a "moe"
+    path) put E on the model axis when divisible; codes keep FSDP on the
+    packed-K dim and scales replicate within an expert."""
+    if base_name in _CONTRACT:
+        k_ax, n_ax = model_ax, data_ax
+    else:
+        k_ax, n_ax = data_ax, model_ax
+    base_rank = {".codes": 3, ".alphas": 3, ".betas": 2}[leaf_name]
+    if (is_expert and base_name != "router" and len(shape) > base_rank
+            and model_ax is not None and shape[0] % sizes[model_ax] == 0):
+        mid = (None,) * (len(shape) - base_rank - 1)
+        if leaf_name == ".codes":
+            spec = (model_ax,) + mid + (None, data_ax, None)
+        elif leaf_name == ".alphas":
+            spec = (model_ax,) + mid + (None, None, None)
+        else:  # .betas
+            spec = (model_ax,) + mid + (None, None)
+        return _guard(shape, spec, sizes)
+    if leaf_name == ".codes":
+        spec = (None,) * (len(shape) - 2) + (k_ax, n_ax)
+    elif leaf_name == ".alphas":
+        spec = (None,) * (len(shape) - 2) + (n_ax, None)
+    else:  # .betas
+        spec = (None,) * (len(shape) - 1) + (n_ax,)
+    return _guard(shape, spec, sizes)
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+
+def cache_pspec(cfg, names, leaf, mesh) -> tuple:
+    """The spec of the cache leaf at string path `names` with the
+    reference's stacked shape (G, ...)."""
+    sizes = mesh_axis_sizes(mesh)
+    name = names[-1]
+    shape = tuple(leaf.shape)
+    data_ax = "data" if "data" in sizes else None
+    model_ax = "model" if "model" in sizes else None
+
+    if name in ("k_pages", "v_pages") and len(shape) == 5:
+        # (G, P, page, H, hd): pages across data, kv heads across model
+        return _guard(shape, (None, data_ax, None, model_ax, None), sizes)
+
+    if name in ("ckv_pages", "kpe_pages") and len(shape) == 5:
+        # MLA latent pages (G, P, page, 1, r): pages across data; the
+        # per-token latent and rope vectors replicate
+        return _guard(shape, (None, data_ax, None, None, None), sizes)
+
+    # binary-coded pool leaves (quant/kv.py): pages on data, kv heads on
+    # model, for the codes and both scale leaves, so a page's codes and
+    # scales always land on the same devices
+    if name in ("k_codes", "v_codes", "k_alphas", "v_alphas") \
+            and len(shape) == 6:
+        # (G, P, page, H, bits, hd/32) / (G, P, page, H, Gk, bits)
+        return _guard(shape, (None, data_ax, None, model_ax, None, None),
+                      sizes)
+    if name in ("k_betas", "v_betas") and len(shape) == 5:
+        # (G, P, page, H, Gk)
+        return _guard(shape, (None, data_ax, None, model_ax, None), sizes)
+
+    if name in ("k", "v") and len(shape) == 5:
+        G, B, H, S, hd = shape
+        batch_ax = data_ax if _div(B, data_ax, sizes) else None
+        head_ax = model_ax if _div(H, model_ax, sizes) else None
+        seq_ax = None
+        if head_ax is None and model_ax is not None:
+            both = tuple(a for a in (data_ax, model_ax) if a)
+            if batch_ax is None and len(both) > 1 and _div(S, both, sizes):
+                seq_ax = both
+            elif _div(S, model_ax, sizes):
+                seq_ax = model_ax
+        return (None, batch_ax, head_ax, seq_ax, None)
+
+    if name in ("c_kv", "k_pe") and len(shape) == 4:   # MLA latent cache
+        G, B, S, r = shape
+        batch_ax = data_ax if _div(B, data_ax, sizes) else None
+        seq_ax = model_ax if _div(S, model_ax, sizes) else None
+        return (None, batch_ax, seq_ax, None)
+
+    if name in ("ssm", "conv") and len(shape) >= 3:    # mamba state
+        batch_ax = data_ax if _div(shape[1], data_ax, sizes) else None
+        spec = [None, batch_ax] + [None] * (len(shape) - 2)
+        # d_inner rides the model axis when divisible (last dim for conv,
+        # dim 2 for ssm)
+        di_dim = 2 if name == "ssm" else len(shape) - 1
+        if _div(shape[di_dim], model_ax, sizes):
+            spec[di_dim] = model_ax
+        return tuple(spec)
+
+    # unknown cache leaf: batch on data when it looks batched, else repl.
+    if len(shape) >= 2 and _div(shape[1], data_ax, sizes):
+        return (None, data_ax, *([None] * (len(shape) - 2)))
+    return (None,) * len(shape)
+
+
+# --------------------------------------------------------------------------
+# symbolic specs (packed-artifact manifests)
+# --------------------------------------------------------------------------
+# A packed artifact records each leaf's *symbolic* spec (axis names
+# without sizes), so any later mesh can place the leaf directly
+# (ckpt/packed.py). The symbolic mesh has size-1 axes, which makes the
+# divisibility guard vacuous: the rule's full intent survives into the
+# manifest, and `guard_pspec` re-applies the guard against the real mesh
+# at load time.
+
+SYMBOLIC_AXES = ("data", "model")
+
+
+class _SymbolicMesh:
+    def __init__(self, axes):
+        self.axis_names = tuple(axes)
+        self.devices = np.empty((1,) * len(self.axis_names))
+
+
+def symbolic_mesh(axes=SYMBOLIC_AXES):
+    """Shape-only stand-in whose every axis divides everything: rules
+    evaluated against it return the unguarded symbolic spec."""
+    return _SymbolicMesh(axes)
+
+
+def pspec_to_json(spec) -> list:
+    """Spec -> JSON-safe list (entries: None | str | [str])."""
+    return [list(a) if isinstance(a, tuple) else a for a in tuple(spec)]
+
+
+def pspec_from_json(entries) -> tuple:
+    return tuple(tuple(a) if isinstance(a, list) else a for a in entries)
+
+
+def drop_axes(spec, axes) -> tuple:
+    """Remove the named mesh axes from a spec (replicating those dims):
+    serving loads drop "data" by default (weights replicate over the
+    data-parallel shards; gathering them FSDP-style is training's
+    concern)."""
+    axes = set(axes)
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, tuple):
+            left = tuple(a for a in entry if a not in axes)
+            return left if len(left) > 1 else (left[0] if left else None)
+        return None if entry in axes else entry
+    return tuple(keep(a) for a in tuple(spec))
+
+
+def guard_pspec(shape, spec, mesh) -> tuple:
+    """Re-apply the divisibility guard of a symbolic spec against a real
+    mesh: an axis is dropped (dim replicated) when the mesh lacks it or
+    the dim does not divide its size. Short specs are padded with None
+    to the leaf's rank."""
+    sizes = mesh_axis_sizes(mesh)
+    entries = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+
+    def ok(dim, ax):
+        if ax is None:
+            return True
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if any(a not in sizes for a in axes):
+            return False
+        return _div(dim, ax, sizes)
+
+    return tuple(a if ok(d, a) else None for d, a in zip(shape, entries))
+
+
+# --------------------------------------------------------------------------
+# one rank's block of a leaf
+# --------------------------------------------------------------------------
+
+def local_slices(shape, spec, mesh, coords: dict) -> tuple:
+    """The index (a slice a dim) of the block of a `shape` leaf that the
+    rank at `coords` ({axis: index}) holds under the guarded `spec`. A
+    dim over several axes splits major-to-minor in the order named."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if ax is None:
+            out.append(slice(None))
+            continue
+        n, i = 1, 0
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n, i = n * sizes[a], i * sizes[a] + coords[a]
+        step = dim // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of one rank's block of a `shape` leaf under `spec`."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        n = 1
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            n *= sizes[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# a rank's slice of the weights (serving: fsdp=False)
+# --------------------------------------------------------------------------
+# The serving steps run the layer code on each rank's slice of every
+# leaf, so where the rule puts the model axis on a dim the slice must
+# really be cut there: a dim the axis does not divide raises (the
+# reference's guard would replicate it and let GSPMD gather). Two
+# exceptions: the router replicates (every rank routes every token over
+# all E experts, models/moe.py), and a vocabulary the axis does not
+# divide replicates (models/model.py looks up and unembeds either way).
+
+_VOCAB = {"embed", "lm_head"}
+
+
+def _axes(spec) -> set:
+    out = set()
+    for a in spec:
+        out |= set(a) if isinstance(a, tuple) else {a}
+    return out - {None}
+
+
+def _contiguous(a):
+    return a.contiguous() if hasattr(a, "contiguous") \
+        else np.ascontiguousarray(a)
+
+
+def _serving_spec(names, shape, symbolic, mesh) -> tuple:
+    """The symbolic spec without the data axis (weights replicate over
+    data ranks), guarded against `mesh`; raises where the guard drops
+    the model axis of a leaf the steps need split."""
+    want = drop_axes(symbolic, ("data",))
+    spec = guard_pspec(shape, want, mesh)
+    if ("model" in _axes(want) and "model" not in _axes(spec)
+            and names[-1] not in _VOCAB):
+        raise ValueError(
+            f"{'/'.join(names)} {tuple(shape)}: the "
+            f"{mesh_axis_sizes(mesh)['model']}-way model axis does not "
+            f"divide the dim the rule {tuple(want)} splits")
+    return spec
+
+
+def shard_array(names, arr, symbolic, mesh):
+    """This rank's block of the dense leaf `arr` (numpy or torch) at
+    `names` under its symbolic spec, contiguous."""
+    if names[-1] == "router":
+        return arr
+    spec = _serving_spec(names, arr.shape, symbolic, mesh)
+    d, m = mesh.coords
+    return _contiguous(arr[local_slices(arr.shape, spec, mesh,
+                                        {"data": d, "model": m})])
+
+
+def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
+    """This rank's block of a QuantizedTensor's fields (numpy or torch)
+    under their symbolic specs {"codes", "alphas", "betas"}: -> (codes,
+    alphas, betas, k_in). A column (or expert) split cuts the scales
+    with the codes. A K split (wo, wd: codes on model along the packed
+    K words) keeps a per-channel leaf's one group for every shard's rows
+    and cuts group-wise scales with the rows when a group never straddles
+    two shards; otherwise it raises naming the leaf."""
+    fields = {"codes": codes, "alphas": alphas, "betas": betas}
+    M = mesh_axis_sizes(mesh)["model"]
+    if "moe" in names and codes.ndim == 5:
+        # a stacked expert stack (G, E, ...): the reference's _qt_pspec
+        # puts the model axis on dim 0, the stack's layer-group axis;
+        # the port's expert parallelism splits E (dim 1), as the rule
+        # for a dense expert stack does
+        if codes.shape[1] % M:
+            raise ValueError(f"{'/'.join(names)}: a {M}-way model axis "
+                             f"does not divide {codes.shape[1]} experts")
+        specs = {f: (None, "model") + (None,) * (a.ndim - 2)
+                 for f, a in fields.items()}
+    spec = {f: _serving_spec(names + (f".{f}",), a.shape, specs[f], mesh)
+            for f, a in fields.items()}
+    if spec["codes"][-2] == "model":
+        where = "/".join(names)
+        if k_in % (32 * M):
+            raise ValueError(f"{where}: K={k_in} does not split into "
+                             f"{M} whole blocks of 32-bit code words")
+        G = alphas.shape[-3]
+        if G > 1:
+            if (k_in // M) % (k_in // G):
+                raise ValueError(
+                    f"{where}: {G} scale groups of {k_in // G} rows "
+                    f"straddle the {M} shards of K={k_in}")
+            spec["alphas"] = spec["alphas"][:-3] + ("model",) \
+                + spec["alphas"][-2:]
+            spec["betas"] = spec["betas"][:-2] + ("model",) \
+                + spec["betas"][-1:]
+        k_in //= M
+    d, m = mesh.coords
+    coords = {"data": d, "model": m}
+    out = [_contiguous(a[local_slices(a.shape, spec[f], mesh, coords)])
+           for f, a in fields.items()]
+    return (*out, k_in)
+
+
+def shard_params(cfg, params, mesh):
+    """An unsharded tree in the port's per-layer layout -> this rank's
+    slice of it (the same cut load_packed(mesh=) makes from a
+    manifest's specs: each leaf's spec is the rule at the symbolic mesh,
+    its layer addressed as the reference's stacked "blocks"/"L{i}")."""
+    from repro_torch.quant.qlinear import QuantizedTensor
+
+    sym = symbolic_mesh()
+    P = len(cfg.pattern)
+
+    def walk(node, names, stacked):
+        if isinstance(node, dict):
+            return {k: walk(v, names + (k,), stacked)
+                    for k, v in node.items()}
+        lead = (lambda t: t[None]) if stacked else (lambda t: t)
+        cut = (lambda t: t[0]) if stacked else (lambda t: t)
+        if isinstance(node, QuantizedTensor):
+            f = {k: lead(getattr(node, k))
+                 for k in ("codes", "alphas", "betas")}
+            specs = {k: named_pspec(cfg, names + (f".{k}",), a, sym)
+                     for k, a in f.items()}
+            c, a, b, k_in = shard_qt(names, f["codes"], f["alphas"],
+                                     f["betas"], node.k_in, specs, mesh)
+            return QuantizedTensor(cut(c), cut(a), cut(b), k_in,
+                                   node.orig_dtype)
+        arr = lead(node)
+        return cut(shard_array(names, arr,
+                               named_pspec(cfg, names, arr, sym), mesh))
+
+    out = {k: walk(v, (k,), False) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [walk(lp, ("blocks", f"L{i % P}"), True)
+                     for i, lp in enumerate(params["layers"])]
+    return out

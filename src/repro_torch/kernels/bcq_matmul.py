@@ -305,6 +305,7 @@ def bcq_gemv(x, codes, alphas, betas):
         return _meta_call("bcq_gemv", x, codes, alphas)
     y = _gemv(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_gemv"] += 1
+    work.note_launch("bcq_gemv", (*x.shape, codes.shape[-1]))
     return y
 
 
@@ -318,6 +319,7 @@ def bcq_matmul(x, codes, alphas, betas):
         return _meta_call("bcq_matmul", x, codes, alphas)
     y = _gemm(x[None], codes[None], alphas[None], betas[None])[0]
     LAUNCHES["bcq_matmul"] += 1
+    work.note_launch("bcq_matmul", (*x.shape, codes.shape[-1]))
     return y
 
 
@@ -336,4 +338,5 @@ def bcq_expert_matmul(x, codes, alphas, betas, rows=None):
     fn = _gemv if x.shape[1] <= GEMV_ROWS else _gemm
     y = fn(x, codes, alphas, betas, rows)
     LAUNCHES["bcq_expert_matmul"] += 1
+    work.note_launch("bcq_expert_matmul", (*x.shape, codes.shape[-1]))
     return y

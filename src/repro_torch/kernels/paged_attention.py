@@ -227,6 +227,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention")
     LAUNCHES["paged_attention"] += 1
+    work.note_launch("paged_attention", (*q.shape, k_pages.shape[0]))
     return out
 
 
@@ -274,4 +275,5 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_attention_quant")
     LAUNCHES["paged_attention_quant"] += 1
+    work.note_launch("paged_attention_quant", (*q.shape, k_codes.shape[0]))
     return out

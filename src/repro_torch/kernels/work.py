@@ -1,4 +1,5 @@
-"""Work reports of the kernel wrappers on meta tensors.
+"""Work reports of the kernel wrappers on meta tensors, and the shapes
+of the launches they make on the card.
 
 On the meta device a wrapper launches nothing: it returns an empty
 output of the kernel's shape and dtype (the counterpart of
@@ -11,10 +12,19 @@ the bytes of w3 codes) is never reported. The dry run's op counter
     with recording() as rec:
         ...                              # meta tensors through the model
     rec.calls, rec.flops, rec.bytes, rec.by_kernel
+
+A launch on the card notes its shape (`note_launch`, beside the launch
+count) to every open `launch_shapes()` log, so a run can show at which
+shapes each kernel ran (a mesh rank's per-shard shapes):
+
+    with launch_shapes() as shapes:
+        ...                              # CUDA tensors through the model
+    shapes["bcq_gemv"] -> {(M, K, N), ...}
 """
 from __future__ import annotations
 
 _RECORDERS: list = []
+_SHAPE_LOGS: list = []
 
 
 class Recorder:
@@ -58,3 +68,23 @@ def report(name: str, work: dict) -> None:
     "bytes"}: added to every open recorder."""
     for rec in _RECORDERS:
         rec.add(name, work["flops"], work["bytes"])
+
+
+class launch_shapes:
+    """with launch_shapes() as shapes: {kernel name: {shape, ...}} of the
+    launches made inside."""
+
+    def __enter__(self) -> dict:
+        self.shapes: dict = {}
+        _SHAPE_LOGS.append(self.shapes)
+        return self.shapes
+
+    def __exit__(self, *exc):
+        _SHAPE_LOGS.remove(self.shapes)
+        return False
+
+
+def note_launch(name: str, shape) -> None:
+    """A launch of kernel `name` at `shape`: added to every open log."""
+    for log in _SHAPE_LOGS:
+        log.setdefault(name, set()).add(tuple(int(d) for d in shape))

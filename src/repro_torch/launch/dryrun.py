@@ -23,8 +23,8 @@ same cell cut to 2 and 3 groups of its pattern, extrapolated linearly to
 the config's depth (`_extrapolate`); the full-depth trace validates the
 cell and sizes its memory, and its own count stands beside the
 extrapolation. On one device there are no collectives; the pod meshes
-(--multipod, and the reference's FSDP switch --no-fsdp) come with
-multi-GPU (ROADMAP Queue 1 item 6).
+(--multipod, and the reference's FSDP switch --no-fsdp) and their
+collective term are still to do (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -62,9 +62,9 @@ META = torch.device("meta")
 def _refuse_meshes(multi_pod: bool, fsdp: bool) -> None:
     if multi_pod or not fsdp:
         raise NotImplementedError(
-            f"{'--multipod' if multi_pod else '--no-fsdp'}: sharded cells "
-            f"come with multi-GPU (ROADMAP Queue 1 item 6); the port's dry "
-            f"run sizes one device")
+            f"{'--multipod' if multi_pod else '--no-fsdp'}: the pod meshes' "
+            f"sharded cells are still to do (ROADMAP Queue 1 item 6); the "
+            f"port's dry run sizes one device")
 
 
 # --------------------------------------------------------------------------

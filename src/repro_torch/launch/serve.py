@@ -19,6 +19,12 @@ through the continuous-batching engine (the reference's
   PYTHONPATH=src python -m repro_torch.launch.serve --suggest-overrides \\
       [--bytes-budget BYTES]
 
+  # an artifact over a (data, model) mesh of ranks: one card a rank by
+  # default; --devices names them (cuda:0,cuda:0 rehearses two ranks on
+  # one card over gloo, cpu,cpu two ranks on the CPU)
+  PYTHONPATH=src python -m repro_torch.launch.serve --load-quantized DIR \\
+      --mesh 2,1 [--devices cuda:0,cuda:1]
+
 Without --load-quantized the model is data/pretrained.py:get_trained_lm
 (--arch trained for --train-steps steps, or its cached checkpoint,
 either package's), quantized with --quant by core.api.quantize_model
@@ -27,8 +33,11 @@ and saved by ckpt.packed.save_packed with a w--draft-bits draft block.
 An artifact is read by ckpt.packed.load_packed (manifests v1-v4, as the
 reference writes them); the model config is the registry entry its meta
 "arch" names (any decoder of the zoo: attention, MLA, Mamba or hybrid,
-dense or MoE MLPs), at the artifact's own depth. --mesh arrives with
-multi-GPU (ROADMAP Queue 1 item 6). `--speculate K` serves
+dense or MoE MLPs), at the artifact's own depth. `--mesh D,M` spawns
+one process a mesh position (dist/context.py:spawn); each loads its
+slice with load_packed(mesh=) and runs the engine on the mesh (the
+paged cache; the batch rounded up to a multiple of D, as the
+reference does), and rank 0 prints. `--speculate K` serves
 self-speculatively: a `--draft-bits D` view of the same packed codes
 proposes K tokens a tick, with the scales of the artifact's v4 draft
 block when it has one and an LS re-fit otherwise (the launcher says
@@ -37,6 +46,7 @@ which).
 from __future__ import annotations
 
 import argparse
+import sys
 
 SEEDS = ["the ancient city", "a famous museum", "this railway",
          "the council", "another region", "the early dynasty"]
@@ -84,9 +94,7 @@ def suggest(args, get_trained_lm) -> None:
     return rules
 
 
-def main(argv=None):
-    """Parse `argv`, serve, print a summary; returns the engine and its
-    finished requests (with --suggest-overrides, the suggested rules)."""
+def _parser():
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", default="tiny-lm",
                     help="registry name of the model get_trained_lm "
@@ -142,21 +150,50 @@ def main(argv=None):
                          "(< the target's bits); draft scales come "
                          "from the artifact's v4 draft block when "
                          "present, else an on-the-fly LS re-fit")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the device without --mesh (with it, --devices)")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="serve --load-quantized over a (data, model) mesh "
+                         "of D x M ranks, e.g. 2,1: the page pool and the "
+                         "batch split over D, heads, MLP width and experts "
+                         "over M")
+    ap.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                    help="with --mesh: each rank's device in rank order "
+                         "(default one card a rank; too few cards raise)")
+    return ap
+
+
+def _mesh_shape(text: str):
+    d, m = (int(x) for x in text.replace("x", ",").split(","))
+    return d, m
+
+
+def main(argv=None):
+    """Parse `argv`, serve, print a summary; returns the engine and its
+    finished requests (with --suggest-overrides, the suggested rules;
+    with --mesh, each rank's {"rank", "tokens"} in rank order)."""
+    ap = _parser()
     args = ap.parse_args(argv)
-    paged = args.kv_bits > 0 or args.speculate > 0
+    paged = args.kv_bits > 0 or args.speculate > 0 or bool(args.mesh)
     if args.cache == "paged":
         paged = True
     elif args.cache == "dense" and paged:
-        ap.error("--cache dense conflicts with --kv-bits/--speculate "
+        ap.error("--cache dense conflicts with --mesh/--kv-bits/--speculate "
                  "(each requires the paged backend)")
+    if args.devices and not args.mesh:
+        ap.error("--devices names a mesh's devices: it needs --mesh")
+    if args.mesh:
+        if not args.load_quantized:
+            ap.error("--mesh serves a packed artifact: each rank loads its "
+                     "slice with --load-quantized")
+        from repro_torch.dist.context import spawn
+        from repro_torch.launch.mesh import make_serve_mesh
+        mesh = make_serve_mesh(*_mesh_shape(args.mesh), args.devices)
+        print(f"serving over {mesh.describe()}")
+        return spawn(serve_rank, mesh, (list(sys.argv[1:] if argv is None
+                                             else argv),))
 
-    from repro_torch.ckpt.packed import load_packed
-    from repro_torch.configs import get_config
-    from repro_torch.data import ByteTokenizer
     from repro_torch.data.pretrained import get_trained_lm
-    from repro_torch.models.attention import paged_kv_page_bytes
-    from repro_torch.serve import Request, ServeEngine
 
     if args.suggest_overrides:
         return suggest(args, get_trained_lm)
@@ -167,20 +204,7 @@ def main(argv=None):
                      "incompatible with --quant/--save-quantized/"
                      "--group-size/--method (re-quantize and re-save to "
                      "change them)")
-        params, spec, meta = load_packed(args.load_quantized,
-                                         device=args.device)
-        arch = meta.get("arch")
-        if arch is None:
-            ap.error(f"{args.load_quantized}: the artifact's meta names "
-                     f"no arch")
-        # the artifact's depth wins over the registry's (fixtures cut
-        # n_layers)
-        cfg = get_config(arch).replace(dtype="float32",
-                                       n_layers=len(params["layers"]))
-        desc = (f"{spec['method']} w{spec['bits']}" if spec
-                else "unknown spec")
-        print(f"loaded packed model '{arch}' ({desc}) from "
-              f"{args.load_quantized} on {args.device}")
+        cfg, params = _load(ap, args)
     else:
         if args.save_quantized and not args.quant:
             ap.error("--save-quantized requires --quant")
@@ -200,43 +224,100 @@ def main(argv=None):
                  else "on-the-fly LS re-fit (no v4 draft block)"))
         draft_params = make_draft_params(params, args.draft_bits,
                                          scales_tree)
-    eng = ServeEngine(cfg, params, batch_size=args.batch_size, max_len=160,
+    return _serve(args, cfg, params, paged, draft_params)
+
+
+def _load(ap, args, mesh=None):
+    """--load-quantized: (cfg, params), this rank's slice on a mesh."""
+    from repro_torch.ckpt.packed import load_packed
+    from repro_torch.configs import get_config
+    params, spec, meta = load_packed(args.load_quantized, mesh=mesh,
+                                     device=None if mesh else args.device)
+    arch = meta.get("arch")
+    if arch is None:
+        ap.error(f"{args.load_quantized}: the artifact's meta names no arch")
+    # the artifact's depth wins over the registry's (fixtures cut n_layers)
+    cfg = get_config(arch).replace(dtype="float32",
+                                   n_layers=len(params["layers"]))
+    desc = f"{spec['method']} w{spec['bits']}" if spec else "unknown spec"
+    where = args.device if mesh is None else f"rank {mesh.rank} of the mesh"
+    if mesh is None or mesh.rank == 0:
+        print(f"loaded packed model '{arch}' ({desc}) from "
+              f"{args.load_quantized} on {where}")
+    return cfg, params
+
+
+def serve_rank(mesh, argv):
+    """One rank of `--mesh`: load this rank's slice and serve on the mesh
+    (rank 0 prints). -> {"rank", "tokens"}."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    cfg, params = _load(ap, args, mesh)
+    eng, reqs = _serve(args, cfg, params, True, None, mesh)
+    return {"rank": mesh.rank, "tokens": [r.out for r in reqs]}
+
+
+def _serve(args, cfg, params, paged, draft_params, mesh=None):
+    """Serve the demo requests; prints (on rank 0 of a mesh) the cache,
+    the throughput and the first texts. -> (engine, requests)."""
+    from repro_torch.data import ByteTokenizer
+    from repro_torch.models.attention import paged_kv_page_bytes
+    from repro_torch.serve import Request, ServeEngine
+
+    def say(*a):
+        if mesh is None or mesh.rank == 0:
+            print(*a, flush=True)
+    batch = args.batch_size
+    if mesh is not None and batch % mesh.shape[0]:
+        # every page-pool shard serves an equal slice of the batch
+        batch = -(-batch // mesh.shape[0]) * mesh.shape[0]
+        say(f"batch_size rounded {args.batch_size} -> {batch} (must split "
+            f"over {mesh.shape[0]} data shards)")
+    eng = ServeEngine(cfg, params, batch_size=batch, max_len=160,
                       dtype="float32",
                       cache_kind="paged" if paged else "dense",
                       kv_bits=args.kv_bits,
                       kv_group_size=args.kv_group_size,
                       speculate=args.speculate, draft_bits=args.draft_bits,
-                      draft_params=draft_params, device=args.device)
+                      draft_params=draft_params, mesh=mesh,
+                      device=None if mesh else args.device)
     if paged:
         kv = eng.kv
         kind = "latent" if cfg.mla is not None else "kv"
-        print(f"paged {kind} cache: {kv.n_pages} pages x {kv.page_size} "
-              f"tok, {kv.bytes_per_page()} B/page")
+        say(f"paged {kind} cache: {kv.n_pages} pages x {kv.page_size} "
+            f"tok, {kv.bytes_per_page()} B/page")
         if eng.slab is not None:
             sl = eng.slab
-            print(f"state slab pool: {sl.usable_slabs} usable slabs "
-                  f"({sl.n_shards} reserve), {sl.bytes_per_slab()} B/slab")
+            say(f"state slab pool: {sl.usable_slabs} usable slabs "
+                f"({sl.n_shards} reserve), {sl.bytes_per_slab()} B/slab")
     if args.kv_bits:
         kv = eng.kv
-        raw = paged_kv_page_bytes(cfg, kv.page_size, "float32")
-        print(f"quantized KV cache: {args.kv_bits}-bit binary-coded pages, "
-              f"{kv.bytes_per_page()} B/page vs {raw} B/page raw "
-              f"({raw / kv.bytes_per_page():.1f}x capacity)")
+        raw = paged_kv_page_bytes(eng.run_cfg, kv.page_size, "float32")
+        say(f"quantized KV cache: {args.kv_bits}-bit binary-coded pages, "
+            f"{kv.bytes_per_page()} B/page vs {raw} B/page raw "
+            f"({raw / kv.bytes_per_page():.1f}x capacity)")
+    if mesh is not None:
+        kv = eng.kv
+        say(f"sharded page pool: {kv.n_shards} shards x "
+            f"{kv.pages_per_shard} pages ({kv.usable_in_shard(0)} usable "
+            f"+ 1 reserve each, page_size={kv.page_size}); heads, MLP "
+            f"width and experts over {mesh.shape[1]} model ranks")
     tok = ByteTokenizer()
     reqs = [Request(prompt=tok.encode(SEEDS[i % len(SEEDS)]),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
     eng.run(reqs)
     tput = eng.stats["tokens"] / max(eng.stats["decode_s"], 1e-9)
-    print(f"served {len(reqs)} requests, {eng.stats['tokens']} tokens, "
-          f"decode throughput {tput:.1f} tok/s ({args.device})")
+    where = args.device if mesh is None else mesh.describe()
+    say(f"served {len(reqs)} requests, {eng.stats['tokens']} tokens, "
+        f"decode throughput {tput:.1f} tok/s ({where})")
     if args.speculate:
         st = eng.stats_snapshot()
-        print(f"speculation: k={args.speculate}, w{args.draft_bits} draft, "
-              f"{st.accepted_tokens}/{st.draft_tokens} draft tokens "
-              f"accepted ({st.acceptance_rate:.2f})")
+        say(f"speculation: k={args.speculate}, w{args.draft_bits} draft, "
+            f"{st.accepted_tokens}/{st.draft_tokens} draft tokens "
+            f"accepted ({st.acceptance_rate:.2f})")
     for r in reqs[:3]:
-        print(" ", repr(tok.decode(r.out)))
+        say(" ", repr(tok.decode(r.out)))
     return eng, reqs
 
 

@@ -11,8 +11,9 @@ Params start from init_params (seed 0) and train on the wiki corpus
 weights for bf16 params) under the cosine schedule over --steps. A
 committed checkpoint in --ckpt-dir (either package's) resumes the run
 at its step; checkpoints land every --ckpt-every steps and at the end.
-`--mesh pod|multipod` (the reference's TPU meshes) is refused: sharded
-training comes with multi-GPU (ROADMAP Queue 1 item 6).
+`--mesh pod|multipod` (the reference's TPU meshes) is refused: FSDP
+training over a mesh is still to do (ROADMAP Queue 1 item 6; meshes
+serve through launch/serve.py --mesh).
 """
 from __future__ import annotations
 
@@ -40,8 +41,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training comes with multi-GPU "
-            f"(ROADMAP Queue 1 item 6); the port trains on one device")
+            f"--mesh {args.mesh}: FSDP training over a mesh is still to "
+            f"do (ROADMAP Queue 1 item 6); the port trains on one device "
+            f"and serves on meshes (launch/serve.py --mesh)")
 
     from repro_torch.ckpt import CheckpointManager, stack_params
     from repro_torch.configs import get_config

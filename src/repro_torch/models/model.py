@@ -54,6 +54,14 @@ points take token-in decoders only (`require_decoder`); `forward`,
 inputs and encoders (hubert-xlarge) included, as the reference's do.
 With device="meta", `init_params` and `init_cache` make tensors with
 shapes and no data (the dry run, launch/dryrun.py).
+
+On a serving mesh (dist/context.py) every rank runs these functions on
+its own slice of the weights and a shard-local config (`shard_config`:
+its heads, MLP width and, through the weights, its experts): the output
+of each mixer and each MLP (after wo, wd or the MoE combine) is summed
+over the model group by `reduce_model`, a vocabulary split over the
+model axis is looked up masked and summed, and split logits are
+gathered. Outside a mesh each hook is the identity.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import functools
 
 import torch
 
+from repro_torch.dist.context import gather_model, model_coords, reduce_model
 from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -97,6 +106,33 @@ def require_decoder(cfg) -> None:
             f"{cfg.name}: an encoder-only model has no decode step; it "
             f"runs through forward, loss_fn and prefill only")
     check_config(cfg)
+
+
+def shard_config(cfg, model: int):
+    """The config one rank of a `model`-way model axis runs: n_heads,
+    n_kv_heads and (with dense MLP layers) d_ff divided by `model`; the
+    experts split through the weights (E / model a rank, models/moe.py),
+    each keeping the single-device capacity. A dimension the axis does
+    not divide raises ValueError naming it; MLA and Mamba layers raise
+    NotImplementedError on a model axis > 1 (ROADMAP Queue 1 item 6)."""
+    if model == 1:
+        return cfg
+    if cfg.mla is not None or any(s.kind != "attn" for s in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and Mamba layers serve on the data axis "
+            f"only; on a model axis > 1 they are still to do (ROADMAP "
+            f"Queue 1 item 6: MLA and Mamba on the model axis)")
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+    if any(s.mlp == "dense" for s in cfg.pattern):
+        dims["d_ff"] = cfg.d_ff
+    if cfg.moe is not None and any(s.mlp == "moe" for s in cfg.pattern):
+        dims["moe.n_experts"] = cfg.moe.n_experts
+    for name, n in dims.items():
+        if n % model:
+            raise ValueError(f"{cfg.name}: a {model}-way model axis does "
+                             f"not divide {name}={n}")
+    kw = {k: n // model for k, n in dims.items() if "." not in k}
+    return cfg.replace(head_dim=cfg.resolved_head_dim, **kw)
 
 
 def _unbind_tree(tree):
@@ -193,18 +229,32 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
 
 def embed_inputs(cfg, params, inputs):
     """Token ids (B, S) -> their embedding rows; frames (B, S, D) ->
-    the learned input projection."""
-    if cfg.embed_input == "tokens":
-        return params["embed"][inputs.long()]
-    return linear(inputs, params["embed"])
+    the learned input projection. On a mesh whose model axis splits the
+    vocabulary, each rank looks up the ids in its block of rows (zeros
+    for the others) and the model group sums them: exactly one rank
+    adds each row."""
+    if cfg.embed_input != "tokens":
+        return linear(inputs, params["embed"])
+    emb = params["embed"]
+    if emb.shape[0] == cfg.vocab_size:
+        return emb[inputs.long()]
+    m, _ = model_coords()
+    ids = inputs.long() - m * emb.shape[0]
+    mine = (ids >= 0) & (ids < emb.shape[0])
+    rows = emb[ids.clamp(0, emb.shape[0] - 1)]
+    return reduce_model(torch.where(mine[..., None], rows,
+                                    torch.zeros_like(rows)))
 
 
 def unembed(cfg, params, x):
-    """Logits in the activation dtype."""
+    """Logits in the activation dtype (a vocabulary split over the model
+    axis gathered from its ranks)."""
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     else:
         logits = linear(x, params["lm_head"])
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = gather_model(logits, dim=-1)
     return softcap(logits, cfg.final_softcap)
 
 
@@ -254,6 +304,7 @@ def _mlp(cfg, spec, lp, x, moe_capacity_factor):
                              capacity_factor=moe_capacity_factor)
     else:
         y = swiglu(lp["mlp"], h)
+    y = reduce_model(y)               # after wd / the MoE combine
     if cfg.post_block_norms:
         y = rmsnorm(y, lp["post_ln2"], cfg.norm_eps)
     return x + y, aux
@@ -265,6 +316,7 @@ def _apply_layer(cfg, spec, lp, x, mixer, moe_capacity_factor):
     (x, the mixer's cache, the MoE aux loss or None)."""
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
     y, c = mixer(spec, lp, h)
+    y = reduce_model(y)               # after wo
     if cfg.post_block_norms:
         y = rmsnorm(y, lp["post_ln"], cfg.norm_eps)
     x, aux = _mlp(cfg, spec, lp, x + y, moe_capacity_factor)

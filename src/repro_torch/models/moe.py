@@ -12,11 +12,19 @@ the card is deterministic. Expert weights are stacks
 runs the batched-expert BCQ kernel, one launch for all experts
 (kernels/ops.py:bcq_apply), told each expert's filled slot count so it
 skips the empty ones.
+
+Expert parallelism (a serving mesh's model axis): a rank holds E / M
+experts, the block at its model index. Routing and capacity stay those
+of all E experts (the router replicates), so exactly the single
+device's tokens are dropped; the rank runs its experts' slots, each
+token sums the choices its experts served, and the caller sums over
+the model group (models/model.py: reduce_model).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.context import model_coords
 from repro_torch.hw import torch_dtype
 from repro_torch.models import layers
 from repro_torch.models.layers import init_linear, init_normal
@@ -102,9 +110,14 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
     tok_slot = torch.empty_like(slot)               # (token, choice) -> slot
     tok_slot[order] = slot
 
+    # this rank's experts (all E outside a mesh): slots [e0*C, e1*C)
+    mi, M = model_coords()
+    El = E // M
+    e0 = mi * El
+    rows = rows[e0:e0 + El]
     xpad = torch.cat([xf, torch.zeros((1, D), dtype=xf.dtype,
                                       device=x.device)])
-    xe = xpad[slot_tok[:E * C]].reshape(E, C, D)
+    xe = xpad[slot_tok[e0 * C:(e0 + El) * C]].reshape(El, C, D)
 
     # ---- expert computation (SwiGLU); an empty slot's h is silu(0)*0 = 0
     layers.record(p["wg"], xe)     # calibration: per-expert inputs
@@ -114,8 +127,13 @@ def moe_forward(cfg, p, x, *, capacity_factor=None):
     layers.record(p["wd"], h)
     ye = _expert_matmul(h, p["wd"], rows)
 
-    # ---- combine: each token's k slots (the drop bin is a zero row) ----
-    ypad = torch.cat([ye.reshape(E * C, D),
+    # ---- combine: each token's k slots; the drop bin (and under a
+    # model axis the slots of other ranks' experts) read the zero row ----
+    ypad = torch.cat([ye.reshape(El * C, D),
                       torch.zeros((1, D), dtype=ye.dtype, device=x.device)])
-    contrib = ypad[tok_slot].reshape(T, K, D) * topv[..., None].to(ye.dtype)
+    local = tok_slot
+    if M > 1:
+        local = tok_slot - e0 * C
+        local = torch.where((local >= 0) & (local < El * C), local, El * C)
+    contrib = ypad[local].reshape(T, K, D) * topv[..., None].to(ye.dtype)
     return contrib.sum(dim=1).reshape(B, S, D), aux

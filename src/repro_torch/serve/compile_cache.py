@@ -47,8 +47,17 @@ Memory. All graphs draw on one memory pool (`graph_pool_handle`). A
 wrapper holds no reference to the params or the pool a graph reads: a
 graph is dropped when the first tensor of either tree is freed, so a
 dropped engine takes its graphs with it, and `clear()` drops every
-graph. Meshes belong to the multi-GPU slice and raise
-NotImplementedError (ROADMAP Queue 1 item 6).
+graph.
+
+Meshes. Wrappers are keyed by the mesh's fingerprint as in the
+reference (the config a rank runs is its shard config, so the key
+differs from a single device's anyway). Under a model axis > 1 every
+kind runs eagerly: the steps hold the model group's collectives, and
+gloo's collectives cannot be captured in a CUDA graph. Capturing them
+with NCCL's is a later PR (ROADMAP Queue 1 item 6). A data-only mesh
+(model axis 1) has no collective inside a step (the engine gathers the
+sampled tokens outside it), so its graphed kinds capture as on one
+device.
 """
 from __future__ import annotations
 
@@ -76,11 +85,11 @@ _SIDE: dict = {}          # device -> side stream for warm-up and capture
 
 
 def mesh_fingerprint(mesh):
-    """Hashable identity of a mesh: axis names, shape, device ids."""
+    """Hashable identity of a mesh: axis names, shape, devices."""
     if mesh is None:
         return None
     return (tuple(mesh.axis_names), tuple(np.shape(mesh.devices)),
-            tuple(int(d.id) for d in np.ravel(mesh.devices)))
+            tuple(str(d) for d in np.ravel(mesh.devices)))
 
 
 def _tensors(tree, out: list) -> list:
@@ -261,7 +270,14 @@ class Step:
         return g
 
 
-def _build(kind, cfg):
+def _build(kind, cfg, mesh=None):
+    step = _build_step(kind, cfg)
+    # a model axis > 1 runs its group's collectives inside the steps
+    step._graphed = step._graphed and (mesh is None or mesh.shape[1] == 1)
+    return step
+
+
+def _build_step(kind, cfg):
     if kind == "decode_dense":
         return Step(kind, cfg, lambda p, c, t, s: decode_step(cfg, p, c, t, s),
                     ("tree", "tree", "in", "in"), graphed=True)
@@ -321,14 +337,10 @@ def _build(kind, cfg):
 def get(kind: str, cfg=None, mesh=None):
     """The shared wrapper for (kind, cfg, mesh): built on first request,
     borrowed ever after."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving comes with the multi-GPU slice (ROADMAP Queue 1 "
-            "item 6)")
     key = (kind, cfg, mesh_fingerprint(mesh))
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _CACHE[key] = _build(kind, cfg)
+        fn = _CACHE[key] = _build(kind, cfg, mesh)
         _STATS["misses"] += 1
     else:
         _STATS["hits"] += 1

@@ -64,19 +64,43 @@ run eagerly, as everything does on the CPU. Nothing but graphs pads to
 a shape, so copy lists and dirty-row lists are not padded to powers of
 two as the reference pads them to bound its compilations; timing
 synchronizes the CUDA device where the reference blocks on its result.
-Only greedy decode exists (`greedy=False` raises). Meshes belong to the
-multi-GPU slice and raise NotImplementedError (ROADMAP Queue 1 item 6).
+Only greedy decode exists (`greedy=False` raises).
+
+Mesh serving (`mesh=`, a bound dist/context.py ServeMesh: the engine
+runs in every rank of the mesh, as dist/context.py:spawn or
+launch/serve.py starts them). Every rank runs the same scheduler over
+the whole batch, with the reference's global page ids and per-shard
+accounting (serve/kv_cache.py `n_shards` = the data axis), so every
+rank makes the same admission, allocation and preemption decisions.
+Data rank d owns slots [d*B/D, (d+1)*B/D) and holds only block d of the
+page pool (and of the Mamba state rows), indexed by local page ids (its
+reserve page is local 0): it runs the prefill, extend, scatter, fork
+and decode work of its own slots and nothing else. The model axis
+splits heads, MLP width and experts (params sliced by
+ckpt/packed.py:load_packed(mesh=) or dist/sharding's shard_params; the
+steps run on models/model.py:shard_config's config), with the model
+group's all-reduces inside the model. After each decode step the
+sampled tokens are all-gathered over the data group, and a first token
+is broadcast from its slot's data rank, so every rank's scheduler sees
+every sequence. Under a model axis > 1 the decode steps run eagerly:
+gloo's collectives cannot be captured in a CUDA graph; a data-only mesh
+replays graphs as one device does (serve/compile_cache.py).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.dist.context import (broadcast_data, gather_data,
+                                      mesh_context)
+from repro_torch.dist.sharding import cache_pspec, local_shape
 from repro_torch.hw import resolve_device
-from repro_torch.models.model import init_cache, require_decoder
+from repro_torch.models.model import (init_cache, init_paged_cache,
+                                      require_decoder, shard_config)
 from repro_torch.quant.draft import make_draft_params
 from repro_torch.quant.qlinear import QuantizedTensor
 from repro_torch.serve import compile_cache
@@ -125,7 +149,10 @@ class Request:
 
 class DenseSlotPool:
     """Slot accounting so the Scheduler drives the dense engine too: one
-    fixed max_len 'page' per sequence."""
+    fixed max_len 'page' per sequence, and one trivial shard for the
+    scheduler's shard protocol."""
+
+    n_shards = 1
 
     def __init__(self, n_slots: int):
         self.max_seqs = n_slots
@@ -144,7 +171,20 @@ class DenseSlotPool:
     def used_pages(self) -> int:
         return int(self._active.sum())
 
-    def alloc_slot(self):
+    # shard protocol (one shard)
+    def shard_of_slot(self, slot: int) -> int:
+        return 0
+
+    def pick_shard(self):
+        return 0 if self.free_page_count else None
+
+    def free_in_shard(self, shard: int) -> int:
+        return self.free_page_count
+
+    def usable_in_shard(self, shard: int) -> int:
+        return self.usable_pages
+
+    def alloc_slot(self, shard=None):
         for i in range(self.max_seqs):
             if not self._active[i]:
                 self._active[i] = True
@@ -191,11 +231,25 @@ class ServeEngine:
             raise ValueError(
                 f"accept_rule={accept_rule!r}; expected 'greedy' or "
                 f"'typical'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving comes with the multi-GPU slice (ROADMAP "
-                "Queue 1 item 6)")
         require_decoder(cfg)
+        D, M = (1, 1) if mesh is None else mesh.shape
+        if mesh is not None:
+            if mesh.rank is None:
+                raise ValueError("an unbound mesh: the engine runs inside "
+                                 "each rank (dist.context.spawn binds it)")
+            if speculate:
+                raise NotImplementedError(
+                    "speculate > 0 under a mesh: speculation on a mesh is "
+                    "still to do (ROADMAP Queue 1 item 6)")
+            if batch_size % D:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide over the "
+                    f"{D}-way data axis so every sequence slot maps to "
+                    f"exactly one page-pool shard")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r}, but this rank of "
+                                 f"the mesh is on {mesh.device}")
+            device = mesh.device
         # MLA counts as attention here: its latent pages ride the same
         # block tables, forks and prefix index, and it has an extend path
         attn_only = all(s.kind == "attn" for s in cfg.pattern)
@@ -207,8 +261,17 @@ class ServeEngine:
                 "pattern (MLA drafts are not wired up)")
         self.device = resolve_device(device)
         self.cfg = cfg
+        # the config this rank's steps run: its heads, MLP width and
+        # experts of the model axis (cfg itself without a mesh)
+        self.run_cfg = shard_config(cfg, M)
+        self.mesh = mesh
         self.params = params_to(params, self.device)
+        if mesh is not None:
+            self._check_local_params()
         self.B = batch_size
+        # this rank's batch rows: slots [lo, lo + rows) of the data axis
+        self.rows = batch_size // D
+        self.lo = (mesh.coords[0] if mesh is not None else 0) * self.rows
         self.max_len = max_len
         self.greedy = greedy
         self.cache_kind = cache_kind
@@ -226,59 +289,83 @@ class ServeEngine:
             (bool(prefill_chunk) or not no_window)
         self._prefix = None
         self.slab = None
+        rcfg = self.run_cfg
         if cache_kind == "paged":
             if self._extend_prefill and not attn_only:
                 raise NotImplementedError(
                     "paged prefill via extend (chunked or sliding-window) "
                     "needs an attention-only pattern")
+            # the pool's shards: the data axis (page blocks live on the
+            # ranks whose batch rows use them)
+            n_shards = D
             pages_per_seq = -(-max_len // page_size)
             if n_pages is None:
-                # the dense engine's byte budget + the null page
-                n_pages = batch_size * pages_per_seq + 1
-            self.kv = PagedKVCache(cfg, n_pages=n_pages, page_size=page_size,
+                # the dense engine's byte budget + one reserve page a shard
+                n_pages = batch_size * pages_per_seq + n_shards
+            n_pages = -(-n_pages // n_shards) * n_shards
+            self.kv = PagedKVCache(rcfg, n_pages=n_pages, page_size=page_size,
                                    max_seqs=batch_size,
                                    max_pages_per_seq=pages_per_seq,
-                                   dtype=dtype, kv_bits=kv_bits,
+                                   dtype=dtype, create_pool=mesh is None,
+                                   n_shards=n_shards, kv_bits=kv_bits,
                                    kv_group_size=kv_group_size,
                                    device=self.device)
             self.page_size = page_size
             # recurrent layers: one state slab a sequence, under the
-            # page allocator's invariants (+1: the reserve slab)
+            # page allocator's invariants (+1 a shard: its reserve slab)
             if not attn_only:
-                self.slab = StateSlabPool(
-                    cfg, n_slabs=(batch_size + 1 if state_slabs is None
-                                  else int(state_slabs)),
-                    max_seqs=batch_size, dtype=dtype)
+                n_slabs = (batch_size + n_shards if state_slabs is None
+                           else int(state_slabs))
+                n_slabs = -(-n_slabs // n_shards) * n_shards
+                self.slab = StateSlabPool(rcfg, n_slabs=n_slabs,
+                                          max_seqs=batch_size,
+                                          n_shards=n_shards, dtype=dtype)
             # prefix sharing skips matched prefill through the extend
             # path, so it needs an attention-only pattern too
             if prefix_sharing and attn_only:
                 self._prefix = RadixPrefixCache(
                     self.kv, max_cached_pages=prefix_max_pages)
-            self.cache = self.kv.take_pool()
-            # device mirror of the block tables: rows are pushed only when
-            # the allocator bumps their version
-            self._bt_dev = torch.zeros((batch_size, pages_per_seq),
+            if mesh is None:
+                self.cache = self.kv.take_pool()
+            else:
+                # this rank's block of the pool: pages_per_shard pages of
+                # its kv heads, and its rows of Mamba state
+                self.cache = init_paged_cache(
+                    rcfg, self.kv.pages_per_shard, page_size, self.rows,
+                    dtype, kv_bits=kv_bits, kv_group_size=kv_group_size,
+                    device=self.device)
+                self._check_local_cache(init_paged_cache(
+                    cfg, n_pages, page_size, batch_size, dtype,
+                    kv_bits=kv_bits, kv_group_size=kv_group_size,
+                    device="meta"))
+            # device mirror of this rank's block-table rows (local page
+            # ids): rows are pushed only when the allocator bumps their
+            # version
+            self._bt_dev = torch.zeros((self.rows, pages_per_seq),
                                        dtype=torch.int32, device=self.device)
             self._bt_applied = np.full((batch_size,), -1, np.int64)
-            # every slot's null-page row (one shard: page 0)
-            self._null_row = torch.zeros((batch_size,), dtype=torch.int32,
+            # every row's null page: its shard's reserve, local page 0
+            self._null_row = torch.zeros((self.rows,), dtype=torch.int32,
                                          device=self.device)
             self._bt_update = compile_cache.get("bt_update", None, mesh)
-            self._decode = compile_cache.get("decode_paged", cfg, mesh)
-            self._scatter = compile_cache.get("scatter_prefill", cfg, mesh)
-            self._extend = compile_cache.get("extend_paged", cfg, mesh)
+            self._decode = compile_cache.get("decode_paged", rcfg, mesh)
+            self._scatter = compile_cache.get("scatter_prefill", rcfg, mesh)
+            self._extend = compile_cache.get("extend_paged", rcfg, mesh)
             self._copy = compile_cache.get("copy_pages", None, mesh)
             if speculate:
                 self._draft_propose = compile_cache.get("draft_propose",
-                                                        cfg, mesh)
-                self._verify = compile_cache.get("verify_paged", cfg, mesh)
+                                                        rcfg, mesh)
+                self._verify = compile_cache.get("verify_paged", rcfg, mesh)
         else:
             # the dense engine has no pages to share: prefix_sharing is
             # accepted and ignored, as in the reference
             self.kv = DenseSlotPool(batch_size)
-            self.cache = init_cache(cfg, batch_size, max_len, dtype,
+            self.cache = init_cache(rcfg, self.rows, max_len, dtype,
                                     device=self.device)
-            self._decode = compile_cache.get("decode_dense", cfg, mesh)
+            if mesh is not None:
+                self._check_local_cache(init_cache(
+                    cfg, batch_size, max_len, dtype, device="meta"))
+            self._decode = compile_cache.get("decode_dense", rcfg, mesh)
         # spare pages (the watermark) keep a decode tick's growth from
         # starving at once; the dense engine has none
         self.sched = Scheduler(self.kv, watermark=watermark
@@ -287,7 +374,7 @@ class ServeEngine:
                                prefix=self._prefix, slab=self.slab)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
-        self._prefill = compile_cache.get("prefill", cfg, mesh)
+        self._prefill = compile_cache.get("prefill", rcfg, mesh)
         # self-speculative decoding: built from the params on the
         # device, so a self-draft's codes are the target's tensors and
         # it adds only its re-fit scales (quant/draft.py)
@@ -317,6 +404,55 @@ class ServeEngine:
                       "draft_tokens": 0, "accepted_tokens": 0}
         self._entries = []
 
+    # ---------------- mesh geometry ----------------
+    def _check_local_params(self) -> None:
+        """This rank's weights must be its slice (load_packed(mesh=) or
+        shard_params): the first attention layer's query width is the
+        shard config's."""
+        rcfg = self.run_cfg
+        for lp in self.params["layers"]:
+            w = lp.get("attn", {}).get("wq")
+            if w is None or rcfg.mla is not None:
+                continue
+            n = w.n_out if isinstance(w, QuantizedTensor) else w.shape[-1]
+            want = rcfg.n_heads * rcfg.resolved_head_dim
+            if n != want:
+                raise ValueError(
+                    f"wq has {n} output columns; a rank of this mesh holds "
+                    f"{want} (slice the params with load_packed(mesh=) or "
+                    f"dist.sharding.shard_params)")
+            return
+
+    def _check_local_cache(self, whole) -> None:
+        """Every leaf of this rank's pool (or dense cache) has the shape
+        of its block under the reference's cache rule (dist/sharding.py
+        cache_pspec) of the whole cache `whole` (meta tensors). Where the
+        rule replicates a split the steps need (kv heads the model axis
+        does not divide), it raises: replicated pools are still to do
+        (ROADMAP Queue 1 item 6)."""
+        for layer, mine in zip(whole, self.cache):
+            for name, leaf in layer.items():
+                shape = (1,) + tuple(leaf.shape)
+                spec = cache_pspec(self.cfg, ["L0", name], leaf.new_empty(
+                    shape), self.mesh)
+                want = local_shape(shape, spec, self.mesh)[1:]
+                if tuple(mine[name].shape) != want:
+                    raise ValueError(
+                        f"cache leaf {name}: the reference's rule places "
+                        f"{tuple(leaf.shape)} as {spec[1:]}, a block of "
+                        f"{want}, but this rank's config gives "
+                        f"{tuple(mine[name].shape)} (a pool the rule "
+                        f"replicates is still to do, ROADMAP Queue 1 "
+                        f"item 6)")
+
+    def _mine(self, slot: int) -> bool:
+        """This rank's data shard holds `slot`."""
+        return self.lo <= slot < self.lo + self.rows
+
+    def _local_pages(self, ids) -> np.ndarray:
+        """Global page ids of this rank's shard (and 0) -> local ids."""
+        return self.kv.local_page(np.asarray(ids, np.int64))
+
     def stats_snapshot(self):
         """Every serving counter (engine accumulators, the scheduler's
         request metrics with per-request TTFT/TPOT samples, page-pool and
@@ -333,31 +469,35 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(arr, np.int32), device=self.device)
 
     # ---------------- COW forks ----------------
-    def _apply_copies(self, copies) -> None:
-        """Apply allocator copy-on-write forks to the device pool."""
-        if copies:
-            self.cache = self._copy(self.cache, [s for s, _ in copies],
-                                    [d for _, d in copies], self.kv.n_pages)
+    def _apply_copies(self, slot, copies) -> None:
+        """Apply the allocator's copy-on-write forks of `slot` to the
+        device pool (on the rank that holds the slot's shard)."""
+        if copies and self._mine(slot):
+            self.cache = self._copy(
+                self.cache, self._local_pages([s for s, _ in copies]),
+                self._local_pages([d for _, d in copies]),
+                self.kv.pages_per_shard)
 
     # ---------------- device block-table mirror ----------------
     def _sync_block_tables(self) -> None:
-        dirty = [s for s in range(self.B)
+        lo = self.lo
+        dirty = [s for s in range(lo, lo + self.rows)
                  if self._bt_applied[s] != self.kv.bt_version[s]]
         if not dirty:
             return
         self._bt_dev = self._bt_update(
-            self._bt_dev, np.asarray(dirty, np.int32),
-            np.asarray(self.kv.block_tables[dirty], np.int32))
+            self._bt_dev, np.asarray(dirty, np.int32) - lo,
+            self._local_pages(self.kv.block_tables[dirty]).astype(np.int32))
         for s in dirty:
             self._bt_applied[s] = self.kv.bt_version[s]
 
     def _bt_slice(self, slot, n_tokens) -> np.ndarray:
-        """Block-table row cut to the pages covering n_tokens, so the
-        extend path gathers only live pages (its width changes from
-        chunk to chunk)."""
+        """Block-table row (local page ids) cut to the pages covering
+        n_tokens, so the extend path gathers only live pages (its width
+        changes from chunk to chunk)."""
         npg = self.kv.pages_for(n_tokens)
-        return np.asarray(self.kv.block_tables[slot:slot + 1, :npg],
-                          np.int32)
+        return self._local_pages(
+            self.kv.block_tables[slot:slot + 1, :npg]).astype(np.int32)
 
     def _extend_pass(self, tokens, start, bt, n_valid):
         """One extend pass of one sequence: (last valid logits, cache)."""
@@ -376,6 +516,9 @@ class ServeEngine:
         return padded, L
 
     def _admit(self, e):
+        """Admission's device work (the prompt's prefill into the
+        slot's pages or rows) on the rank that holds the slot; every
+        rank then takes the first token (_emit_first_token)."""
         t0 = time.time()
         if e.shared_tokens:
             # attach the matched prefix pages by reference before any
@@ -390,6 +533,8 @@ class ServeEngine:
             self.stats["prefill_s"] += time.time() - t0
             return
         L = len(e.prompt)
+        mine, logits = self._mine(e.slot), None
+        row = e.slot - self.lo
         if e.shared_tokens:
             # prefix hit: prefill only the unshared suffix through the
             # extend path, after forking the page the match ends in
@@ -399,9 +544,10 @@ class ServeEngine:
             padded = np.zeros((C,), np.int32)
             padded[:nv] = e.prompt[N:]
             self.kv.ensure(e.slot, L)
-            self._apply_copies(self.kv.cow_for_write(e.slot, N, L))
-            logits = self._extend_pass(padded, N,
-                                       self._bt_slice(e.slot, L), nv)
+            self._apply_copies(e.slot, self.kv.cow_for_write(e.slot, N, L))
+            if mine:
+                logits = self._extend_pass(padded, N,
+                                           self._bt_slice(e.slot, L), nv)
             self.stats["prefill_tokens"] += nv
         elif self._extend_prefill:
             # sliding-window layers: the whole prompt in one extend pass
@@ -409,34 +555,47 @@ class ServeEngine:
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
             self.kv.ensure(e.slot, L)
-            logits = self._extend_pass(padded, 0,
-                                       self._bt_slice(e.slot, L), L)
+            if mine:
+                logits = self._extend_pass(padded, 0,
+                                           self._bt_slice(e.slot, L), L)
         elif self.cache_kind == "paged":
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
             self.kv.ensure(e.slot, L)
-            logits, row_cache = self._prefill(
-                self.params, padded[None, :], np.asarray([L - 1], np.int32),
-                len(padded))
-            npg = -(-len(padded) // self.page_size)
-            ids = self.kv.owned_pages(e.slot)
-            ids = (ids + [0] * npg)[:npg]       # null-page pad: never written
-            self.cache = self._scatter(self.cache, row_cache, e.slot, ids, L)
+            if mine:
+                logits, row_cache = self._prefill(
+                    self.params, padded[None, :],
+                    np.asarray([L - 1], np.int32), len(padded))
+                npg = -(-len(padded) // self.page_size)
+                ids = self.kv.owned_pages(e.slot)
+                # null-page pad (the shard's reserve): never written
+                ids = self._local_pages((ids + [0] * npg)[:npg]).tolist()
+                self.cache = self._scatter(self.cache, row_cache, row, ids,
+                                           L)
         else:
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
-            logits, row_cache = self._prefill(
-                self.params, padded[None, :], np.asarray([L - 1], np.int32),
-                self.max_len)
-            for layer, one in zip(self.cache, row_cache):
-                for name, leaf in layer.items():
-                    leaf[e.slot] = one[name][0].to(leaf.dtype)
+            if mine:
+                logits, row_cache = self._prefill(
+                    self.params, padded[None, :],
+                    np.asarray([L - 1], np.int32), self.max_len)
+                for layer, one in zip(self.cache, row_cache):
+                    for name, leaf in layer.items():
+                        leaf[row] = one[name][0].to(leaf.dtype)
         self._emit_first_token(e, logits, L)
         self._sync()
         self.stats["prefill_s"] += time.time() - t0
 
     def _emit_first_token(self, e, last_logits, prompt_len):
-        tok = int(torch.argmax(last_logits[0]))
+        """The prompt's greedy token: taken from `last_logits` by the
+        ranks of the slot's data shard (None elsewhere) and broadcast
+        over the data axis, so every rank's scheduler appends it."""
+        tok = torch.zeros((1,), dtype=torch.int64)
+        if last_logits is not None:
+            tok[0] = int(torch.argmax(last_logits[0]))
+        if self.mesh is not None:
+            tok = broadcast_data(tok, e.slot // self.rows, self.mesh)
+        tok = int(tok[0])
         e.req.out.append(tok)
         if not e.metrics.t_first_token:
             e.metrics.t_first_token = time.time()
@@ -474,13 +633,13 @@ class ServeEngine:
 
     # ---------------- chunked prefill ----------------
     def _prefill_tick(self):
-        """Advance the oldest admitted, not yet prefilled sequence by one
+        """Advance the first admitted, not yet prefilled sequence by one
         chunk (from the matched offset after a prefix hit)."""
         pending = [e for e in self.sched.running.values()
                    if e.prefilled < len(e.prompt)]
         if not pending:
             return
-        e = min(pending, key=lambda x: x.metrics.t_admit)
+        e = min(pending, key=lambda x: x.admitted)
         t0 = time.time()
         C = self.prefill_chunk
         s = e.prefilled
@@ -491,9 +650,11 @@ class ServeEngine:
         ok, copies = self.sched.ensure_write_capacity(e.slot, s, s + nv)
         if not ok:
             return    # evicted while growing; it will be re-admitted
-        self._apply_copies(copies)
-        logits = self._extend_pass(padded, s,
-                                   self._bt_slice(e.slot, s + nv), nv)
+        self._apply_copies(e.slot, copies)
+        logits = None
+        if self._mine(e.slot):
+            logits = self._extend_pass(padded, s,
+                                       self._bt_slice(e.slot, s + nv), nv)
         e.prefilled = s + nv
         self.stats["prefill_tokens"] += nv
         if e.prefilled >= len(e.prompt):
@@ -522,23 +683,30 @@ class ServeEngine:
                 p = int(self.pos[slot])
                 ok, copies = self.sched.ensure_write_capacity(slot, p, p + 1)
                 if ok:
-                    self._apply_copies(copies)
+                    self._apply_copies(slot, copies)
                     grown.append(slot)
             ready = [s for s in grown if s in self.sched.running]
             if not ready:
                 return
         t0 = time.time()
-        if self.cache_kind == "paged":
-            self._sync_block_tables()
-            live = np.zeros((self.B,), np.int32)
-            live[ready] = 1       # inactive rows read and write the null page
-            logits, self.cache = self._decode(
-                self.params, self.cache, self.cur[:, None], self.pos,
-                self._bt_dev, live, self._null_row)
-        else:
-            logits, self.cache = self._decode(self.params, self.cache,
-                                              self.cur[:, None], self.pos)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        # this rank's rows step; the others' tokens arrive by all-gather
+        lo, hi = self.lo, self.lo + self.rows
+        mine = [s for s in ready if lo <= s < hi]
+        nxt = torch.zeros((self.rows,), dtype=torch.int64)
+        if mine:
+            if self.cache_kind == "paged":
+                self._sync_block_tables()
+                live = np.zeros((self.rows,), np.int32)
+                live[np.asarray(mine) - lo] = 1   # the others: null page
+                logits, self.cache = self._decode(
+                    self.params, self.cache, self.cur[lo:hi, None],
+                    self.pos[lo:hi], self._bt_dev, live, self._null_row)
+            else:
+                logits, self.cache = self._decode(
+                    self.params, self.cache, self.cur[lo:hi, None],
+                    self.pos[lo:hi])
+            nxt = torch.argmax(logits, dim=-1).cpu()
+        nxt = gather_data(nxt, self.mesh).numpy()
         self._sync()
         self.stats["decode_s"] += time.time() - t0
         self.stats["ticks"] += 1
@@ -588,7 +756,7 @@ class ServeEngine:
             ok, copies = self.sched.ensure_write_capacity(slot, p,
                                                           p + ke + 1)
             if ok:
-                self._apply_copies(copies)
+                self._apply_copies(slot, copies)
                 k_eff[slot] = ke
                 grown.append(slot)
         ready = [s for s in grown if s in self.sched.running]
@@ -668,10 +836,12 @@ class ServeEngine:
     # ---------------- engine ----------------
     def _seq_cap(self) -> int:
         """Per-sequence token capacity: max_len, further bounded by what
-        the page pool can hold for one sequence."""
+        one page-pool shard can hold for one sequence (its pages all
+        come from its slot's shard)."""
         if self.cache_kind == "dense":
             return self.max_len
-        return min(self.max_len, self.kv.usable_pages * self.page_size)
+        return min(self.max_len,
+                   self.kv.usable_in_shard(0) * self.page_size)
 
     def run(self, requests: list[Request]):
         cap = self._seq_cap()
@@ -684,22 +854,24 @@ class ServeEngine:
             if self.cache_kind == "paged":
                 # the admission gate's arithmetic with nothing shared
                 need = self.sched.admission_need(len(r.prompt))
-                if need > self.kv.usable_pages:
+                if need > self.kv.usable_in_shard(0):
                     raise ValueError(
                         f"prompt of {len(r.prompt)} tokens needs {need} "
-                        f"pages (incl. watermark) but the pool only has "
-                        f"{self.kv.usable_pages}")
+                        f"pages (incl. watermark) but a pool shard only "
+                        f"has {self.kv.usable_in_shard(0)}")
         for r in requests:
             self.sched.submit(r)
         self._entries = list(self.sched.waiting)
-        while self.sched.has_work():
-            while True:
-                e = self.sched.try_admit()
-                if e is None:
-                    break
-                self._admit(e)
-            if self.prefill_chunk:
-                self._prefill_tick()
-            self._decode_tick()
+        with (mesh_context(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()):
+            while self.sched.has_work():
+                while True:
+                    e = self.sched.try_admit()
+                    if e is None:
+                        break
+                    self._admit(e)
+                if self.prefill_chunk:
+                    self._prefill_tick()
+                self._decode_tick()
         self.stats.update(self.sched.metrics_summary(self._entries))
         return requests

@@ -31,8 +31,15 @@ Refcounts and eviction
   so cached prefixes are sacrificed before any running sequence is
   preempted.
 
-The port's page pool is one shard (the reference's sharded pools come
-with the multi-GPU slice), so `shard` arguments accept only 0 or None.
+Sharded pools
+  Over a sharded PagedKVCache (a serving mesh's data axis) the index is
+  shard-local: a chain's shard is the shard of its pages (one insert
+  comes from one slot, so a chain never mixes shards), children are
+  keyed by (shard, token tuple), and `lookup(..., shard=s)` matches only
+  chains whose pages a shard-s slot can attach. The same prefix may be
+  cached once a shard: that keeps every gather on its data rank.
+  Eviction takes the same shard filter, so pressure in one shard never
+  drains another's cached prefixes.
 """
 from __future__ import annotations
 
@@ -46,23 +53,18 @@ import numpy as np
 MAX_TAILS = 8
 
 
-def _check_shard(shard) -> None:
-    if shard not in (None, 0):
-        raise ValueError(f"shard={shard!r}: the port's page pool is a "
-                         f"single shard (0 or None)")
-
-
 class _Node:
     __slots__ = ("key", "page", "n_tokens", "children", "tails", "parent",
-                 "last_used", "hits")
+                 "last_used", "shard", "hits")
 
-    def __init__(self, key, page, n_tokens, parent):
+    def __init__(self, key, page, n_tokens, parent, shard=0):
         self.key = key                  # tuple of tokens this page holds
         self.page = page                # physical page id
         self.n_tokens = n_tokens        # valid tokens in the page
-        self.children = {}              # full nodes, key -> _Node
+        self.children = {}              # full nodes, (shard, key) -> _Node
         self.tails = []                 # partial-page nodes
         self.parent = parent
+        self.shard = shard              # home shard of self.page
         self.last_used = 0
         self.hits = 0                   # lookup matches (eviction warmth)
 
@@ -120,32 +122,44 @@ class RadixPrefixCache:
         (n_matched, [page_ids]) with the pages covering tokens
         [0, n_matched) in order; the last page is partially matched when
         n_matched is not page-aligned (the borrower forks it before
-        writing). Touches matched nodes and bumps their hit counts.
-        `count=False` is the scheduler's reclaim-loop retry: the same
-        admission, so the lookup counter and the nodes' warmth stay as
-        the first round left them (the recency touch still happens)."""
-        _check_shard(shard)
+        writing). `shard` restricts the match to chains whose pages lie
+        in that pool shard (the only pages a slot of that shard may
+        attach); None matches any one shard's chain. Touches matched
+        nodes and bumps their hit counts. `count=False` is the
+        scheduler's reclaim-loop retry: the same admission, so the
+        lookup counter and the nodes' warmth stay as the first round left
+        them (the recency touch still happens)."""
         if count:
             self.lookups += 1
         toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
         limit = len(toks) if max_tokens is None else min(max_tokens,
                                                         len(toks))
+        shards = ((shard,) if shard is not None
+                  else range(self.kv.n_shards))
         node, matched, pages = self.root, 0, []
         while limit - matched > 0:
             rem = limit - matched
             if rem >= self.page:
-                child = node.children.get(
-                    tuple(toks[matched:matched + self.page]))
+                chunk = tuple(toks[matched:matched + self.page])
+                child = None
+                for sh in shards:
+                    child = node.children.get((sh, chunk))
+                    if child is not None:
+                        break
                 if child is not None:
                     pages.append(child.page)
                     matched += self.page
                     self._touch(child, hit=count)
                     node = child
+                    # a sequence attaches pages of one shard only
+                    shards = (child.shard,)
                     continue
             # no whole-page step: take the best partial match among this
             # node's children (full or tail) and stop
             best, best_lcp = None, 0
             for cand in list(node.children.values()) + node.tails:
+                if cand.shard not in shards:
+                    continue
                 lcp = min(_lcp(cand.key, toks[matched:]), rem,
                           cand.n_tokens)
                 if lcp > best_lcp:
@@ -169,13 +183,18 @@ class RadixPrefixCache:
         if n and len(page_ids) < self.kv.pages_for(n):
             raise ValueError(f"{n} tokens need {self.kv.pages_for(n)} "
                              f"pages, {len(page_ids)} given")
+        # one insert comes from one slot: the chain has its first page's
+        # shard
+        shard = (self.kv.shard_of_page(int(page_ids[0])) if len(page_ids)
+                 else 0)
         node = self.root
         for i in range(nfull):
             chunk = tuple(toks[i * self.page:(i + 1) * self.page])
-            child = node.children.get(chunk)
+            child = node.children.get((shard, chunk))
             if child is None:
-                child = _Node(chunk, int(page_ids[i]), self.page, node)
-                node.children[chunk] = child
+                child = _Node(chunk, int(page_ids[i]), self.page, node,
+                              shard)
+                node.children[(shard, chunk)] = child
                 self.kv.ref(child.page)
                 self._pages += 1
             self._touch(child)
@@ -186,11 +205,11 @@ class RadixPrefixCache:
             return
         key = tuple(toks[nfull * self.page:])
         for t in node.tails:
-            if t.key == key:
+            if t.key == key and t.shard == shard:
                 self._touch(t)
                 self._enforce_cap()
                 return
-        tail = _Node(key, int(page_ids[nfull]), rem, node)
+        tail = _Node(key, int(page_ids[nfull]), rem, node, shard)
         node.tails.append(tail)
         self.kv.ref(tail.page)
         self._pages += 1
@@ -222,9 +241,13 @@ class RadixPrefixCache:
         """Free up to n_pages index-only pages, coldest leaves first
         (fewest lookup hits, least recently used within a hit tier).
         One tree walk seeds a heap of evictable leaves; evicting a leaf
-        pushes its parent when that exposed it. Returns the pages
-        freed."""
-        _check_shard(shard)
+        pushes its parent when that exposed it. With `shard`, only that
+        shard's chains are candidates (the allocator reclaims under one
+        shard's pressure). Returns the pages freed."""
+
+        def evictable(node):
+            return (self._evictable(node)
+                    and (shard is None or node.shard == shard))
 
         def key(node):
             return (node.hits, node.last_used)
@@ -234,23 +257,23 @@ class RadixPrefixCache:
             node = stack.pop()
             stack.extend(node.children.values())
             stack.extend(node.tails)
-            if self._evictable(node):
+            if evictable(node):
                 heapq.heappush(heap, (*key(node), id(node), node))
         freed = 0
         while freed < n_pages and heap:
             hits, tick, _, victim = heapq.heappop(heap)
-            if (hits, tick) != key(victim) or not self._evictable(victim):
+            if (hits, tick) != key(victim) or not evictable(victim):
                 continue              # stale entry (touched since seeded)
             parent = victim.parent
             if victim in parent.tails:
                 parent.tails.remove(victim)
             else:
-                del parent.children[victim.key]
+                del parent.children[(victim.shard, victim.key)]
             self.kv.unref(victim.page)
             self._pages -= 1
             self.evictions += 1
             freed += 1
-            if self._evictable(parent):
+            if evictable(parent):
                 heapq.heappush(heap, (*key(parent), id(parent), parent))
         return freed
 

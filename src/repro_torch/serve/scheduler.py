@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: FCFS admission gated on free KV pages,
 prefix-sharing-aware accounting, chunked prefill, preemption by
 eviction, and per-request TTFT/TPOT metrics (the reference's
-`serve/scheduler.py`, single shard).
+`serve/scheduler.py`).
 
 The scheduler owns the queue and the page accounting; the engine owns
 the model calls.
@@ -25,6 +25,15 @@ the model calls.
     admission also claims one state slab; slab exhaustion declines the
     admission like page exhaustion, and the slab returns at finish and
     at preemption.
+  - shards: over a sharded pool (a serving mesh's data axis) admission
+    first picks the shard (the most free pages among shards with a free
+    slot), and the prefix match, the page accounting, the reclaim and
+    the preemption victim all stay within the shard its slot lives on.
+
+Every decision is a function of the queue and the allocator alone (the
+victim and the chunk to prefill go by admission order, never by a
+clock), so the ranks of a mesh, each running this scheduler over the
+whole batch, make the same decisions.
 """
 from __future__ import annotations
 
@@ -69,6 +78,7 @@ class _Entry:
     prefilled: int = 0                # prompt tokens already in pages
     shared_tokens: int = 0            # prefix tokens matched at admission
     shared_pages: list = field(default_factory=list)
+    admitted: int = -1                # admission order (last admission)
 
 
 class Scheduler:
@@ -86,6 +96,7 @@ class Scheduler:
         self.waiting: deque[_Entry] = deque()
         self.running: dict[int, _Entry] = {}   # slot -> entry
         self.preemptions = 0
+        self._admissions = 0
 
     # ---------------- queue ----------------
     def submit(self, req) -> None:
@@ -120,30 +131,39 @@ class Scheduler:
         fit, reclaiming the index's unused pages when that is what
         stands in the way. The prefix match is re-run after every
         reclaim round (an eviction may have dropped pages it matched),
-        and counts as one lookup however many rounds it takes."""
+        and counts as one lookup however many rounds it takes. The
+        match, the accounting and the reclaim run against the shard
+        picked first: an admitted sequence's pages come from the shard
+        its slot lives on."""
         if not self.waiting or len(self.running) >= self.kv.max_seqs:
             return None
         e = self.waiting[0]
         resumed = e.metrics.n_preemptions > 0
+        shard = self.kv.pick_shard()
+        if shard is None:
+            return None
+        usable = self.kv.usable_in_shard(shard)
         count = True
         while True:
             shared_tokens, shared_pages = 0, []
             if self.prefix is not None and len(e.prompt) > 1:
                 shared_tokens, shared_pages = self.prefix.lookup(
-                    e.prompt, max_tokens=len(e.prompt) - 1, count=count)
+                    e.prompt, max_tokens=len(e.prompt) - 1, shard=shard,
+                    count=count)
                 count = False
             need = self.admission_need(len(e.prompt), resumed=resumed,
                                        shared_tokens=shared_tokens)
-            if need > self.kv.usable_pages:
+            if need > usable:
                 raise ValueError(
-                    f"request needs {need} pages but the pool only has "
-                    f"{self.kv.usable_pages}; it can never be admitted")
-            if need <= self.kv.free_page_count:
+                    f"request needs {need} pages but a pool shard only "
+                    f"has {usable}; it can never be admitted")
+            free = self.kv.free_in_shard(shard)
+            if need <= free:
                 break
-            if (self.prefix is None or self.prefix.evict(
-                    need - self.kv.free_page_count) == 0):
+            if (self.prefix is None
+                    or self.prefix.evict(need - free, shard=shard) == 0):
                 return None
-        slot = self.kv.alloc_slot()
+        slot = self.kv.alloc_slot(shard=shard)
         if slot is None:
             return None
         if self.slab is not None:
@@ -164,6 +184,8 @@ class Scheduler:
             self.prefix.tokens_saved += shared_tokens
             e.metrics.n_prefix_tokens += shared_tokens
         e.metrics.t_admit = time.time()
+        e.admitted = self._admissions
+        self._admissions += 1
         self.running[slot] = e
         return e
 
@@ -187,32 +209,37 @@ class Scheduler:
         self.waiting.appendleft(e)
         return e
 
-    def preempt_one(self) -> _Entry | None:
+    def preempt_one(self, shard: int | None = None) -> _Entry | None:
         """Evict the youngest running sequence that owns pages (LIFO
         victim policy): evicting a freshly admitted page-less entry
         (chunked mode reserves the slot before any page) frees
-        nothing."""
-        if not self.running:
+        nothing. With `shard`, only that shard's sequences are
+        candidates (pages freed elsewhere cannot relieve it)."""
+        cands = [s for s in self.running
+                 if shard is None or self.kv.shard_of_slot(s) == shard]
+        if not cands:
             return None
-        owners = [s for s in self.running if self.kv.owned_pages(s)]
-        slot = max(owners or self.running,
-                   key=lambda s: self.running[s].metrics.t_admit)
+        owners = [s for s in cands if self.kv.owned_pages(s)]
+        slot = max(owners or cands, key=lambda s: self.running[s].admitted)
         return self._preempt_slot(slot)
 
     def ensure_write_capacity(self, slot: int, start_tok: int,
                               end_tok: int):
         """Grow `slot` to hold end_tok tokens and fork shared pages in
         [start_tok, end_tok), evicting other sequences while the pool is
-        dry (the allocator reclaims the index's unused pages first).
-        Returns (ok, copies): ok is False if `slot` itself got
-        evicted; copies are the (src, dst) page forks to apply."""
+        dry, within the slot's shard (the allocator reclaims that
+        shard's unused index pages first). Returns (ok, copies): ok is
+        False if `slot` itself got evicted; copies are the (src, dst)
+        page forks to apply."""
+        shard = self.kv.shard_of_slot(slot)
         while True:
             try:
                 self.kv.ensure(slot, end_tok)
                 return True, self.kv.cow_for_write(slot, start_tok, end_tok)
             except OutOfPages:
-                if any(s != slot for s in self.running):
-                    self.preempt_one()
+                if any(s != slot and self.kv.shard_of_slot(s) == shard
+                       for s in self.running):
+                    self.preempt_one(shard=shard)
                 else:
                     self._preempt_slot(slot)
                 if slot not in self.running:

@@ -44,8 +44,20 @@ def test_compile_cache_keys_by_config_and_mesh():
     assert compile_cache.get("decode_paged", cfg_b) is not fa
     assert compile_cache.get("extend_paged", cfg_a) is not fa
     assert compile_cache.mesh_fingerprint(None) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        compile_cache.get("decode_paged", cfg_a, mesh=object())
+    # a mesh keys wrappers of its own (the same mesh, the same wrapper);
+    # a model axis runs them eagerly (no graph holds the model group's
+    # collectives), a data-only mesh graphs them as one device does
+    from repro_torch.launch.mesh import make_serve_mesh
+    mesh = make_serve_mesh(1, 2, "cpu,cpu")
+    fm = compile_cache.get("decode_paged", cfg_a, mesh=mesh)
+    assert fm is not fa and not fm._graphed and fa._graphed
+    assert compile_cache.get("decode_paged", cfg_a,
+                             mesh=make_serve_mesh(1, 2, "cpu,cpu")) is fm
+    fd = compile_cache.get("decode_paged", cfg_a,
+                           mesh=make_serve_mesh(2, 1, "cpu,cpu"))
+    assert fd is not fa and fd is not fm and fd._graphed
+    assert compile_cache.mesh_fingerprint(mesh) == (
+        ("data", "model"), (1, 2), ("cpu", "cpu"))
     with pytest.raises(KeyError):
         compile_cache.get("no_such_kind", cfg_a)
 

@@ -78,7 +78,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert len(mods) >= 20
     assert {"repro_torch.launch.dryrun", "repro_torch.quant.abstract",
             "repro_torch.roofline.analysis", "repro_torch.roofline.op_profile",
-            "repro_torch.kernels.work"} <= set(mods)
+            "repro_torch.kernels.work", "repro_torch.dist.context",
+            "repro_torch.dist.sharding", "repro_torch.launch.mesh"} \
+        <= set(mods)
 
 
 def test_scan_catches_a_forbidden_import():

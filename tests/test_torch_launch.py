@@ -112,3 +112,30 @@ def test_serve_launcher_suggests_overrides_and_refuses_conflicts(
     with pytest.raises(SystemExit):
         serve_launch.main(["--load-quantized", str(tmp_path), "--quant",
                            "3", "--device", "cpu"])
+
+
+def test_serve_launcher_spawns_a_mesh(capfd):
+    """--mesh 2,2 --devices cpu,cpu,cpu,cpu spawns four gloo ranks over
+    the fixture artifact (the batch of 3 rounded up to 4 for the data
+    axis); rank 0 alone prints, and every rank holds the single-device
+    launcher's tokens. --devices needs --mesh, and --mesh an artifact."""
+    from pathlib import Path
+    art = str(Path(__file__).resolve().parent / "data" / "torch_port"
+              / "w3_pc")
+    common = ["--load-quantized", art, "--requests", "3", "--max-new", "4"]
+    _, want = serve_launch.main(common + ["--device", "cpu", "--cache",
+                                          "paged"])
+    capfd.readouterr()
+    ranks = serve_launch.main(common + ["--mesh", "2,2", "--devices",
+                                        "cpu,cpu,cpu,cpu"])
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    assert all(r["tokens"] == [q.out for q in want] for r in ranks)
+    out = capfd.readouterr().out
+    assert "mesh (data=2, model=2) backend=gloo devices=cpu,cpu,cpu,cpu" \
+        in out
+    assert out.count("served 3 requests") == 1
+    assert "batch_size rounded 3 -> 4" in out
+    for argv in (common + ["--devices", "cpu,cpu"],
+                 ["--mesh", "2,1", "--devices", "cpu,cpu"]):
+        with pytest.raises(SystemExit):
+            serve_launch.main(argv)

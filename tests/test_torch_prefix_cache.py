@@ -231,8 +231,9 @@ def test_radix_lookup_and_partial_match():
     assert idx.lookup(np.asarray(toks[:6] + [999, 998])) == (6, pages[:2])
     assert idx.lookup(np.asarray([7, 8, 9])) == (0, [])
     assert idx.lookup(np.asarray(toks), max_tokens=8) == (8, pages[:2])
-    with pytest.raises(ValueError, match="single shard"):
-        idx.lookup(np.asarray(toks), shard=1)
+    # a one-shard pool: every chain lives on shard 0
+    assert idx.lookup(np.asarray(toks), shard=0) == (11, pages)
+    assert idx.lookup(np.asarray(toks), shard=1) == (0, [])
 
 
 def test_radix_eviction_is_leaf_first_lru_and_respects_refcounts():
@@ -288,7 +289,7 @@ def test_radix_hit_rate_and_count_false():
     kv.release(s)
     assert idx.lookups == 0 and idx.hit_rate == 0.0
     assert idx.lookup(np.asarray([1, 2, 3, 4]))[0] == 4
-    node = idx.root.children[(1, 2, 3, 4)]
+    node = idx.root.children[(0, (1, 2, 3, 4))]      # (shard, tokens)
     assert idx.lookups == 1 and node.hits == 1
     tick = node.last_used
     # a reclaim-round retry: the same admission, counters frozen
@@ -309,7 +310,8 @@ def test_tails_are_capped_per_parent():
         kv.ensure(s, 6)
         idx.insert(np.asarray([1, 2, 3, 4, 10 + i, 0]), kv.owned_pages(s))
         kv.release(s)
-    assert len(idx.root.children[(1, 2, 3, 4)].tails) == prefix_cache.MAX_TAILS
+    assert len(idx.root.children[(0, (1, 2, 3, 4))].tails) \
+        == prefix_cache.MAX_TAILS
     assert idx.evictions == 2
     _conserved(kv, idx)
 

@@ -424,15 +424,20 @@ def test_launcher_module_entry_point():
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"kv_bits": 4, "cache_kind": "dense"}, "quantized-KV"),
-    ({"mesh": object()}, "multi-GPU")])
+    ({"mesh": "host", "speculate": 2}, "speculation")])
 def test_later_slices_raise(kw, slice_name):
     """Each slice still to come raises naming its ROADMAP Queue 1 item;
     binary-coded KV pages are served now, and on a dense cache they
     raise as in the reference (prefix sharing and chunked prefill are
     served too: tests/test_torch_serve_prefix.py; speculative decoding:
-    tests/test_torch_speculative.py)."""
+    tests/test_torch_speculative.py). Meshes are served
+    (tests/test_torch_sharded_serve.py); speculation on one is still to
+    come."""
+    from repro_torch.launch.mesh import make_host_mesh
     cfg, params = _model("w3_pc")
     kw = {"cache_kind": "paged", **kw}
+    if kw.get("mesh") == "host":
+        kw["mesh"] = make_host_mesh()
     if slice_name == "quantized-KV":
         with pytest.raises(ValueError, match="kv_bits requires cache_kind"):
             ServeEngine(cfg, params, device="cpu", **kw)

@@ -1,0 +1,569 @@
+"""Mesh serving on the CPU (the reference's tests/test_sharded_serve.py).
+
+Host part: the port's sharded allocator (serve/kv_cache.py n_shards),
+shard-local prefix index and sharded state slabs against the
+reference's PagedKVCache(n_shards=..., create_pool=False), radix index
+and StateSlabPool, state for state after every operation: the
+reference's per-shard cases, then seeded random sequences.
+
+Engine part: spawned gloo ranks (dist/context.py:spawn, one torch thread
+a rank) serve on meshes (2, 1), (1, 2) and (2, 2), each rank loading its
+slice with load_packed(mesh=) (held leaf for leaf to shard_params of
+the whole tree): tiny-lm w3 per-channel and g64 bf16, tiny-lm with 4-bit
+KV pages, tiny-moe (experts on the model axis), shared-prefix waves with
+chunked prefill, and on the data axis the zoo's Mamba, hybrid and MLA
+smoke artifacts. Greedy tokens must equal the reference's single-device
+paged engine's (the committed fixture), logits within 1e-4 x
+max|logit| of the reference's, every shard's pages drained and each
+rank's page ids inside its block. Then the refusals, and chip_smoke's
+phase 12 rehearsed."""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.serve.kv_cache import OutOfPages as JaxOutOfPages
+from repro.serve.kv_cache import PagedKVCache as JaxPagedKVCache
+from repro.serve.prefix_cache import RadixPrefixCache as JaxIndex
+from repro.serve.state_slab import StateSlabPool as JaxSlabs
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.dist.context import ServeMesh, spawn
+from repro_torch.launch.mesh import make_serve_mesh
+from repro_torch.serve import OutOfPages, PagedKVCache, ServeEngine
+from repro_torch.serve.prefix_cache import RadixPrefixCache
+from repro_torch.serve.state_slab import StateSlabPool
+from torch_mesh import FIXTURE, REF, ZOO, fail_on_rank_1, serve_cases
+from torch_threads import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = REF["logits_rtol"]
+
+
+def _kvs(n_pages=16, page_size=4, max_seqs=4, n_shards=2, **kw):
+    """The port's and the reference's allocators, without pools."""
+    args = dict(n_pages=n_pages, page_size=page_size, max_seqs=max_seqs,
+                n_shards=n_shards, create_pool=False, **kw)
+    return PagedKVCache(None, **args), JaxPagedKVCache(None, **args)
+
+
+def _state(kv):
+    return (kv._free_by_shard, kv._refcount.tolist(),
+            kv.block_tables.tolist(), [kv.owned_pages(s)
+                                       for s in range(kv.max_seqs)],
+            kv.active_slots(), kv.bt_version.tolist(), kv.high_water,
+            kv.cow_forks, kv.pages_allocated)
+
+
+def _check_shard_invariants(kv):
+    """The global invariants, their per-shard versions, and page
+    locality (every owned page in its slot's shard)."""
+    assert kv.live_pages + kv.free_page_count == kv.usable_pages
+    for sh in range(kv.n_shards):
+        assert kv.live_in_shard(sh) + kv.free_in_shard(sh) \
+            == kv.usable_in_shard(sh)
+        reserve = kv.null_page_of_shard(sh)
+        assert kv.refcount(reserve) == 0 and reserve not in kv._free
+    for s in range(kv.max_seqs):
+        for pid in kv.owned_pages(s):
+            assert kv.shard_of_page(pid) == kv.shard_of_slot(s)
+            assert not kv.is_reserve_page(pid)
+
+
+def both(mine, ref, op):
+    """Apply `op` to both allocators (or indexes); returns and raised
+    OutOfPages must agree, and so must the allocators' state."""
+    out = []
+    for obj, oop in ((mine, OutOfPages), (ref, JaxOutOfPages)):
+        try:
+            out.append(("ok", op(obj)))
+        except oop:
+            out.append(("oop", None))
+    assert out[0] == out[1]
+    return out[0][1]
+
+
+# ---------------------------------------------------------------------------
+# allocator: per-shard accounting, state for state against the reference
+# ---------------------------------------------------------------------------
+
+def test_shard_geometry_and_reserve_pages():
+    kv, jkv = _kvs(n_pages=16, max_seqs=4, n_shards=2)
+    for k in (kv, jkv):
+        assert k.pages_per_shard == 8 and k.seqs_per_shard == 2
+        assert k.usable_pages == 14 and k.usable_in_shard(0) == 7
+        assert k.null_page_of_shard(0) == 0 and k.null_page_of_shard(1) == 8
+        assert k.shard_of_slot(0) == 0 and k.shard_of_slot(3) == 1
+        assert k.shard_of_page(7) == 0 and k.shard_of_page(8) == 1
+    assert kv._free == jkv._free
+    one, jone = _kvs(n_pages=9, max_seqs=3, n_shards=1)
+    assert one.usable_pages == jone.usable_pages == 8
+    assert kv.local_page(9) == 1 and kv.local_page(0) == 0
+
+
+def test_alloc_stays_in_slot_shard():
+    kv, jkv = _kvs()
+    s0 = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    s1 = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    assert kv.shard_of_slot(s0) == 0 and kv.shard_of_slot(s1) == 1
+    both(kv, jkv, lambda k: k.ensure(s0, 10))
+    both(kv, jkv, lambda k: k.ensure(s1, 6))
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+    assert kv.free_in_shard(0) == 4 and kv.free_in_shard(1) == 5
+
+
+def test_out_of_pages_is_per_shard():
+    kv, jkv = _kvs(n_pages=8, page_size=4, max_seqs=2, n_shards=2,
+                   max_pages_per_seq=6)
+    s0 = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(s0, 3 * 4))
+    with pytest.raises(OutOfPages):    # shard 1 has 3 free, irrelevant
+        kv.ensure(s0, 4 * 4)
+    both(kv, jkv, lambda k: k.ensure(s0, 4 * 4))
+    _check_shard_invariants(kv)        # a failed ensure allocated nothing
+    s1 = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    both(kv, jkv, lambda k: k.ensure(s1, 3 * 4))
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+
+
+def test_cow_fork_and_release_stay_in_shard():
+    kv, jkv = _kvs()
+    donor = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    both(kv, jkv, lambda k: k.ensure(donor, 8))
+    fresh = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    both(kv, jkv, lambda k: k.share(fresh, k.owned_pages(donor)))
+    copies = both(kv, jkv, lambda k: k.cow_for_write(fresh, 0, 8))
+    assert copies and all(kv.shard_of_page(d) == 1 for _, d in copies)
+    _check_shard_invariants(kv)
+    both(kv, jkv, lambda k: k.release(donor))
+    both(kv, jkv, lambda k: k.release(fresh))
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+    assert kv.free_in_shard(1) == kv.usable_in_shard(1)
+
+
+def test_share_rejects_cross_shard_pages():
+    kv, jkv = _kvs()
+    donor = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(donor, 4))
+    borrower = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    with pytest.raises(ValueError, match="cross-shard"):
+        kv.share(borrower, kv.owned_pages(donor))
+    with pytest.raises(AssertionError, match="cross-shard"):
+        jkv.share(borrower, jkv.owned_pages(donor))
+    assert _state(kv) == _state(jkv)
+
+
+def test_compact_remaps_within_shards():
+    kv, jkv = _kvs(n_pages=16, page_size=4, max_seqs=4, n_shards=2)
+    slots = [both(kv, jkv, lambda k, sh=sh: k.alloc_slot(shard=sh))
+             for sh in (0, 1)]
+    for s in slots:
+        both(kv, jkv, lambda k, s=s: k.ensure(s, 12))
+    both(kv, jkv, lambda k: k.release(slots[0]))
+    s0b = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(s0b, 8))
+    # shard 1's block of a pool: page p holds the value p (local ids)
+    pool = [{"k_pages": torch.arange(8.0)[:, None, None, None]
+             .expand(8, 4, 1, 2).clone()}]
+    before = {p: kv.local_page(p) for p in kv.owned_pages(slots[1])}
+    moved = kv.compact(pool, shard=1)
+    jkv.compact()
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+    for s in (s0b, slots[1]):
+        lo = kv.null_page_of_shard(kv.shard_of_slot(s)) + 1
+        got = kv.owned_pages(s)
+        assert got == list(range(lo, lo + len(got)))
+    # the local block moved with the remap: new page j holds old page's
+    for new, old in zip(kv.owned_pages(slots[1]), before.values()):
+        assert float(moved[0]["k_pages"][kv.local_page(new), 0, 0, 0]) \
+            == old
+
+
+def test_pick_shard_prefers_free_pages():
+    kv, jkv = _kvs(n_pages=16, page_size=4, max_seqs=4, n_shards=2)
+    assert both(kv, jkv, lambda k: k.pick_shard()) == 0
+    s0 = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(s0, 16))
+    assert both(kv, jkv, lambda k: k.pick_shard()) == 1
+    both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    assert both(kv, jkv, lambda k: k.pick_shard()) == 0
+
+
+def test_reserve_page_guards_cover_every_shard():
+    """share() and ref() reject each shard's reserve page, not just
+    global page 0."""
+    kv, _ = _kvs(n_pages=8, page_size=4, n_shards=2)
+    reserve1 = kv.null_page_of_shard(1)
+    assert reserve1 == kv.pages_per_shard != 0
+    kv._refcount[reserve1] = 1
+    with pytest.raises(ValueError, match="not a live page"):
+        kv.ref(reserve1)
+    s = kv.alloc_slot(shard=1)
+    with pytest.raises(ValueError, match="not a live page"):
+        kv.share(s, [reserve1])
+    kv._refcount[reserve1] = 0
+
+
+# ---------------------------------------------------------------------------
+# prefix index: shard-local chains
+# ---------------------------------------------------------------------------
+
+def _indexed(**kw):
+    kv, jkv = _kvs(**kw)
+    return kv, jkv, RadixPrefixCache(kv), JaxIndex(jkv)
+
+
+def test_prefix_index_is_shard_local():
+    kv, jkv, idx, jidx = _indexed(n_pages=24, page_size=4, max_seqs=4,
+                                  n_shards=2)
+    toks = np.arange(8)
+    s0 = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(s0, 8))
+    idx.insert(toks, kv.owned_pages(s0))
+    jidx.insert(toks, jkv.owned_pages(s0))
+    both(kv, jkv, lambda k: k.release(s0))
+    for shard in (0, 1, None):
+        assert idx.lookup(toks, shard=shard) == jidx.lookup(toks,
+                                                            shard=shard)
+    assert idx.lookup(toks, shard=1) == (0, [])
+    s1 = both(kv, jkv, lambda k: k.alloc_slot(shard=1))
+    both(kv, jkv, lambda k: k.ensure(s1, 8))
+    idx.insert(toks, kv.owned_pages(s1))
+    jidx.insert(toks, jkv.owned_pages(s1))
+    both(kv, jkv, lambda k: k.release(s1))
+    n1, pages1 = idx.lookup(toks, shard=1)
+    assert n1 == 8 and all(kv.shard_of_page(p) == 1 for p in pages1)
+    assert idx.evict(8, shard=1) == jidx.evict(8, shard=1) == 2
+    assert idx.lookup(toks, shard=0)[0] == 8
+    assert idx.lookup(toks, shard=1) == (0, [])
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+
+
+def test_reclaim_under_pressure_is_shard_local():
+    kv, jkv, idx, jidx = _indexed(n_pages=12, page_size=4, max_seqs=4,
+                                  n_shards=2)
+    for sh in (0, 1):                  # 2 index-only pages a shard
+        s = both(kv, jkv, lambda k, sh=sh: k.alloc_slot(shard=sh))
+        both(kv, jkv, lambda k, s=s: k.ensure(s, 8))
+        idx.insert(np.arange(8) + 100 * sh, kv.owned_pages(s))
+        jidx.insert(np.arange(8) + 100 * sh, jkv.owned_pages(s))
+        both(kv, jkv, lambda k, s=s: k.release(s))
+    assert idx.cached_pages() == 4
+    s = both(kv, jkv, lambda k: k.alloc_slot(shard=0))
+    both(kv, jkv, lambda k: k.ensure(s, 5 * 4))   # all 5 of shard 0
+    assert kv.free_in_shard(1) == 3                 # shard 1's cache kept
+    assert idx.lookup(np.arange(8) + 100, shard=1)[0] == 8
+    assert _state(kv) == _state(jkv)
+    _check_shard_invariants(kv)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sharded_allocator_and_index_match_the_reference(seed):
+    """Seeded random traffic over a 2- or 3-shard pool with a prefix
+    index: admissions on pick_shard, growth, prefix attach + COW, finish
+    with insert, release, truncation, shard-filtered lookups and
+    evictions, compaction; every return value, exhaustion and state
+    equal to the reference's after each operation."""
+    rng = np.random.default_rng(seed)
+    n_shards = 2 + seed % 2
+    kv, jkv, idx, jidx = _indexed(n_pages=12 * n_shards, page_size=4,
+                                  max_seqs=2 * n_shards, n_shards=n_shards,
+                                  max_pages_per_seq=8)
+    pair = ((kv, idx), (jkv, jidx))
+    vocab = [rng.integers(0, 5, 6) for _ in range(3)]
+    live: dict = {}
+    for step in range(120):
+        op = rng.choice(["admit", "grow", "finish", "truncate", "lookup",
+                         "evict", "compact"], p=[.3, .25, .2, .08, .07, .05,
+                                                 .05])
+        if op == "admit":
+            shard = both(kv, jkv, lambda k: k.pick_shard())
+            if shard is None:
+                continue
+            toks = np.concatenate([vocab[rng.integers(3)],
+                                   rng.integers(0, 5, rng.integers(1, 9))])
+            n, pages = idx.lookup(toks, max_tokens=len(toks) - 1,
+                                  shard=shard)
+            assert (n, pages) == jidx.lookup(toks, max_tokens=len(toks) - 1,
+                                             shard=shard)
+            s = both(kv, jkv, lambda k: k.alloc_slot(shard=shard))
+            both(kv, jkv, lambda k: k.share(s, pages))
+            both(kv, jkv, lambda k: k.ensure(s, len(toks)))
+            if len(kv.owned_pages(s)) >= kv.pages_for(len(toks)):
+                both(kv, jkv, lambda k: k.cow_for_write(s, n, len(toks)))
+            live[s] = toks
+        elif op == "grow" and live:
+            s = sorted(live)[rng.integers(len(live))]
+            n = len(live[s]) + int(rng.integers(1, 6))
+            both(kv, jkv, lambda k: k.ensure(s, n))
+            if len(kv.owned_pages(s)) >= kv.pages_for(n):
+                both(kv, jkv, lambda k: k.cow_for_write(s, n - 1, n))
+                live[s] = np.concatenate([live[s], rng.integers(0, 5, n
+                                          - len(live[s]))])
+        elif op == "finish" and live:
+            s = sorted(live)[rng.integers(len(live))]
+            toks = live.pop(s)
+            for k, ix in pair:
+                held = min(len(toks), len(k.owned_pages(s)) * k.page_size)
+                if held:
+                    ix.insert(toks[:held], k.owned_pages(s))
+                k.release(s)
+        elif op == "truncate" and live:
+            s = sorted(live)[rng.integers(len(live))]
+            keep = int(rng.integers(1, max(2, len(live[s]))))
+            if len(kv.owned_pages(s)) >= kv.pages_for(keep):
+                both(kv, jkv, lambda k: k.truncate(s, keep))
+                live[s] = live[s][:keep]
+        elif op == "lookup":
+            toks = vocab[rng.integers(3)]
+            for shard in [None, *range(n_shards)]:
+                assert idx.lookup(toks, shard=shard) == jidx.lookup(
+                    toks, shard=shard)
+        elif op == "evict":
+            shard, n = int(rng.integers(n_shards)), int(rng.integers(1, 4))
+            assert idx.evict(n, shard=shard) == jidx.evict(n, shard=shard)
+        elif op == "compact":
+            kv.compact()
+            jkv.compact()
+        assert _state(kv) == _state(jkv), (step, op)
+        _check_shard_invariants(kv)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_sharded_state_slabs_match_the_reference(seed):
+    rng = np.random.default_rng(seed)
+    cfg, n_shards = smoke_config("falcon-mamba-7b"), 2 + seed % 2
+    from repro.configs import smoke_config as jax_smoke_config
+    kw = dict(n_slabs=3 * n_shards, max_seqs=2 * n_shards,
+              n_shards=n_shards)
+    mine = StateSlabPool(cfg, **kw)
+    ref = JaxSlabs(jax_smoke_config("falcon-mamba-7b"), **kw)
+    for _ in range(60):
+        slot = int(rng.integers(kw["max_seqs"]))
+        op = rng.choice(["alloc", "release", "compact"], p=[.5, .4, .1])
+        if op == "alloc" and mine.slab_of(slot) is None:
+            both(mine, ref, lambda p: p.alloc(slot))
+        elif op == "release":
+            mine.release(slot)
+            ref.release(slot)
+        elif op == "compact":
+            assert mine.compact() == ref.compact()
+        assert mine._free_by_shard == ref._free_by_shard
+        assert mine._refcount.tolist() == ref._refcount.tolist()
+        assert mine._slab_of_slot.tolist() == ref._slab_of_slot.tolist()
+        for sh in range(n_shards):
+            assert mine.live_in_shard(sh) + mine.free_in_shard(sh) \
+                == mine.usable_in_shard(sh)
+            sid = mine.slab_of(slot)
+            assert sid is None or mine.shard_of_slab(sid) \
+                == mine.shard_of_slot(slot)
+
+
+# ---------------------------------------------------------------------------
+# engines on meshes of spawned gloo ranks
+# ---------------------------------------------------------------------------
+
+MESHES = [(2, 1), (1, 2), (2, 2)]
+PREFIX_RUN = "w3_pc/share_chunk5"
+
+
+def _cases(mesh_shape):
+    art, kv = REF["artifacts"], REF["kv_bits"]
+    cases = {name: {"artifact": name, "kv_bits": 0, "page_size": 16,
+                    "prompts": art[name]["prompts"],
+                    "max_new": REF["max_new"]}
+             for name in ("w3_pc", "w3_g64_bf16", "w3_moe")}
+    cases["w3_pc_kv4"] = {"artifact": "w3_pc", "kv_bits": kv["bits"],
+                          "page_size": kv["page_size"],
+                          "prompts": kv["artifacts"]["w3_pc"]["prompts"],
+                          "max_new": REF["max_new"]}
+    run = REF["prefix"]["runs"][PREFIX_RUN]
+    eng = run["engine"]
+    cases["prefix"] = {"artifact": "w3_pc", "kv_bits": 0,
+                       "page_size": eng["page_size"],
+                       "prefix_sharing": True,
+                       "prefill_chunk": eng["prefill_chunk"],
+                       "waves": run["waves"], "max_new": run["max_new"]}
+    if mesh_shape[1] == 1:
+        # every family serves on the data axis
+        for name in ("mamba_fp", "mamba-mix_quant", "mla_fp"):
+            ent = ZOO["artifacts"][name]
+            cases[f"zoo/{name}"] = {"artifact": f"zoo/{name}", "kv_bits": 0,
+                                    "page_size": ZOO["page_size"],
+                                    "prompts": ent["prompts"],
+                                    "max_new": ZOO["max_new"]}
+    return cases
+
+
+_RUNS: dict = {}
+
+
+def mesh_run(mesh_shape):
+    """Every case of one mesh, served in one spawn (once a process):
+    [rank results]."""
+    if mesh_shape not in _RUNS:
+        D, M = mesh_shape
+        mesh = make_serve_mesh(D, M, ",".join(["cpu"] * (D * M)))
+        assert mesh.backend == "gloo"
+        _RUNS[mesh_shape] = spawn(serve_cases, mesh, (_cases(mesh_shape),),
+                                  threads=1, timeout_s=300)
+    return _RUNS[mesh_shape]
+
+
+def _want(case):
+    if case == "w3_pc_kv4":
+        return REF["kv_bits"]["artifacts"]["w3_pc"]
+    if case == "prefix":
+        return {"tokens": REF["prefix"]["runs"][PREFIX_RUN]["tokens"]}
+    if case.startswith("zoo/"):
+        return {"tokens": ZOO["artifacts"][case[4:]]["paged"]}
+    return REF["artifacts"][case]
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES)
+@pytest.mark.parametrize("case", ["w3_pc", "w3_g64_bf16", "w3_moe",
+                                  "w3_pc_kv4", "prefix"])
+def test_mesh_serves_the_reference_tokens_and_logits(mesh_shape, case):
+    ranks = mesh_run(mesh_shape)
+    want = _want(case)
+    rows = 0
+    for r in ranks:
+        got = r[case]
+        assert got["tokens"] == want["tokens"], (mesh_shape, r)
+        assert got["same_as_shard_params"]
+        assert got["drained"] and got["pages_in_own_block"]
+        assert got["n_shards"] == mesh_shape[0]
+        assert got["rows"] == 2 // mesh_shape[0]
+        for i, t, row in (got["logits"] if case != "prefix" else ()):
+            ref = np.asarray(want["prefill_logits"][i] if t == 0
+                             else want["decode_logits"][i][t - 1])
+            np.testing.assert_allclose(row, ref, rtol=0,
+                                       atol=TOL * np.abs(ref).max())
+            rows += 1
+        if case == "prefix":
+            assert got["prefix_hits"] > 0
+    if case != "prefix":
+        # every token's logits row, on the ranks of its data shard (all M
+        # of them)
+        n_tok = sum(len(t) for t in want["tokens"])
+        assert rows == n_tok * mesh_shape[1]
+
+
+@pytest.mark.parametrize("case", ["zoo/mamba_fp", "zoo/mamba-mix_quant",
+                                  "zoo/mla_fp"])
+def test_data_axis_serves_every_family(case):
+    for r in mesh_run((2, 1)):
+        got = r[case]
+        assert got["tokens"] == _want(case)["tokens"]
+        assert got["same_as_shard_params"] and got["drained"]
+        assert got["pages_in_own_block"]
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES)
+def test_mesh_collectives_and_pool_blocks(mesh_shape):
+    """Model ranks all-reduce after wo and wd (2 a layer a step) and
+    gather the split vocabulary; data ranks exchange tokens only; each
+    rank's pool is its block of pages."""
+    D, M = mesh_shape
+    for r in mesh_run(mesh_shape):
+        got = r["w3_pc"]
+        c = got["collectives"]
+        assert (c.get("all_reduce", 0) > 0) == (M > 1)
+        assert (c.get("all_gather", 0) > 0) == (M > 1)
+        assert (c.get("all_gather_host", 0) > 0) == (D > 1)
+        n_pages = 2 * 4 + D                 # 2 seqs x 4 pages + reserves
+        assert set(got["pool_pages"]) == {-(-n_pages // D)}
+
+
+def test_refusals():
+    """Odd batches, fsdp=True, MLA and Mamba on a model axis, and
+    speculation under a mesh raise, naming what remains."""
+    from repro_torch.ckpt.packed import load_packed
+    two = ServeMesh(2, 1, ["cpu", "cpu"], rank=0)
+    tp2 = ServeMesh(1, 2, ["cpu", "cpu"], rank=0)
+    params, _, _ = load_packed(FIXTURE / "w3_pc", device="cpu")
+    cfg = get_config("tiny-lm").replace(dtype="float32", n_layers=2)
+    with pytest.raises(ValueError, match="batch_size=3"):
+        ServeEngine(cfg, params, batch_size=3, cache_kind="paged",
+                    mesh=two)
+    with pytest.raises(NotImplementedError, match="speculat.*item 6"):
+        ServeEngine(cfg, params, cache_kind="paged", speculate=2, mesh=two)
+    with pytest.raises(NotImplementedError, match="fsdp.*item 6"):
+        load_packed(FIXTURE / "w3_pc", mesh=two, fsdp=True)
+    with pytest.raises(ValueError, match="bound mesh"):
+        load_packed(FIXTURE / "w3_pc", mesh=make_serve_mesh(1, 2, "cpu,cpu"))
+    with pytest.raises(ValueError, match="output columns"):
+        ServeEngine(cfg, params, cache_kind="paged", mesh=tp2)
+    for arch in ("minicpm3-4b", "falcon-mamba-7b"):
+        with pytest.raises(NotImplementedError, match="model axis.*item 6"):
+            ServeEngine(smoke_config(arch), {}, cache_kind="paged",
+                        mesh=tp2)
+    with pytest.raises(ValueError, match="n_kv_heads=2"):
+        ServeEngine(smoke_config("qwen3-4b"), {}, cache_kind="paged",
+                    mesh=ServeMesh(1, 4, ["cpu"] * 4, rank=0))
+    with pytest.raises(ValueError, match="CPU ranks or CUDA ranks"):
+        ServeMesh(1, 2, ["cpu", "cuda:0"])
+
+
+def test_make_serve_mesh_names_its_devices():
+    """A mesh never shares a card or falls to the CPU unless the caller
+    names the devices; too few cards raise."""
+    assert make_serve_mesh(2, 2, "cpu,cpu,cpu,cpu").backend == "gloo"
+    assert make_serve_mesh(1, 2, ["cuda:0", "cuda:0"]).backend == "gloo"
+    assert make_serve_mesh(1, 2, ["cuda:0", "cuda:1"]).backend == "nccl"
+    if torch.cuda.device_count() < 64:
+        with pytest.raises(ValueError, match="needs 64 devices"):
+            make_serve_mesh(8, 8)
+    with pytest.raises(ValueError, match="needs 4 devices, 2 named"):
+        make_serve_mesh(2, 2, "cpu,cpu")
+
+
+def test_a_failing_rank_fails_the_call():
+    """A rank that raises fails the call with its traceback; the rank
+    left waiting in a collective is stopped."""
+    mesh = make_serve_mesh(2, 1, "cpu,cpu")
+    with pytest.raises(RuntimeError,
+                       match=r"rank 1 failed(.|\n)*rank 1 refuses"):
+        spawn(fail_on_rank_1, mesh, threads=1, timeout_s=120)
+
+
+def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke's phase 12 end to end on the CPU at tiny size (tiny-lm
+    on its three meshes, tiny-moe on (1, 2)): every check but the kernel
+    launches (none on the CPU) holds."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    unmet = []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    lines = []
+    monkeypatch.setattr(cs, "emit", lines.append)
+    counts = cs.phase_mesh(0, cs.synthetic_llama(0, "tiny-lm"), None,
+                           max_new=4, moe_arch="tiny-moe", moe_layers=2)
+    assert counts["bcq_plain"] == 0
+    paths = [ln for ln in lines if ln["check"] == "mesh_path"]
+    assert [p["path"] for p in paths] == ["llama_1x2", "llama_2x1",
+                                          "llama_2x2", "moe_1x2"]
+    for p in paths:
+        assert p["tokens_equal"] and p["max_dlogit_rel"] <= cs.TOL_LOGITS
+        assert p["backend"] == "gloo"
+        for r in p["ranks"]:
+            assert r["drained"] and r["pages_in_own_block"]
+            assert r["param_bytes"] > 0 and r["pool_bytes"] > 0
+        assert all((r["all_reduce_ms"] is not None)
+                   == (p["mesh"]["model"] > 1) for r in p["ranks"])
+    # no kernel launches on the CPU: the launch-count and shape checks
+    assert unmet and all("launch" in u for u in unmet), unmet

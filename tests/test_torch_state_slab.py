@@ -71,8 +71,11 @@ def test_bytes_per_slab_matches_the_reference(arch, dtype):
 
 def test_refusals():
     cfg = smoke_config(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        StateSlabPool(cfg, n_slabs=4, max_seqs=2, n_shards=2)
+    # shards split the slabs and the slots evenly, a reserve slab each
+    with pytest.raises(ValueError, match="split evenly"):
+        StateSlabPool(cfg, n_slabs=5, max_seqs=2, n_shards=2)
+    with pytest.raises(ValueError, match="reserve"):
+        StateSlabPool(cfg, n_slabs=2, max_seqs=2, n_shards=2)
     with pytest.raises(ValueError, match="reserve"):
         StateSlabPool(cfg, n_slabs=1, max_seqs=2)
     pool = StateSlabPool(cfg, n_slabs=2, max_seqs=2)
