@@ -34,7 +34,10 @@ and 10 each free their own); any failure is a non-zero exit.
      configs: rep 1, 2, 4 and 16, windows, caps, long contexts); the
      GEMM at phase 10's perplexity shape (M = 2048 on
      llama2-7b's three shapes) and at MLA's latent expansion (M = 768,
-     256 -> 5120), with plain and torch.matmul times; after the build, the
+     256 -> 5120), with plain and torch.matmul times; then phase 12's
+     shard shapes on a 2-way model axis (MESH_SHARD_SHAPES: the GEMV at
+     a rank's falcon-mamba, minicpm3 and jamba linears, `*_mesh` lines)
+     and the expert kernel at 8 experts of 8192<->24576; after the build, the
      GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
      spill in it, and every binary-coded attention instance must copy
      by cp.async (LDGSTS in its SASS).
@@ -144,20 +147,28 @@ and 10 each free their own); any failure is a non-zero exit.
      Nothing runs on the card.
  12. meshes of ranks on the one card (torch.distributed over gloo, the
      ranks sharing cuda:0, dist/context.py): phase 3's model saved by
-     save_packed and served (phase 3's requests) on (data, model)
-     meshes (1, 2), (2, 1) and (2, 2), each rank loading its slice with
-     load_packed(mesh=); then Qwen3-MoE cut to 4 of 94 layers with its
-     experts on a (1, 2) model axis, each rank cutting the seeded model
-     with shard_params. One spawn of four ranks serves the meshes in
-     turn. Every mesh must give the single-device engine's greedy tokens
-     (up to a printed near-tie) with every logits row within TOL_LOGITS
-     x max|logit| of its, drain every shard, keep each rank's page ids
-     in its block, and launch the GEMV, the GEMM, paged attention (and
-     the expert kernel) on every rank at its shard's shapes with no
-     plain BCQ call. A `mesh_path` line a mesh: backend and devices,
-     the card, per rank the load seconds, the decode step's wall ms and
-     traced device-busy ms, collectives a step, one all-reduce's ms
-     (timed alone), parameter and pool bytes.
+     save_packed with a w2 draft block and served (phase 3's requests)
+     on (data, model) meshes (1, 2), (2, 1) and (2, 2), each rank
+     loading its slice with load_packed(mesh=); speculatively (k=4, the
+     draft block cut by load_draft_scales(mesh=)) on (2, 1) at full
+     depth and on (1, 2) from an artifact of its first 8 layers; then
+     Qwen3-MoE cut to 4 of 94 layers with its experts on a (1, 2) model
+     axis, and minicpm3-4b (MLA, 16 of 62 layers), falcon-mamba-7b (16
+     of 64) and jamba-1.5-large (8 of 72) on (1, 2), each rank cutting
+     the seeded model with shard_params. One spawn of four ranks serves
+     the meshes in turn. Every mesh must give the single-device engine's
+     greedy tokens (up to a printed near-tie; a speculative mesh its
+     plain tokens) with every logits row within TOL_LOGITS x max|logit|
+     of its (a verify row where its context holds the emitted tokens),
+     drain every shard (and state slab), keep each rank's page ids in
+     its block, and launch the GEMV, the GEMM, paged attention (not
+     under MLA) and the expert kernel (MoE) on every rank at its shard's
+     shapes with no plain BCQ call; a speculative mesh's ranks accept
+     alike. A `mesh_path` line a mesh: backend and devices, the card,
+     per rank the load seconds, the decode step's (speculative tick's)
+     wall ms and traced device-busy ms, collectives a step, one
+     all-reduce's ms (timed alone), parameter and pool bytes; with
+     speculation the acceptance and ticks.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
 propose pass and verify come from serve/compile_cache.py: on the card
@@ -527,12 +538,27 @@ ZOO_SHAPES = ((2560, 288, (1, 4, 8, 100)), (256, 5120, (1, 4, 8, 128, 768)),
 # jamba-1.5-large's expert stacks: 16 experts, 8192 -> 24576 and back, at
 # a batch-4 decode's 4 rows and a 100-token prefill's 26-row capacity
 JAMBA_EXPERT_SHAPES = ((8192, 24576), (24576, 8192))
+# (K, N, Ms) of a rank's linears on phase 12's 2-way model axis:
+# falcon-mamba's in_proj (both halves' d_inner / 2 columns), out_proj
+# and dt_w; minicpm3's wq_b, wkv_b (also at its expansion's M = 768) and
+# wo; jamba's in_proj and out_proj (4096 x 8192 is also its wo); then at
+# decode's 4 rows the others phase 12 newly cuts: minicpm3's MLP,
+# jamba's dt_w, wq, wk / wv and dense MLP; with jamba's 8 experts a rank
+MESH_SHARD_SHAPES = ((4096, 8192, (1, 4)), (4096, 4096, (1, 4)),
+                     (256, 4096, (1, 4)), (768, 1920, (1, 4)),
+                     (256, 2560, (1, 4, 768)), (1280, 2560, (1, 4)),
+                     (8192, 16384, (1, 4)), (8192, 8192, (1, 4)),
+                     (2560, 3200, (4,)), (3200, 2560, (4,)),
+                     (512, 8192, (4,)), (8192, 4096, (4,)), (8192, 512, (4,)),
+                     (8192, 12288, (4,)), (12288, 8192, (4,)))
+MESH_EXPERTS = 8
 
 
-def check_bcq_zoo(gen, shapes=ZOO_SHAPES):
-    """The GEMV (M <= 8) and the GEMM at phase 9's shapes, w3 per-channel
-    fp32 scales (as phase 9 serves them) and group 128 bf16 scales at
-    one row, each against its plain version; returns (worst relative
+def check_bcq_zoo(gen, shapes=ZOO_SHAPES, tag="zoo"):
+    """The GEMV (M <= 8) and the GEMM at phase 9's shapes (or phase 12's
+    shard shapes), w3 per-channel fp32 scales (as those phases serve
+    them) and group 128 bf16 scales at one row, each against its plain
+    version, a `<kernel>_<tag>` line each; returns (worst relative
     error, checks) by kernel."""
     import torch
     from repro_torch.hw import GEMV_ROWS
@@ -555,7 +581,7 @@ def check_bcq_zoo(gen, shapes=ZOO_SHAPES):
             sync()
             err = float((y - ref).abs().max())
             rel = err / float(ref.abs().max())
-            row = {"check": f"{name}_zoo", "M": M, "K": K, "N": N,
+            row = {"check": f"{name}_{tag}", "M": M, "K": K, "N": N,
                    "group_size": qt.group_size if qt.n_groups > 1 else 0,
                    "scale_dtype": str(qt.alphas.dtype).removeprefix(
                        "torch."), "max_abs_err": err, "rel_err": rel,
@@ -3000,10 +3026,26 @@ MOE_MESH = (1, 2)
 # Qwen3-MoE's depth in phase 12: for time (the ranks each build the
 # whole synthetic model before keeping their experts)
 MESH_MOE_LAYERS = 4
-MESH_TIMEOUT_S = 400
-# decode calls of a rank traced by torch.profiler (device busy time),
-# and all-reduces timed alone a rank
+# MLA and Mamba on a model axis: (arch, layers) at full width on
+# ZOO_MESH, each rank building the seeded model (synthetic_zoo) and
+# cutting it with shard_params. minicpm3-4b and falcon-mamba-7b are cut
+# to 16 layers for time (eager steps on a model axis pay ~4 ms an
+# all-reduce, two a Mamba layer); jamba-1.5-large to one super-block of
+# 8, as in phase 9 (its 72 layers' w3 codes exceed the card)
+MESH_ZOO = (("minicpm3-4b", 16), ("falcon-mamba-7b", 16),
+            ("jamba-1.5-large-398b", 8))
+ZOO_MESH = (1, 2)
+# speculation under a mesh: phase 3's model with a w2 self-draft from a
+# saved v4 draft block, k=SPEC_K, on the data axis at full depth and on
+# the model axis cut to MESH_SPEC_LAYERS of 32 layers for time (a tick
+# holds k + 1 passes of eager steps, 17 all-reduces each)
+SPEC_MESHES = ((2, 1), (1, 2))
+MESH_SPEC_LAYERS = 8
+MESH_TIMEOUT_S = 600
+# decode calls (speculative ticks) of a rank traced by torch.profiler
+# (device busy time), and all-reduces timed alone a rank
 MESH_TRACE_FROM, MESH_TRACE_STEPS = 8, 2
+MESH_SPEC_TRACE_FROM = 2
 ALLREDUCE_ITERS = 20
 
 
@@ -3027,25 +3069,48 @@ def path_prompts(seed, vocab):
 
 
 def record_logits(eng, requests) -> list:
-    """Wrap a paged engine's first-token and decode paths so that every
-    logits row a token of `requests` is taken from on this rank lands in
-    the returned list as (request index, token index, row)."""
+    """Wrap a paged engine's first-token and decode (or, speculating,
+    verify) paths so that every logits row of a token of `requests` on
+    this rank lands in the returned list as (request index, token index,
+    row, the draft tokens the row's context holds before it). A verify
+    row j stands for the token j places on only where the j draft tokens
+    before it are the tokens the request emitted there."""
     import numpy as np
     index = {id(r): i for i, r in enumerate(requests)}
-    log, emit, decode = [], eng._emit_first_token, eng._decode
+    log, emit = [], eng._emit_first_token
 
     def first(e, last_logits, prompt_len):
         if last_logits is not None:
             log.append((index[id(e.req)], len(e.req.out),
-                        last_logits[0].float().cpu()))
+                        last_logits[0].float().cpu(), []))
         return emit(e, last_logits, prompt_len)
+
+    def req_of(r):
+        return eng.sched.running[eng.lo + int(r)].req
+
+    if eng.speculate:
+        verify = eng._verify
+
+        def step(*args):
+            logits, cache = verify(*args)
+            toks = args[2].cpu().numpy()
+            for r in np.flatnonzero(np.asarray(args[6])):   # live rows
+                req = req_of(r)
+                for j in range(int(np.asarray(args[5])[r])):
+                    log.append((index[id(req)], len(req.out) + j,
+                                logits[r, j].float().cpu(),
+                                [int(t) for t in toks[r, 1:1 + j]]))
+            return logits, cache
+        eng._emit_first_token, eng._verify = first, step
+        return log
+    decode = eng._decode
 
     def step(*args):
         logits, cache = decode(*args)
         for r in np.flatnonzero(np.asarray(args[5])):   # the live rows
-            req = eng.sched.running[eng.lo + int(r)].req
+            req = req_of(r)
             log.append((index[id(req)], len(req.out),
-                        logits[r].float().cpu()))
+                        logits[r].float().cpu(), []))
         return logits, cache
     eng._emit_first_token, eng._decode = first, step
     return log
@@ -3065,7 +3130,7 @@ def serve_recorded(cfg, params, prompts, path, max_new=32):
     eng.run(reqs)
     sync()
     torch.save({"tokens": [r.out for r in reqs],
-                "logits": {(i, t): row for i, t, row in log}},
+                "logits": {(i, t): row for i, t, row, _ in log}},
                path)
     return ([r.out for r in reqs],
             1e3 * eng.stats["decode_s"] / max(eng.stats["ticks"], 1))
@@ -3075,7 +3140,8 @@ def _rank_tokens_check(reqs, logits_log, want):
     """A rank's tokens and logits rows against the single device's: the
     first token index each request differs at (None: equal), the top-2
     gap there relative to max|logit| of the single device's row, and the
-    worst |Δlogit| / max|logit| over the rows up to the divergence."""
+    worst |Δlogit| / max|logit| over the rows up to the divergence (a
+    verify row where its context holds the emitted tokens)."""
     first = {}
     for i, r in enumerate(reqs):
         w = want["tokens"][i]
@@ -3084,9 +3150,12 @@ def _rank_tokens_check(reqs, logits_log, want):
             diff = [min(len(r.out), len(w))]
         first[i] = diff[0] if diff else None
     worst, rows = 0.0, 0
-    for i, t, row in logits_log:
+    for i, t, row, drafted in logits_log:
         if first[i] is not None and t > first[i]:
             continue
+        if drafted and (reqs[i].out[t - len(drafted):t] != drafted
+                        or (i, t) not in want["logits"]):
+            continue   # a rejected draft's context, or past the last token
         ref = want["logits"][(i, t)]
         worst = max(worst, float((row - ref).abs().max() / ref.abs().max()))
         rows += 1
@@ -3101,13 +3170,44 @@ def _rank_tokens_check(reqs, logits_log, want):
 
 def _mesh_rank(mesh, spec):
     """One rank of a phase-12 mesh: its slice of the model (load_packed(
-    mesh=) from the saved artifact, or the synthetic MoE built and cut
-    by shard_params), the path's requests served with every decode call
-    timed, a window of them traced, and the launches' shapes logged;
-    then the model group's all-reduce timed alone. -> the rank's row."""
+    mesh=) from a saved artifact, with its draft block's cut when
+    speculating; or a seeded synthetic model built and cut by
+    shard_params), the path's requests served with every decode call
+    (speculative tick) timed, a window of them traced, and the launches'
+    shapes logged; then the model group's all-reduce timed alone. -> the
+    rank's row."""
     from repro_torch.dist.context import mesh_context
     with mesh_context(mesh):
         return _mesh_rank_row(mesh, spec)
+
+
+def _rank_model(mesh, spec):
+    """(cfg, this rank's params, its draft tree or None) of a spec."""
+    import torch
+    from repro_torch.ckpt.packed import load_draft_scales, load_packed
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.quant.draft import make_draft_params
+    if spec["artifact"]:
+        params, _, _ = load_packed(spec["artifact"], mesh=mesh)
+        cfg = get_config(spec["arch"]).replace(
+            dtype="float32", n_layers=len(params["layers"]))
+        draft = None
+        if spec.get("speculate"):
+            draft = make_draft_params(params, DRAFT_PLANES, load_draft_scales(
+                spec["artifact"], mesh=mesh))
+        return cfg, params, draft
+    if "cfg" in spec:
+        cfg = spec["cfg"]
+        full = synthetic_zoo(spec["seed"], cfg)
+    else:
+        cfg, full = synthetic_moe(spec["seed"], spec["arch"],
+                                  spec["n_layers"])
+    params = shard_params(cfg, full, mesh)
+    del full
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return cfg, params, None
 
 
 def _mesh_rank_row(mesh, spec):
@@ -3117,34 +3217,26 @@ def _mesh_rank_row(mesh, spec):
     from torch.profiler import ProfilerActivity, profile
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.ckpt.packed import load_packed
-    from repro_torch.configs import get_config
     from repro_torch.dist.context import reduce_model
-    from repro_torch.dist.sharding import shard_params
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.work import launch_shapes
     from repro_torch.roofline.op_profile import (kernel_time_by_name,
                                                  traced_kernels)
     from repro_torch.serve import Request, ServeEngine
     t0 = time.time()
-    if spec["artifact"]:
-        params, _, _ = load_packed(spec["artifact"], mesh=mesh)
-        cfg = get_config(spec["arch"]).replace(
-            dtype="float32", n_layers=len(params["layers"]))
-    else:
-        cfg, full = synthetic_moe(spec["seed"], spec["arch"],
-                                  spec["n_layers"])
-        params = shard_params(cfg, full, mesh)
-        del full
-        if DEV == "cuda":
-            torch.cuda.empty_cache()
+    cfg, params, draft = _rank_model(mesh, spec)
     sync()
     load_s = time.time() - t0
+    k = spec.get("speculate", 0)
     eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
                       dtype="float32", cache_kind="paged", page_size=64,
-                      prefix_sharing=False, mesh=mesh)
+                      prefix_sharing=False, speculate=k,
+                      draft_bits=DRAFT_PLANES, draft_params=draft, mesh=mesh)
     kv, d = eng.kv, mesh.coords[0]
-    decode, calls, trace, in_block = eng._decode, [], {}, [True]
+    # a plain engine's decode step, a speculative one's propose + verify
+    attr = "_propose_verify" if k else "_decode"
+    trace_from = MESH_SPEC_TRACE_FROM if k else MESH_TRACE_FROM
+    step, calls, trace, in_block = getattr(eng, attr), [], {}, [True]
 
     def timed(*args):
         # this rank's rows hold pages of its own block only
@@ -3152,21 +3244,22 @@ def _mesh_rank_row(mesh, spec):
         in_block[0] &= bool(((rows == 0) | (rows // kv.pages_per_shard
                                            == d)).all())
         i = len(calls)
-        if i == MESH_TRACE_FROM:
+        if i == trace_from and DEV == "cuda":
             trace["prof"] = profile(activities=[ProfilerActivity.CUDA])
             trace["prof"].__enter__()
         sync()
         before = dict(mesh.counts)
         t = time.perf_counter()
-        out = decode(*args)
+        out = step(*args)
         sync()
         calls.append((time.perf_counter() - t,
                       {k: v - before.get(k, 0)
                        for k, v in mesh.counts.items()}))
-        if i == MESH_TRACE_FROM + MESH_TRACE_STEPS - 1:
+        if i == trace_from + MESH_TRACE_STEPS - 1 and "prof" in trace:
             trace["prof"].__exit__(None, None, None)
+            trace["done"] = True
         return out
-    eng._decode = timed
+    setattr(eng, attr, timed)
     reqs = [Request(prompt=p, max_new_tokens=spec["max_new"])
             for p in spec["prompts"]]
     log = record_logits(eng, reqs)
@@ -3179,6 +3272,9 @@ def _mesh_rank_row(mesh, spec):
         sync()
         wall = time.time() - t0
     counts = launch_counts()
+    if "prof" in trace and "done" not in trace:
+        trace["prof"].__exit__(None, None, None)   # fewer calls: no window
+        del trace["prof"]
     token_collectives = {k: v for k, v in mesh.counts.items()
                          if k.endswith("_host")}
     busy = None
@@ -3188,12 +3284,11 @@ def _mesh_rank_row(mesh, spec):
             busy = sum(kernel_time_by_name(kernels).values()) / 1e3 \
                 / MESH_TRACE_STEPS
     untraced = [c for i, c in enumerate(calls)
-                if not MESH_TRACE_FROM <= i < MESH_TRACE_FROM
-                + MESH_TRACE_STEPS]
+                if not trace_from <= i < trace_from + MESH_TRACE_STEPS]
     per_step = {}
     for _, n in calls:
-        for k, v in n.items():
-            per_step[k] = per_step.get(k, 0) + v / len(calls)
+        for key, v in n.items():
+            per_step[key] = per_step.get(key, 0) + v / len(calls)
     ar_ms = None
     if mesh.shape[1] > 1:
         x = torch.randn((eng.rows, 1, cfg.d_model), device=DEV)
@@ -3209,40 +3304,70 @@ def _mesh_rank_row(mesh, spec):
     worst, n_rows, gaps = _rank_tokens_check(reqs, log, want)
     drained = all(kv.free_in_shard(s) == kv.usable_in_shard(s)
                   for s in range(kv.n_shards))
-    return {"rank": mesh.rank, "coords": list(mesh.coords),
-            "mesh": mesh.describe(), "backend": mesh.backend,
-            "device": str(mesh.device), "load_s": load_s, "wall_s": wall,
-            "tokens": [r.out for r in reqs],
-            "max_dlogit_rel": worst, "logit_rows_compared": n_rows,
-            "first_diff": gaps,
-            "decode_calls": len(calls),
-            "decode_wall_ms_per_step": (1e3 * sum(c[0] for c in untraced)
-                                        / max(len(untraced), 1)),
-            "decode_device_busy_ms_per_step": busy,
-            "collectives_per_decode_step": per_step,
-            "token_collectives_in_run": token_collectives,
-            "all_reduce_ms": ar_ms, "all_reduce_shape": [eng.rows, 1,
-                                                         cfg.d_model],
-            "param_bytes": _tree_bytes(eng.params),
-            "pool_bytes": sum(t.numel() * t.element_size()
-                              for layer in eng.cache for t in layer.values()),
-            "pages_in_own_block": in_block[0], "drained": drained,
-            "launches": counts,
-            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+    slab = eng.slab
+    row = {"rank": mesh.rank, "coords": list(mesh.coords),
+           "mesh": mesh.describe(), "backend": mesh.backend,
+           "device": str(mesh.device), "load_s": load_s, "wall_s": wall,
+           "tokens": [r.out for r in reqs],
+           "max_dlogit_rel": worst, "logit_rows_compared": n_rows,
+           "first_diff": gaps,
+           "decode_calls": len(calls),
+           "decode_wall_ms_per_step": (1e3 * sum(c[0] for c in untraced)
+                                       / max(len(untraced), 1)),
+           "decode_device_busy_ms_per_step": busy,
+           "collectives_per_decode_step": per_step,
+           "token_collectives_in_run": token_collectives,
+           "all_reduce_ms": ar_ms, "all_reduce_shape": [eng.rows, 1,
+                                                        cfg.d_model],
+           "param_bytes": _tree_bytes(eng.params),
+           "pool_bytes": sum(t.numel() * t.element_size()
+                             for layer in eng.cache for t in layer.values()),
+           "pages_in_own_block": in_block[0],
+           "drained": drained and (slab is None or slab.live_slabs == 0),
+           "launches": counts,
+           "shapes": {k: sorted(v) for k, v in shapes.items()}}
+    if k:
+        st = eng.stats
+        row["speculation"] = {
+            "k": k, "draft_bits": DRAFT_PLANES,
+            "draft_tokens": st["draft_tokens"],
+            "accepted_tokens": st["accepted_tokens"],
+            "acceptance": st["accepted_tokens"] / max(st["draft_tokens"], 1),
+            "ticks": st["ticks"], "draft": "v4 draft block, cut"}
+    return row
 
 
 def _expected_shapes(cfg, rows, pps):
-    """(K, N) of every quantized linear (not expert) a rank runs, and
-    attention's {(rows, Hkv, rep, hd, pages)}, at a rank's shard
-    config."""
-    hd = cfg.resolved_head_dim
-    q, kv_ = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    kn = {(cfg.d_model, q), (cfg.d_model, kv_), (q, cfg.d_model)}
-    if cfg.moe is None:
-        kn |= {(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
-    attn = {(rows, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd,
-             pps)}
-    return kn, attn
+    """At a rank's shard config: the (K, N) of every quantized linear
+    (not expert) it runs at decode (the GEMV: attention, MLA but its
+    latent expansion, Mamba's in_proj, dt_w and out_proj, dense MLPs)
+    and at prefill (the GEMM: those and the expansion, which runs over
+    every context row), and paged attention's {(rows, Hkv, rep, hd,
+    pages)} (none under MLA)."""
+    d = cfg.d_model
+    kinds = {s.kind for s in cfg.pattern}
+    gemv, attn = set(), set()
+    gemm = set()
+    if "attn" in kinds and cfg.mla is None:
+        hd = cfg.resolved_head_dim
+        q, kv_ = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        gemv |= {(d, q), (d, kv_), (q, d)}
+        attn = {(rows, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd,
+                 pps)}
+    if "attn" in kinds and cfg.mla is not None:
+        m, H = cfg.mla, cfg.n_heads
+        gemv |= {(d, m.q_lora_rank),
+                 (m.q_lora_rank, H * (m.qk_nope_head_dim
+                                      + m.qk_rope_head_dim)),
+                 (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                 (H * m.v_head_dim, d)}
+        gemm = {(m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim))}
+    if "mamba" in kinds:
+        di = cfg.d_inner
+        gemv |= {(d, 2 * di), (cfg.mamba.resolved_dt_rank(d), di), (di, d)}
+    if any(s.mlp == "dense" for s in cfg.pattern):
+        gemv |= {(d, cfg.d_ff), (cfg.d_ff, d)}
+    return gemv, gemv | gemm, attn
 
 
 def check_mesh_shapes(name, cfg, mesh_shape, row, pps):
@@ -3254,20 +3379,21 @@ def check_mesh_shapes(name, cfg, mesh_shape, row, pps):
     D, M = mesh_shape
     rcfg = shard_config(cfg, M)
     rows = 4 // D
-    kn, want_attn = _expected_shapes(rcfg, rows, pps)
+    kn, kn_gemm, want_attn = _expected_shapes(rcfg, rows, pps)
     sh = {k: {tuple(s) for s in v} for k, v in row["shapes"].items()}
     got_gemv = {s[1:] for s in sh.get("bcq_gemv", ())}
     got_gemm = {s[1:] for s in sh.get("bcq_matmul", ())}
-    ok = (got_gemv == kn and got_gemm == kn
+    ok = (got_gemv == kn and got_gemm == kn_gemm
           and all(s[0] == rows for s in sh.get("bcq_gemv", ()))
-          and sh.get("paged_attention") == want_attn)
+          and sh.get("paged_attention", set()) == want_attn)
     if cfg.moe is not None:
         E = cfg.moe.n_experts // M
         f = cfg.moe.d_ff_expert
         got = {(s[0], s[2], s[3]) for s in sh.get("bcq_expert_matmul", ())}
         ok &= got == {(E, cfg.d_model, f), (E, f, cfg.d_model)}
     require(ok, f"{name} rank {row['rank']}: launch shapes {row['shapes']} "
-                f"are not the shard's ({sorted(kn)}, {sorted(want_attn)})")
+                f"are not the shard's ({sorted(kn_gemm)}, "
+                f"{sorted(want_attn)})")
 
 
 def _mesh_ranks(world, plan):
@@ -3300,6 +3426,8 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
     for r in ranks:
         require(r["tokens"] == ranks[0]["tokens"],
                 f"{name}: ranks 0 and {r['rank']} hold other tokens")
+        require(r.get("speculation") == ranks[0].get("speculation"),
+                f"{name}: ranks 0 and {r['rank']} accepted otherwise")
         gaps.update(r["first_diff"])
         check_mesh_shapes(name, cfg, mesh_shape, r, pps)
     counts = {}
@@ -3315,8 +3443,10 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
                           for i, (t, g) in gaps.items()},
            "gap_limit": 2 * TOL_LOGITS, "max_dlogit_rel": worst,
            "tol": TOL_LOGITS, "single_device_decode_ms_per_tick": single_ms,
+           "speculation": ranks[0].get("speculation"),
            "ranks": [{k: v for k, v in r.items()
-                      if k not in ("tokens", "shapes", "first_diff")}
+                      if k not in ("tokens", "shapes", "first_diff",
+                                   "speculation")}
                      for r in ranks]}
     emit(row)
     require(all(g <= 2 * TOL_LOGITS for _, g in gaps.values()),
@@ -3324,10 +3454,14 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
             f"near-tie: {gaps}")
     require(worst <= TOL_LOGITS, f"{name}: logits off by {worst:.3g} of "
                                  f"max|logit|")
+    require(all(r["logit_rows_compared"] > 0 for r in ranks),
+            f"{name}: a rank compared no logits row")
     require(all(r["drained"] and r["pages_in_own_block"] for r in ranks),
-            f"{name}: a shard did not drain or a rank's pages left its "
-            f"block")
-    need = ["bcq_gemv", "bcq_matmul", "paged_attention"]
+            f"{name}: a shard (or its state slabs) did not drain or a "
+            f"rank's pages left its block")
+    need = ["bcq_gemv", "bcq_matmul"]
+    if cfg.mla is None and any(s.kind == "attn" for s in cfg.pattern):
+        need.append("paged_attention")
     if cfg.moe is not None:
         need.append("bcq_expert_matmul")
     for r in ranks:
@@ -3337,26 +3471,44 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
     return counts
 
 
+def _free() -> None:
+    gc.collect()
+    if DEV == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
 def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
                moe_arch: str = "qwen3-moe-235b-a22b",
-               moe_layers: int = MESH_MOE_LAYERS):
-    """Phase 12 on `model` (phase 3's): save it as an artifact and serve
-    the path's requests from it on MESHES, every rank loading its slice
-    with load_packed(mesh=); then Qwen3-MoE cut to `moe_layers` on
-    MOE_MESH; each against a single-device engine in this process. One
-    spawn of the largest mesh's ranks serves every mesh in turn.
-    Returns the launches summed over every rank."""
+               moe_layers: int = MESH_MOE_LAYERS, zoo=None,
+               spec_layers: int = MESH_SPEC_LAYERS):
+    """Phase 12 on `model` (phase 3's): save it as an artifact with a w2
+    draft block and serve the path's requests from it on MESHES, every
+    rank loading its slice with load_packed(mesh=), and speculatively on
+    SPEC_MESHES (k=SPEC_K, the draft block cut by load_draft_scales(
+    mesh=); on a model axis from an artifact of its first `spec_layers`
+    layers); then Qwen3-MoE cut to `moe_layers` on MOE_MESH and each
+    config of `zoo` (default MESH_ZOO at full width) on ZOO_MESH, each
+    rank building the seeded model and cutting it; each against a
+    single-device engine in this process, the speculative meshes against
+    its plain tokens. One spawn of the largest mesh's ranks serves every
+    mesh in turn. Returns the launches summed over every rank."""
     import tempfile
     from repro_torch.ckpt.packed import save_packed
+    from repro_torch.configs import get_config
     from repro_torch.dist.context import spawn
     from repro_torch.launch.mesh import make_serve_mesh
     cfg, params = model
+    if zoo is None:
+        zoo = [get_config(a).replace(dtype="float32", n_layers=n)
+               for a, n in MESH_ZOO]
     total = {}
     with tempfile.TemporaryDirectory(prefix="mesh_path_") as tmp:
         tmp = Path(tmp)
         t0 = time.time()
-        art = save_packed(tmp / cfg.name, params, cfg=cfg,
-                          meta={"arch": cfg.name, "n_layers": cfg.n_layers})
+        meta = {"arch": cfg.name, "n_layers": cfg.n_layers}
+        art = save_packed(tmp / cfg.name, params, cfg=cfg, meta=meta,
+                          draft_bits=DRAFT_PLANES)
         save_s = time.time() - t0
         prompts = path_prompts(seed, cfg.vocab_size)
         want, single_ms = serve_recorded(cfg, params, prompts,
@@ -3369,36 +3521,68 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
         require(want_outs is None or want == want_outs,
                 "mesh path: the single-device engine's tokens are not "
                 "phase 3's")
+        dev = {"dev": DEV, "max_new": max_new, "seed": seed}
+        llama = {"artifact": str(art), "arch": cfg.name, "prompts": prompts,
+                 "want": str(tmp / "single.pt"), **dev}
+        plan = [(shape, "llama", cfg, single_ms, llama) for shape in MESHES]
+        # the speculative meshes: full depth on the data axis, the first
+        # spec_layers layers on the model axis
+        cut = cfg.replace(n_layers=min(spec_layers, cfg.n_layers))
+        cut_params = {**params, "layers": params["layers"][:cut.n_layers]}
+        cut_art = save_packed(tmp / f"{cfg.name}-{cut.n_layers}", cut_params,
+                              cfg=cut, meta={**meta,
+                                             "n_layers": cut.n_layers},
+                              draft_bits=DRAFT_PLANES)
+        _, cut_ms = serve_recorded(cut, cut_params, prompts, tmp / "cut.pt",
+                                   max_new)
+        for shape in SPEC_MESHES:
+            whole = shape[1] == 1
+            plan.append((shape, "llama_spec", cfg if whole else cut,
+                         single_ms if whole else cut_ms,
+                         {**llama, "speculate": SPEC_K,
+                          **({} if whole else {"artifact": str(cut_art),
+                                               "want": str(tmp / "cut.pt")})}))
+        del cut_params
         moe_cfg, moe_params = synthetic_moe(seed, moe_arch, moe_layers)
         moe_prompts = path_prompts(seed, moe_cfg.vocab_size)
         _, moe_ms = serve_recorded(moe_cfg, moe_params, moe_prompts,
                                    tmp / "moe.pt", max_new)
         del moe_params
-        if DEV == "cuda":
-            import torch
-            torch.cuda.empty_cache()
-        llama = {"artifact": str(art), "arch": cfg.name,
-                 "prompts": prompts, "max_new": max_new,
-                 "want": str(tmp / "single.pt"), "dev": DEV}
-        moe = {"artifact": None, "arch": moe_arch, "n_layers": moe_layers,
-               "seed": seed, "prompts": moe_prompts, "max_new": max_new,
-               "want": str(tmp / "moe.pt"), "dev": DEV}
-        plan = [(shape, llama) for shape in MESHES] + [(MOE_MESH, moe)]
-        n = max(D * M for (D, M), _ in plan)
+        _free()
+        plan.append((MOE_MESH, "moe", moe_cfg, moe_ms,
+                     {"artifact": None, "arch": moe_arch,
+                      "n_layers": moe_layers, "prompts": moe_prompts,
+                      "want": str(tmp / "moe.pt"), **dev}))
+        for zcfg in zoo:
+            t0 = time.time()
+            zparams = synthetic_zoo(seed, zcfg)
+            zprompts = path_prompts(seed, zcfg.vocab_size)
+            want_z = tmp / f"{zcfg.name}.pt"
+            _, z_ms = serve_recorded(zcfg, zparams, zprompts, want_z,
+                                     max_new)
+            del zparams
+            _free()
+            emit({"check": "mesh_path_single_device", "model": zcfg.name,
+                  "layers": zcfg.n_layers, "build_and_serve_s":
+                  time.time() - t0, "decode_ms_per_tick": z_ms,
+                  "card": CARD})
+            plan.append((ZOO_MESH, zcfg.name.split("-")[0], zcfg, z_ms,
+                         {"artifact": None, "cfg": zcfg,
+                          "prompts": zprompts, "want": str(want_z), **dev}))
+        n = max(D * M for (D, M), *_ in plan)
         world = make_serve_mesh(2, n // 2, [f"{DEV}:0" if DEV == "cuda"
                                             else DEV] * n)
         print(f"mesh path: one spawn of {world.describe()}", flush=True)
         t0 = time.time()
         # one torch thread a rank on the CPU (rehearsals): ranks share cores
-        rows = spawn(_mesh_ranks, world, (plan,),
+        rows = spawn(_mesh_ranks, world,
+                     ([(shape, spec) for shape, *_, spec in plan],),
                      threads=1 if DEV == "cpu" else None,
                      timeout_s=MESH_TIMEOUT_S)
         emit({"check": "mesh_path_spawn", "ranks": n, "card": CARD,
               "seconds": time.time() - t0})
-        for j, ((D, M), spec) in enumerate(plan):
+        for j, ((D, M), tag, c, single, _) in enumerate(plan):
             ranks = [r[j] for r in rows if r[j] is not None]
-            tag, c, single = (("llama", cfg, single_ms) if spec is llama
-                              else ("moe", moe_cfg, moe_ms))
             counts = report_mesh(f"{tag}_{D}x{M}", c, (D, M), ranks, single)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -4284,6 +4468,18 @@ def main(argv=None) -> int:
             worst["bcq_expert_matmul"] = max(worst["bcq_expert_matmul"],
                                              worst_j)
             n_exact += n_exact_j
+            # phase 12's shard shapes, from a generator of their own (the
+            # later lines get the inputs they would get without them)
+            gen12 = torch.Generator(device=DEV).manual_seed(args.seed + 12)
+            worst_m, n_m = check_bcq_zoo(gen12, MESH_SHARD_SHAPES, "mesh")
+            for k in ("bcq_gemv", "bcq_matmul"):
+                worst[k] = max(worst[k], worst_m[k])
+                n_checks[k] += n_m[k]
+            worst_e, n_exact_e = check_expert(
+                gen12, E=MESH_EXPERTS, shapes=JAMBA_EXPERT_SHAPES, Ms=(4,))
+            worst["bcq_expert_matmul"] = max(worst["bcq_expert_matmul"],
+                                             worst_e)
+            n_exact += n_exact_e
             summaries = {
                 "bcq_gemv": summarize_bcq(gen, "bcq_gemv", 4, 4096, 11008),
                 "bcq_matmul": summarize_bcq(gen, "bcq_matmul", 128, 4096,

@@ -58,7 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.pspec import SYMBOLIC_AXES, named_pspec, pspec_to_json
-from repro_torch.dist.sharding import pspec_from_json, shard_array, shard_qt
+from repro_torch.dist.sharding import (pspec_from_json, shard_array,
+                                      shard_draft_scales, shard_qt)
 from repro_torch.hw import dtype_name, resolve_device
 from repro_torch.quant.draft import refit_draft_scales
 from repro_torch.quant.packing import codes_from_numpy, codes_to_numpy
@@ -276,14 +277,22 @@ def _warn_no_pspec(d, version) -> None:
         f"record them", UserWarning, stacklevel=3)
 
 
-def load_draft_scales(directory, *, device=None):
+def load_draft_scales(directory, *, mesh=None, device=None):
     """The v4 draft block as a tree in the port's per-layer layout
     ({"layers": [...]}, as load_packed returns the params) with
     {"bits", "alphas", "betas"} dicts at quantized-leaf positions and
     None at the others, ready for quant.draft.make_draft_params(
-    scales_tree=...); scales flagged bf16 load as bf16 tensors. Returns
-    None when the artifact has no block (pre-v4, or saved without
-    `draft_bits`); callers then refit."""
+    scales_tree=...); scales flagged bf16 load as bf16 tensors. With
+    `mesh` (bound, as load_packed's) each block is this rank's, cut as
+    its leaf's own scales are (dist/sharding.py:shard_draft_scales).
+    Returns None when the artifact has no block (pre-v4, or saved
+    without `draft_bits`); callers then refit."""
+    if mesh is not None:
+        if mesh.rank is None:
+            raise ValueError("load_draft_scales(mesh=) takes a bound mesh: "
+                             "call it in each rank (dist.context.spawn)")
+        if device is None:
+            device = mesh.device
     dev = resolve_device(device)
     d = Path(directory)
     if not (d / "COMMITTED").exists():
@@ -292,24 +301,30 @@ def load_draft_scales(directory, *, device=None):
     manifest = json.loads((d / "manifest.json").read_text())
     found = [False]
 
-    def walk(node, arrays):
+    def walk(node, arrays, names):
         if "kind" not in node or not isinstance(node.get("kind"), str):
-            return {k: walk(v, arrays) for k, v in node.items()}
+            return {k: walk(v, arrays, names + (k,))
+                    for k, v in node.items()}
         blk = node.get("draft") if node["kind"] == "qt" else None
         if blk is None:
             return None
         found[0] = True
+        da, db = arrays[blk["alphas"]], arrays[blk["betas"]]
+        if mesh is not None:
+            # a draft block is v4: its leaf records its specs
+            specs = {f: pspec_from_json(node["pspec"][f])
+                     for f in ("codes", "alphas", "betas")}
+            da, db = shard_draft_scales(names, da, db, node["k_in"], specs,
+                                        mesh)
 
-        def scale(key):
-            a = arrays[blk[key]]
+        def scale(a):
             t = (_bf16_from_bits(a) if blk.get("scale_dtype") == "bfloat16"
                  else torch.from_numpy(_host(a)))
             return t.to(dev)
-        return _DraftScales(int(blk["bits"]), scale("alphas"),
-                            scale("betas"))
+        return _DraftScales(int(blk["bits"]), scale(da), scale(db))
 
     with np.load(d / "arrays.npz") as arrays:
-        tree = walk(manifest["tree"], arrays)
+        tree = walk(manifest["tree"], arrays, ())
     if not found[0]:
         return None
     return _as_dicts(unstack_blocks(tree))

@@ -190,10 +190,11 @@ def _gather(x, group, n, dim):
     return torch.cat(parts, dim=dim)
 
 
-def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def gather_model(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     """Concatenate each model rank's block of `x` along `dim` (the
-    vocabulary of split logits); the identity outside a mesh."""
-    mesh = current_mesh()
+    vocabulary of split logits, a K-cut leaf's code words); the identity
+    outside a mesh."""
+    mesh = mesh or current_mesh()
     if mesh is None or mesh.shape[1] == 1:
         return x
     mesh._count("all_gather")
@@ -202,8 +203,9 @@ def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def gather_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Concatenate each data rank's block of the host tensor `x` along
-    dim 0 (the sampled tokens of every data shard's batch rows, in slot
-    order); the identity outside a mesh."""
+    dim 0 (a row a batch slot, in slot order: the sampled token of each,
+    or under speculation each row's variable token list, padded, its
+    length first); the identity outside a mesh."""
     mesh = mesh or current_mesh()
     if mesh is None or mesh.shape[0] == 1:
         return x

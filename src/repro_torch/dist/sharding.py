@@ -357,8 +357,27 @@ def local_shape(shape, spec, mesh) -> tuple:
 # exceptions: the router replicates (every rank routes every token over
 # all E experts, models/moe.py), and a vocabulary the axis does not
 # divide replicates (models/model.py looks up and unembeds either way).
+#
+# The specs are GSPMD's, which keeps a leaf's global meaning however it
+# is cut. The port computes on each rank's block, so a few leaves are
+# cut otherwise than their spec says (`_local_spec`; manifests keep the
+# spec):
+#   - Mamba's in_proj (d, 2 di) holds [x | z]: a rank takes its d_inner
+#     columns of each half (a contiguous cut would hand one rank all of
+#     x and the other all of z);
+#   - Mamba's per-channel leaves, which the rule replicates, are cut on
+#     d_inner with the state they act on;
+#   - Mamba's x_proj (di, dt_rank + 2 d_state) contracts over d_inner:
+#     its rows are cut (the spec cuts its columns), and the model group
+#     sums its features (models/mamba.py);
+#   - MLA's wq_a and wkv_a stay whole: every rank needs the whole latent
+#     and its norm, as the reference's replicated latent pages hold it.
 
 _VOCAB = {"embed", "lm_head"}
+# Mamba's per-channel leaves: the dim, from the end, that holds d_inner
+_MAMBA_CHANNELS = {"conv_w": -1, "conv_b": -1, "dt_b": -1, "D": -1,
+                   "A_log": -2}
+_MLA_WHOLE = {"wq_a", "wkv_a"}
 
 
 def _axes(spec) -> set:
@@ -371,6 +390,35 @@ def _axes(spec) -> set:
 def _contiguous(a):
     return a.contiguous() if hasattr(a, "contiguous") \
         else np.ascontiguousarray(a)
+
+
+def cuts_k(names) -> bool:
+    """Whether a rank holds the rows of the weight at `names` (its
+    contracted dim split over the model axis; the model group sums the
+    partial products): wo, wd, out_proj and Mamba's x_proj, but no
+    expert stack (those split E)."""
+    if "moe" in names:
+        return False
+    return names[-1] in _CONTRACT or (names[-1] == "x_proj"
+                                      and "mamba" in names)
+
+
+def _local_spec(names, ndim, symbolic, field=None) -> tuple:
+    """(the spec the port cuts the leaf at `names`, or that
+    QuantizedTensor's `field`, by; the number of equal parts its
+    model-axis dim is split into first, each cut on its own)."""
+    leaf, mamba = names[-1], "mamba" in names
+    if mamba and leaf in _MAMBA_CHANNELS:
+        spec = [None] * ndim
+        spec[_MAMBA_CHANNELS[leaf]] = "model"
+        return tuple(spec), 1
+    if mamba and leaf == "x_proj":
+        if field in ("alphas", "betas"):
+            return (None,) * ndim, 1
+        return (None,) * (ndim - 2) + ("model", None), 1
+    if leaf in _MLA_WHOLE:
+        return (None,) * ndim, 1
+    return tuple(symbolic), 2 if mamba and leaf == "in_proj" else 1
 
 
 def _serving_spec(names, shape, symbolic, mesh) -> tuple:
@@ -388,45 +436,69 @@ def _serving_spec(names, shape, symbolic, mesh) -> tuple:
     return spec
 
 
+def _cut(a, spec, mesh, parts, where):
+    """This rank's block of `a` (numpy or torch) under the guarded
+    `spec`, contiguous. With `parts` > 1 the model-axis dim is first
+    split into `parts` equal segments and the rank takes its block of
+    each, in order."""
+    d, m = mesh.coords
+    if parts == 1:
+        return _contiguous(a[local_slices(a.shape, spec, mesh,
+                                          {"data": d, "model": m})])
+    dim = next(i for i, ax in enumerate(spec) if ax == "model")
+    n, M = a.shape[dim], mesh_axis_sizes(mesh)["model"]
+    if n % (parts * M):
+        raise ValueError(f"{where} {tuple(a.shape)}: the {M}-way model "
+                         f"axis does not divide each of its {parts} parts "
+                         f"of {n}")
+    piece = n // parts // M
+    lead, rest = tuple(a.shape[:dim]), tuple(a.shape[dim + 1:])
+    idx = (slice(None),) * (dim + 1) + (slice(m * piece, (m + 1) * piece),)
+    out = a.reshape(lead + (parts, n // parts) + rest)[idx]
+    return _contiguous(out.reshape(lead + (parts * piece,) + rest))
+
+
 def shard_array(names, arr, symbolic, mesh):
     """This rank's block of the dense leaf `arr` (numpy or torch) at
-    `names` under its symbolic spec, contiguous."""
+    `names` under its symbolic spec (as `_local_spec` reads it for the
+    port's steps), contiguous."""
     if names[-1] == "router":
         return arr
-    spec = _serving_spec(names, arr.shape, symbolic, mesh)
-    d, m = mesh.coords
-    return _contiguous(arr[local_slices(arr.shape, spec, mesh,
-                                        {"data": d, "model": m})])
+    local, parts = _local_spec(names, arr.ndim, symbolic)
+    spec = _serving_spec(names, arr.shape, local, mesh)
+    return _cut(arr, spec, mesh, parts, "/".join(names))
 
 
-def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
-    """This rank's block of a QuantizedTensor's fields (numpy or torch)
-    under their symbolic specs {"codes", "alphas", "betas"}: -> (codes,
-    alphas, betas, k_in). A column (or expert) split cuts the scales
-    with the codes. A K split (wo, wd: codes on model along the packed
-    K words) keeps a per-channel leaf's one group for every shard's rows
-    and cuts group-wise scales with the rows when a group never straddles
-    two shards; otherwise it raises naming the leaf."""
-    fields = {"codes": codes, "alphas": alphas, "betas": betas}
+def _qt_plan(names, shapes, k_in, specs, mesh):
+    """How a QuantizedTensor's fields of `shapes` ({"codes", "alphas",
+    "betas"}) are cut under their symbolic `specs`: -> (guarded spec a
+    field, parts of the model dim, this rank's K)."""
     M = mesh_axis_sizes(mesh)["model"]
-    if "moe" in names and codes.ndim == 5:
+    parts = 1
+    if "moe" in names and len(shapes["codes"]) == 5:
         # a stacked expert stack (G, E, ...): the reference's _qt_pspec
         # puts the model axis on dim 0, the stack's layer-group axis;
         # the port's expert parallelism splits E (dim 1), as the rule
         # for a dense expert stack does
-        if codes.shape[1] % M:
+        if shapes["codes"][1] % M:
             raise ValueError(f"{'/'.join(names)}: a {M}-way model axis "
-                             f"does not divide {codes.shape[1]} experts")
-        specs = {f: (None, "model") + (None,) * (a.ndim - 2)
-                 for f, a in fields.items()}
-    spec = {f: _serving_spec(names + (f".{f}",), a.shape, specs[f], mesh)
-            for f, a in fields.items()}
+                             f"does not divide {shapes['codes'][1]} "
+                             f"experts")
+        specs = {f: (None, "model") + (None,) * (len(s) - 2)
+                 for f, s in shapes.items()}
+    else:
+        local = {f: _local_spec(names, len(s), specs[f], f)
+                 for f, s in shapes.items()}
+        specs = {f: sp for f, (sp, _) in local.items()}
+        parts = local["codes"][1]
+    spec = {f: _serving_spec(names + (f".{f}",), s, specs[f], mesh)
+            for f, s in shapes.items()}
     if spec["codes"][-2] == "model":
         where = "/".join(names)
         if k_in % (32 * M):
             raise ValueError(f"{where}: K={k_in} does not split into "
                              f"{M} whole blocks of 32-bit code words")
-        G = alphas.shape[-3]
+        G = shapes["alphas"][-3]
         if G > 1:
             if (k_in // M) % (k_in // G):
                 raise ValueError(
@@ -437,11 +509,38 @@ def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
             spec["betas"] = spec["betas"][:-2] + ("model",) \
                 + spec["betas"][-1:]
         k_in //= M
-    d, m = mesh.coords
-    coords = {"data": d, "model": m}
-    out = [_contiguous(a[local_slices(a.shape, spec[f], mesh, coords)])
-           for f, a in fields.items()]
-    return (*out, k_in)
+    return spec, parts, k_in
+
+
+def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
+    """This rank's block of a QuantizedTensor's fields (numpy or torch)
+    under their symbolic specs {"codes", "alphas", "betas"}: -> (codes,
+    alphas, betas, k_in). A column (or expert) split cuts the scales
+    with the codes. A K split (wo, wd, out_proj, x_proj: codes on model
+    along the packed K words) keeps a per-channel leaf's one group for
+    every shard's rows and cuts group-wise scales with the rows when a
+    group never straddles two shards; otherwise it raises naming the
+    leaf."""
+    fields = {"codes": codes, "alphas": alphas, "betas": betas}
+    spec, parts, k_in = _qt_plan(
+        names, {f: tuple(a.shape) for f, a in fields.items()}, k_in, specs,
+        mesh)
+    where = "/".join(names)
+    return (*(_cut(a, spec[f], mesh, parts, where)
+              for f, a in fields.items()), k_in)
+
+
+def shard_draft_scales(names, alphas, betas, k_in, specs, mesh):
+    """A draft block's (alphas, betas) (quant/draft.py: fewer planes than
+    the leaf's own scales) cut as shard_qt cuts the scales of the
+    QuantizedTensor at `names` (K rows `k_in`, symbolic `specs`)."""
+    lead = tuple(alphas.shape[:-3])
+    shapes = {"codes": lead + (1, -(-k_in // 32), alphas.shape[-2]),
+              "alphas": tuple(alphas.shape), "betas": tuple(betas.shape)}
+    spec, parts, _ = _qt_plan(names, shapes, k_in, specs, mesh)
+    where = "/".join(names)
+    return (_cut(alphas, spec["alphas"], mesh, parts, where),
+            _cut(betas, spec["betas"], mesh, parts, where))
 
 
 def shard_params(cfg, params, mesh):

@@ -21,9 +21,10 @@ through the continuous-batching engine (the reference's
 
   # an artifact over a (data, model) mesh of ranks: one card a rank by
   # default; --devices names them (cuda:0,cuda:0 rehearses two ranks on
-  # one card over gloo, cpu,cpu two ranks on the CPU)
+  # one card over gloo, cpu,cpu two ranks on the CPU); any decoder of
+  # the zoo, speculatively too (attention-only patterns)
   PYTHONPATH=src python -m repro_torch.launch.serve --load-quantized DIR \\
-      --mesh 2,1 [--devices cuda:0,cuda:1]
+      --mesh 2,1 [--devices cuda:0,cuda:1] [--speculate K]
 
 Without --load-quantized the model is data/pretrained.py:get_trained_lm
 (--arch trained for --train-steps steps, or its cached checkpoint,
@@ -38,10 +39,10 @@ one process a mesh position (dist/context.py:spawn); each loads its
 slice with load_packed(mesh=) and runs the engine on the mesh (the
 paged cache; the batch rounded up to a multiple of D, as the
 reference does), and rank 0 prints. `--speculate K` serves
-self-speculatively: a `--draft-bits D` view of the same packed codes
-proposes K tokens a tick, with the scales of the artifact's v4 draft
-block when it has one and an LS re-fit otherwise (the launcher says
-which).
+self-speculatively, with or without --mesh: a `--draft-bits D` view of
+the same packed codes proposes K tokens a tick, with the scales of the
+artifact's v4 draft block when it has one (each rank's cut on a mesh)
+and an LS re-fit otherwise (the launcher says which).
 """
 from __future__ import annotations
 
@@ -212,19 +213,27 @@ def main(argv=None):
                                      device=args.device)
         if args.quant:
             params = quantize(args, cfg, params)
-    draft_params = None
-    if args.speculate:
-        from repro_torch.ckpt.packed import load_draft_scales
-        from repro_torch.quant.draft import make_draft_params
-        scales_tree = (load_draft_scales(args.load_quantized,
-                                         device=args.device)
-                       if args.load_quantized else None)
-        print("draft scales: "
-              + ("manifest v4 draft block" if scales_tree is not None
-                 else "on-the-fly LS re-fit (no v4 draft block)"))
-        draft_params = make_draft_params(params, args.draft_bits,
-                                         scales_tree)
+    draft_params = _draft(args, params) if args.speculate else None
     return _serve(args, cfg, params, paged, draft_params)
+
+
+def _draft(args, params, mesh=None):
+    """--speculate: the --draft-bits draft of `params` with the scales of
+    the artifact's v4 draft block (on a mesh, this rank's cut of it),
+    else a re-fit: here, or on a mesh by the engine (None), which refits
+    a leaf whose rows the model axis splits on its gathered rows."""
+    from repro_torch.ckpt.packed import load_draft_scales
+    from repro_torch.quant.draft import make_draft_params
+    block = (load_draft_scales(args.load_quantized, mesh=mesh,
+                               device=None if mesh else args.device)
+             if args.load_quantized else None)
+    if mesh is None or mesh.rank == 0:
+        print("draft scales: "
+              + ("manifest v4 draft block" if block is not None
+                 else "on-the-fly LS re-fit (no v4 draft block)"))
+    if mesh is not None and block is None:
+        return None
+    return make_draft_params(params, args.draft_bits, block)
 
 
 def _load(ap, args, mesh=None):
@@ -253,7 +262,8 @@ def serve_rank(mesh, argv):
     ap = _parser()
     args = ap.parse_args(argv)
     cfg, params = _load(ap, args, mesh)
-    eng, reqs = _serve(args, cfg, params, True, None, mesh)
+    draft = _draft(args, params, mesh) if args.speculate else None
+    eng, reqs = _serve(args, cfg, params, True, draft, mesh)
     return {"rank": mesh.rank, "tokens": [r.out for r in reqs]}
 
 

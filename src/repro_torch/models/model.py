@@ -57,18 +57,22 @@ shapes and no data (the dry run, launch/dryrun.py).
 
 On a serving mesh (dist/context.py) every rank runs these functions on
 its own slice of the weights and a shard-local config (`shard_config`:
-its heads, MLP width and, through the weights, its experts): the output
-of each mixer and each MLP (after wo, wd or the MoE combine) is summed
-over the model group by `reduce_model`, a vocabulary split over the
-model axis is looked up masked and summed, and split logits are
-gathered. Outside a mesh each hook is the identity.
+its heads, d_inner, MLP width and, through the weights, its experts):
+the output of each mixer and each MLP (after wo, out_proj, wd or the
+MoE combine) is summed over the model group by `reduce_model` (a Mamba
+mixer also sums its x_proj features, models/mamba.py), a vocabulary
+split over the model axis is looked up masked and summed, and split
+logits are gathered. MLA's latent is whole on every rank. Outside a
+mesh each hook is the identity.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.context import gather_model, model_coords, reduce_model
 from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
@@ -108,21 +112,37 @@ def require_decoder(cfg) -> None:
     check_config(cfg)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """The config one rank of a `model_axis`-way model axis runs
+    (shard_config): its heads and MLP width are its fields, and d_inner,
+    which the config derives from d_model, is divided here."""
+    model_axis: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return super().d_inner // self.model_axis
+
+
 def shard_config(cfg, model: int):
-    """The config one rank of a `model`-way model axis runs: n_heads,
-    n_kv_heads and (with dense MLP layers) d_ff divided by `model`; the
-    experts split through the weights (E / model a rank, models/moe.py),
-    each keeping the single-device capacity. A dimension the axis does
-    not divide raises ValueError naming it; MLA and Mamba layers raise
-    NotImplementedError on a model axis > 1 (ROADMAP Queue 1 item 6)."""
+    """The config one rank of a `model`-way model axis runs: with
+    attention layers n_heads divided by `model` (and n_kv_heads, which
+    MLA has none of in its cache: its latent replicates), with Mamba
+    layers d_inner, with dense MLP layers d_ff; the experts split
+    through the weights (E / model a rank, models/moe.py), each keeping
+    the single-device capacity. An attention-free pattern keeps its
+    (unused) head counts. A dimension the axis does not divide raises
+    ValueError naming it."""
     if model == 1:
         return cfg
-    if cfg.mla is not None or any(s.kind != "attn" for s in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and Mamba layers serve on the data axis "
-            f"only; on a model axis > 1 they are still to do (ROADMAP "
-            f"Queue 1 item 6: MLA and Mamba on the model axis)")
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+    kinds = {s.kind for s in cfg.pattern}
+    dims = {}
+    if "attn" in kinds:
+        dims["n_heads"] = cfg.n_heads
+        if cfg.mla is None:
+            dims["n_kv_heads"] = cfg.n_kv_heads
+    if "mamba" in kinds:
+        dims["d_inner"] = cfg.d_inner
     if any(s.mlp == "dense" for s in cfg.pattern):
         dims["d_ff"] = cfg.d_ff
     if cfg.moe is not None and any(s.mlp == "moe" for s in cfg.pattern):
@@ -131,8 +151,12 @@ def shard_config(cfg, model: int):
         if n % model:
             raise ValueError(f"{cfg.name}: a {model}-way model axis does "
                              f"not divide {name}={n}")
-    kw = {k: n // model for k, n in dims.items() if "." not in k}
-    return cfg.replace(head_dim=cfg.resolved_head_dim, **kw)
+    kw = {k: dims[k] // model for k in ("n_heads", "n_kv_heads", "d_ff")
+          if k in dims}
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    return RankConfig(**fields, model_axis=model).replace(
+        head_dim=cfg.resolved_head_dim, **kw)
 
 
 def _unbind_tree(tree):

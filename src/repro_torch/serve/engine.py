@@ -82,9 +82,14 @@ steps run on models/model.py:shard_config's config), with the model
 group's all-reduces inside the model. After each decode step the
 sampled tokens are all-gathered over the data group, and a first token
 is broadcast from its slot's data rank, so every rank's scheduler sees
-every sequence. Under a model axis > 1 the decode steps run eagerly:
-gloo's collectives cannot be captured in a CUDA graph; a data-only mesh
-replays graphs as one device does (serve/compile_cache.py).
+every sequence; a speculative tick all-gathers each row's accepted
+tokens instead (the verify logits are whole on every model rank, so
+every model rank accepts the same). A self-draft refit on a model axis
+refits a row-split per-channel leaf on its gathered rows, so its scales
+are the single device's. Under a model axis > 1 the decode steps run
+eagerly: gloo's collectives cannot be captured in a CUDA graph; a
+data-only mesh replays graphs as one device does
+(serve/compile_cache.py).
 """
 from __future__ import annotations
 
@@ -96,12 +101,12 @@ import numpy as np
 import torch
 
 from repro_torch.dist.context import (broadcast_data, gather_data,
-                                      mesh_context)
-from repro_torch.dist.sharding import cache_pspec, local_shape
+                                      gather_model, mesh_context)
+from repro_torch.dist.sharding import cache_pspec, cuts_k, local_shape
 from repro_torch.hw import resolve_device
 from repro_torch.models.model import (init_cache, init_paged_cache,
                                       require_decoder, shard_config)
-from repro_torch.quant.draft import make_draft_params
+from repro_torch.quant.draft import make_draft_params, refit_draft_scales
 from repro_torch.quant.qlinear import QuantizedTensor
 from repro_torch.serve import compile_cache
 from repro_torch.serve.kv_cache import PagedKVCache
@@ -237,10 +242,6 @@ class ServeEngine:
             if mesh.rank is None:
                 raise ValueError("an unbound mesh: the engine runs inside "
                                  "each rank (dist.context.spawn binds it)")
-            if speculate:
-                raise NotImplementedError(
-                    "speculate > 0 under a mesh: speculation on a mesh is "
-                    "still to do (ROADMAP Queue 1 item 6)")
             if batch_size % D:
                 raise ValueError(
                     f"batch_size={batch_size} must divide over the "
@@ -392,8 +393,11 @@ class ServeEngine:
                         "speculate>0 needs GPTQT-quantized params (the "
                         "draft is a code-plane prefix of the target) or "
                         "an explicit draft_params tree")
-                draft_params = make_draft_params(self.params,
-                                                 self.draft_bits)
+                # a model rank holding some rows of a per-channel
+                # leaf refits it whole, as one device does
+                draft_params = make_draft_params(
+                    self.params, self.draft_bits,
+                    self._whole_row_scales() if M > 1 else None)
             self.draft_params = params_to(draft_params, self.device)
             self._sync()
             self.draft_build_s = time.time() - t0
@@ -407,21 +411,50 @@ class ServeEngine:
     # ---------------- mesh geometry ----------------
     def _check_local_params(self) -> None:
         """This rank's weights must be its slice (load_packed(mesh=) or
-        shard_params): the first attention layer's query width is the
-        shard config's."""
+        shard_params): the first layer's mixer has the shard config's
+        output width (wq's query heads, MLA's wq_b, Mamba's in_proj)."""
         rcfg = self.run_cfg
-        for lp in self.params["layers"]:
-            w = lp.get("attn", {}).get("wq")
-            if w is None or rcfg.mla is not None:
-                continue
-            n = w.n_out if isinstance(w, QuantizedTensor) else w.shape[-1]
-            want = rcfg.n_heads * rcfg.resolved_head_dim
-            if n != want:
-                raise ValueError(
-                    f"wq has {n} output columns; a rank of this mesh holds "
-                    f"{want} (slice the params with load_packed(mesh=) or "
-                    f"dist.sharding.shard_params)")
-            return
+        spec, lp = rcfg.pattern[0], self.params["layers"][0]
+        if spec.kind != "attn":
+            name, want = "in_proj", 2 * rcfg.d_inner
+            w = lp["mamba"][name]
+        else:
+            m = rcfg.mla
+            name = "wq" if m is None else "wq_b"
+            hd = (rcfg.resolved_head_dim if m is None
+                  else m.qk_nope_head_dim + m.qk_rope_head_dim)
+            w, want = lp["attn"][name], rcfg.n_heads * hd
+        n = w.n_out if isinstance(w, QuantizedTensor) else w.shape[-1]
+        if n != want:
+            raise ValueError(
+                f"{name} has {n} output columns; a rank of this mesh holds "
+                f"{want} (slice the params with load_packed(mesh=) or "
+                f"dist.sharding.shard_params)")
+
+    def _whole_row_scales(self):
+        """Draft scales (a make_draft_params scales tree) for the leaves
+        a self-draft must not refit on this rank's slice alone: a
+        per-channel leaf whose rows the model axis splits (dist/
+        sharding.py:cuts_k) is refit on every model rank's code words,
+        gathered, so its scales are the single device's. None at every
+        other leaf, whose refit on this rank's slice is a column or
+        expert slice of the whole leaf's."""
+        M, bits = self.mesh.shape[1], self.draft_bits
+
+        def walk(node, names):
+            if isinstance(node, dict):
+                return {k: walk(v, names + (k,)) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [walk(v, names + (i,)) for i, v in enumerate(node)]
+            if (not isinstance(node, QuantizedTensor) or not cuts_k(names)
+                    or node.n_groups > 1 or bits >= node.bits):
+                return None
+            codes = gather_model(node.codes, dim=-2, mesh=self.mesh)
+            alphas, betas = refit_draft_scales(QuantizedTensor(
+                codes, node.alphas, node.betas, node.k_in * M,
+                node.orig_dtype), bits)
+            return {"bits": bits, "alphas": alphas, "betas": betas}
+        return walk(self.params, ())
 
     def _check_local_cache(self, whole) -> None:
         """Every leaf of this rank's pool (or dense cache) has the shape
@@ -739,7 +772,10 @@ class ServeEngine:
         as in any partial tail page. Between the draft steps nothing
         leaves the device; the tick's device-to-host copies come after
         verify (draft tokens, greedy tokens, and under `typical` the
-        per-position keep decisions computed on the device)."""
+        per-position keep decisions computed on the device). On a mesh
+        each data rank runs its own rows and the rows' accepted tokens
+        are all-gathered over the data group, so every rank's replicated
+        scheduler emits, truncates and finishes the same."""
         k = self.speculate
         cap = self._seq_cap()
         ready = self._decode_ready()
@@ -763,57 +799,28 @@ class ServeEngine:
         if not ready:
             return
         t0 = time.time()
-        self._sync_block_tables()
-        base_pos = self.pos.copy()
-        ke_arr = np.zeros((self.B,), np.int32)
-        live = np.zeros((self.B,), np.int32)
-        for s in ready:
-            ke_arr[s] = k_eff[s]
-            live[s] = 1
-        draft, self.cache = self._draft_propose(
-            self.draft_params, self.cache, self.cur, base_pos, self._bt_dev,
-            ke_arr, self._null_row, k)
-        # verify: dead rows read and write the null page at position 0
-        # with no valid token. The tokens are assembled on the device, in
-        # a tensor of the engine's own: on the card `draft` is a graph's
-        # output, which the verify replay may overwrite
-        toks = torch.cat([self._ints(self.cur)[:, None], draft], dim=1)
-        draft = toks[:, 1:]
-        logits_all, self.cache = self._verify(
-            self.params, self.cache, toks,
-            np.where(live > 0, base_pos, 0).astype(np.int32), self._bt_dev,
-            np.where(live > 0, ke_arr + 1, 0).astype(np.int32), live,
-            self._null_row)
-        keep = None
-        if self.accept_rule == "typical":
-            # the target's probabilities of the draft tokens against its
-            # argmax's, in fp32 on the device
-            probs = torch.softmax(logits_all[:, :k].float(), dim=-1)
-            p_draft = probs.gather(-1, draft.long()[..., None])[..., 0]
-            keep = (p_draft >= self.typical_tau
-                    * probs.amax(dim=-1)).cpu().numpy()
-        draft_toks = draft.cpu().numpy()                       # (B, k)
-        greedy = torch.argmax(logits_all, dim=-1).cpu().numpy()  # (B, k+1)
+        # this rank's rows propose and verify; a row a slot comes back
+        # from every data rank: the accepted draft count m, the m
+        # accepted tokens and the target's own (-1 past them)
+        lo, hi = self.lo, self.lo + self.rows
+        mine = [s for s in ready if lo <= s < hi]
+        bursts = torch.full((self.rows, k + 2), -1, dtype=torch.int64)
+        if mine:
+            bursts = self._propose_verify(mine, k_eff, bursts)
+        bursts = gather_data(bursts, self.mesh).numpy()
         self._sync()
         self.stats["decode_s"] += time.time() - t0
         self.stats["ticks"] += 1
+        base_pos = self.pos.copy()
 
         for slot in ready:
             e = self.sched.running[slot]
-            ke = k_eff[slot]
-            dt, g = draft_toks[slot], greedy[slot]
-            self.stats["draft_tokens"] += ke
-            m = 0
-            if keep is not None:
-                while m < ke and keep[slot, m]:
-                    m += 1
-            else:
-                while m < ke and dt[m] == g[m]:
-                    m += 1
+            m = int(bursts[slot, 0])
+            self.stats["draft_tokens"] += k_eff[slot]
             self.stats["accepted_tokens"] += m
             # the accepted draft prefix + the target's token at position
             # m, emitted one by one under the plain stop conditions
-            burst = [int(dt[j]) for j in range(m)] + [int(g[m])]
+            burst = [int(t) for t in bursts[slot, 1:m + 2]]
             emitted, fin = 0, False
             for tok in burst:
                 e.req.out.append(tok)
@@ -832,6 +839,61 @@ class ServeEngine:
             self.kv.truncate(slot, new_pos)
             if fin:
                 self._finish(e)
+
+    def _propose_verify(self, mine, k_eff, bursts):
+        """The device half of a speculative tick on this rank's rows
+        (`mine`: ready slots of its data shard, at depths `k_eff`):
+        propose, verify, and accept on each row into `bursts` (row
+        slot - lo: m, then m + 1 tokens). Under a model axis the verify
+        logits are whole on every model rank (the vocabulary gathered),
+        so every model rank accepts the same tokens."""
+        k, lo, hi = self.speculate, self.lo, self.lo + self.rows
+        self._sync_block_tables()
+        base_pos = self.pos[lo:hi].copy()
+        cur = self.cur[lo:hi].copy()
+        ke_arr = np.zeros((self.rows,), np.int32)
+        live = np.zeros((self.rows,), np.int32)
+        for s in mine:
+            ke_arr[s - lo] = k_eff[s]
+            live[s - lo] = 1
+        draft, self.cache = self._draft_propose(
+            self.draft_params, self.cache, cur, base_pos, self._bt_dev,
+            ke_arr, self._null_row, k)
+        # verify: dead rows read and write the null page at position 0
+        # with no valid token. The tokens are assembled on the device, in
+        # a tensor of the engine's own: on the card `draft` is a graph's
+        # output, which the verify replay may overwrite
+        toks = torch.cat([self._ints(cur)[:, None], draft], dim=1)
+        draft = toks[:, 1:]
+        logits_all, self.cache = self._verify(
+            self.params, self.cache, toks,
+            np.where(live > 0, base_pos, 0).astype(np.int32), self._bt_dev,
+            np.where(live > 0, ke_arr + 1, 0).astype(np.int32), live,
+            self._null_row)
+        keep = None
+        if self.accept_rule == "typical":
+            # the target's probabilities of the draft tokens against its
+            # argmax's, in fp32 on the device
+            probs = torch.softmax(logits_all[:, :k].float(), dim=-1)
+            p_draft = probs.gather(-1, draft.long()[..., None])[..., 0]
+            keep = (p_draft >= self.typical_tau
+                    * probs.amax(dim=-1)).cpu().numpy()
+        draft_toks = draft.cpu().numpy()                       # (rows, k)
+        greedy = torch.argmax(logits_all, dim=-1).cpu().numpy()
+        for s in mine:
+            r, ke = s - lo, k_eff[s]
+            dt, g = draft_toks[r], greedy[r]
+            m = 0
+            if keep is not None:
+                while m < ke and keep[r, m]:
+                    m += 1
+            else:
+                while m < ke and dt[m] == g[m]:
+                    m += 1
+            bursts[r, 0] = m
+            bursts[r, 1:m + 1] = torch.as_tensor(dt[:m])
+            bursts[r, m + 1] = int(g[m])
+        return bursts
 
     # ---------------- engine ----------------
     def _seq_cap(self) -> int:

@@ -25,7 +25,11 @@ admitted sequence, under the page allocator's invariants:
 The state rows themselves live in the paged cache (init_paged_cache
 gives Mamba layers max_seqs rows indexed by slot); the pool is the
 host-side capacity and lifecycle layer that decides whether a slot may
-hold state at all.
+hold state at all. On a model axis of M ranks the engine builds it from
+the rank's config (models/model.py:shard_config), whose d_inner is
+d_inner / M: the ssm and conv rows hold the rank's channels (the
+reference's cache rule puts d_inner on the model axis) and
+bytes_per_slab() / pool_bytes() are a rank's share.
 """
 from __future__ import annotations
 

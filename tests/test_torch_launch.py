@@ -139,3 +139,23 @@ def test_serve_launcher_spawns_a_mesh(capfd):
                  ["--mesh", "2,1", "--devices", "cpu,cpu"]):
         with pytest.raises(SystemExit):
             serve_launch.main(argv)
+
+
+def test_serve_launcher_speculates_on_a_mesh(capfd):
+    """--speculate 2 with --mesh 1,2: the ranks refit the w2 draft (the
+    fixture has no draft block; a row-split leaf on its gathered rows)
+    and give the single-device launcher's plain tokens."""
+    from pathlib import Path
+    art = str(Path(__file__).resolve().parent / "data" / "torch_port"
+              / "w3_pc")
+    common = ["--load-quantized", art, "--requests", "2", "--max-new", "6",
+              "--batch-size", "2"]
+    _, want = serve_launch.main(common + ["--device", "cpu", "--cache",
+                                          "paged"])
+    capfd.readouterr()
+    ranks = serve_launch.main(common + ["--mesh", "1,2", "--devices",
+                                        "cpu,cpu", "--speculate", "2"])
+    assert all(r["tokens"] == [q.out for q in want] for r in ranks)
+    out = capfd.readouterr().out
+    assert out.count("draft scales: on-the-fly LS re-fit") == 1
+    assert "speculation: k=2, w2 draft" in out

@@ -426,13 +426,13 @@ def test_launcher_module_entry_point():
     ({"kv_bits": 4, "cache_kind": "dense"}, "quantized-KV"),
     ({"mesh": "host", "speculate": 2}, "speculation")])
 def test_later_slices_raise(kw, slice_name):
-    """Each slice still to come raises naming its ROADMAP Queue 1 item;
-    binary-coded KV pages are served now, and on a dense cache they
-    raise as in the reference (prefix sharing and chunked prefill are
-    served too: tests/test_torch_serve_prefix.py; speculative decoding:
-    tests/test_torch_speculative.py). Meshes are served
-    (tests/test_torch_sharded_serve.py); speculation on one is still to
-    come."""
+    """The slices these cases once refused are served now: binary-coded
+    KV pages, which on a dense cache raise as in the reference (prefix
+    sharing and chunked prefill are served too:
+    tests/test_torch_serve_prefix.py; speculative decoding:
+    tests/test_torch_speculative.py), and speculation on a mesh, here a
+    host mesh whose tokens are the reference's plain greedy tokens
+    (real meshes: tests/test_torch_sharded_serve.py)."""
     from repro_torch.launch.mesh import make_host_mesh
     cfg, params = _model("w3_pc")
     kw = {"cache_kind": "paged", **kw}
@@ -442,9 +442,15 @@ def test_later_slices_raise(kw, slice_name):
         with pytest.raises(ValueError, match="kv_bits requires cache_kind"):
             ServeEngine(cfg, params, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"{slice_name}.*ROADMAP Queue 1 item [1-8]"):
-        ServeEngine(cfg, params, device="cpu", **kw)
+    art = REF["artifacts"]["w3_pc"]
+    eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                      dtype="float32", page_size=16, prefix_sharing=False,
+                      device="cpu", **kw)
+    reqs = [Request(prompt=np.asarray(p, np.int32),
+                    max_new_tokens=REF["max_new"]) for p in art["prompts"]]
+    eng.run(reqs)
+    assert [r.out for r in reqs] == art["tokens"]
+    assert eng.stats["draft_tokens"] > 0
 
 
 def test_engine_runs_on_cuda_unless_told_otherwise():

@@ -17,7 +17,10 @@ paged engine's (the committed fixture), logits within 1e-4 x
 max|logit| of the reference's, every shard's pages drained and each
 rank's page ids inside its block. Then the refusals, and chip_smoke's
 phase 12 rehearsed."""
+import atexit
+import shutil
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +31,7 @@ from repro.serve.kv_cache import OutOfPages as JaxOutOfPages
 from repro.serve.kv_cache import PagedKVCache as JaxPagedKVCache
 from repro.serve.prefix_cache import RadixPrefixCache as JaxIndex
 from repro.serve.state_slab import StateSlabPool as JaxSlabs
+from repro_torch.ckpt.packed import load_packed
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.dist.context import ServeMesh, spawn
 from repro_torch.launch.mesh import make_serve_mesh
@@ -372,6 +376,9 @@ def test_sharded_state_slabs_match_the_reference(seed):
 
 MESHES = [(2, 1), (1, 2), (2, 2)]
 PREFIX_RUN = "w3_pc/share_chunk5"
+ZOO_DATA_AXIS = ("mamba_fp", "mamba-mix_quant", "mla_fp")
+ZOO_MODEL_AXIS = ("mla_fp", "mla_quant", "mamba_fp", "mamba-mix_fp",
+                  "mamba-mix_quant")
 
 
 def _cases(mesh_shape):
@@ -391,15 +398,115 @@ def _cases(mesh_shape):
                        "prefix_sharing": True,
                        "prefill_chunk": eng["prefill_chunk"],
                        "waves": run["waves"], "max_new": run["max_new"]}
-    if mesh_shape[1] == 1:
-        # every family serves on the data axis
-        for name in ("mamba_fp", "mamba-mix_quant", "mla_fp"):
-            ent = ZOO["artifacts"][name]
-            cases[f"zoo/{name}"] = {"artifact": f"zoo/{name}", "kv_bits": 0,
-                                    "page_size": ZOO["page_size"],
-                                    "prompts": ent["prompts"],
-                                    "max_new": ZOO["max_new"]}
+    # every family serves on the data axis; MLA and Mamba on a model
+    # axis too
+    for name in (ZOO_DATA_AXIS if mesh_shape[1] == 1 else ZOO_MODEL_AXIS):
+        ent = ZOO["artifacts"][name]
+        cases[f"zoo/{name}"] = {"artifact": f"zoo/{name}", "kv_bits": 0,
+                                "page_size": ZOO["page_size"],
+                                "prompts": ent["prompts"],
+                                "max_new": ZOO["max_new"]}
+    # self-speculation, k=2 with a w2 draft: refit at boot (greedy), or
+    # the v4 draft block of a copy of w3_pc saved with one (typical)
+    for rule, art, draft in (("greedy", "w3_pc", None),
+                             ("typical", str(draft_artifact()), "block")):
+        cases[f"spec_{rule}"] = {"artifact": art, "kv_bits": 0,
+                                 "page_size": 16,
+                                 "prompts": REF["artifacts"]["w3_pc"][
+                                     "prompts"],
+                                 "max_new": REF["max_new"], "speculate": 2,
+                                 "accept_rule": rule, "draft": draft}
     return cases
+
+
+_ONE: dict = {}
+
+
+def draft_artifact():
+    """w3_pc saved by the port with a w2 draft block (once a process, in
+    a temporary directory removed at exit)."""
+    if "dir" not in _ONE:
+        from repro_torch.ckpt.packed import save_packed
+        params, spec, meta = load_packed(FIXTURE / "w3_pc", device="cpu")
+        cfg = get_config(meta["arch"]).replace(
+            dtype="float32", n_layers=len(params["layers"]))
+        tmp = tempfile.mkdtemp(prefix="w3_pc_draft_")
+        atexit.register(shutil.rmtree, tmp, True)
+        _ONE["dir"] = save_packed(Path(tmp) / "w3_pc", params, cfg=cfg,
+                                  spec=spec, meta=meta, draft_bits=2)
+    return _ONE["dir"]
+
+
+def single_device(case) -> dict:
+    """The port's single-device paged engine on a case's artifact and
+    prompts (batch 2, as the ranks): tokens, and every logits row a
+    token was taken from, by (request, token index); once a case."""
+    key = (case["artifact"], case.get("accept_rule"))
+    if key not in _ONE:
+        from repro_torch.ckpt.packed import load_draft_scales
+        from repro_torch.quant.draft import make_draft_params
+        from repro_torch.serve import Request
+        from torch_mesh import _config, record_logits
+        art = FIXTURE / case["artifact"]
+        params, _, meta = load_packed(art, device="cpu")
+        cfg = _config(case["artifact"], params, meta)
+        kw = {}
+        if case.get("speculate"):
+            kw = dict(speculate=case["speculate"], draft_bits=2,
+                      accept_rule=case["accept_rule"],
+                      draft_params=make_draft_params(
+                          params, 2, load_draft_scales(art, device="cpu")))
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          dtype="float32", cache_kind="paged",
+                          page_size=case["page_size"],
+                          prefix_sharing=False, device="cpu", **kw)
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=case["max_new"])
+                for p in case["prompts"]]
+        log = record_logits(eng, reqs)
+        eng.run(reqs)
+        _ONE[key] = {"tokens": [r.out for r in reqs],
+                     "logits": {(i, t): row.numpy()
+                                for i, t, row, ctx in log if not ctx},
+                     "spec_counts": (eng.stats["draft_tokens"],
+                                     eng.stats["accepted_tokens"])}
+    return _ONE[key]
+
+
+def reference_typical(case) -> dict:
+    """The reference's speculative paged engine under typical acceptance
+    (tau 0.3, both engines' default) on a case's artifact, v4 draft
+    block and prompts (batch 2, as the ranks): tokens and (draft,
+    accepted) counts; once a case."""
+    key = ("reference", case["artifact"], case["accept_rule"])
+    if key not in _ONE:
+        from repro.ckpt.packed import load_draft_scales as jax_draft_block
+        from repro.ckpt.packed import load_packed as jax_load_packed
+        from repro.configs import get_config as jax_get_config
+        from repro.quant.draft import make_draft_params as jax_draft
+        from repro.serve import Request as JaxRequest
+        from repro.serve import ServeEngine as JaxServeEngine
+        art = FIXTURE / case["artifact"]
+        jp, _, meta = jax_load_packed(art)
+        n_layers = len(load_packed(art, device="cpu")[0]["layers"])
+        jcfg = jax_get_config(meta["arch"]).replace(dtype="float32",
+                                                    n_layers=n_layers)
+        eng = JaxServeEngine(jcfg, jp, batch_size=2, max_len=64,
+                             dtype="float32", cache_kind="paged",
+                             page_size=case["page_size"],
+                             prefix_sharing=False,
+                             speculate=case["speculate"], draft_bits=2,
+                             accept_rule=case["accept_rule"],
+                             draft_params=jax_draft(jp, 2,
+                                                    jax_draft_block(art)))
+        reqs = [JaxRequest(prompt=np.asarray(p, np.int32),
+                           max_new_tokens=case["max_new"])
+                for p in case["prompts"]]
+        eng.run(reqs)
+        _ONE[key] = {"tokens": [list(map(int, r.out)) for r in reqs],
+                     "spec_counts": (int(eng.stats["draft_tokens"]),
+                                     int(eng.stats["accepted_tokens"]))}
+    return _ONE[key]
 
 
 _RUNS: dict = {}
@@ -466,6 +573,82 @@ def test_data_axis_serves_every_family(case):
         assert got["pages_in_own_block"]
 
 
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name", ZOO_MODEL_AXIS)
+def test_model_axis_serves_mla_and_mamba(mesh_shape, name):
+    """MLA (latent pages replicated over the model axis, heads split)
+    and Mamba (d_inner split: in_proj by halves, x_proj by rows, the
+    state rows by channels), alone and with attention and MoE (jamba's
+    smoke pattern), give the reference's paged tokens; logits within
+    1e-4 x max|logit| of the port's single-device engine's."""
+    case = f"zoo/{name}"
+    ranks = mesh_run(mesh_shape)
+    one = single_device(_cases(mesh_shape)[case])
+    assert one["tokens"] == _want(case)["tokens"]
+    M, rows = mesh_shape[1], 0
+    for r in ranks:
+        got = r[case]
+        assert got["tokens"] == _want(case)["tokens"], (mesh_shape, name)
+        assert got["same_as_shard_params"] and got["drained"]
+        assert got["pages_in_own_block"] and got["slabs_drained"]
+        assert got["n_shards"] == mesh_shape[0]
+        for i, t, row in got["logits"]:
+            ref = one["logits"][(i, t)]
+            np.testing.assert_allclose(row, ref, rtol=0,
+                                       atol=TOL * np.abs(ref).max())
+            rows += 1
+        c = got["collectives"]
+        assert c.get("all_reduce", 0) > 0
+        cfg = smoke_config(ZOO["artifacts"][name]["arch"])
+        if cfg.mamba is not None:
+            # the state rows hold this rank's d_inner channels
+            di = cfg.d_inner // M
+            assert got["state_shapes"] and all(
+                di in s[1:] for s in got["state_shapes"])
+            # the slab pool counts this rank's share of the state
+            whole = StateSlabPool(cfg, n_slabs=4, max_seqs=2,
+                                  dtype="float32")
+            assert got["slab_bytes"] * M == whole.bytes_per_slab()
+    assert rows == sum(len(t) for t in one["tokens"]) * M
+
+
+@pytest.mark.parametrize("mesh_shape", MESHES)
+@pytest.mark.parametrize("rule", ["greedy", "typical"])
+def test_mesh_speculates_as_one_device(mesh_shape, rule):
+    """speculate=2 with a w2 self-draft on every mesh: greedy gives the
+    reference's plain greedy tokens (its draft refit at boot, a row-split
+    leaf refit on its gathered rows); typical (the draft block cut by
+    load_draft_scales(mesh=)) gives the reference's typical engine's
+    tokens and draft and accepted counts on the same artifact, block
+    and prompts (a lossy rule: they may differ from greedy), as the
+    port's single-device typical engine does. Every rank reports the
+    same draft, accepted and tick counts."""
+    case = _cases(mesh_shape)[f"spec_{rule}"]
+    if rule == "greedy":
+        want = REF["artifacts"]["w3_pc"]["tokens"]
+    else:
+        ref = reference_typical(case)
+        one = single_device(case)
+        assert one["tokens"] == ref["tokens"]
+        assert one["spec_counts"] == ref["spec_counts"]
+        want = ref["tokens"]
+    counts = set()
+    for r in mesh_run(mesh_shape):
+        got = r[f"spec_{rule}"]
+        assert got["tokens"] == want, (mesh_shape, rule, r["rank"])
+        assert got["drained"] and got["pages_in_own_block"]
+        assert got["same_as_shard_params"]
+        # the draft's scales are the single device's, cut (fp32 rounding
+        # of a refit on a column slice aside)
+        assert got["draft_scales_err"] <= 1e-5
+        counts.add(tuple(got["spec_counts"]))
+    assert len(counts) == 1
+    drafted, accepted, _ = counts.pop()
+    assert drafted > 0
+    if rule == "typical":
+        assert (drafted, accepted) == ref["spec_counts"]
+
+
 @pytest.mark.parametrize("mesh_shape", MESHES)
 def test_mesh_collectives_and_pool_blocks(mesh_shape):
     """Model ranks all-reduce after wo and wd (2 a layer a step) and
@@ -483,9 +666,10 @@ def test_mesh_collectives_and_pool_blocks(mesh_shape):
 
 
 def test_refusals():
-    """Odd batches, fsdp=True, MLA and Mamba on a model axis, and
-    speculation under a mesh raise, naming what remains."""
-    from repro_torch.ckpt.packed import load_packed
+    """Odd batches, fsdp=True, unsliced params, speculation on an MLA or
+    Mamba pattern (as on one device), a d_inner or n_kv_heads the model
+    axis does not divide, and mixed devices raise, naming what
+    remains."""
     two = ServeMesh(2, 1, ["cpu", "cpu"], rank=0)
     tp2 = ServeMesh(1, 2, ["cpu", "cpu"], rank=0)
     params, _, _ = load_packed(FIXTURE / "w3_pc", device="cpu")
@@ -493,18 +677,20 @@ def test_refusals():
     with pytest.raises(ValueError, match="batch_size=3"):
         ServeEngine(cfg, params, batch_size=3, cache_kind="paged",
                     mesh=two)
-    with pytest.raises(NotImplementedError, match="speculat.*item 6"):
-        ServeEngine(cfg, params, cache_kind="paged", speculate=2, mesh=two)
+    for arch in ("minicpm3-4b", "falcon-mamba-7b"):
+        with pytest.raises(NotImplementedError,
+                           match="attention-only.*MLA drafts"):
+            ServeEngine(smoke_config(arch), {}, cache_kind="paged",
+                        speculate=2, mesh=tp2)
     with pytest.raises(NotImplementedError, match="fsdp.*item 6"):
         load_packed(FIXTURE / "w3_pc", mesh=two, fsdp=True)
     with pytest.raises(ValueError, match="bound mesh"):
         load_packed(FIXTURE / "w3_pc", mesh=make_serve_mesh(1, 2, "cpu,cpu"))
     with pytest.raises(ValueError, match="output columns"):
         ServeEngine(cfg, params, cache_kind="paged", mesh=tp2)
-    for arch in ("minicpm3-4b", "falcon-mamba-7b"):
-        with pytest.raises(NotImplementedError, match="model axis.*item 6"):
-            ServeEngine(smoke_config(arch), {}, cache_kind="paged",
-                        mesh=tp2)
+    with pytest.raises(ValueError, match="does not divide d_inner=128"):
+        ServeEngine(smoke_config("falcon-mamba-7b"), {}, cache_kind="paged",
+                    mesh=ServeMesh(1, 3, ["cpu"] * 3, rank=0))
     with pytest.raises(ValueError, match="n_kv_heads=2"):
         ServeEngine(smoke_config("qwen3-4b"), {}, cache_kind="paged",
                     mesh=ServeMesh(1, 4, ["cpu"] * 4, rank=0))
@@ -536,8 +722,10 @@ def test_a_failing_rank_fails_the_call():
 
 def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
     """chip_smoke's phase 12 end to end on the CPU at tiny size (tiny-lm
-    on its three meshes, tiny-moe on (1, 2)): every check but the kernel
-    launches (none on the CPU) holds."""
+    on its three meshes and speculatively on (2, 1) and (1, 2), tiny-moe
+    on (1, 2), the smoke configs of minicpm3-4b, falcon-mamba-7b and
+    jamba on (1, 2)): every check but the kernel launches (none on the
+    CPU) holds."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -551,19 +739,29 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
                         lambda ok, what: ok or unmet.append(what))
     lines = []
     monkeypatch.setattr(cs, "emit", lines.append)
+    zoo = [smoke_config(a).replace(dtype="float32")
+           for a, _ in cs.MESH_ZOO]
     counts = cs.phase_mesh(0, cs.synthetic_llama(0, "tiny-lm"), None,
-                           max_new=4, moe_arch="tiny-moe", moe_layers=2)
+                           max_new=4, moe_arch="tiny-moe", moe_layers=2,
+                           zoo=zoo)
     assert counts["bcq_plain"] == 0
     paths = [ln for ln in lines if ln["check"] == "mesh_path"]
-    assert [p["path"] for p in paths] == ["llama_1x2", "llama_2x1",
-                                          "llama_2x2", "moe_1x2"]
+    assert [p["path"] for p in paths] == [
+        "llama_1x2", "llama_2x1", "llama_2x2", "llama_spec_2x1",
+        "llama_spec_1x2", "moe_1x2", "minicpm3_1x2", "falcon_1x2",
+        "jamba_1x2"]
     for p in paths:
         assert p["tokens_equal"] and p["max_dlogit_rel"] <= cs.TOL_LOGITS
         assert p["backend"] == "gloo"
         for r in p["ranks"]:
             assert r["drained"] and r["pages_in_own_block"]
             assert r["param_bytes"] > 0 and r["pool_bytes"] > 0
+            assert r["logit_rows_compared"] > 0
         assert all((r["all_reduce_ms"] is not None)
                    == (p["mesh"]["model"] > 1) for r in p["ranks"])
+        spec_path = p["path"].startswith("llama_spec")
+        assert (p["speculation"] is not None) == spec_path
+        if spec_path:
+            assert p["speculation"]["draft_tokens"] > 0
     # no kernel launches on the CPU: the launch-count and shape checks
     assert unmet and all("launch" in u for u in unmet), unmet

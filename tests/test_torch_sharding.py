@@ -12,6 +12,8 @@ helpers. Specs must be equal entry for entry; the leaves' shapes too.
 ckpt/pspec.py holds no rule of its own."""
 import functools
 import inspect
+import threading
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -269,3 +271,243 @@ def test_local_slices_tile_each_leaf():
         reps = int(np.prod([2 for a in ("data", "model")
                             if a not in sharding._axes(spec)]))
         assert (seen == reps).all(), spec
+
+
+# ---------------------------------------------------------------------------
+# the local cut plan: M shards of a layer, in one process, compute what
+# the single device computes (the all-reduce a sum over the shards)
+# ---------------------------------------------------------------------------
+
+class _SumGroup:
+    """reduce_model over M threads, one a model rank: every rank gets
+    the sum of the M ranks' tensors, added in rank order."""
+
+    def __init__(self, M):
+        self.bar = threading.Barrier(M, timeout=120)
+        self.parts = [None] * M
+        self.me = threading.local()
+
+    def __call__(self, y):
+        self.parts[self.me.m] = y
+        self.bar.wait()
+        out = functools.reduce(torch.add, self.parts)
+        self.bar.wait()
+        return out
+
+
+def _on_ranks(M, fn, monkeypatch):
+    """fn(m) on each of M model ranks, each in a thread, with Mamba's
+    in-layer all-reduce the sum over them; -> the results by rank."""
+    from repro_torch.models import mamba as mam
+    group = _SumGroup(M)
+    monkeypatch.setattr(mam, "reduce_model", group)
+    out, errors = [None] * M, []
+
+    def run(m):
+        group.me.m = m
+        try:
+            out[m] = fn(m)
+        except BaseException as e:     # noqa: BLE001 - re-raised below
+            errors.append(e)
+            group.bar.abort()
+    threads = [threading.Thread(target=run, args=(m,)) for m in range(M)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _shards(cfg, params, M):
+    from repro_torch.dist.context import ServeMesh
+    return [sharding.shard_params(cfg, params, ServeMesh(
+        1, M, ["cpu"] * M, rank=m)) for m in range(M)]
+
+
+def _close(got, want, what):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-6 * float(want.abs().max()),
+                               msg=what)
+
+
+def _channels(t, M, m, dim):
+    n = t.shape[dim] // M
+    return t.narrow(dim, m * n, n)
+
+
+@pytest.mark.parametrize("L", [1, 2, 19])
+def test_mamba_shards_compute_the_single_device_layer(L, monkeypatch):
+    """M = 2 shards of falcon-mamba's smoke layer (in_proj by halves,
+    x_proj by rows, the per-channel leaves and the state by d_inner):
+    the prefill's summed out_proj partials and each rank's state
+    channels, then a decode step from that state, equal the single
+    device's; prompts shorter than the conv window (1, 2 tokens: the
+    padded conv tail) and one past a scan chunk (19 > 16)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.model import shard_config
+    cfg = smoke_config("falcon-mamba-7b").replace(dtype="float32")
+    params = init_params(cfg, seed=3, dtype="float32", device="cpu")
+    g = torch.Generator().manual_seed(L)
+    x = torch.randn((2, L, cfg.d_model), generator=g)
+    x1 = torch.randn((2, 1, cfg.d_model), generator=g)
+    p = params["layers"][0]["mamba"]
+    y, st = mam.mamba_forward(cfg, p, x, return_state=True)
+    y1, st1 = mam.mamba_decode(cfg, p, x1, {k: v.clone()
+                                             for k, v in st.items()})
+    M = 2
+    rcfg = shard_config(cfg, M)
+    assert rcfg.d_inner == cfg.d_inner // M
+    shards = _shards(cfg, params, M)
+
+    def rank(m):
+        pm = shards[m]["layers"][0]["mamba"]
+        ym, sm = mam.mamba_forward(rcfg, pm, x, return_state=True)
+        ym1, sm1 = mam.mamba_decode(rcfg, pm, x1, {k: v.clone()
+                                                   for k, v in sm.items()})
+        return ym, sm, ym1, sm1
+    out = _on_ranks(M, rank, monkeypatch)
+    _close(sum(o[0] for o in out), y, "prefill")
+    _close(sum(o[2] for o in out), y1, "decode")
+    for m, (_, sm, _, sm1) in enumerate(out):
+        for want, got in ((st, sm), (st1, sm1)):
+            _close(got["ssm"], _channels(want["ssm"], M, m, 1), "ssm")
+            _close(got["conv"], _channels(want["conv"], M, m, 2), "conv")
+
+
+def test_a_contiguous_in_proj_cut_is_wrong(monkeypatch):
+    """in_proj holds [x | z]: cut as one contiguous block of columns
+    (rank 0 all of x, rank 1 all of z), the shards no longer compute
+    the layer; the two-half cut does (above)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.model import shard_config
+    cfg = smoke_config("falcon-mamba-7b").replace(dtype="float32")
+    params = init_params(cfg, seed=3, dtype="float32", device="cpu")
+    x = torch.randn((1, 7, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    p = params["layers"][0]["mamba"]
+    y = mam.mamba_forward(cfg, p, x)
+    M, rcfg, shards = 2, shard_config(cfg, 2), _shards(cfg, params, 2)
+    w = p["in_proj"]
+    for m, s in enumerate(shards):
+        halves = s["layers"][0]["mamba"]["in_proj"]
+        assert torch.equal(halves, torch.cat(
+            [_channels(h, M, m, 1) for h in w.chunk(2, dim=1)], dim=1))
+        s["layers"][0]["mamba"]["in_proj"] = _channels(w, M, m, 1)
+    out = _on_ranks(M, lambda m: mam.mamba_forward(
+        rcfg, shards[m]["layers"][0]["mamba"], x), monkeypatch)
+    assert (sum(out) - y).abs().max() > 0.1 * y.abs().max()
+
+
+def test_in_proj_halves_cut_a_packed_leaf():
+    """shard_qt cuts a packed in_proj's codes and scales by halves: each
+    rank's dequant is its d_inner columns of each half of the whole
+    dequant (per-channel and group-wise scales)."""
+    from repro_torch.dist.context import ServeMesh
+    g = torch.Generator().manual_seed(1)
+    K, N, bits = 64, 32, 3
+    for G in (1, 2):
+        qt = QuantizedTensor(
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (bits, K // 32, N),
+                          generator=g, dtype=torch.int64).to(torch.int32),
+            torch.rand((G, N, bits), generator=g),
+            torch.randn((G, N), generator=g), K, "float32")
+        w = qt.dequant(torch.float32)
+        names = ("blocks", "L0", "mamba", "in_proj")
+        sym = sharding.symbolic_mesh()
+        specs = {f: sharding.named_pspec(None, names + (f".{f}",),
+                                         getattr(qt, f)[None], sym)
+                 for f in ("codes", "alphas", "betas")}
+        for m in range(2):
+            c, a, b, k = sharding.shard_qt(
+                names, qt.codes[None], qt.alphas[None], qt.betas[None], K,
+                specs, ServeMesh(1, 2, ["cpu"] * 2, rank=m))
+            got = QuantizedTensor(c[0], a[0], b[0], k, "float32")
+            want = torch.cat([_channels(h, 2, m, 1) for h in w.chunk(2, 1)],
+                             dim=1)
+            assert torch.equal(got.dequant(torch.float32), want)
+
+
+@pytest.mark.parametrize("S", [1, 9])
+def test_mla_shards_compute_the_single_device_layer(S):
+    """M = 2 shards of minicpm3's smoke MLA layer (wq_a and wkv_a whole,
+    wq_b and wkv_b by heads, wo by rows): every rank's latent equals the
+    single device's (the pages replicate), and the summed wo partials
+    of the prefill and of a paged decode step equal its output."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models.model import shard_config
+    cfg = smoke_config("minicpm3-4b").replace(dtype="float32")
+    spec = cfg.pattern[0]
+    params = init_params(cfg, seed=5, dtype="float32", device="cpu")
+    g = torch.Generator().manual_seed(S)
+    x = torch.randn((2, S, cfg.d_model), generator=g)
+    x1 = torch.randn((2, 1, cfg.d_model), generator=g)
+    pos = torch.arange(S)
+    page, bt = 4, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32)
+
+    def run(c, p):
+        y, ckv, kpe = mla_mod.mla_prefill(c, spec, p, x, pos)
+        pool = mla_mod.init_mla_paged(c, 7, page, "float32", "cpu")
+        for b in range(2):
+            t = torch.arange(S)
+            pid = bt[b].long()[t // page]
+            pool["ckv_pages"][pid, t % page, 0] = ckv[b]
+            pool["kpe_pages"][pid, t % page, 0] = kpe[b]
+        y1, pool = mla_mod.mla_decode_paged(
+            c, spec, p, x1, pool, bt, torch.full((2,), S))
+        return y, ckv, kpe, y1, pool
+    y, ckv, kpe, y1, pool = run(cfg, params["layers"][0]["attn"])
+    rcfg = shard_config(cfg, 2)
+    assert rcfg.n_heads == cfg.n_heads // 2
+    out = [run(rcfg, s["layers"][0]["attn"])
+           for s in _shards(cfg, params, 2)]
+    _close(sum(o[0] for o in out), y, "prefill")
+    _close(sum(o[3] for o in out), y1, "decode")
+    for _, ckv_m, kpe_m, _, pool_m in out:
+        assert torch.equal(ckv_m, ckv) and torch.equal(kpe_m, kpe)
+        for k in pool:
+            assert torch.equal(pool_m[k], pool[k])
+
+
+@pytest.mark.parametrize("name", ["w3_pc", "w3_g64_bf16", "w3_moe"])
+def test_load_draft_scales_on_a_mesh_cuts_the_whole_block(name, tmp_path):
+    """load_draft_scales(mesh=) gives each rank the cut of the whole
+    draft block that shard_params makes of the whole draft tree, scale
+    for scale (column splits, per-channel and group-wise row splits,
+    expert splits)."""
+    from repro_torch.ckpt.packed import (load_draft_scales, load_packed,
+                                         save_packed)
+    from repro_torch.dist.context import ServeMesh
+    from repro_torch.quant.draft import make_draft_params
+    fixture = Path(__file__).resolve().parent / "data" / "torch_port"
+    params, spec, meta = load_packed(fixture / name, device="cpu")
+    cfg = REGISTRY[meta["arch"]].replace(dtype="float32",
+                                         n_layers=len(params["layers"]))
+    d = save_packed(tmp_path / name, params, cfg=cfg, spec=spec, meta=meta,
+                    draft_bits=2)
+    whole = make_draft_params(params, 2, load_draft_scales(d, device="cpu"))
+    n = 0
+    for D, M in ((1, 2), (2, 2)):
+        for r in range(D * M):
+            mesh = ServeMesh(D, M, ["cpu"] * (D * M), rank=r)
+            mine, _, _ = load_packed(d, mesh=mesh)
+            got = make_draft_params(mine, 2, load_draft_scales(d, mesh=mesh))
+            want = sharding.shard_params(cfg, whole, mesh)
+            for a, b in zip(_qts(got), _qts(want)):
+                assert a.k_in == b.k_in and a.bits == b.bits == 2
+                assert torch.equal(a.alphas, b.alphas)
+                assert torch.equal(a.betas, b.betas)
+                n += 1
+    assert n > 0
+
+
+def _qts(tree):
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _qts(tree[k])]
+    if isinstance(tree, list):
+        return [q for v in tree for q in _qts(v)]
+    return [tree] if isinstance(tree, QuantizedTensor) else []

@@ -373,6 +373,26 @@ def test_speculative_engine_matches_reference(artifact):
         assert got[key] == want[key], key
 
 
+def test_typical_engine_matches_reference(artifact):
+    """accept_rule='typical' (tau 0.3): tokens and draft and accepted
+    counts equal the reference's typical engine's on the same draft
+    block and prompts (k=2, no prefix index)."""
+    jcfg = artifact["jcfg"]
+    reqs = [(np.asarray(p, np.int32), REF["max_new"])
+            for p in REF["artifacts"]["w3_pc"]["prompts"]]
+    kw = dict(batch_size=BATCH, max_len=64, dtype="float32",
+              cache_kind="paged", page_size=8, speculate=2,
+              accept_rule="typical", prefix_sharing=False)
+    jeng = JaxServeEngine(jcfg, artifact["jp"],
+                          draft_params=artifact["jdp"], **kw)
+    teng = ServeEngine(port_cfg(jcfg), artifact["params"],
+                       draft_params=artifact["dp"], device="cpu", **kw)
+    assert _serve(teng, reqs) == _serve(jeng, reqs, JaxRequest)
+    for key in ("draft_tokens", "accepted_tokens", "ticks", "tokens"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["draft_tokens"] > 0
+
+
 def test_propose_and_verify_match_reference(artifact):
     """draft_propose_paged then verify_paged on one pool in both
     packages: a row proposing k tokens across a page boundary, one

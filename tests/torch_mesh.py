@@ -1,14 +1,17 @@
 """Rank bodies of the port's mesh tests (tests/test_torch_sharded_serve.py):
 module-level functions that repro_torch.dist.context.spawn runs in each
-rank's process. This module imports torch and the port only, never JAX,
-so a spawned rank starts in a few seconds."""
+rank's process. This module imports torch, the port and chip_smoke.py
+(whose record_logits it shares), never JAX, so a spawned rank starts in
+a few seconds."""
+import importlib.util
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port"
+ROOT = Path(__file__).resolve().parents[1]
+FIXTURE = ROOT / "tests" / "data" / "torch_port"
 REF = json.loads((FIXTURE / "reference.json").read_text())
 ZOO = json.loads((FIXTURE / "zoo" / "zoo.json").read_text())
 
@@ -42,60 +45,88 @@ def _same(a, b) -> bool:
     return torch.equal(a, b) and b.is_contiguous()
 
 
+def scales_err(a, b) -> float:
+    """The largest |a - b| / max|b| over the scales (alphas, betas) of two
+    param trees' QuantizedTensors (0 for a tree without any)."""
+    if isinstance(a, dict):
+        return max((scales_err(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, list):
+        return max(map(scales_err, a, b), default=0.0)
+    if not hasattr(a, "codes"):
+        return 0.0
+    return max(float((getattr(a, f) - getattr(b, f)).abs().max()
+                     / getattr(b, f).abs().max().clamp_min(1e-30))
+               for f in ("alphas", "betas"))
+
+
 def record_logits(eng, requests) -> list:
-    """Wrap a paged engine's first-token and decode paths so that every
-    logits row a token of `requests` is taken from on this rank lands in
-    the returned list as (request index, token index, row)."""
-    index = {id(r): i for i, r in enumerate(requests)}
-    log, emit, decode = [], eng._emit_first_token, eng._decode
+    """chip_smoke.py's record_logits (one recording contract for the
+    smoke and the tests): (request index, token index, row, the draft
+    tokens the row's context holds before it) for every logits row of a
+    token of `requests` on this rank."""
+    if not _SMOKE:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", ROOT / "chip_smoke.py")
+        _SMOKE.append(importlib.util.module_from_spec(spec))
+        spec.loader.exec_module(_SMOKE[0])
+    return _SMOKE[0].record_logits(eng, requests)
 
-    def first(e, last_logits, prompt_len):
-        if last_logits is not None:
-            log.append((index[id(e.req)], len(e.req.out),
-                        last_logits[0].float().cpu()))
-        return emit(e, last_logits, prompt_len)
 
-    def step(*args):
-        logits, cache = decode(*args)
-        for r in np.flatnonzero(np.asarray(args[5])):   # the live rows
-            req = eng.sched.running[eng.lo + int(r)].req
-            log.append((index[id(req)], len(req.out),
-                        logits[r].float().cpu()))
-        return logits, cache
-    eng._emit_first_token, eng._decode = first, step
-    return log
+_SMOKE: list = []
 
 
 def serve_case(mesh, case: dict) -> dict:
     """Serve one fixture case on this rank: its slice loaded by
     load_packed(mesh=) (and held to shard_params of the whole tree), the
-    requests through the paged engine, their logits rows recorded. ->
-    tokens, the logits rows this rank computed, and the allocator's
-    checks."""
-    from repro_torch.ckpt.packed import load_packed
+    requests through the paged engine (speculatively with a w2 self-draft
+    when the case says so: refit at boot, or its artifact's v4 draft
+    block loaded with load_draft_scales(mesh=)), their logits rows
+    recorded. -> tokens, the logits rows this rank computed, the
+    speculation counts, and the allocator's checks."""
+    from repro_torch.ckpt.packed import load_draft_scales, load_packed
     from repro_torch.dist.sharding import shard_params
+    from repro_torch.quant.draft import make_draft_params
     from repro_torch.serve import Request, ServeEngine
     art = FIXTURE / case["artifact"]
     params, _, meta = load_packed(art, mesh=mesh)
     cfg = _config(case["artifact"], params, meta)
     whole, _, _ = load_packed(art, device="cpu")
     same_as_shard_params = _same(shard_params(cfg, whole, mesh), params)
+    draft = None
+    if case.get("draft") == "block":
+        draft = make_draft_params(params, 2,
+                                  load_draft_scales(art, mesh=mesh))
     eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
                       dtype="float32", cache_kind="paged",
                       page_size=case["page_size"], kv_bits=case["kv_bits"],
                       prefix_sharing=case.get("prefix_sharing", False),
                       prefill_chunk=case.get("prefill_chunk"),
+                      speculate=case.get("speculate", 0), draft_bits=2,
+                      draft_params=draft,
+                      accept_rule=case.get("accept_rule", "greedy"),
                       mesh=mesh)
+    draft_err = None
+    if eng.speculate:
+        # this rank's draft scales against the cut of the whole tree's
+        # (a refit on the gathered rows of a row-split leaf; a column
+        # slice's refit; or the cut draft block)
+        from repro_torch.ckpt.packed import load_draft_scales as whole_block
+        want = shard_params(cfg, make_draft_params(
+            whole, 2, whole_block(art, device="cpu") if draft else None),
+            mesh)
+        draft_err = scales_err(eng.draft_params, want)
     kv, d = eng.kv, mesh.coords[0]
-    decode, in_block = eng._decode, [True]
+    # the step that reads the block tables: decode, or speculation's verify
+    attr = "_verify" if eng.speculate else "_decode"
+    step, in_block = getattr(eng, attr), [True]
 
     def checked(*args):
         rows = kv.block_tables[eng.lo:eng.lo + eng.rows]
         in_block[0] &= bool(((rows == 0) | (rows // kv.pages_per_shard
                                            == d)).all())
         in_block[0] &= int(eng._bt_dev.max()) < kv.pages_per_shard
-        return decode(*args)
-    eng._decode = checked
+        return step(*args)
+    setattr(eng, attr, checked)
     tokens, log = [], []
     for wave in case.get("waves") or [case["prompts"]]:
         reqs = [Request(prompt=np.asarray(p, np.int32),
@@ -109,7 +140,11 @@ def serve_case(mesh, case: dict) -> dict:
         eng._prefix.clear()
     return {"tokens": tokens if case.get("waves") else tokens[0],
             "prefix_hits": hits,
-            "logits": [(i, t, row.numpy()) for i, t, row in log],
+            # the rows whose context is the emitted tokens (a verify
+            # row after a draft token stands for a token only where the
+            # draft was accepted)
+            "logits": [(i, t, row.numpy()) for i, t, row, ctx in log
+                       if not ctx],
             "same_as_shard_params": same_as_shard_params,
             "pages_in_own_block": in_block[0],
             "drained": all(kv.free_in_shard(s) == kv.usable_in_shard(s)
@@ -117,6 +152,16 @@ def serve_case(mesh, case: dict) -> dict:
             "n_shards": kv.n_shards, "rows": eng.rows,
             "pool_pages": [leaf.shape[0] for layer in eng.cache
                            for leaf in layer.values()],
+            "state_shapes": [tuple(leaf.shape) for layer in eng.cache
+                             for leaf in layer.values() if leaf.dim() == 3],
+            "slabs_drained": (eng.slab is None
+                              or eng.slab.live_slabs == 0),
+            "slab_bytes": (None if eng.slab is None
+                           else eng.slab.bytes_per_slab()),
+            "draft_scales_err": draft_err,
+            "spec_counts": (eng.stats["draft_tokens"],
+                            eng.stats["accepted_tokens"],
+                            eng.stats["ticks"]),
             "collectives": dict(mesh.counts)}
 
 
