@@ -37,7 +37,10 @@ and 10 each free their own); any failure is a non-zero exit.
      256 -> 5120), with plain and torch.matmul times; then phase 12's
      shard shapes on a 2-way model axis (MESH_SHARD_SHAPES: the GEMV at
      a rank's falcon-mamba, minicpm3 and jamba linears, `*_mesh` lines)
-     and the expert kernel at 8 experts of 8192<->24576; after the build, the
+     and the expert kernel at 8 experts of 8192<->24576; both attention
+     kernels at a rank's KV head of phase 12's replicated Qwen3-MoE pool
+     (a 4-head pool, kv0 0..3, rep 8, fp, 4-bit G 1 and groups of 32;
+     `*_rank` lines and timed rows); after the build, the
      GEMM must hold wgmma (HGMMA in its SASS) and ptxas must report no
      spill in it, and every binary-coded attention instance must copy
      by cp.async (LDGSTS in its SASS).
@@ -146,28 +149,38 @@ and 10 each free their own); any failure is a non-zero exit.
      roofline terms and the bound); a cell that fails fails the run.
      Nothing runs on the card.
  12. meshes of ranks on the one card (torch.distributed over gloo, the
-     ranks sharing cuda:0, dist/context.py): phase 3's model saved by
-     save_packed with a w2 draft block and served (phase 3's requests)
-     on (data, model) meshes (1, 2), (2, 1) and (2, 2), each rank
-     loading its slice with load_packed(mesh=); speculatively (k=4, the
-     draft block cut by load_draft_scales(mesh=)) on (2, 1) at full
-     depth and on (1, 2) from an artifact of its first 8 layers; then
-     Qwen3-MoE cut to 4 of 94 layers with its experts on a (1, 2) model
-     axis, and minicpm3-4b (MLA, 16 of 62 layers), falcon-mamba-7b (16
-     of 64) and jamba-1.5-large (8 of 72) on (1, 2), each rank cutting
-     the seeded model with shard_params. One spawn of four ranks serves
-     the meshes in turn. Every mesh must give the single-device engine's
-     greedy tokens (up to a printed near-tie; a speculative mesh its
-     plain tokens) with every logits row within TOL_LOGITS x max|logit|
-     of its (a verify row where its context holds the emitted tokens),
-     drain every shard (and state slab), keep each rank's page ids in
-     its block, and launch the GEMV, the GEMM, paged attention (not
-     under MLA) and the expert kernel (MoE) on every rank at its shard's
-     shapes with no plain BCQ call; a speculative mesh's ranks accept
-     alike. A `mesh_path` line a mesh: backend and devices, the card,
-     per rank the load seconds, the decode step's (speculative tick's)
-     wall ms and traced device-busy ms, collectives a step, one
-     all-reduce's ms (timed alone), parameter and pool bytes; with
+     ranks sharing cuda:0, dist/context.py): phase 3's model cut to 8 of
+     its 32 layers, saved by save_packed with a w2 draft block and
+     served (phase 3's prompts, 16 new tokens each) on (data, model)
+     meshes (1, 2), (2, 1) and (2, 2), each rank loading its slice with
+     load_packed(mesh=); speculatively (k=4, the draft block cut by
+     load_draft_scales(mesh=)) on (2, 1) and (1, 2); FSDP-sharded
+     (load_packed(mesh=, fsdp=True): every weight leaf's data-axis block
+     a rank, gathered layer by layer) on (2, 1), plainly and
+     speculatively (8 new tokens); then Qwen3-MoE cut to 4 of 94 layers
+     with its experts on a (1, 2) model axis, and minicpm3-4b (MLA, 16
+     of 62 layers), falcon-mamba-7b (16 of 64) and jamba-1.5-large (8 of
+     72) on (1, 2), each rank cutting the seeded model with
+     shard_params; Qwen3-MoE cut to 2 layers on (1, 8), whose 4 KV heads
+     the axis does not divide (wk, wv and the fp or 4-bit pool whole on
+     every rank, each rank's 8 query heads reading one KV head), built
+     and cut once and each rank's slice saved; minicpm3-4b (16 layers)
+     through the dense engine on (1, 2), its latent cache split along
+     the sequence. One spawn of eight ranks serves the meshes in turn.
+     Every mesh must give the single-device engine's greedy tokens (up
+     to a printed near-tie; a speculative mesh its plain tokens) with
+     every logits row within TOL_LOGITS x max|logit| of its (a verify
+     row where its context holds the emitted tokens), drain every shard
+     (and state slab), keep each rank's page ids in its block, and
+     launch the GEMV, the GEMM, paged attention (fp or binary-coded; not
+     under MLA or on a dense engine) and the expert kernel (MoE) on
+     every rank at its shard's shapes with no plain BCQ call; a
+     speculative mesh's ranks accept alike; an FSDP rank holds 1/D of
+     every field the data axis cuts and the rest whole. A `mesh_path`
+     line a mesh: backend and devices, the card, per rank the load
+     seconds, the decode step's (speculative tick's) wall ms and traced
+     device-busy ms, collectives a step, one all-reduce's ms (timed
+     alone), one layer's FSDP gather ms, parameter and pool bytes; with
      speculation the acceptance and ticks.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
@@ -193,8 +206,9 @@ Phases 2-5, 7, 8, 9 and 12 serve without a prefix index
 packed evaluation, in phase 12 each rank's run, its counts summed over
 the ranks) is driven with every launch count set to 0 just before it
 and read just after. Phase 12's steps run eagerly on a model axis > 1
-(the model group's gloo collectives cannot be captured in a CUDA
-graph); the data-only (2, 1) mesh replays graphs as one device does.
+and under FSDP (gloo's collectives cannot be captured in a CUDA
+graph); the data-only (2, 1) mesh of replicated weights replays graphs
+as one device does.
 The line before the last is
 {"kernels": [...]} (one entry per ported kernel: launches on the paths,
 error against the plain version, time, bound, plain and library
@@ -747,27 +761,35 @@ def check_paged(gen, cases=None):
     return worst
 
 
-def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX):
+def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX,
+                    pool_heads=None, kv0=0):
     """The kernel's line at a decode shape (default: phase 3's llama2-7b):
-    time, bound, plain, and SDPA on the gathered K/V."""
+    time, bound, plain, and SDPA on the gathered K/V. With `pool_heads`
+    q's Hkv heads read the pool's kv0.. (a rank's heads of a pool the
+    model axis replicates); the bound counts the heads read."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.roofline.analysis import bound_ms, paged_attention_work
     B = len(ctx)
-    q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
-                                   torch.float32)
-    y = paged_attention(q, kp, vp, bt, cl)
-    ref = paged_attention_ref(q, kp, vp, bt, cl)
+    q, kp, vp, bt, cl = paged_case(gen, B, pool_heads or Hkv, rep, hd, page,
+                                   ctx, torch.float32)
+    q = q[:, kv0:kv0 + Hkv].contiguous()
+    kw = {"kv0": kv0}
+    y = paged_attention(q, kp, vp, bt, cl, **kw)
+    ref = paged_attention_ref(q, kp, vp, bt, cl, **kw)
     err = float((y - ref).abs().max())
-    t = kernel_ms(lambda: paged_attention(q, kp, vp, bt, cl), 200)
+    t = kernel_ms(lambda: paged_attention(q, kp, vp, bt, cl, **kw), 200)
     plain_ms = best_ms(kernel_ms(
-        lambda: paged_attention_ref(q, kp, vp, bt, cl), 20))
+        lambda: paged_attention_ref(q, kp, vp, bt, cl, **kw), 20))
     # library yardstick: SDPA over the gathered K/V with a context mask
     T = bt.shape[1]
-    k = kp[bt.long()].reshape(B, T * page, Hkv, hd).transpose(1, 2)
-    v = vp[bt.long()].reshape(B, T * page, Hkv, hd).transpose(1, 2)
+    heads = slice(kv0, kv0 + Hkv)
+    k = kp[bt.long()][:, :, :, heads].reshape(B, T * page, Hkv,
+                                              hd).transpose(1, 2)
+    v = vp[bt.long()][:, :, :, heads].reshape(B, T * page, Hkv,
+                                              hd).transpose(1, 2)
     mask = (torch.arange(T * page, device=DEV)[None, :]
             < cl[:, None])[:, None, None, :]
     qs = q.reshape(B, Hkv * rep, 1, hd)
@@ -781,7 +803,57 @@ def summarize_paged(gen, Hkv=32, rep=1, hd=128, page=64, ctx=PAGED_CTX):
             "event_ms": t["event_ms"],
             "timing": "profiler" if t["device_ms"] else "cuda_events",
             "shape": f"B={B} Hkv={Hkv} rep={rep} hd={hd} page={page} "
-                     f"ctx={ctx} fp32"}
+                     f"ctx={ctx} fp32"
+                     + (f", KV heads {kv0}.. of a {pool_heads}-head pool"
+                        if pool_heads else "")}
+
+
+# a rank's KV heads of a pool the model axis replicates: Qwen3-MoE on a
+# (1, 8) mesh (its 64 query heads over 4 KV heads: rank r's 8 query heads
+# read KV head r // 2 of the whole 4-head pool)
+RANK_POOL_HEADS, RANK_REP, RANK_AXIS = 4, 8, 8
+
+
+def check_paged_rank(seed, B=4, hd=128, page=64, ctx=PAGED_CTX):
+    """Both kernels at every rank's KV head of Qwen3-MoE's pool on (1, 8)
+    (kv0 = r // 2), fp32 q, against their plain versions: fp pages, and
+    4-bit pages with one group a head vector and with groups of 32; from
+    a generator of their own. -> {kernel: worst rel err}."""
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_quant)
+    from repro_torch.kernels.ref import (paged_attention_quant_ref,
+                                         paged_attention_ref)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    worst = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+    for kv0 in sorted({r * RANK_POOL_HEADS // RANK_AXIS
+                       for r in range(RANK_AXIS)}):
+        q, kp, vp, bt, cl = paged_case(gen, B, RANK_POOL_HEADS, RANK_REP,
+                                       hd, page, ctx, torch.float32)
+        q = q[:, kv0:kv0 + 1].contiguous()
+        runs = [("paged_attention", 0, (kp, vp), paged_attention,
+                 paged_attention_ref)]
+        runs += [("paged_attention_quant", gs, quant_pages(kp, vp, 4, gs),
+                  paged_attention_quant, paged_attention_quant_ref)
+                 for gs in (0, 32)]
+        for name, gs, pool, fn, plain in runs:
+            y = fn(q, *pool, bt, cl, kv0=kv0)
+            ref = plain(q, *pool, bt, cl, kv0=kv0)
+            sync()
+            err = float((y - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            emit({"check": f"{name}_rank", "B": B, "pool_heads":
+                  RANK_POOL_HEADS, "kv0": kv0, "rep": RANK_REP, "hd": hd,
+                  "page": page, "ctx": ctx,
+                  **({"bits": 4, "kv_group_size": gs}
+                     if name == "paged_attention_quant" else {}),
+                  "max_abs_err": err, "rel_err": rel, "tol": TOL_FP32})
+            require(bool(torch.isfinite(y).all()) and rel <= TOL_FP32,
+                    f"{name} at KV head {kv0} of {RANK_POOL_HEADS}: rel err "
+                    f"{rel:.3g}")
+            worst[name] = max(worst[name], rel)
+    return worst
 
 
 def quant_pages(kp, vp, bits, gs):
@@ -892,12 +964,12 @@ def check_paged_quant_grid(seed, cases=QUANT_GRID + QUANT_EDGES):
 
 
 def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
-                          ctx=PAGED_CTX):
+                          ctx=PAGED_CTX, pool_heads=None, kv0=0):
     """The kernel's line at the phase-4 decode shape: time, bound, plain,
     and two library yardsticks: SDPA on K/V gathered and expanded to fp32
     before the call (it gets its operand already expanded), and the whole
     PyTorch equivalent timed as one call (gather the binary-coded rows,
-    kv_dequantize, SDPA)."""
+    kv_dequantize, SDPA). `pool_heads`, `kv0`: as summarize_paged's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attention_quant
@@ -905,17 +977,22 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
     from repro_torch.quant.kv import kv_bytes_per_token_head, kv_dequantize
     from repro_torch.roofline.analysis import bound_ms, paged_attention_work
     B = len(ctx)
-    q, kp, vp, bt, cl = paged_case(gen, B, Hkv, rep, hd, page, ctx,
-                                   torch.float32)
+    q, kp, vp, bt, cl = paged_case(gen, B, pool_heads or Hkv, rep, hd, page,
+                                   ctx, torch.float32)
+    q = q[:, kv0:kv0 + Hkv].contiguous()
     pool = quant_pages(kp, vp, bits, 0)
     G = pool[2].shape[-1]
-    y = paged_attention_quant(q, *pool, bt, cl)
-    ref = paged_attention_quant_ref(q, *pool, bt, cl)
+    kw = {"kv0": kv0}
+    y = paged_attention_quant(q, *pool, bt, cl, **kw)
+    ref = paged_attention_quant_ref(q, *pool, bt, cl, **kw)
     err = float((y - ref).abs().max())
-    t = kernel_ms(lambda: paged_attention_quant(q, *pool, bt, cl), 200)
+    t = kernel_ms(lambda: paged_attention_quant(q, *pool, bt, cl, **kw),
+                  200)
     plain_ms = best_ms(kernel_ms(
-        lambda: paged_attention_quant_ref(q, *pool, bt, cl), 20))
+        lambda: paged_attention_quant_ref(q, *pool, bt, cl, **kw), 20))
     T = bt.shape[1]
+    # the rank's heads of the pool, as the kernel reads them
+    pool = tuple(t[:, :, kv0:kv0 + Hkv] for t in pool)
     k = kv_dequantize(*pool[:3])[bt.long()].reshape(
         B, T * page, Hkv, hd).transpose(1, 2)
     v = kv_dequantize(*pool[3:])[bt.long()].reshape(
@@ -948,7 +1025,9 @@ def summarize_paged_quant(gen, Hkv=32, rep=1, hd=128, bits=4, page=64,
             "event_ms": t["event_ms"],
             "timing": "profiler" if t["device_ms"] else "cuda_events",
             "shape": f"B={B} Hkv={Hkv} rep={rep} hd={hd} page={page} "
-                     f"ctx={ctx} {bits}-bit G={G}, fp32 q"}
+                     f"ctx={ctx} {bits}-bit G={G}, fp32 q"
+                     + (f", KV heads {kv0}.. of a {pool_heads}-head pool"
+                        if pool_heads else "")}
 
 
 # the Qwen3-MoE expert matrices: wg/wu (4096 x 1536) and wd (1536 x 4096)
@@ -3017,11 +3096,34 @@ def phase_speculative(seed: int, model, baseline=None, max_new=32,
 # ---------------------------------------------------------------------------
 
 # (data, model) meshes of phase 3's model; Qwen3-MoE serves on (1, 2).
-# No mesh serves 4-bit KV pages here: quantize-on-write flips a code at
-# a near-tie whenever a rank's K/V differs from the single device's in
-# the last bit, which no logits tolerance covers (the CPU tests hold
-# 4-bit KV on every mesh to the fixture, whose prompts have no tie)
+# The data-axis mesh (2, 1), plain and speculative, serves phase 3's 32
+# layers (its steps replay graphs, as one device's do); the meshes with
+# a model axis ((1, 2), (2, 2), speculative (1, 2)) and the FSDP meshes
+# serve its first MESH_CUT_LAYERS layers, for time (their steps run
+# eagerly: ~4 ms an all-reduce on the model axis, and an FSDP pass
+# gathers every layer's codes through host memory)
 MESHES = ((1, 2), (2, 1), (2, 2))
+MESH_CUT_LAYERS = 8
+# weights sharded over the data axis too (load_packed(fsdp=True)), plain
+# (FSDP_MAX_NEW tokens) and speculative (FSDP_SPEC_MAX_NEW), for time:
+# ~1 s a pass on one card
+FSDP_MESH = (2, 1)
+FSDP_MAX_NEW, FSDP_SPEC_MAX_NEW = 16, 8
+# a resident FSDP rank: the share of the single device's weight bytes
+# the data axis cuts (llama2-7b's every matrix, embedding and head: all
+# but the norms and the expand leaves' scales) is at least this
+FSDP_MIN_CUT_SHARE = 0.99
+# a model axis wider than the KV heads: Qwen3-MoE (4 KV heads) on (1, 8),
+# its pools replicated over the axis, cut to REP_LAYERS of 94 layers for
+# time; built and cut once, each rank loading its slice
+REP_MESH = (1, 8)
+REP_LAYERS = 2
+# a 4-bit replicated pool's words that may differ from the single
+# device's at quantize-on-write near-ties (12 of 212,992 read on an
+# H100; forced_pool_check holds the run itself)
+NEAR_TIE_WORDS = 64
+# dense caches split along the sequence: minicpm3-4b's latents on (1, 2)
+DENSE_ZOO = (("minicpm3-4b", 16),)
 MOE_MESH = (1, 2)
 # Qwen3-MoE's depth in phase 12: for time (the ranks each build the
 # whole synthetic model before keeping their experts)
@@ -3035,12 +3137,9 @@ MESH_MOE_LAYERS = 4
 MESH_ZOO = (("minicpm3-4b", 16), ("falcon-mamba-7b", 16),
             ("jamba-1.5-large-398b", 8))
 ZOO_MESH = (1, 2)
-# speculation under a mesh: phase 3's model with a w2 self-draft from a
-# saved v4 draft block, k=SPEC_K, on the data axis at full depth and on
-# the model axis cut to MESH_SPEC_LAYERS of 32 layers for time (a tick
-# holds k + 1 passes of eager steps, 17 all-reduces each)
+# speculation under a mesh: phase 3's model (cut on the model axis)
+# with a w2 self-draft from a saved v4 draft block, k=SPEC_K
 SPEC_MESHES = ((2, 1), (1, 2))
-MESH_SPEC_LAYERS = 8
 MESH_TIMEOUT_S = 600
 # decode calls (speculative ticks) of a rank traced by torch.profiler
 # (device busy time), and all-reduces timed alone a rank
@@ -3049,16 +3148,52 @@ MESH_SPEC_TRACE_FROM = 2
 ALLREDUCE_ITERS = 20
 
 
-def _tree_bytes(tree) -> int:
-    """Device bytes of a param tree (QuantizedTensors' three fields)."""
+def _tree_bytes(tree, whole=False) -> int:
+    """Device bytes of a param tree (QuantizedTensors' three fields, an
+    FSDP block's fields; with `whole` a block counts as the leaf it is
+    gathered into)."""
     if isinstance(tree, dict):
-        return sum(_tree_bytes(v) for v in tree.values())
+        return sum(_tree_bytes(v, whole) for v in tree.values())
     if isinstance(tree, list):
-        return sum(_tree_bytes(v) for v in tree)
+        return sum(_tree_bytes(v, whole) for v in tree)
+    if hasattr(tree, "fields"):
+        return sum(t.numel() * t.element_size()
+                   * (tree.parts if whole and tree.dims[f] is not None
+                      else 1)
+                   for f, t in tree.fields.items())
     if hasattr(tree, "codes"):
         return sum(t.numel() * t.element_size()
                    for t in (tree.codes, tree.alphas, tree.betas))
     return tree.numel() * tree.element_size()
+
+
+# a dense decoder's matrices by the dim the reference's FSDP rule
+# (dist/sharding.py) puts the data axis on: K of the expand leaves (their
+# codes; the scales, one a column, stay whole), N of the contract leaves
+# (codes and scales)
+_EXPAND, _CONTRACT = ("wq", "wk", "wv", "wg", "wu"), ("wo", "wd")
+
+
+def _fsdp_cut_bytes(tree, name="") -> int:
+    """The bytes of an unsharded dense decoder's tree (llama2-7b's) that
+    FSDP cuts over the data axis: every matrix's codes, the contract
+    leaves' scales, the embedding and the head (d_model); the norms stay
+    whole. Any other leaf raises (this counts a dense decoder only)."""
+    nbytes = lambda t: t.numel() * t.element_size()
+    if isinstance(tree, dict):
+        return sum(_fsdp_cut_bytes(v, k) for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(_fsdp_cut_bytes(v, name) for v in tree)
+    if hasattr(tree, "codes"):
+        if name in _EXPAND:
+            return nbytes(tree.codes)
+        if name in _CONTRACT:
+            return sum(map(nbytes, (tree.codes, tree.alphas, tree.betas)))
+    elif name in ("embed", "lm_head"):
+        return nbytes(tree)
+    elif tree.dim() == 1:
+        return 0
+    raise ValueError(f"{name}: not a leaf of a dense decoder")
 
 
 def path_prompts(seed, vocab):
@@ -3069,7 +3204,7 @@ def path_prompts(seed, vocab):
 
 
 def record_logits(eng, requests) -> list:
-    """Wrap a paged engine's first-token and decode (or, speculating,
+    """Wrap an engine's first-token and decode (or, speculating,
     verify) paths so that every logits row of a token of `requests` on
     this rank lands in the returned list as (request index, token index,
     row, the draft tokens the row's context holds before it). A verify
@@ -3106,8 +3241,13 @@ def record_logits(eng, requests) -> list:
     decode = eng._decode
 
     def step(*args):
+        # the live rows: a paged step's mask; a dense step runs every row
+        # of the rank, whose ready ones take their tokens
+        rows = (np.flatnonzero(np.asarray(args[5])) if len(args) > 4 else
+                [s - eng.lo for s in eng._decode_ready()
+                 if eng.lo <= s < eng.lo + eng.rows])
         logits, cache = decode(*args)
-        for r in np.flatnonzero(np.asarray(args[5])):   # the live rows
+        for r in rows:
             req = req_of(r)
             log.append((index[id(req)], len(req.out),
                         logits[r].float().cpu(), []))
@@ -3116,24 +3256,130 @@ def record_logits(eng, requests) -> list:
     return log
 
 
-def serve_recorded(cfg, params, prompts, path, max_new=32):
-    """The single-device paged engine on `prompts`, every logits row a
-    token was taken from recorded and saved to `path` (for the ranks to
-    hold theirs against); returns (tokens, ms a decode tick)."""
+def serve_recorded(cfg, params, prompts, path, max_new=32, kv_bits=0,
+                   cache_kind="paged", keep_codes=False):
+    """The single-device engine (paged, or dense) on `prompts`, every
+    logits row a token was taken from recorded and saved to `path` (for
+    the ranks to hold theirs against; with `keep_codes` the final pool's
+    binary-coded K/V words too); returns (tokens, ms a decode tick)."""
     import torch
     from repro_torch.serve import Request, ServeEngine
     eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
-                      dtype="float32", cache_kind="paged", page_size=64,
-                      prefix_sharing=False, device=DEV)
+                      dtype="float32", cache_kind=cache_kind, page_size=64,
+                      kv_bits=kv_bits, prefix_sharing=False, device=DEV)
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     log = record_logits(eng, reqs)
     eng.run(reqs)
     sync()
     torch.save({"tokens": [r.out for r in reqs],
-                "logits": {(i, t): row for i, t, row, _ in log}},
+                "logits": {(i, t): row for i, t, row, _ in log},
+                "codes": _pool_codes(eng.cache) if keep_codes else None},
                path)
     return ([r.out for r in reqs],
             1e3 * eng.stats["decode_s"] / max(eng.stats["ticks"], 1))
+
+
+def _pool_codes(cache) -> list:
+    """The binary-coded K/V words of a pool, on the host."""
+    return [layer[k].cpu() for layer in cache for k in ("k_codes", "v_codes")
+            if k in layer]
+
+
+def _pool_digest(cache) -> str:
+    """sha256 of every leaf of a pool, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for layer in cache:
+        for k in sorted(layer):
+            h.update(layer[k].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def forced_pool_check(name, cfg, spec) -> float:
+    """A 4-bit mesh's quantize-on-write flips a code at a near-tie
+    wherever a rank's K/V differs from the single device's in the last
+    bit (the model group sums wo's partial products in another order);
+    the two pools then drift apart, and the whole run's logits differ
+    beyond any tolerance that holds arithmetic. So the whole run is held
+    to the single device forced onto the rank's writes: rank 0 recorded
+    the input of every quantize-on-write, its logits rows and its final
+    pool; here the single-device engine (eager) serves the same requests
+    and at each write, in order, takes the rank's input in place of its
+    own after holding the two within TOL_LOGITS x max|x|. Its final pool
+    must then be the rank's bit for bit (every write right and in its
+    place), its tokens the rank's and every logits row within
+    TOL_LOGITS x max|logit|; the words the rank's final pool holds other
+    than the unforced single device's (near-ties) stay within
+    NEAR_TIE_WORDS. Emits a `mesh_path_forced_pool` line; returns the
+    worst logits row's |Δlogit| / max|logit|."""
+    import types
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.serve import Request, ServeEngine, compile_cache
+    rec = torch.load(spec["forced"])
+    params = synthetic_zoo(spec["seed"], cfg)
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
+                      dtype="float32", cache_kind="paged", page_size=64,
+                      kv_bits=spec["kv_bits"], prefix_sharing=False,
+                      device=DEV)
+    # eager: a graph would replay the first step's writes
+    d = eng._decode
+    eng._decode = compile_cache.Step(d.kind, d.cfg, d._fn, d._roles)
+    quantize, calls, x_err = attention.kv_quantize, [0], [0.0]
+
+    def forced(x, *a, **kw):
+        i = calls[0]
+        calls[0] += 1
+        xr = rec["x"][i].to(x.device) if i < len(rec["x"]) else None
+        if xr is None or xr.shape != x.shape:
+            x_err[0] = float("inf")
+            return quantize(x, *a, **kw)
+        x_err[0] = max(x_err[0], float((x - xr).abs().max()
+                                       / xr.abs().max().clamp_min(1e-30)))
+        return quantize(xr, *a, **kw)
+    reqs = [Request(prompt=p, max_new_tokens=spec["max_new"])
+            for p in spec["prompts"]]
+    log = record_logits(eng, reqs)
+    attention.kv_quantize = forced
+    try:
+        eng.run(reqs)
+    finally:
+        attention.kv_quantize = quantize
+    pool_equal = len(eng.cache) == len(rec["pool"]) and all(
+        layer.keys() == r.keys() and all(torch.equal(layer[k].cpu(), r[k])
+                                         for k in r)
+        for layer, r in zip(eng.cache, rec["pool"]))
+    want = {"tokens": [r.out for r in reqs],
+            "logits": {(i, t): row for i, t, row, _ in log}}
+    worst, rows, gaps = _rank_tokens_check(
+        [types.SimpleNamespace(out=t) for t in rec["tokens"]],
+        [(i, t, row, []) for (i, t), row in rec["logits"].items()], want)
+    single = torch.load(spec["want"])["codes"]
+    differ = sum(int((a != b).sum())
+                 for a, b in zip(_pool_codes(rec["pool"]), single))
+    del params, eng
+    _free()
+    emit({"check": "mesh_path_forced_pool", "path": name, "card": CARD,
+          "writes": len(rec["x"]), "writes_forced": calls[0],
+          "max_dx_rel": x_err[0], "final_pool_equal": pool_equal,
+          "tokens_equal": not gaps, "logit_rows_compared": rows,
+          "max_dlogit_rel": worst, "tol": TOL_LOGITS,
+          "near_tie_words": differ, "near_tie_words_limit": NEAR_TIE_WORDS,
+          "final_pool_words": sum(t.numel() for t in single)})
+    require(calls[0] == len(rec["x"]) and x_err[0] <= TOL_LOGITS,
+            f"{name}: the rank's {len(rec['x'])} quantize-on-write inputs "
+            f"are not the forced single device's {calls[0]} (worst "
+            f"{x_err[0]:.3g} of max|x|)")
+    require(pool_equal, f"{name}: the forced single device's final pool "
+                        f"is not the rank's")
+    require(not gaps and rows > 0 and worst <= TOL_LOGITS,
+            f"{name}: forced onto the rank's writes the single device's "
+            f"tokens differ ({gaps}) or its logits are {worst:.3g} of "
+            f"max|logit| off")
+    require(differ <= NEAR_TIE_WORDS,
+            f"{name}: {differ} words of the rank's final pool are not the "
+            f"single device's (limit {NEAR_TIE_WORDS})")
+    return worst
 
 
 def _rank_tokens_check(reqs, logits_log, want):
@@ -3189,14 +3435,29 @@ def _rank_model(mesh, spec):
     from repro_torch.dist.sharding import shard_params
     from repro_torch.quant.draft import make_draft_params
     if spec["artifact"]:
-        params, _, _ = load_packed(spec["artifact"], mesh=mesh)
+        fsdp = spec.get("fsdp", False)
+        params, _, _ = load_packed(spec["artifact"], mesh=mesh, fsdp=fsdp)
         cfg = get_config(spec["arch"]).replace(
             dtype="float32", n_layers=len(params["layers"]))
         draft = None
         if spec.get("speculate"):
             draft = make_draft_params(params, DRAFT_PLANES, load_draft_scales(
-                spec["artifact"], mesh=mesh))
+                spec["artifact"], mesh=mesh, fsdp=fsdp))
         return cfg, params, draft
+    if spec.get("in_turn"):
+        # each rank builds the whole model on the card and cuts its slice
+        # in turn (all at once they would hold the model D x M times)
+        from repro_torch.dist.context import gather_data, reduce_model
+        cfg = spec["cfg"]
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                params = shard_params(cfg, synthetic_zoo(spec["seed"], cfg),
+                                      mesh)
+                if DEV == "cuda":
+                    torch.cuda.empty_cache()
+            reduce_model(torch.zeros(1, device=DEV))    # the mesh's barrier
+            gather_data(torch.zeros(1), mesh)
+        return cfg, params, None
     if "cfg" in spec:
         cfg = spec["cfg"]
         full = synthetic_zoo(spec["seed"], cfg)
@@ -3228,8 +3489,11 @@ def _mesh_rank_row(mesh, spec):
     sync()
     load_s = time.time() - t0
     k = spec.get("speculate", 0)
+    paged = spec.get("cache_kind", "paged") == "paged"
     eng = ServeEngine(cfg, params, batch_size=4, max_len=SERVE_MAX_LEN,
-                      dtype="float32", cache_kind="paged", page_size=64,
+                      dtype="float32", cache_kind=spec.get("cache_kind",
+                                                           "paged"),
+                      page_size=64, kv_bits=spec.get("kv_bits", 0),
                       prefix_sharing=False, speculate=k,
                       draft_bits=DRAFT_PLANES, draft_params=draft, mesh=mesh)
     kv, d = eng.kv, mesh.coords[0]
@@ -3240,9 +3504,10 @@ def _mesh_rank_row(mesh, spec):
 
     def timed(*args):
         # this rank's rows hold pages of its own block only
-        rows = kv.block_tables[eng.lo:eng.lo + eng.rows]
-        in_block[0] &= bool(((rows == 0) | (rows // kv.pages_per_shard
-                                           == d)).all())
+        if paged:
+            rows = kv.block_tables[eng.lo:eng.lo + eng.rows]
+            in_block[0] &= bool(((rows == 0) | (rows // kv.pages_per_shard
+                                               == d)).all())
         i = len(calls)
         if i == trace_from and DEV == "cuda":
             trace["prof"] = profile(activities=[ProfilerActivity.CUDA])
@@ -3263,15 +3528,34 @@ def _mesh_rank_row(mesh, spec):
     reqs = [Request(prompt=p, max_new_tokens=spec["max_new"])
             for p in spec["prompts"]]
     log = record_logits(eng, reqs)
+    # a 4-bit replicated pool: rank 0 records every quantize-on-write's
+    # input (on the card, copied after the run) for forced_pool_check
+    from repro_torch.models import attention
+    quantize, writes = attention.kv_quantize, []
+    if spec.get("forced") and mesh.rank == 0:
+        def recorded(x, *a, **kw):
+            writes.append(x.detach().clone())
+            return quantize(x, *a, **kw)
+        attention.kv_quantize = recorded
     sync()
     reset_launch_counts()
     mesh.counts.clear()
-    with launch_shapes() as shapes:
-        t0 = time.time()
-        eng.run(reqs)
-        sync()
-        wall = time.time() - t0
+    try:
+        with launch_shapes() as shapes:
+            t0 = time.time()
+            eng.run(reqs)
+            sync()
+            wall = time.time() - t0
+    finally:
+        attention.kv_quantize = quantize
     counts = launch_counts()
+    if writes:
+        torch.save({"x": [w.cpu() for w in writes],
+                    "tokens": [r.out for r in reqs],
+                    "logits": {(i, t): row for i, t, row, _ in log},
+                    "pool": [{k: v.cpu() for k, v in layer.items()}
+                             for layer in eng.cache]}, spec["forced"])
+        del writes[:]
     if "prof" in trace and "done" not in trace:
         trace["prof"].__exit__(None, None, None)   # fewer calls: no window
         del trace["prof"]
@@ -3300,6 +3584,23 @@ def _mesh_rank_row(mesh, spec):
             reduce_model(x)
         sync()
         ar_ms = (time.perf_counter() - t) / ALLREDUCE_ITERS * 1e3
+    gathers = None
+    if eng.fsdp:
+        # a layer's weight blocks gathered over the data group alone
+        # (every data rank runs these in the same order)
+        from repro_torch.dist.fsdp import gather_tree
+        layer = eng.params["layers"][0]
+        gather_tree(layer, mesh)
+        sync()
+        t = time.perf_counter()
+        for _ in range(ALLREDUCE_ITERS // 4):
+            gather_tree(layer, mesh)
+        sync()
+        gathers = {"layer_gather_ms": (time.perf_counter() - t)
+                   / (ALLREDUCE_ITERS // 4) * 1e3,
+                   "layer_gather_bytes": _tree_bytes(layer, whole=True),
+                   # the embedding and head both ways (the plain mesh)
+                   **({} if k else _fsdp_table_designs(eng, mesh))}
     want = torch.load(spec["want"])
     worst, n_rows, gaps = _rank_tokens_check(reqs, log, want)
     drained = all(kv.free_in_shard(s) == kv.usable_in_shard(s)
@@ -3320,12 +3621,22 @@ def _mesh_rank_row(mesh, spec):
            "all_reduce_ms": ar_ms, "all_reduce_shape": [eng.rows, 1,
                                                         cfg.d_model],
            "param_bytes": _tree_bytes(eng.params),
+           "cache_kind": spec.get("cache_kind", "paged"),
+           "kv_bits": spec.get("kv_bits", 0), "fsdp": eng.fsdp,
+           # weights (param_bytes held): gathered whole; the single
+           # device's, and the bytes FSDP cuts of them (_fsdp_cut_bytes)
+           "replicated_weight_bytes": _tree_bytes(eng.params, whole=True),
+           "single_device_weight_bytes": spec.get("single_bytes"),
+           "single_device_fsdp_cut_bytes": spec.get("cut_bytes"),
+           "fsdp_gathers": gathers,
            "pool_bytes": sum(t.numel() * t.element_size()
                              for layer in eng.cache for t in layer.values()),
            "pages_in_own_block": in_block[0],
            "drained": drained and (slab is None or slab.live_slabs == 0),
            "launches": counts,
            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+    if spec.get("forced"):
+        row["pool_digest"] = _pool_digest(eng.cache)   # replicas agree
     if k:
         st = eng.stats
         row["speculation"] = {
@@ -3337,23 +3648,66 @@ def _mesh_rank_row(mesh, spec):
     return row
 
 
-def _expected_shapes(cfg, rows, pps):
+def _fsdp_table_designs(eng, mesh) -> dict:
+    """An FSDP rank's embedding lookup and head at a decode step's shape,
+    timed two ways: as the model runs them (the data ranks' ids and
+    activations gathered, each rank applying its block of d_model,
+    models/model.py:embed_inputs/unembed), and with the tables gathered
+    whole first, as a layer's leaves are (dist/fsdp.py:gather_tree).
+    -> their ms a call and the tables' whole bytes."""
+    import torch
+    from repro_torch.dist.fsdp import gather_tree
+    from repro_torch.models.model import embed_inputs, unembed
+    cfg = eng.run_cfg
+    tables = {k: eng.params[k] for k in ("embed", "lm_head")
+              if k in eng.params}
+    ids = torch.zeros((eng.rows, 1), dtype=torch.int64, device=DEV)
+
+    def activation_side():
+        return unembed(cfg, eng.params, embed_inputs(cfg, eng.params, ids))
+
+    def gathered():
+        whole = {**eng.params, **gather_tree(tables, mesh)}
+        return unembed(cfg, whole, embed_inputs(cfg, whole, ids))
+    out, logits = {"table_bytes": _tree_bytes(tables, whole=True)}, []
+    with torch.no_grad():
+        for key, fn, iters in (("activation_side_ms", activation_side, 10),
+                               ("tables_gathered_ms", gathered, 1)):
+            logits.append(fn())                          # warm-up
+            sync()
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            sync()
+            out[key] = (time.perf_counter() - t) / iters * 1e3
+    a, b = logits
+    out["designs_max_dlogit_rel"] = float((a - b).abs().max()
+                                          / b.abs().max())
+    return out
+
+
+def _expected_shapes(cfg, rows, pps, dense=False):
     """At a rank's shard config: the (K, N) of every quantized linear
     (not expert) it runs at decode (the GEMV: attention, MLA but its
     latent expansion, Mamba's in_proj, dt_w and out_proj, dense MLPs)
     and at prefill (the GEMM: those and the expansion, which runs over
-    every context row), and paged attention's {(rows, Hkv, rep, hd,
-    pages)} (none under MLA)."""
+    every context row; a dense cache split along the sequence expands
+    its positions through every head's wkv_b), and paged attention's
+    {(rows, the KV heads q reads, rep, hd, pages)} (none under MLA or on
+    a dense engine)."""
     d = cfg.d_model
     kinds = {s.kind for s in cfg.pattern}
     gemv, attn = set(), set()
     gemm = set()
+    M = getattr(cfg, "model_axis", 1)
     if "attn" in kinds and cfg.mla is None:
         hd = cfg.resolved_head_dim
         q, kv_ = cfg.n_heads * hd, cfg.n_kv_heads * hd
         gemv |= {(d, q), (d, kv_), (q, d)}
-        attn = {(rows, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd,
-                 pps)}
+        # a rank with whole wk/wv reads one KV head of the pool
+        heads = 1 if getattr(cfg, "kv_whole", False) else cfg.n_kv_heads
+        attn = set() if dense else {(rows, heads, cfg.n_heads // heads, hd,
+                                     pps)}
     if "attn" in kinds and cfg.mla is not None:
         m, H = cfg.mla, cfg.n_heads
         gemv |= {(d, m.q_lora_rank),
@@ -3362,6 +3716,9 @@ def _expected_shapes(cfg, rows, pps):
                  (d, m.kv_lora_rank + m.qk_rope_head_dim),
                  (H * m.v_head_dim, d)}
         gemm = {(m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim))}
+        if dense and M > 1:
+            gemm.add((m.kv_lora_rank,
+                      M * H * (m.qk_nope_head_dim + m.v_head_dim)))
     if "mamba" in kinds:
         di = cfg.d_inner
         gemv |= {(d, 2 * di), (cfg.mamba.resolved_dt_rank(d), di), (di, d)}
@@ -3372,20 +3729,23 @@ def _expected_shapes(cfg, rows, pps):
 
 def check_mesh_shapes(name, cfg, mesh_shape, row, pps):
     """The rank's launches ran at its shard's shapes: the GEMV (decode)
-    and the GEMM (prefill) at the shard config's (K, N) pairs, paged
-    attention at its heads, rows and pool block, the expert kernel (MoE)
-    at its E / M experts."""
+    and the GEMM (prefill) at the shard config's (K, N) pairs (an FSDP
+    rank's gathered leaves are its slice's), paged attention (fp or
+    binary-coded pages) at its heads, rows and pool block, the expert
+    kernel (MoE) at its E / M experts."""
     from repro_torch.models.model import shard_config
     D, M = mesh_shape
-    rcfg = shard_config(cfg, M)
+    dense = row["cache_kind"] == "dense"
+    rcfg = shard_config(cfg, M, SERVE_MAX_LEN if dense else 0)
     rows = 4 // D
-    kn, kn_gemm, want_attn = _expected_shapes(rcfg, rows, pps)
+    kn, kn_gemm, want_attn = _expected_shapes(rcfg, rows, pps, dense)
     sh = {k: {tuple(s) for s in v} for k, v in row["shapes"].items()}
     got_gemv = {s[1:] for s in sh.get("bcq_gemv", ())}
     got_gemm = {s[1:] for s in sh.get("bcq_matmul", ())}
+    attn = "paged_attention_quant" if row["kv_bits"] else "paged_attention"
     ok = (got_gemv == kn and got_gemm == kn_gemm
           and all(s[0] == rows for s in sh.get("bcq_gemv", ()))
-          and sh.get("paged_attention", set()) == want_attn)
+          and sh.get(attn, set()) == want_attn)
     if cfg.moe is not None:
         E = cfg.moe.n_experts // M
         f = cfg.moe.d_ff_expert
@@ -3396,29 +3756,59 @@ def check_mesh_shapes(name, cfg, mesh_shape, row, pps):
                 f"{sorted(want_attn)})")
 
 
+def mesh_stages(shapes, n):
+    """(stage, first rank) of each mesh of `shapes` in a world of `n`
+    ranks: the two-rank meshes side by side in n // 2 lanes of two ranks
+    (stage 0; the meshes whose ranks each build a whole model on the
+    card, `built`, in lane 0 one after another, the others spread over
+    the remaining lanes in turn), then each larger mesh alone from rank
+    0 (a stage each)."""
+    lanes = max(n // 2, 1)
+    out, load, stage = [], [0] * lanes, 0
+    for shape, built in shapes:
+        if shape[0] * shape[1] > 2:
+            stage += 1
+            out.append((stage, 0))
+            continue
+        lane = 0 if built or lanes == 1 else \
+            min(range(1, lanes), key=lambda i: load[i])
+        load[lane] += 1
+        out.append((0, 2 * lane))
+    return out
+
+
 def _mesh_ranks(world, plan):
-    """Every phase-12 mesh in one spawn: for each (mesh shape, spec) of
-    `plan` the world's ranks make its sub-mesh (its first D x M ranks);
-    those serve (_mesh_rank) while the rest wait at a barrier. -> a row
-    or None for each mesh."""
+    """Every phase-12 mesh in one spawn: for each (mesh shape, spec,
+    stage, first rank) of `plan` every rank makes its sub-mesh (ranks
+    first .. first + D x M - 1), in plan order; then stage by stage each
+    rank serves the meshes it belongs to (_mesh_rank), in plan order, so
+    meshes on disjoint ranks run side by side, and every rank waits at a
+    barrier after each stage. -> a row or None for each mesh."""
     import torch
     import torch.distributed as dist
-    rows = []
-    for shape, spec in plan:
-        sub = world.submesh(*shape)
-        rows.append(None if sub is None else _mesh_rank(sub, spec))
-        # the mesh's engine and params go before the next mesh's load
-        gc.collect()
-        if spec["dev"] == "cuda":
-            torch.cuda.empty_cache()
+    subs = [world.submesh(*shape, first=first)
+            for shape, _, _, first in plan]
+    rows = [None] * len(plan)
+    for stage in sorted({p[2] for p in plan}):
+        for j, (_, spec, st, _) in enumerate(plan):
+            if st != stage or subs[j] is None:
+                continue
+            rows[j] = _mesh_rank(subs[j], spec)
+            # the mesh's engine and params go before the next mesh's load
+            gc.collect()
+            if spec["dev"] == "cuda":
+                torch.cuda.empty_cache()
         dist.barrier()
     return rows
 
 
-def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
+def report_mesh(name, cfg, mesh_shape, ranks, single_ms, forced=None):
     """Hold one mesh's ranks to the single device and to the shard's
-    shapes; emit its `mesh_path` line; returns the kernel launches
-    summed over its ranks."""
+    shapes (the whole run's logits; for a 4-bit replicated pool those of
+    the single device forced onto the rank's writes, `forced`, the worst
+    row forced_pool_check read, and every replica the same pool); emit
+    its `mesh_path` line; returns the kernel launches summed over its
+    ranks."""
     D, M = mesh_shape
     print(f"{name}: {ranks[0]['mesh']}", flush=True)
     pps = -(-(4 * -(-SERVE_MAX_LEN // 64) + D) // D)
@@ -3442,6 +3832,11 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
            "first_diff": {str(i): {"token": t, "single_top2_gap_rel": g}
                           for i, (t, g) in gaps.items()},
            "gap_limit": 2 * TOL_LOGITS, "max_dlogit_rel": worst,
+           # what the logits gate holds: the single device's rows, or
+           # (a 4-bit replicated pool) the forced single device's
+           "logits_gate": ("single_device" if forced is None
+                           else "single_device_on_the_rank_writes"),
+           "max_dlogit_rel_gated": worst if forced is None else forced,
            "tol": TOL_LOGITS, "single_device_decode_ms_per_tick": single_ms,
            "speculation": ranks[0].get("speculation"),
            "ranks": [{k: v for k, v in r.items()
@@ -3452,16 +3847,38 @@ def report_mesh(name, cfg, mesh_shape, ranks, single_ms):
     require(all(g <= 2 * TOL_LOGITS for _, g in gaps.values()),
             f"{name}: tokens differ from the single device's beyond a "
             f"near-tie: {gaps}")
-    require(worst <= TOL_LOGITS, f"{name}: logits off by {worst:.3g} of "
-                                 f"max|logit|")
+    gated = worst if forced is None else forced
+    require(gated <= TOL_LOGITS,
+            f"{name}: logits off by {gated:.3g} of max|logit|")
+    require(len({r.get("pool_digest") for r in ranks}) == 1,
+            f"{name}: the replicas of the pool differ")
     require(all(r["logit_rows_compared"] > 0 for r in ranks),
             f"{name}: a rank compared no logits row")
     require(all(r["drained"] and r["pages_in_own_block"] for r in ranks),
             f"{name}: a shard (or its state slabs) did not drain or a "
             f"rank's pages left its block")
+    for r in ranks:
+        if r["fsdp"]:
+            # a rank holds 1/D of the single device's bytes the data
+            # axis cuts (counted on the unsharded tree: every matrix's
+            # codes, a contract leaf's scales, embedding and head), the
+            # rest whole (norms, expand leaves' scales); its blocks
+            # gathered are the single device's
+            held, one, cut = (r["param_bytes"],
+                              r["single_device_weight_bytes"],
+                              r["single_device_fsdp_cut_bytes"])
+            require(held * D == one * D - cut * (D - 1)
+                    and cut >= FSDP_MIN_CUT_SHARE * one
+                    and r["replicated_weight_bytes"] == one,
+                    f"{name} rank {r['rank']}: holds {held} weight bytes, "
+                    f"not the single device's {one} less {D - 1}/{D} of "
+                    f"the {cut} the data axis cuts (gathered: "
+                    f"{r['replicated_weight_bytes']})")
     need = ["bcq_gemv", "bcq_matmul"]
-    if cfg.mla is None and any(s.kind == "attn" for s in cfg.pattern):
-        need.append("paged_attention")
+    if (cfg.mla is None and any(s.kind == "attn" for s in cfg.pattern)
+            and ranks[0]["cache_kind"] == "paged"):
+        need.append("paged_attention_quant" if ranks[0]["kv_bits"]
+                    else "paged_attention")
     if cfg.moe is not None:
         need.append("bcq_expert_matmul")
     for r in ranks:
@@ -3481,18 +3898,24 @@ def _free() -> None:
 def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
                moe_arch: str = "qwen3-moe-235b-a22b",
                moe_layers: int = MESH_MOE_LAYERS, zoo=None,
-               spec_layers: int = MESH_SPEC_LAYERS):
-    """Phase 12 on `model` (phase 3's): save it as an artifact with a w2
-    draft block and serve the path's requests from it on MESHES, every
-    rank loading its slice with load_packed(mesh=), and speculatively on
-    SPEC_MESHES (k=SPEC_K, the draft block cut by load_draft_scales(
-    mesh=); on a model axis from an artifact of its first `spec_layers`
-    layers); then Qwen3-MoE cut to `moe_layers` on MOE_MESH and each
-    config of `zoo` (default MESH_ZOO at full width) on ZOO_MESH, each
-    rank building the seeded model and cutting it; each against a
-    single-device engine in this process, the speculative meshes against
-    its plain tokens. One spawn of the largest mesh's ranks serves every
-    mesh in turn. Returns the launches summed over every rank."""
+               layers: int = MESH_CUT_LAYERS, rep=None, dense=None):
+    """Phase 12 on `model` (phase 3's): saved as an artifact with a w2
+    draft block, and so is its first `layers` layers; the path's
+    requests served on MESHES, every rank loading its slice with
+    load_packed(mesh=) (the whole model on the data axis, the cut one on
+    a model axis), speculatively on SPEC_MESHES (k=SPEC_K, the draft
+    block cut by load_draft_scales(mesh=)), and the cut one on FSDP_MESH
+    loaded with fsdp=True, plainly and speculatively; then Qwen3-MoE
+    cut to `moe_layers` on MOE_MESH and each config of `zoo` (default
+    MESH_ZOO at full width) on ZOO_MESH, each rank building the seeded
+    model and cutting it; `rep` ((config, mesh shape), default
+    Qwen3-MoE at REP_LAYERS on REP_MESH) built and cut by each rank in
+    turn, served with fp and with 4-bit pages; each config of `dense`
+    (default DENSE_ZOO) through the dense engine on ZOO_MESH. Each
+    against a single-device engine in this process, the speculative
+    meshes against its plain tokens. One spawn of the largest mesh's
+    ranks serves every mesh in turn. Returns the launches summed over
+    every rank."""
     import tempfile
     from repro_torch.ckpt.packed import save_packed
     from repro_torch.configs import get_config
@@ -3502,6 +3925,12 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
     if zoo is None:
         zoo = [get_config(a).replace(dtype="float32", n_layers=n)
                for a, n in MESH_ZOO]
+    if rep is None:
+        rep = (get_config(moe_arch).replace(dtype="float32",
+                                            n_layers=REP_LAYERS), REP_MESH)
+    if dense is None:
+        dense = [get_config(a).replace(dtype="float32", n_layers=n)
+                 for a, n in DENSE_ZOO]
     total = {}
     with tempfile.TemporaryDirectory(prefix="mesh_path_") as tmp:
         tmp = Path(tmp)
@@ -3511,6 +3940,7 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
                           draft_bits=DRAFT_PLANES)
         save_s = time.time() - t0
         prompts = path_prompts(seed, cfg.vocab_size)
+        # the whole model on one device: phase 3's tokens
         want, single_ms = serve_recorded(cfg, params, prompts,
                                          tmp / "single.pt", max_new)
         emit({"check": "mesh_path_single_device", "model": cfg.name,
@@ -3522,26 +3952,49 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
                 "mesh path: the single-device engine's tokens are not "
                 "phase 3's")
         dev = {"dev": DEV, "max_new": max_new, "seed": seed}
-        llama = {"artifact": str(art), "arch": cfg.name, "prompts": prompts,
-                 "want": str(tmp / "single.pt"), **dev}
-        plan = [(shape, "llama", cfg, single_ms, llama) for shape in MESHES]
-        # the speculative meshes: full depth on the data axis, the first
-        # spec_layers layers on the model axis
-        cut = cfg.replace(n_layers=min(spec_layers, cfg.n_layers))
+        # its first `layers` layers: the model-axis and FSDP meshes'
+        cut = cfg.replace(n_layers=min(layers, cfg.n_layers))
         cut_params = {**params, "layers": params["layers"][:cut.n_layers]}
+        t0 = time.time()
         cut_art = save_packed(tmp / f"{cfg.name}-{cut.n_layers}", cut_params,
                               cfg=cut, meta={**meta,
                                              "n_layers": cut.n_layers},
                               draft_bits=DRAFT_PLANES)
-        _, cut_ms = serve_recorded(cut, cut_params, prompts, tmp / "cut.pt",
-                                   max_new)
+        save_s = time.time() - t0
+        fsdp_new = min(FSDP_MAX_NEW, max_new)
+        spec_new = min(FSDP_SPEC_MAX_NEW, max_new)
+        cut_ms = {}
+        for n in sorted({max_new, fsdp_new, spec_new}):
+            _, cut_ms[n] = serve_recorded(cut, cut_params, prompts,
+                                          tmp / f"cut{n}.pt", n)
+        emit({"check": "mesh_path_single_device", "model": cfg.name,
+              "layers": cut.n_layers, "save_packed_s": save_s,
+              "decode_ms_per_tick": cut_ms[max_new], "card": CARD})
+        whole = {"artifact": str(art), "arch": cfg.name, "prompts": prompts,
+                 "want": str(tmp / "single.pt"), **dev}
+        llama = {**whole, "artifact": str(cut_art),
+                 "want": str(tmp / f"cut{max_new}.pt")}
+        def on(shape):
+            """(config, single-device ms, spec) of phase 3's model on
+            `shape`: whole on the data axis, cut on a model axis."""
+            return ((cfg, single_ms, whole) if shape[1] == 1
+                    else (cut, cut_ms[max_new], llama))
+        plan = [(shape, "llama", *on(shape)) for shape in MESHES]
         for shape in SPEC_MESHES:
-            whole = shape[1] == 1
-            plan.append((shape, "llama_spec", cfg if whole else cut,
-                         single_ms if whole else cut_ms,
-                         {**llama, "speculate": SPEC_K,
-                          **({} if whole else {"artifact": str(cut_art),
-                                               "want": str(tmp / "cut.pt")})}))
+            c, ms, sp = on(shape)
+            plan.append((shape, "llama_spec", c, ms,
+                         {**sp, "speculate": SPEC_K}))
+        fsdp = {**llama, "fsdp": True,
+                "single_bytes": _tree_bytes(cut_params),
+                "cut_bytes": _fsdp_cut_bytes(cut_params)}
+        # the speculative one first: it shares a lane with the plain
+        # whole-model (2, 1), the plain one with its speculation
+        plan += [(FSDP_MESH, "llama_fsdp_spec", cut, cut_ms[spec_new],
+                  {**fsdp, "speculate": SPEC_K, "max_new": spec_new,
+                   "want": str(tmp / f"cut{spec_new}.pt")}),
+                 (FSDP_MESH, "llama_fsdp", cut, cut_ms[fsdp_new],
+                  {**fsdp, "max_new": fsdp_new,
+                   "want": str(tmp / f"cut{fsdp_new}.pt")})]
         del cut_params
         moe_cfg, moe_params = synthetic_moe(seed, moe_arch, moe_layers)
         moe_prompts = path_prompts(seed, moe_cfg.vocab_size)
@@ -3569,21 +4022,70 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
             plan.append((ZOO_MESH, zcfg.name.split("-")[0], zcfg, z_ms,
                          {"artifact": None, "cfg": zcfg,
                           "prompts": zprompts, "want": str(want_z), **dev}))
+        # replicated pools: the ranks build the model and cut it in turn
+        # (all at once they would hold it D x M times, ~55 GB)
+        rcfg, rep_shape = rep
+        t0 = time.time()
+        rparams = synthetic_zoo(seed, rcfg)
+        rprompts = path_prompts(seed, rcfg.vocab_size)
+        rep_ms = {}
+        for kv_bits in (0, 4):
+            _, rep_ms[kv_bits] = serve_recorded(
+                rcfg, rparams, rprompts, tmp / f"rep{kv_bits}.pt", max_new,
+                kv_bits=kv_bits, keep_codes=bool(kv_bits))
+        del rparams
+        _free()
+        emit({"check": "mesh_path_single_device", "model": rcfg.name,
+              "layers": rcfg.n_layers, "build_and_serve_s":
+              time.time() - t0, "decode_ms_per_tick": rep_ms[0],
+              "decode_ms_per_tick_kv4": rep_ms[4], "card": CARD})
+        for kv_bits in (0, 4):
+            plan.append((rep_shape, "moe_rep" + ("_kv4" if kv_bits else ""),
+                         rcfg, rep_ms[kv_bits],
+                         {"artifact": None, "in_turn": True, "cfg": rcfg,
+                          "kv_bits": kv_bits, "prompts": rprompts,
+                          "forced": (str(tmp / "rep4_rank0.pt")
+                                     if kv_bits else None),
+                          "want": str(tmp / f"rep{kv_bits}.pt"), **dev}))
+        for dcfg in dense:
+            dparams = synthetic_zoo(seed, dcfg)
+            dprompts = path_prompts(seed, dcfg.vocab_size)
+            want_d = tmp / f"{dcfg.name}_dense.pt"
+            _, d_ms = serve_recorded(dcfg, dparams, dprompts, want_d,
+                                     max_new, cache_kind="dense")
+            del dparams
+            _free()
+            plan.append((ZOO_MESH, dcfg.name.split("-")[0] + "_dense", dcfg,
+                         d_ms, {"artifact": None, "cfg": dcfg,
+                                "cache_kind": "dense", "prompts": dprompts,
+                                "want": str(want_d), **dev}))
         n = max(D * M for (D, M), *_ in plan)
         world = make_serve_mesh(2, n // 2, [f"{DEV}:0" if DEV == "cuda"
                                             else DEV] * n)
+        # two-rank meshes side by side, the larger ones alone
+        stages = mesh_stages([(shape, spec["artifact"] is None
+                               and not spec.get("in_turn"))
+                              for shape, *_, spec in plan], n)
         print(f"mesh path: one spawn of {world.describe()}", flush=True)
         t0 = time.time()
         # one torch thread a rank on the CPU (rehearsals): ranks share cores
         rows = spawn(_mesh_ranks, world,
-                     ([(shape, spec) for shape, *_, spec in plan],),
+                     ([(shape, spec, *st) for (shape, *_, spec), st
+                       in zip(plan, stages)],),
                      threads=1 if DEV == "cpu" else None,
                      timeout_s=MESH_TIMEOUT_S)
         emit({"check": "mesh_path_spawn", "ranks": n, "card": CARD,
-              "seconds": time.time() - t0})
-        for j, ((D, M), tag, c, single, _) in enumerate(plan):
+              "seconds": time.time() - t0,
+              "stages": [[f"{tag}_{D}x{M}@{first}"
+                          for ((D, M), tag, *_), (st, first)
+                          in zip(plan, stages) if st == s]
+                         for s in sorted({st for st, _ in stages})]})
+        for j, ((D, M), tag, c, single, spec) in enumerate(plan):
             ranks = [r[j] for r in rows if r[j] is not None]
-            counts = report_mesh(f"{tag}_{D}x{M}", c, (D, M), ranks, single)
+            forced = (forced_pool_check(f"{tag}_{D}x{M}", c, spec)
+                      if spec.get("forced") else None)
+            counts = report_mesh(f"{tag}_{D}x{M}", c, (D, M), ranks, single,
+                                 forced=forced)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
     return total
@@ -4456,6 +4958,9 @@ def main(argv=None) -> int:
                 HD16_CASES))
             worst["paged_attention_quant"] = max(
                 check_paged_quant(gen), check_paged_quant_grid(args.seed))
+            # a rank's KV heads of a replicated pool (phase 12's (1, 8))
+            for k, v in check_paged_rank(args.seed + 8).items():
+                worst[k] = max(worst[k], v)
             worst["bcq_expert_matmul"], n_exact = check_expert(gen)
             # phase 9's shapes: the zoo's linears, jamba's expert stacks
             worst_z, n_z = check_bcq_zoo(gen)
@@ -4504,6 +5009,16 @@ def main(argv=None) -> int:
                   **summarize_paged(gen, Hkv=4, rep=16)})
             emit({"check": "paged_attention_quant_rep16",
                   **summarize_paged_quant(gen, Hkv=4, rep=16)})
+            # a rank of phase 12's (1, 8) Qwen3-MoE: one KV head of the
+            # replicated 4-head pool, 8 query heads (generator of its own)
+            gen_r = torch.Generator(device=DEV).manual_seed(args.seed + 9)
+            emit({"check": "paged_attention_rank",
+                  **summarize_paged(gen_r, Hkv=1, rep=RANK_REP,
+                                    pool_heads=RANK_POOL_HEADS, kv0=1)})
+            emit({"check": "paged_attention_quant_rank",
+                  **summarize_paged_quant(gen_r, Hkv=1, rep=RANK_REP,
+                                          pool_heads=RANK_POOL_HEADS,
+                                          kv0=1)})
             # the GEMV at one and eight rows, beside the line's four
             for M in (1, 8):
                 emit({"check": "bcq_gemv_shape",

@@ -28,7 +28,9 @@ returns the manifest's spec as a dict (`QuantSpec.from_dict` reads it).
 manifest spec without the data axis (serving replicates weights over
 the data ranks), guarded against the real mesh and cut by
 dist/sharding.py (shard_array, shard_qt), contiguous, so no rank ever
-holds another rank's block on its device.
+holds another rank's block on its device. `fsdp=True` keeps the data
+axis too: a leaf the rule cuts over it loads as this rank's block, a
+dist/fsdp.py FsdpLeaf that serving gathers layer by layer.
 
 `save_packed` is the inverse: it restacks the per-layer list into the
 reference's {"blocks": {"L{i}": (n_groups, ...) leaves}} with the keys
@@ -58,8 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.pspec import SYMBOLIC_AXES, named_pspec, pspec_to_json
-from repro_torch.dist.sharding import (pspec_from_json, shard_array,
-                                      shard_draft_scales, shard_qt)
+from repro_torch.dist.fsdp import FsdpLeaf, fsdp_leaf
+from repro_torch.dist.sharding import (cut_data, data_dims, mesh_axis_sizes,
+                                      pspec_from_json, shard_array,
+                                      shard_draft_scales, shard_qt,
+                                      whole_kv_leaves)
 from repro_torch.hw import dtype_name, resolve_device
 from repro_torch.quant.draft import refit_draft_scales
 from repro_torch.quant.packing import codes_from_numpy, codes_to_numpy
@@ -117,10 +122,14 @@ class _DraftScales(NamedTuple):
 
 
 def _group_slice(leaf, g: int):
-    """Group g of a stacked leaf (tensor, QuantizedTensor, draft block
-    or None)."""
+    """Group g of a stacked leaf (tensor, QuantizedTensor, FSDP block,
+    draft block or None)."""
     if leaf is None:
         return None
+    if isinstance(leaf, FsdpLeaf):
+        return FsdpLeaf({f: t[g].contiguous()
+                         for f, t in leaf.fields.items()}, leaf.dims,
+                        leaf.parts, leaf.k_in, leaf.orig_dtype)
     if isinstance(leaf, QuantizedTensor):
         return QuantizedTensor(leaf.codes[g].contiguous(),
                                leaf.alphas[g].contiguous(),
@@ -155,6 +164,8 @@ def unstack_blocks(tree: dict) -> dict:
     blocks = tree["blocks"]
     P = len(blocks)
     probe = next(leaf for leaf in _leaves(blocks) if leaf is not None)
+    if isinstance(probe, FsdpLeaf):
+        probe = next(iter(probe.fields.values()))
     n_groups = (probe.alphas.shape[0] if isinstance(
         probe, (QuantizedTensor, _DraftScales)) else probe.shape[0])
     out["layers"] = [
@@ -179,12 +190,16 @@ def _leaf_spec(node, names, shape, field=None):
     return named_pspec(names + ((f".{field}",) if field else ()), shape)
 
 
-def _decode(node, arrays, device, mesh=None, names=()):
+def _decode(node, arrays, device, mesh=None, names=(), fsdp=False,
+            whole=()):
     """A manifest node -> port leaves on `device`; with `mesh`, this
-    rank's slice of each (cut in host memory, before the copy)."""
+    rank's slice of each (cut in host memory, before the copy; with
+    `fsdp` its data-axis block too, an FsdpLeaf)."""
     if "kind" not in node or not isinstance(node.get("kind"), str):
-        return {k: _decode(v, arrays, device, mesh, names + (k,))
+        return {k: _decode(v, arrays, device, mesh, names + (k,), fsdp,
+                           whole)
                 for k, v in node.items()}
+    dims, parts = {}, mesh_axis_sizes(mesh)["data"] if mesh else 1
     if node["kind"] == "qt":
         codes = arrays[node["codes"]]
         alphas, betas = arrays[node["alphas"]], arrays[node["betas"]]
@@ -198,47 +213,68 @@ def _decode(node, arrays, device, mesh=None, names=()):
                      (("codes", codes), ("alphas", alphas),
                       ("betas", betas))}
             codes, alphas, betas, k_in = shard_qt(
-                names, codes, alphas, betas, k_in, specs, mesh)
+                names, codes, alphas, betas, k_in, specs, mesh, whole)
+            if fsdp:
+                dims = data_dims(names, specs)
+                codes, dims["codes"] = cut_data(codes, dims["codes"], mesh)
+                alphas, dims["alphas"] = cut_data(alphas, dims["alphas"],
+                                                  mesh)
+                betas, dims["betas"] = cut_data(betas, dims["betas"], mesh)
 
         def scales(a):
             t = (_bf16_from_bits(a) if node.get("scale_dtype") == "bfloat16"
                  else torch.from_numpy(_host(a)))
             return t.to(device)
-        return QuantizedTensor(
-            codes=codes_from_numpy(codes).to(device),
-            alphas=scales(alphas), betas=scales(betas),
-            k_in=k_in, orig_dtype=node["orig_dtype"])
+        return fsdp_leaf({"codes": codes_from_numpy(codes).to(device),
+                          "alphas": scales(alphas), "betas": scales(betas)},
+                         dims, parts, k_in, node["orig_dtype"])
     arr = arrays[node["key"]]
     if mesh is not None:
-        arr = shard_array(names, arr, _leaf_spec(node, names, arr.shape),
-                          mesh)
+        spec = _leaf_spec(node, names, arr.shape)
+        arr = shard_array(names, arr, spec, mesh, whole)
+        if fsdp:
+            arr, dims["w"] = cut_data(arr, data_dims(names, {"w": spec})["w"],
+                                      mesh)
     if node["dtype"] == "bfloat16":
-        return _bf16_from_bits(arr).to(device)
-    return torch.from_numpy(_host(arr)).to(device)
+        t = _bf16_from_bits(arr).to(device)
+    else:
+        t = torch.from_numpy(_host(arr)).to(device)
+    return fsdp_leaf({"w": t}, dims, parts)
 
 
-def load_packed(directory, *, mesh=None, fsdp: bool = False, device=None):
+def _manifest(d: Path) -> dict:
+    if not (d / "COMMITTED").exists():
+        raise FileNotFoundError(
+            f"{d} is not a committed packed artifact (missing COMMITTED)")
+    return json.loads((d / "manifest.json").read_text())
+
+
+def packed_meta(directory) -> dict:
+    """The artifact's meta block ({"arch", "n_layers", ...}): what a
+    caller reads to build the config before a mesh load."""
+    return _manifest(Path(directory)).get("meta", {})
+
+
+def load_packed(directory, *, mesh=None, fsdp: bool = False, device=None,
+                cfg=None):
     """-> (params, spec dict or None, meta dict), params in the port's
     per-layer layout on `device` (default cuda; on a mesh, the rank's
     device). Refuses uncommitted (crashed mid-save) and too-new
     artifacts.
 
     With `mesh` (a bound ServeMesh: call it in each rank) every leaf is
-    this rank's slice under its manifest spec, the data axis dropped
-    (`fsdp=False`, the reference's default: weights replicate over data
-    ranks) and the guard re-applied against the mesh (dist/sharding.py).
-    A pre-v3 artifact records no specs: the reference replicates every
-    leaf onto its mesh and warns once; the port warns the same and cuts
-    the leaves by the rule itself (the specs a v3 manifest would hold),
-    since its steps need their slices. `fsdp=True` keeps the data axis
-    on the weights, which needs the per-layer all-gather FSDP training
-    does: it raises until the training slice (ROADMAP Queue 1 item 6)."""
-    if fsdp:
-        raise NotImplementedError(
-            "load_packed(fsdp=True): weights sharded over the data axis "
-            "need FSDP's per-layer all-gather, which comes with the "
-            "training slice of multi-GPU (ROADMAP Queue 1 item 6, still "
-            "to do); serving loads with fsdp=False")
+    this rank's slice under its manifest spec, the guard re-applied
+    against the mesh (dist/sharding.py). `fsdp=False` (the reference's
+    default) drops the data axis: weights replicate over data ranks;
+    `fsdp=True` keeps it, and a leaf it cuts loads as this rank's block
+    (dist/fsdp.py FsdpLeaf, gathered layer by layer as the engine
+    serves). A pre-v3 artifact records no specs: the reference
+    replicates every leaf onto its mesh and warns once; the port warns
+    the same and cuts the leaves by the rule itself (the specs a v3
+    manifest would hold), since its steps need their slices. Where the
+    model axis does not divide the KV heads, wk and wv stay whole on
+    every rank (dist/sharding.py:whole_kv_leaves): that needs the model
+    config `cfg` (its head counts are not in the manifest)."""
     if mesh is not None:
         if mesh.rank is None:
             raise ValueError("load_packed(mesh=) takes a bound mesh: call "
@@ -247,10 +283,7 @@ def load_packed(directory, *, mesh=None, fsdp: bool = False, device=None):
             device = mesh.device
     dev = resolve_device(device)
     d = Path(directory)
-    if not (d / "COMMITTED").exists():
-        raise FileNotFoundError(
-            f"{d} is not a committed packed artifact (missing COMMITTED)")
-    manifest = json.loads((d / "manifest.json").read_text())
+    manifest = _manifest(d)
     if manifest["format_version"] > FORMAT_VERSION:
         raise ValueError(
             f"packed artifact format {manifest['format_version']} is newer "
@@ -258,7 +291,9 @@ def load_packed(directory, *, mesh=None, fsdp: bool = False, device=None):
     if mesh is not None and manifest["format_version"] < 3:
         _warn_no_pspec(d, manifest["format_version"])
     with np.load(d / "arrays.npz") as arrays:
-        tree = _decode(manifest["tree"], arrays, dev, mesh)
+        tree = _decode(manifest["tree"], arrays, dev, mesh, (),
+                       fsdp and mesh is not None,
+                       whole_kv_leaves(cfg, mesh) if mesh else ())
     return unstack_blocks(tree), manifest.get("spec"), manifest.get("meta", {})
 
 
@@ -277,14 +312,16 @@ def _warn_no_pspec(d, version) -> None:
         f"record them", UserWarning, stacklevel=3)
 
 
-def load_draft_scales(directory, *, mesh=None, device=None):
+def load_draft_scales(directory, *, mesh=None, fsdp=False, device=None,
+                      cfg=None):
     """The v4 draft block as a tree in the port's per-layer layout
     ({"layers": [...]}, as load_packed returns the params) with
     {"bits", "alphas", "betas"} dicts at quantized-leaf positions and
     None at the others, ready for quant.draft.make_draft_params(
     scales_tree=...); scales flagged bf16 load as bf16 tensors. With
     `mesh` (bound, as load_packed's) each block is this rank's, cut as
-    its leaf's own scales are (dist/sharding.py:shard_draft_scales).
+    its leaf's own scales are (dist/sharding.py:shard_draft_scales; with
+    `fsdp` and `cfg` as load_packed takes them).
     Returns None when the artifact has no block (pre-v4, or saved
     without `draft_bits`); callers then refit."""
     if mesh is not None:
@@ -295,10 +332,7 @@ def load_draft_scales(directory, *, mesh=None, device=None):
             device = mesh.device
     dev = resolve_device(device)
     d = Path(directory)
-    if not (d / "COMMITTED").exists():
-        raise FileNotFoundError(
-            f"{d} is not a committed packed artifact (missing COMMITTED)")
-    manifest = json.loads((d / "manifest.json").read_text())
+    manifest = _manifest(d)
     found = [False]
 
     def walk(node, arrays, names):
@@ -315,7 +349,8 @@ def load_draft_scales(directory, *, mesh=None, device=None):
             specs = {f: pspec_from_json(node["pspec"][f])
                      for f in ("codes", "alphas", "betas")}
             da, db = shard_draft_scales(names, da, db, node["k_in"], specs,
-                                        mesh)
+                                        mesh, whole_kv_leaves(cfg, mesh),
+                                        fsdp)
 
         def scale(a):
             t = (_bf16_from_bits(a) if blk.get("scale_dtype") == "bfloat16"

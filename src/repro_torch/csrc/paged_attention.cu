@@ -18,7 +18,11 @@
 // sign words packed along hd (bit j of word w is entry w*32 + j, a 1 bit is
 // +1), alphas (P, page, Hkv, G, bits) fp32, betas (P, page, Hkv, G) fp32;
 // entry d of group g = d / (hd / G) expands to beta_g + sum_i (+-alpha_gi),
-// added in plane order as `_expand_page` does.
+// added in plane order as `_expand_page` does. The pool may hold more KV
+// heads (Hkv_pool) than q: KV head h of q reads the pool's head kv0 + h (a
+// rank of a model axis that does not divide the KV heads keeps the whole
+// pool and reads its own heads' slice); kv0 0 and Hkv_pool = Hkv is the
+// plain case.
 //
 // What bounds it on the H100: at decode sizes, latency. Each live token's K
 // and V vector is read once (2 * hd values, or 2 * (bits * hd / 8 + 4 * G *
@@ -428,9 +432,9 @@ __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const TQ* __restrict__ q, const Pages pages,
                            const int* __restrict__ block_tables,
                            const int* __restrict__ ctx_lens,
-                           TQ* __restrict__ out, int Hkv, int rep, int page,
-                           int n_table, float scale, int window, float cap,
-                           int stages) {
+                           TQ* __restrict__ out, int Hkv, int Hkv_pool,
+                           int rep, int page, int n_table, float scale,
+                           int window, float cap, int stages) {
   using Elem = typename Pages::Elem;
   constexpr int HD = Pages::kHd;
   using C = PaCfg<Elem, HD, REP>;
@@ -485,7 +489,7 @@ __global__ void __launch_bounds__(kThreads)
   auto issue = [&](int it) {
     pages.stage(ring + (it % stages) * sb,
                 PartitionRows((first + it * NP) * kTile, j0, ctx, bt_s, page,
-                              Hkv, h));
+                              Hkv_pool, h));
     cp_async_commit();
   };
 
@@ -514,7 +518,7 @@ __global__ void __launch_bounds__(kThreads)
     const Elem* sk = reinterpret_cast<const Elem*>(slot);
     if constexpr (Pages::kExpands) {
       pages.expand(slot, xt, xt + kTile * C::kRow,
-                   PartitionRows(t0, j0, ctx, bt_s, page, Hkv, h));
+                   PartitionRows(t0, j0, ctx, bt_s, page, Hkv_pool, h));
       __syncthreads();
       // the raw rows are expanded: their slot takes partition it + stages
       if (it + stages < ntiles) issue(it + stages);
@@ -668,8 +672,12 @@ int rep_bucket(int rep) {
   return r;
 }
 
+// Hkv: the KV heads of the grid (q's); Hkv_pool: the pool's, whose heads
+// kv0 .. kv0 + Hkv - 1 they read (all of them at kv0 0, Hkv_pool Hkv): the
+// entry points offset the pool's pointers by kv0 heads, the kernel strides
+// its rows by Hkv_pool.
 struct Geometry {
-  int B, Hkv, rep, page, n_table, window, clusters, stages;
+  int B, Hkv, Hkv_pool, kv0, rep, page, n_table, window, clusters, stages;
   float scale, cap;
 };
 
@@ -700,9 +708,9 @@ cudaError_t launch_rep(const TQ* q, const Pages& pages, const int* bt,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, q, pages, bt, ctx, out, g.Hkv, g.rep,
-                            g.page, g.n_table, g.scale, g.window, g.cap,
-                            g.stages);
+  return cudaLaunchKernelEx(&cfg, kern, q, pages, bt, ctx, out, g.Hkv,
+                            g.Hkv_pool, g.rep, g.page, g.n_table, g.scale,
+                            g.window, g.cap, g.stages);
 }
 
 template <typename TQ, typename Pages>
@@ -800,7 +808,7 @@ int finish(cudaError_t err) {
 
 bool geometry_ok(const Geometry& g) {
   return g.clusters >= 1 && g.clusters <= kMaxCluster && g.stages >= 1 &&
-         g.stages <= kMaxStages;
+         g.stages <= kMaxStages && g.kv0 >= 0 && g.kv0 + g.Hkv <= g.Hkv_pool;
 }
 
 }  // namespace
@@ -810,45 +818,58 @@ bool geometry_ok(const Geometry& g) {
 // 64, 128, 256}, bits <= 8 and G dividing hd), and choose `clusters`
 // (blocks splitting a context, 1..8) and `stages` (partitions a block
 // stages, 1..4: those whose loads are in flight at once). window <= 0
-// and cap <= 0 mean "none". Each returns the launch's error or
-// cudaGetLastError().
+// and cap <= 0 mean "none"; q's Hkv heads read the pool's kv0 .. kv0 + Hkv
+// - 1 of Hkv_pool. Each returns the launch's error or cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,
                                       const void* ctx_lens, void* out, int B,
-                                      int Hkv, int rep, int hd, int page,
-                                      int n_table, int clusters, int stages,
-                                      float scale, int window, float cap,
-                                      int bf16, void* stream) {
+                                      int Hkv, int Hkv_pool, int kv0, int rep,
+                                      int hd, int page, int n_table,
+                                      int clusters, int stages, float scale,
+                                      int window, float cap, int bf16,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
-  const Geometry g{B, Hkv, rep, page, n_table, window, clusters, stages,
-                   scale, cap};
+  const Geometry g{B, Hkv, Hkv_pool, kv0, rep, page, n_table, window,
+                   clusters, stages, scale, cap};
   if (!geometry_ok(g)) return (int)cudaErrorInvalidValue;
-  return finish(bf16 ? launch_fp<__nv_bfloat16>(hd, q, k_pages, v_pages, bt,
-                                                cl, out, g, st)
-                     : launch_fp<float>(hd, q, k_pages, v_pages, bt, cl, out,
-                                        g, st));
+  // the pool's row of (token, head kv0): q's first KV head
+  const long long head = (long long)kv0 * hd * (bf16 ? 2 : 4);
+  const char* k = static_cast<const char*>(k_pages) + head;
+  const char* v = static_cast<const char*>(v_pages) + head;
+  return finish(bf16 ? launch_fp<__nv_bfloat16>(hd, q, k, v, bt, cl, out, g,
+                                                st)
+                     : launch_fp<float>(hd, q, k, v, bt, cl, out, g, st));
 }
 
 extern "C" int paged_attention_quant_launch(
     const void* q, const void* k_codes, const void* k_alphas,
     const void* k_betas, const void* v_codes, const void* v_alphas,
     const void* v_betas, const void* block_tables, const void* ctx_lens,
-    void* out, int B, int Hkv, int rep, int hd, int page, int n_table,
-    int clusters, int stages, int bits, int G, float scale, int window,
-    float cap, int bf16, void* stream) {
+    void* out, int B, int Hkv, int Hkv_pool, int kv0, int rep, int hd,
+    int page, int n_table, int clusters, int stages, int bits, int G,
+    float scale, int window, float cap, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(ctx_lens);
-  const Geometry g{B, Hkv, rep, page, n_table, window, clusters, stages,
-                   scale, cap};
+  const Geometry g{B, Hkv, Hkv_pool, kv0, rep, page, n_table, window,
+                   clusters, stages, scale, cap};
   if (!geometry_ok(g)) return (int)cudaErrorInvalidValue;
-  return finish(bf16 ? launch_quant<__nv_bfloat16>(
-                           hd, q, k_codes, k_alphas, k_betas, v_codes,
-                           v_alphas, v_betas, bits, G, bt, cl, out, g, st)
-                     : launch_quant<float>(hd, q, k_codes, k_alphas, k_betas,
-                                           v_codes, v_alphas, v_betas, bits,
-                                           G, bt, cl, out, g, st));
+  // each piece's row of (token, head kv0): code words, alphas, betas
+  const long long cw = (long long)kv0 * bits * (hd / 32) * 4;
+  const long long aw = (long long)kv0 * G * bits * 4;
+  const long long bw = (long long)kv0 * G * 4;
+  auto at = [](const void* p, long long off) {
+    return static_cast<const void*>(static_cast<const char*>(p) + off);
+  };
+  const void *kc = at(k_codes, cw), *ka = at(k_alphas, aw),
+             *kb = at(k_betas, bw), *vc = at(v_codes, cw),
+             *va = at(v_alphas, aw), *vb = at(v_betas, bw);
+  return finish(bf16 ? launch_quant<__nv_bfloat16>(hd, q, kc, ka, kb, vc, va,
+                                                   vb, bits, G, bt, cl, out,
+                                                   g, st)
+                     : launch_quant<float>(hd, q, kc, ka, kb, vc, va, vb,
+                                           bits, G, bt, cl, out, g, st));
 }

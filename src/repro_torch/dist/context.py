@@ -7,8 +7,11 @@ devices. A bound ServeMesh holds this rank's coordinates and its
 process groups beside the world: the model group (the M ranks of its
 data row, which split heads, MLP width and experts; the mesh's backend)
 and the data group (the D ranks of its model column, which split the
-batch and the page pool; always gloo, since the serving loop exchanges
-only sampled tokens over it, as CPU tensors).
+batch and the page pool; gloo, since the serving loop exchanges sampled
+tokens over it as CPU tensors), and for FSDP-sharded weights the data
+group of the mesh's backend, over which a layer's weight blocks are
+gathered (`gather_fsdp`, `reduce_fsdp`; the gloo group itself on a
+gloo mesh).
 
 The backend follows from the devices the caller named, never silently:
 NCCL when every rank has a CUDA device of its own, gloo when the ranks
@@ -63,7 +66,8 @@ class ServeMesh:
 
     axis_names = ("data", "model")
 
-    def __init__(self, data: int, model: int, devices, *, rank=None):
+    def __init__(self, data: int, model: int, devices, *, rank=None,
+                 base: int = 0):
         devices = [str(torch.device(d)) for d in devices]
         if data < 1 or model < 1:
             raise ValueError(f"mesh {data}x{model}: axes must be >= 1")
@@ -74,6 +78,8 @@ class ServeMesh:
         self.devices = np.array(devices, dtype=object).reshape(self.shape)
         self.backend = _backend(devices)
         self.rank = rank
+        # the world rank of this mesh's rank 0 (a submesh's offset)
+        self.base = int(base)
         self._groups = None
         # collectives this rank ran, by kind: {"all_reduce": n, ...}
         self.counts: dict = {}
@@ -106,39 +112,46 @@ class ServeMesh:
             out._groups = out._new_groups(rank)
         return out
 
-    def submesh(self, data: int, model: int):
-        """The (data, model) mesh of this bound mesh's first data*model
-        ranks, bound, with groups of its own: one spawn serves several
-        meshes in turn. Every rank of this mesh must call it (each
+    def submesh(self, data: int, model: int, first: int = 0):
+        """The (data, model) mesh of this bound mesh's ranks first ..
+        first + data*model - 1, bound, with groups of its own: one spawn
+        serves several meshes, in turn or side by side on disjoint
+        ranks. Every rank of this mesh must call it, in one order (each
         creates every group); the ranks outside get None."""
         n = data * model
-        if n > self.size:
-            raise ValueError(f"a {data}x{model} mesh needs {n} of this "
-                             f"mesh's {self.size} ranks")
-        sub = ServeMesh(data, model, self.devices.reshape(-1)[:n],
-                        rank=self.rank)
-        groups = sub._new_groups(self.rank) if n > 1 else None
-        if self.rank >= n:
+        if first + n > self.size:
+            raise ValueError(f"a {data}x{model} mesh from rank {first} "
+                             f"needs ranks this mesh's {self.size} lack")
+        rank = self.rank - first
+        devices = self.devices.reshape(-1)[first:first + n]
+        sub = ServeMesh(data, model, devices, rank=rank,
+                        base=self.base + first)
+        groups = sub._new_groups(rank) if n > 1 else None
+        if not 0 <= rank < n:
             return None
         sub._groups = groups
         return sub
 
     def _new_groups(self, rank: int) -> dict:
         """Create every model and data group of this mesh over the world
-        (ranks 0 .. size-1); returns those of `rank`."""
+        (world ranks base .. base + size - 1); returns those of `rank`
+        (this mesh's)."""
         D, M = self.shape
         d, m = divmod(rank, M)
         groups = {}
         for dd in range(D):
-            g = dist.new_group([dd * M + j for j in range(M)])
+            g = dist.new_group([self.base + dd * M + j for j in range(M)])
             if dd == d:
                 groups["model"] = g
         for mm in range(M):
-            # the data axis carries host tensors only (tokens): gloo
-            g = dist.new_group([i * M + mm for i in range(D)],
-                               backend="gloo")
+            # tokens cross the data axis as host tensors: gloo; weight
+            # blocks (FSDP) as device tensors, over the mesh's backend
+            ranks = [self.base + i * M + mm for i in range(D)]
+            g = dist.new_group(ranks, backend="gloo")
+            dev = (g if self.backend == "gloo"
+                   else dist.new_group(ranks, backend=self.backend))
             if mm == m:
-                groups["data_host"] = g
+                groups["data_host"], groups["data"] = g, dev
         return groups
 
     def group(self, axis: str):
@@ -160,6 +173,15 @@ def mesh_context(mesh):
         yield mesh
     finally:
         _MESH_STACK.pop()
+
+
+def data_coords() -> tuple:
+    """(index, size) of this rank on the data axis; (0, 1) outside a
+    mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 0, 1
+    return mesh.coords[0], mesh.shape[0]
 
 
 def model_coords() -> tuple:
@@ -201,6 +223,31 @@ def gather_model(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     return _gather(x.contiguous(), mesh.group("model"), mesh.shape[1], dim)
 
 
+def gather_fsdp(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """Concatenate each data rank's block of the device tensor `x` along
+    `dim` over the data group (FSDP, dist/fsdp.py: a weight made whole
+    for the layer about to run, or every data rank's activations of a
+    pass the ranks run in lockstep); the identity outside a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.shape[0] == 1:
+        return x
+    mesh._count("all_gather_data")
+    return _gather(x.contiguous(), mesh.group("data"), mesh.shape[0], dim)
+
+
+def reduce_fsdp(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sum the device tensor `x` over the data group, in place (FSDP: the
+    partial products of a weight's data-rank blocks of K); the identity
+    outside a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.shape[0] == 1:
+        return x
+    x = x.contiguous()
+    dist.all_reduce(x, group=mesh.group("data"))
+    mesh._count("all_reduce_data")
+    return x
+
+
 def gather_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Concatenate each data rank's block of the host tensor `x` along
     dim 0 (a row a batch slot, in slot order: the sampled token of each,
@@ -221,7 +268,7 @@ def broadcast_data(x: torch.Tensor, src_d: int, mesh=None) -> torch.Tensor:
         return x
     mesh._count("broadcast_host")
     x = x.contiguous()
-    src = src_d * mesh.shape[1] + mesh.coords[1]
+    src = mesh.base + src_d * mesh.shape[1] + mesh.coords[1]
     dist.broadcast(x, src=src, group=mesh.group("data_host"))
     return x
 

@@ -348,7 +348,7 @@ def local_shape(shape, spec, mesh) -> tuple:
 
 
 # --------------------------------------------------------------------------
-# a rank's slice of the weights (serving: fsdp=False)
+# a rank's slice of the weights
 # --------------------------------------------------------------------------
 # The serving steps run the layer code on each rank's slice of every
 # leaf, so where the rule puts the model axis on a dim the slice must
@@ -371,7 +371,15 @@ def local_shape(shape, spec, mesh) -> tuple:
 #     its rows are cut (the spec cuts its columns), and the model group
 #     sums its features (models/mamba.py);
 #   - MLA's wq_a and wkv_a stay whole: every rank needs the whole latent
-#     and its norm, as the reference's replicated latent pages hold it.
+#     and its norm, as the reference's replicated latent pages hold it;
+#   - wk and wv stay whole where the model axis does not divide the KV
+#     heads (`whole_kv_leaves`): every rank computes every KV head into
+#     its replica of the pool (or of the dense cache), which the rule
+#     replicates over the model axis, and its query heads read theirs.
+#
+# With fsdp=True a rank also keeps only its block of the dim the rule
+# puts the data axis on (`data_dims`, `cut_data`), as the reference's
+# spec does with fsdp=True: dist/fsdp.py gathers it before use.
 
 _VOCAB = {"embed", "lm_head"}
 # Mamba's per-channel leaves: the dim, from the end, that holds d_inner
@@ -403,10 +411,21 @@ def cuts_k(names) -> bool:
                                       and "mamba" in names)
 
 
-def _local_spec(names, ndim, symbolic, field=None) -> tuple:
+def whole_kv_leaves(cfg, mesh) -> frozenset:
+    """The leaves a rank of `mesh` keeps whole for `cfg`: wk and wv where
+    the model axis does not divide n_kv_heads (none without a config)."""
+    M = mesh_axis_sizes(mesh).get("model", 1)
+    if cfg is None or cfg.mla is not None or M == 1 \
+            or cfg.n_kv_heads % M == 0:
+        return frozenset()
+    return frozenset({"wk", "wv"})
+
+
+def _local_spec(names, ndim, symbolic, field=None, whole=()) -> tuple:
     """(the spec the port cuts the leaf at `names`, or that
     QuantizedTensor's `field`, by; the number of equal parts its
-    model-axis dim is split into first, each cut on its own)."""
+    model-axis dim is split into first, each cut on its own). Leaves
+    named in `whole` (whole_kv_leaves) stay whole on the model axis."""
     leaf, mamba = names[-1], "mamba" in names
     if mamba and leaf in _MAMBA_CHANNELS:
         spec = [None] * ndim
@@ -416,7 +435,7 @@ def _local_spec(names, ndim, symbolic, field=None) -> tuple:
         if field in ("alphas", "betas"):
             return (None,) * ndim, 1
         return (None,) * (ndim - 2) + ("model", None), 1
-    if leaf in _MLA_WHOLE:
+    if leaf in _MLA_WHOLE or leaf in whole:
         return (None,) * ndim, 1
     return tuple(symbolic), 2 if mamba and leaf == "in_proj" else 1
 
@@ -458,18 +477,49 @@ def _cut(a, spec, mesh, parts, where):
     return _contiguous(out.reshape(lead + (parts * piece,) + rest))
 
 
-def shard_array(names, arr, symbolic, mesh):
+def data_dims(names, specs) -> dict:
+    """field -> the dim (counted from the end) fsdp cuts over the data
+    axis, or None: where the field's symbolic spec names the data axis;
+    an expert stack's codes on their packed K, its scales whole (the
+    rule for expert parallelism). `specs`: {field: symbolic spec}."""
+    out = {}
+    for f, spec in specs.items():
+        spec = tuple(spec)
+        out[f] = next((i - len(spec) for i, a in enumerate(spec)
+                       if a == "data" or (isinstance(a, tuple)
+                                          and "data" in a)), None)
+    if "moe" in names and "codes" in specs and names[-1] != "router":
+        out = {f: -2 if f == "codes" else None for f in out}
+    return out
+
+
+def cut_data(a, dim, mesh):
+    """(this rank's block of `a` (numpy or torch) along `dim` over the
+    data axis, contiguous; dim), or (a, None) where the axis has size 1
+    or does not divide the dim (which then replicates, as the guard
+    does)."""
+    D = mesh_axis_sizes(mesh)["data"]
+    if dim is None or D == 1 or a.shape[dim] % D:
+        return a, None
+    n, d = a.shape[dim] // D, mesh.coords[0]
+    idx = [slice(None)] * a.ndim
+    idx[dim] = slice(d * n, (d + 1) * n)
+    return _contiguous(a[tuple(idx)]), dim
+
+
+def shard_array(names, arr, symbolic, mesh, whole=()):
     """This rank's block of the dense leaf `arr` (numpy or torch) at
     `names` under its symbolic spec (as `_local_spec` reads it for the
-    port's steps), contiguous."""
+    port's steps) on the model axis, contiguous; the data axis is
+    `cut_data`'s."""
     if names[-1] == "router":
         return arr
-    local, parts = _local_spec(names, arr.ndim, symbolic)
+    local, parts = _local_spec(names, arr.ndim, symbolic, whole=whole)
     spec = _serving_spec(names, arr.shape, local, mesh)
     return _cut(arr, spec, mesh, parts, "/".join(names))
 
 
-def _qt_plan(names, shapes, k_in, specs, mesh):
+def _qt_plan(names, shapes, k_in, specs, mesh, whole=()):
     """How a QuantizedTensor's fields of `shapes` ({"codes", "alphas",
     "betas"}) are cut under their symbolic `specs`: -> (guarded spec a
     field, parts of the model dim, this rank's K)."""
@@ -487,7 +537,7 @@ def _qt_plan(names, shapes, k_in, specs, mesh):
         specs = {f: (None, "model") + (None,) * (len(s) - 2)
                  for f, s in shapes.items()}
     else:
-        local = {f: _local_spec(names, len(s), specs[f], f)
+        local = {f: _local_spec(names, len(s), specs[f], f, whole)
                  for f, s in shapes.items()}
         specs = {f: sp for f, (sp, _) in local.items()}
         parts = local["codes"][1]
@@ -512,7 +562,7 @@ def _qt_plan(names, shapes, k_in, specs, mesh):
     return spec, parts, k_in
 
 
-def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
+def shard_qt(names, codes, alphas, betas, k_in, specs, mesh, whole=()):
     """This rank's block of a QuantizedTensor's fields (numpy or torch)
     under their symbolic specs {"codes", "alphas", "betas"}: -> (codes,
     alphas, betas, k_in). A column (or expert) split cuts the scales
@@ -524,34 +574,55 @@ def shard_qt(names, codes, alphas, betas, k_in, specs, mesh):
     fields = {"codes": codes, "alphas": alphas, "betas": betas}
     spec, parts, k_in = _qt_plan(
         names, {f: tuple(a.shape) for f, a in fields.items()}, k_in, specs,
-        mesh)
+        mesh, whole)
     where = "/".join(names)
     return (*(_cut(a, spec[f], mesh, parts, where)
               for f, a in fields.items()), k_in)
 
 
-def shard_draft_scales(names, alphas, betas, k_in, specs, mesh):
+def shard_draft_scales(names, alphas, betas, k_in, specs, mesh, whole=(),
+                       fsdp=False):
     """A draft block's (alphas, betas) (quant/draft.py: fewer planes than
-    the leaf's own scales) cut as shard_qt cuts the scales of the
-    QuantizedTensor at `names` (K rows `k_in`, symbolic `specs`)."""
+    the leaf's own scales) cut as shard_qt (and with `fsdp`, cut_data)
+    cuts the scales of the QuantizedTensor at `names` (K rows `k_in`,
+    symbolic `specs`)."""
     lead = tuple(alphas.shape[:-3])
     shapes = {"codes": lead + (1, -(-k_in // 32), alphas.shape[-2]),
               "alphas": tuple(alphas.shape), "betas": tuple(betas.shape)}
-    spec, parts, _ = _qt_plan(names, shapes, k_in, specs, mesh)
+    spec, parts, _ = _qt_plan(names, shapes, k_in, specs, mesh, whole)
     where = "/".join(names)
-    return (_cut(alphas, spec["alphas"], mesh, parts, where),
-            _cut(betas, spec["betas"], mesh, parts, where))
+    out = (_cut(alphas, spec["alphas"], mesh, parts, where),
+           _cut(betas, spec["betas"], mesh, parts, where))
+    if fsdp:
+        dims = data_dims(names, specs)
+        out = tuple(cut_data(a, dims[f], mesh)[0]
+                    for a, f in zip(out, ("alphas", "betas")))
+    return out
 
 
-def shard_params(cfg, params, mesh):
+def shard_params(cfg, params, mesh, fsdp: bool = False):
     """An unsharded tree in the port's per-layer layout -> this rank's
-    slice of it (the same cut load_packed(mesh=) makes from a
+    slice of it (the same cut load_packed(mesh=, fsdp=) makes from a
     manifest's specs: each leaf's spec is the rule at the symbolic mesh,
-    its layer addressed as the reference's stacked "blocks"/"L{i}")."""
+    its layer addressed as the reference's stacked "blocks"/"L{i}").
+    With `fsdp` a leaf the data axis cuts is a dist/fsdp.py FsdpLeaf of
+    this rank's block."""
+    from repro_torch.dist.fsdp import fsdp_leaf
     from repro_torch.quant.qlinear import QuantizedTensor
 
     sym = symbolic_mesh()
     P = len(cfg.pattern)
+    whole = whole_kv_leaves(cfg, mesh)
+    D = mesh_axis_sizes(mesh)["data"]
+
+    def data_cut(names, fields, specs):
+        """-> (fields, dims) after the data cut (none without fsdp)."""
+        if not fsdp:
+            return fields, {}
+        dims = data_dims(names, specs)
+        out = {f: cut_data(a, dims[f], mesh) for f, a in fields.items()}
+        return ({f: a for f, (a, _) in out.items()},
+                {f: d for f, (_, d) in out.items()})
 
     def walk(node, names, stacked):
         if isinstance(node, dict):
@@ -565,12 +636,17 @@ def shard_params(cfg, params, mesh):
             specs = {k: named_pspec(cfg, names + (f".{k}",), a, sym)
                      for k, a in f.items()}
             c, a, b, k_in = shard_qt(names, f["codes"], f["alphas"],
-                                     f["betas"], node.k_in, specs, mesh)
-            return QuantizedTensor(cut(c), cut(a), cut(b), k_in,
-                                   node.orig_dtype)
+                                     f["betas"], node.k_in, specs, mesh,
+                                     whole)
+            fields, dims = data_cut(names, {"codes": c, "alphas": a,
+                                            "betas": b}, specs)
+            return fsdp_leaf({k: cut(t) for k, t in fields.items()}, dims,
+                             D, k_in, node.orig_dtype)
         arr = lead(node)
-        return cut(shard_array(names, arr,
-                               named_pspec(cfg, names, arr, sym), mesh))
+        spec = named_pspec(cfg, names, arr, sym)
+        fields, dims = data_cut(names, {"w": shard_array(
+            names, arr, spec, mesh, whole)}, {"w": spec})
+        return fsdp_leaf({"w": cut(fields["w"])}, dims, D)
 
     out = {k: walk(v, (k,), False) for k, v in params.items()
            if k != "layers"}

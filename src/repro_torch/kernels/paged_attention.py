@@ -5,7 +5,11 @@
 
 q (B, Hkv, rep, hd); block_tables (B, T) int32 page ids; ctx_lens (B,)
 int32 live tokens per sequence (including the token just written).
-Returns (B, Hkv, rep, hd) in q.dtype. Unused table slots must hold a
+Returns (B, Hkv, rep, hd) in q.dtype. The pool may hold more KV heads
+than q: with `kv0`, q's KV head h reads the pool's head kv0 + h (a rank
+of a model axis that does not divide the KV heads keeps the whole pool,
+replicated, and reads its own heads; models/attention.py). Unused table
+slots must hold a
 valid page id (the allocator keeps them 0, the null page); tokens are
 masked by index. `paged_attention` reads fp pages k/v (P, page, Hkv,
 hd) in q's dtype; `paged_attention_quant` reads binary-coded pages
@@ -61,15 +65,15 @@ ATTN_STAGE_BUDGET = 150 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # paged_attention_launch(q, k_pages, v_pages, block_tables, ctx_lens, out,
-#                        B, Hkv, rep, hd, page, n_table, clusters, stages,
-#                        scale, window, cap, bf16, stream)
-_ARGS = [_P] * 6 + [_I] * 8 + [_F, _I, _F, _I, _P]
+#                        B, Hkv, Hkv_pool, kv0, rep, hd, page, n_table,
+#                        clusters, stages, scale, window, cap, bf16, stream)
+_ARGS = [_P] * 6 + [_I] * 10 + [_F, _I, _F, _I, _P]
 # paged_attention_quant_launch(q, k_codes, k_alphas, k_betas, v_codes,
 #                              v_alphas, v_betas, block_tables, ctx_lens,
-#                              out, B, Hkv, rep, hd, page, n_table, clusters,
-#                              stages, bits, G, scale, window, cap, bf16,
-#                              stream)
-_QUANT_ARGS = [_P] * 10 + [_I] * 10 + [_F, _I, _F, _I, _P]
+#                              out, B, Hkv, Hkv_pool, kv0, rep, hd, page,
+#                              n_table, clusters, stages, bits, G, scale,
+#                              window, cap, bf16, stream)
+_QUANT_ARGS = [_P] * 10 + [_I] * 12 + [_F, _I, _F, _I, _P]
 
 
 def attention_launch_shape(n_table, page, units, stage_bytes,
@@ -139,10 +143,13 @@ def quant_launch_shape(q, block_tables, page, bits, G):
                          ATTN_STAGE_BUDGET - tile_pair_bytes(hd, 4))
 
 
-def _check_options(window, cap):
+def _check_options(window, cap, q, pool_heads, kv0):
     if (window is not None and window < 1) or (cap is not None and cap <= 0):
         raise ValueError(f"window={window} / cap={cap}: want window >= 1 "
                          f"and cap > 0 (or None)")
+    if kv0 < 0 or kv0 + q.shape[1] > pool_heads:
+        raise ValueError(f"kv0={kv0}: q's {q.shape[1]} KV heads must lie "
+                         f"within the pool's {pool_heads}")
 
 
 def _meta_call(name, q, block_tables, page, row_bytes):
@@ -197,11 +204,11 @@ def _options(hd, window, cap):
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
-                    window=None, cap=None):
-    _check_options(window, cap)
+                    window=None, cap=None, kv0=0):
+    _check_options(window, cap, q, k_pages.shape[2], kv0)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   ctx_lens, window=window, cap=cap)
+                                   ctx_lens, window=window, cap=cap, kv0=kv0)
     if q.device.type == "meta":
         P, page, Hkv, hd = k_pages.shape
         return _meta_call("paged_attention", q, block_tables, page,
@@ -209,7 +216,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     B, Hkv, rep, hd = _check_launch(q, block_tables, ctx_lens,
                                     (k_pages, v_pages))
     P, page, hk, hdk = k_pages.shape
-    if (hk, hdk) != (Hkv, hd) or tuple(v_pages.shape) != tuple(k_pages.shape):
+    if hdk != hd or tuple(v_pages.shape) != tuple(k_pages.shape):
         raise ValueError(f"pages {tuple(k_pages.shape)}/"
                          f"{tuple(v_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
@@ -220,7 +227,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     fn = build.function("paged_attention", "paged_attention_launch", _ARGS)
     status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-                B, Hkv, rep, hd, page, block_tables.shape[1],
+                B, Hkv, hk, kv0, rep, hd, page, block_tables.shape[1],
                 *_launch_shape(q, block_tables, page,
                                tile_pair_bytes(hd, q.element_size())),
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
@@ -233,12 +240,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
                           v_betas, block_tables, ctx_lens, *, window=None,
-                          cap=None):
-    _check_options(window, cap)
+                          cap=None, kv0=0):
+    _check_options(window, cap, q, k_codes.shape[2], kv0)
     if q.device.type == "cpu":
         return paged_attention_quant_ref(
             q, k_codes, k_alphas, k_betas, v_codes, v_alphas, v_betas,
-            block_tables, ctx_lens, window=window, cap=cap)
+            block_tables, ctx_lens, window=window, cap=cap, kv0=kv0)
     pool = (k_codes, k_alphas, k_betas, v_codes, v_alphas, v_betas)
     if q.device.type == "meta":
         row = sum(t[0, 0, 0].numel() * t.element_size()
@@ -249,9 +256,9 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
                                     QUANT_HEAD_DIMS)
     P, page, hk, bits, hdw = k_codes.shape
     G = k_betas.shape[-1]
-    if (hk, hdw * 32) != (Hkv, hd) or hd % G \
-            or tuple(k_alphas.shape) != (P, page, Hkv, G, bits) \
-            or tuple(k_betas.shape) != (P, page, Hkv, G) \
+    if hdw * 32 != hd or hd % G \
+            or tuple(k_alphas.shape) != (P, page, hk, G, bits) \
+            or tuple(k_betas.shape) != (P, page, hk, G) \
             or any(tuple(v.shape) != tuple(k.shape) for k, v in
                    zip(pool[:3], pool[3:])):
         raise ValueError(
@@ -269,7 +276,7 @@ def paged_attention_quant(q, k_codes, k_alphas, k_betas, v_codes, v_alphas,
                         _QUANT_ARGS)
     status = fn(q.data_ptr(), *(t.data_ptr() for t in pool),
                 block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-                B, Hkv, rep, hd, page, block_tables.shape[1],
+                B, Hkv, hk, kv0, rep, hd, page, block_tables.shape[1],
                 *quant_launch_shape(q, block_tables, page, bits, G), bits, G,
                 *_options(hd, window, cap), int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)

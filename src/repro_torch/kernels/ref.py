@@ -75,13 +75,15 @@ def _paged_attend(q, k, v, ctx_lens, *, window, cap):
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
-                        window=None, cap=None):
-    """q (B, Hkv, rep, hd); k_pages/v_pages (P, page, Hkv, hd);
-    block_tables (B, T); ctx_lens (B,). Returns (B, Hkv, rep, hd)."""
+                        window=None, cap=None, kv0=0):
+    """q (B, Hkv, rep, hd); k_pages/v_pages (P, page, Hkv_pool, hd), q's
+    KV head h reading the pool's kv0 + h; block_tables (B, T); ctx_lens
+    (B,). Returns (B, Hkv, rep, hd)."""
     B, Hkv, rep, hd = q.shape
     page = k_pages.shape[1]
     T = block_tables.shape[1]
     bt = block_tables.long()
+    k_pages, v_pages = (t[:, :, kv0:kv0 + Hkv] for t in (k_pages, v_pages))
     # gather: (B, T, page, Hkv, hd) -> (B, Hkv, T*page, hd)
     k = k_pages[bt].reshape(B, T * page, Hkv, hd)
     v = v_pages[bt].reshape(B, T * page, Hkv, hd)
@@ -91,18 +93,22 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens, *,
 
 def paged_attention_quant_ref(q, k_codes, k_alphas, k_betas, v_codes,
                               v_alphas, v_betas, block_tables, ctx_lens,
-                              *, window=None, cap=None):
+                              *, window=None, cap=None, kv0=0):
     """Oracle for the fused-dequant kernel: gather each sequence's
     binary-coded pages through the block table (quant/kv.py layout:
     codes (P, page, Hkv, bits, hd/32), alphas (P, page, Hkv, G, bits),
     betas (P, page, Hkv, G)), expand them to fp32 K/V, then the masked
-    softmax of paged_attention_ref."""
+    softmax of paged_attention_ref (q's KV head h reads the pool's kv0 +
+    h)."""
     B, Hkv, rep, hd = q.shape
     page = k_codes.shape[1]
     T = block_tables.shape[1]
     bt = block_tables.long()
-    k = kv_dequantize(k_codes[bt], k_alphas[bt], k_betas[bt])
-    v = kv_dequantize(v_codes[bt], v_alphas[bt], v_betas[bt])
+    heads = slice(kv0, kv0 + Hkv)
+    k = kv_dequantize(*(t[:, :, heads][bt] for t in (k_codes, k_alphas,
+                                                     k_betas)))
+    v = kv_dequantize(*(t[:, :, heads][bt] for t in (v_codes, v_alphas,
+                                                     v_betas)))
     k = k.reshape(B, T * page, Hkv, hd).transpose(1, 2)
     v = v.reshape(B, T * page, Hkv, hd).transpose(1, 2)
     return _paged_attend(q, k, v, ctx_lens, window=window, cap=cap)

@@ -6,22 +6,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.dist.context import ServeMesh
+from repro_torch.hw import resolve_device
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's 16x16 (2x16x16 multi-pod) TPU meshes: training's
-    FSDP over them comes with the training slice of multi-GPU (ROADMAP
-    Queue 1 item 6, still to do)."""
+    FSDP over them is still to do (ROADMAP Queue 1 item 6, its training
+    part)."""
     raise NotImplementedError(
-        "the pod meshes wait on training's slice of multi-GPU (FSDP "
-        "training, --mesh pod|multipod: ROADMAP Queue 1 item 6, still to "
-        "do); serving meshes come from make_serve_mesh")
+        "the pod meshes wait on FSDP training (--mesh pod|multipod: "
+        "ROADMAP Queue 1 item 6, still to do); serving meshes come from "
+        "make_serve_mesh")
 
 
-def make_host_mesh(device="cpu"):
+def make_host_mesh(device=None):
     """The calling process as a (1, 1) mesh (tests, examples): bound at
-    rank 0, no process group, every collective a no-op."""
-    return ServeMesh(1, 1, [device], rank=0)
+    rank 0, no process group, every collective a no-op; on the card
+    unless the caller names another device."""
+    return ServeMesh(1, 1, [str(resolve_device(device))], rank=0)
 
 
 def make_serve_mesh(data: int = 1, model: int = 1, devices=None):

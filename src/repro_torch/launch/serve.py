@@ -217,7 +217,7 @@ def main(argv=None):
     return _serve(args, cfg, params, paged, draft_params)
 
 
-def _draft(args, params, mesh=None):
+def _draft(args, params, mesh=None, cfg=None):
     """--speculate: the --draft-bits draft of `params` with the scales of
     the artifact's v4 draft block (on a mesh, this rank's cut of it),
     else a re-fit: here, or on a mesh by the engine (None), which refits
@@ -225,7 +225,8 @@ def _draft(args, params, mesh=None):
     from repro_torch.ckpt.packed import load_draft_scales
     from repro_torch.quant.draft import make_draft_params
     block = (load_draft_scales(args.load_quantized, mesh=mesh,
-                               device=None if mesh else args.device)
+                               device=None if mesh else args.device,
+                               cfg=cfg)
              if args.load_quantized else None)
     if mesh is None or mesh.rank == 0:
         print("draft scales: "
@@ -238,13 +239,15 @@ def _draft(args, params, mesh=None):
 
 def _load(ap, args, mesh=None):
     """--load-quantized: (cfg, params), this rank's slice on a mesh."""
-    from repro_torch.ckpt.packed import load_packed
+    from repro_torch.ckpt.packed import load_packed, packed_meta
     from repro_torch.configs import get_config
-    params, spec, meta = load_packed(args.load_quantized, mesh=mesh,
-                                     device=None if mesh else args.device)
-    arch = meta.get("arch")
+    arch = packed_meta(args.load_quantized).get("arch")
     if arch is None:
         ap.error(f"{args.load_quantized}: the artifact's meta names no arch")
+    # the config's head counts say how a mesh cuts wk and wv
+    params, spec, meta = load_packed(args.load_quantized, mesh=mesh,
+                                     device=None if mesh else args.device,
+                                     cfg=get_config(arch))
     # the artifact's depth wins over the registry's (fixtures cut n_layers)
     cfg = get_config(arch).replace(dtype="float32",
                                    n_layers=len(params["layers"]))
@@ -262,7 +265,7 @@ def serve_rank(mesh, argv):
     ap = _parser()
     args = ap.parse_args(argv)
     cfg, params = _load(ap, args, mesh)
-    draft = _draft(args, params, mesh) if args.speculate else None
+    draft = _draft(args, params, mesh, cfg) if args.speculate else None
     eng, reqs = _serve(args, cfg, params, True, draft, mesh)
     return {"rank": mesh.rank, "tokens": [r.out for r in reqs]}
 

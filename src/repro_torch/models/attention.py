@@ -9,11 +9,24 @@ Shapes: activations (B, S, D); q/k/v (B, S, H, hd); dense caches
 G, bits), betas (P, page, Hkv, G) per side. Caches are updated in place
 (the reference's functional update plus donation becomes a direct
 write, which keeps one copy of the pool in memory).
+
+On a model axis (models/model.py:shard_config) a rank holds its query
+heads. Where the axis divides the KV heads it holds theirs too; where
+it does not, its wk and wv are whole, it computes and caches every KV
+head (the rule replicates the pool), and its query heads, which lie in
+one GQA group, read that group's KV head (`kv_heads`). A dense cache of
+such a rank (and MLA's latent cache on any model axis) is split along
+the sequence instead when the axis divides its length (`seq_block`):
+decode then all-gathers every head's query over the model group, each
+rank attends every head over its own positions, and the partial
+softmax states are merged with a log-sum-exp rescale
+(`merge_partials`), each rank keeping its heads.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.context import gather_model, model_coords
 from repro_torch.hw import torch_dtype
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant)
@@ -39,6 +52,55 @@ def init_attn(cfg, gen, dtype, device):
         p["qn"] = torch.zeros((hd,), dtype=torch_dtype(dtype), device=device)
         p["kn"] = torch.zeros((hd,), dtype=torch_dtype(dtype), device=device)
     return p
+
+
+def kv_heads(cfg) -> tuple:
+    """(first, count) of the cfg.n_kv_heads KV heads (those wk and wv
+    compute and the cache holds) that this rank's query heads read: all
+    of them, or on a rank whose wk and wv are whole (cfg.kv_whole) the
+    one KV head of its query heads' GQA group."""
+    if not getattr(cfg, "kv_whole", False):
+        return 0, cfg.n_kv_heads
+    m = model_coords()[0]
+    return m * cfg.n_kv_heads // cfg.model_axis, 1
+
+
+def seq_block(cfg, spec, max_len) -> tuple:
+    """(first position, positions, split) of the block of a layer's dense
+    cache (max_len positions, a window's fewer) that this rank holds:
+    the whole, or where the rule splits the sequence over the model axis
+    (MLA's latents; k/v of a rank with whole wk/wv) and the axis divides
+    the length, its 1/M. Only a dense engine's config (cfg.dense_len)
+    splits."""
+    S = max_len if spec.window is None else min(max_len, spec.window)
+    M = getattr(cfg, "model_axis", 1)
+    if (M == 1 or not getattr(cfg, "dense_len", 0) or S % M
+            or (cfg.mla is None and not cfg.kv_whole)):
+        return 0, S, False
+    return model_coords()[0] * (S // M), S // M, True
+
+
+def merge_partials(mx, l, acc):
+    """The softmax states of this rank's block of positions, max and sum
+    (...) and the fp32 accumulator (..., dv), merged with every model
+    rank's (all-gathered over the model group, then rescaled to the
+    largest max): the attention output (..., dv) fp32. A rank whose
+    positions are all masked adds nothing."""
+    packed = torch.cat([mx[..., None], l[..., None], acc], dim=-1)
+    parts = gather_model(packed[None].contiguous(), dim=0)
+    top = parts[..., 0].amax(dim=0)
+    w = torch.exp(parts[..., 0] - top)
+    total = (parts[..., 1] * w).sum(dim=0)
+    out = (parts[..., 2:] * w[..., None]).sum(dim=0)
+    return out / torch.clamp(total, min=1e-30)[..., None]
+
+
+def local_softmax(logits):
+    """Masked fp32 logits (..., S) -> (max, the unnormalised weights,
+    their sum): a block's share of a softmax, for merge_partials."""
+    mx = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - mx[..., None])
+    return mx, p, torch.sum(p, dim=-1)
 
 
 def _project_qkv(cfg, p, x):
@@ -133,8 +195,9 @@ def _attend_sequence(cfg, spec, p, x, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     fn = _attend_chunked if x.shape[1] > CHUNKED_THRESHOLD else _attend_dense
-    out = fn(q, k, v, causal=cfg.causal, window=spec.window,
-             cap=cfg.attn_softcap, scale=hd ** -0.5)
+    lo, n = kv_heads(cfg)
+    out = fn(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], causal=cfg.causal,
+             window=spec.window, cap=cfg.attn_softcap, scale=hd ** -0.5)
     y = linear(out.reshape(*x.shape[:2], cfg.n_heads * hd), p["wo"])
     return y, k, v
 
@@ -149,8 +212,10 @@ def attn_forward(cfg, spec, p, x, positions):
 # --------------------------------------------------------------------------
 
 def init_kv_cache(cfg, spec, batch, max_len, dtype, device):
+    """Dense K/V of one layer: (batch, Hkv, S, hd), S this rank's block
+    of max_len positions (or of the window's rolling buffer)."""
     hd = cfg.resolved_head_dim
-    S = max_len if spec.window is None else min(max_len, spec.window)
+    S = seq_block(cfg, spec, max_len)[1]
     shape = (batch, cfg.n_kv_heads, S, hd)
     dt = torch_dtype(dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -229,14 +294,15 @@ def _quant_scatter(cache, new, pid, off, mask=None):
     return cache
 
 
-def _gather_dequant(cache, side, block_tables, hd):
-    """Gather and expand a sequence's binary-coded pages: (B, T*page,
-    Hkv, hd) fp32, the extend path's dense view."""
+def _gather_dequant(cache, side, block_tables, hd, heads):
+    """Gather and expand the KV heads `heads` (a slice) of a sequence's
+    binary-coded pages: (B, T*page, heads, hd) fp32, the extend path's
+    dense view."""
     bt = block_tables.long()
     B, T = bt.shape
-    codes = cache[f"{side}_codes"]
-    x = kv_dequantize(codes[bt], cache[f"{side}_alphas"][bt],
-                      cache[f"{side}_betas"][bt])
+    codes, alphas, betas = (cache[f"{side}_{f}"][:, :, heads]
+                            for f in ("codes", "alphas", "betas"))
+    x = kv_dequantize(codes[bt], alphas[bt], betas[bt])
     return x.reshape(B, T * codes.shape[1], codes.shape[2], hd)
 
 
@@ -269,18 +335,19 @@ def attn_decode_paged(cfg, spec, p, x, cache, block_tables, pos):
         kp[pid, off] = k[:, 0].to(kp.dtype)
         vp[pid, off] = v[:, 0].to(vp.dtype)
 
-    qg = q[:, 0].reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                         hd).contiguous()
+    lo, n = kv_heads(cfg)
+    qg = q[:, 0].reshape(B, n, cfg.n_heads // n, hd).contiguous()
     ctx = (pos + 1).to(torch.int32)
     bt = block_tables.to(torch.int32).contiguous()
     if quant:
         out = paged_attention_quant(
             qg, cache["k_codes"], cache["k_alphas"], cache["k_betas"],
             cache["v_codes"], cache["v_alphas"], cache["v_betas"], bt, ctx,
-            window=spec.window, cap=cfg.attn_softcap)
+            window=spec.window, cap=cfg.attn_softcap, kv0=lo)
     else:
         out = paged_attention(qg, cache["k_pages"], cache["v_pages"], bt,
-                              ctx, window=spec.window, cap=cfg.attn_softcap)
+                              ctx, window=spec.window, cap=cfg.attn_softcap,
+                              kv0=lo)
     y = linear(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
     return y, cache
 
@@ -311,18 +378,20 @@ def attn_extend_paged(cfg, spec, p, h, cache, block_tables, start_pos,
     pid = torch.gather(bt, 1, (positions // page).clamp(max=T - 1))
     pid = torch.where(chunk_mask, pid, 0)
     off = torch.where(chunk_mask, positions % page, 0)
+    lo, n = kv_heads(cfg)
+    heads = slice(lo, lo + n)
     if quant:
         _quant_scatter(cache, torch.stack([k, v]), pid, off, mask=chunk_mask)
-        ck = _gather_dequant(cache, "k", bt, hd)
-        cv = _gather_dequant(cache, "v", bt, hd)
+        ck = _gather_dequant(cache, "k", bt, hd, heads)
+        cv = _gather_dequant(cache, "v", bt, hd, heads)
     else:
         m4 = chunk_mask[:, :, None, None]
         kp, vp = cache["k_pages"], cache["v_pages"]
         kp[pid, off] = torch.where(m4, k.to(kp.dtype), kp[0, 0])
         vp[pid, off] = torch.where(m4, v.to(vp.dtype), vp[0, 0])
-        ck = kp[bt].reshape(B, T * page, cfg.n_kv_heads, hd)
-        cv = vp[bt].reshape(B, T * page, cfg.n_kv_heads, hd)
-    qg = _group_q(q, cfg.n_kv_heads)                     # (B,C,Hkv,r,hd)
+        ck = kp[:, :, heads][bt].reshape(B, T * page, n, hd)
+        cv = vp[:, :, heads][bt].reshape(B, T * page, n, hd)
+    qg = _group_q(q, n)                                  # (B,C,Hkv,r,hd)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg,
                           ck.to(q.dtype)).float() * hd ** -0.5
     logits = softcap(logits, cfg.attn_softcap)
@@ -342,7 +411,10 @@ def attn_extend_paged(cfg, spec, p, h, cache, block_tables, start_pos,
 def attn_decode(cfg, spec, p, x, cache, pos):
     """x: (B, 1, D); pos: (B,) absolute positions; dense cache
     {"k","v"} (B, Hkv, S, hd) updated in place. Sliding-window layers use
-    a rolling buffer indexed by pos % window. Returns (y, cache)."""
+    a rolling buffer indexed by pos % window. A cache split along the
+    sequence (seq_block) takes the new K/V on the rank whose block holds
+    its slot, and the token attends over every rank's block
+    (merge_partials). Returns (y, cache)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(cfg, p, x)                    # (B,1,H,hd)
@@ -350,25 +422,53 @@ def attn_decode(cfg, spec, p, x, cache, pos):
     k = rope(k, pos[:, None], cfg.rope_theta)
 
     ck, cv = cache["k"], cache["v"]
-    S = ck.shape[2]
+    start, S, split = seq_block(cfg, spec, getattr(cfg, "dense_len", 0)
+                                or ck.shape[2])
     posl = pos.long()
-    slot = posl if spec.window is None else posl % spec.window
+    slot = (posl if spec.window is None else posl % spec.window) - start
     b_idx = torch.arange(B, device=x.device)
-    ck[b_idx, :, slot] = k[:, 0].to(ck.dtype)
-    cv[b_idx, :, slot] = v[:, 0].to(cv.dtype)
+    if split:
+        # the slot's rank writes; the others rewrite what they hold
+        held = ((slot >= 0) & (slot < S))[:, None, None]
+        slot = slot.clamp(0, S - 1)
+        k_new = torch.where(held, k[:, 0].to(ck.dtype), ck[b_idx, :, slot])
+        v_new = torch.where(held, v[:, 0].to(cv.dtype), cv[b_idx, :, slot])
+    else:
+        k_new, v_new = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+    ck[b_idx, :, slot] = k_new
+    cv[b_idx, :, slot] = v_new
 
-    qg = q[:, 0].reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd)
-    logits = torch.einsum("bhrd,bhkd->bhrk", qg,
-                          ck.to(q.dtype)).float() * hd ** -0.5
-    logits = softcap(logits, cfg.attn_softcap)
-    j = torch.arange(S, device=x.device)[None, :]
+    j = start + torch.arange(S, device=x.device)[None, :]
     if spec.window is None:
         ok = j <= posl[:, None]
     else:
         ok = j < torch.clamp(posl[:, None] + 1, max=spec.window)
+    if split:
+        # every head's query over this rank's positions, then the merge
+        H = cfg.n_heads
+        qa = gather_model(q[:, 0].contiguous(), dim=1)   # (B, M*H, hd)
+        qg = qa.reshape(B, cfg.n_kv_heads, -1, hd)
+        logits = torch.einsum("bhrd,bhkd->bhrk", qg,
+                              ck.to(q.dtype)).float() * hd ** -0.5
+        logits = softcap(logits, cfg.attn_softcap)
+        logits = torch.where(ok[:, None, None, :], logits,
+                             torch.full_like(logits, NEG_INF))
+        mx, w, total = local_softmax(logits)
+        acc = torch.einsum("bhrk,bhkd->bhrd", w, cv.float())
+        out = merge_partials(mx, total, acc).reshape(B, -1, hd)
+        h0 = model_coords()[0] * H
+        out = out[:, h0:h0 + H].to(q.dtype)
+        y = linear(out.reshape(B, 1, H * hd), p["wo"])
+        return y, cache
+
+    lo, n = kv_heads(cfg)
+    qg = q[:, 0].reshape(B, n, cfg.n_heads // n, hd)
+    logits = torch.einsum("bhrd,bhkd->bhrk", qg,
+                          ck[:, lo:lo + n].to(q.dtype)).float() * hd ** -0.5
+    logits = softcap(logits, cfg.attn_softcap)
     logits = torch.where(ok[:, None, None, :], logits,
                          torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bhrk,bhkd->bhrd", w, cv.to(q.dtype))
+    out = torch.einsum("bhrk,bhkd->bhrd", w, cv[:, lo:lo + n].to(q.dtype))
     y = linear(out.reshape(B, 1, cfg.n_heads * hd), p["wo"])
     return y, cache

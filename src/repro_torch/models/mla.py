@@ -13,11 +13,20 @@ Shapes: activations (B, S, D); dense cache {"c_kv": (B, S, r),
 shaped like attention pools ((pages, page, heads, vec)), so
 `is_page_leaf`, `copy_pages` and `compact` treat them identically.
 Caches are written in place.
+
+On a model axis a rank holds its heads' wq_b, wkv_b and wo rows and the
+whole latent. A dense engine's latent cache is split along the sequence
+(the rule's `c_kv`/`k_pe` placement, models/attention.py:seq_block):
+decode then all-gathers every head's query, expands the rank's own
+positions through every head's wkv_b ("wkv_b_all", which the engine
+gathers once), and merges the heads' partial softmax states over the
+model group (attention.py:merge_partials), each rank keeping its heads.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.context import gather_model, model_coords
 from repro_torch.hw import torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import init_linear, linear, rmsnorm, rope, softcap
@@ -107,12 +116,16 @@ def mla_forward(cfg, spec, p, x, positions):
     return mla_prefill(cfg, spec, p, x, positions)[0]
 
 
-def init_mla_cache(cfg, batch, max_len, dtype, device):
+def init_mla_cache(cfg, batch, max_len, dtype, device, spec=None):
+    """The dense latent cache of one layer: this rank's block of max_len
+    positions (attention.py:seq_block)."""
     m = cfg.mla
     dt = torch_dtype(dtype)
-    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+    S = (attn_mod.seq_block(cfg, spec, max_len)[1] if spec is not None
+         else max_len)
+    return {"c_kv": torch.zeros((batch, S, m.kv_lora_rank), dtype=dt,
                                 device=device),
-            "k_pe": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+            "k_pe": torch.zeros((batch, S, m.qk_rope_head_dim),
                                 dtype=dt, device=device)}
 
 
@@ -165,13 +178,54 @@ def mla_decode(cfg, spec, p, x, cache, pos):
     q_nope, q_pe = _queries(cfg, p, x, posl[:, None])    # (B,1,H,.)
     c_new, kpe_new = _latent(cfg, p, x, posl[:, None])   # (B,1,.)
     b_idx = torch.arange(B, device=x.device)
-    cache["c_kv"][b_idx, posl] = c_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_pe"][b_idx, posl] = kpe_new[:, 0].to(cache["k_pe"].dtype)
-    S = cache["c_kv"].shape[1]
-    ok = (torch.arange(S, device=x.device)[None, :]
+    start, S, split = attn_mod.seq_block(
+        cfg, spec, getattr(cfg, "dense_len", 0) or cache["c_kv"].shape[1])
+    row = posl - start
+    held = ((row >= 0) & (row < S))[:, None]
+    row = row.clamp(0, S - 1)
+    for name, new in (("c_kv", c_new), ("k_pe", kpe_new)):
+        c = cache[name]
+        # on a split cache the row's rank writes, the others rewrite
+        c[b_idx, row] = torch.where(held, new[:, 0].to(c.dtype),
+                                    c[b_idx, row])
+    ok = (start + torch.arange(S, device=x.device)[None, :]
           <= posl[:, None])[:, None, None, :]
-    y = _mla_attend(cfg, p, q_nope, q_pe, cache["c_kv"], cache["k_pe"], ok)
+    if split:
+        y = _mla_attend_split(cfg, p, q_nope, q_pe, cache["c_kv"],
+                              cache["k_pe"], ok[:, :, 0])
+    else:
+        y = _mla_attend(cfg, p, q_nope, q_pe, cache["c_kv"], cache["k_pe"],
+                        ok)
     return y, cache
+
+
+def _mla_attend_split(cfg, p, q_nope, q_pe, c_kv, k_pe, ok):
+    """One token's MLA attention over a latent cache split along the
+    sequence: every head's query (gathered over the model group) scores
+    this rank's positions, expanded through every head's wkv_b
+    (p["wkv_b_all"]); the partial softmax states merge over the model
+    group and this rank keeps its heads. q_nope/q_pe (B, 1, H, .) this
+    rank's heads; c_kv/k_pe (B, S, .) its positions; ok (B, 1, S).
+    Returns (B, 1, D)."""
+    m = cfg.mla
+    B, _, H, dn = q_nope.shape
+    qa = gather_model(torch.cat([q_nope, q_pe], dim=-1)[:, 0].contiguous(),
+                      dim=1)                             # (B, M*H, dn+dr)
+    qa_nope, qa_pe = torch.split(qa, [dn, m.qk_rope_head_dim], dim=-1)
+    S = c_kv.shape[1]
+    kvb = linear(c_kv.to(q_nope.dtype), p["wkv_b_all"]).reshape(
+        B, S, qa.shape[1], dn + m.v_head_dim)
+    k_nope, v = torch.split(kvb, [dn, m.v_head_dim], dim=-1)
+    logits = (torch.einsum("bhd,bkhd->bhk", qa_nope, k_nope)
+              + torch.einsum("bhd,bkd->bhk", qa_pe, k_pe.to(q_nope.dtype)))
+    logits = softcap(logits.float() * _scale(cfg), cfg.attn_softcap)
+    logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+    mx, w, total = attn_mod.local_softmax(logits)
+    acc = torch.einsum("bhk,bkhd->bhd", w, v.float())
+    out = attn_mod.merge_partials(mx, total, acc)        # (B, M*H, dv)
+    h0 = model_coords()[0] * H
+    out = out[:, h0:h0 + H].to(q_nope.dtype)
+    return linear(out.reshape(B, 1, H * m.v_head_dim), p["wo"])
 
 
 def mla_decode_paged(cfg, spec, p, x, cache, block_tables, pos):

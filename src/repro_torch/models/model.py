@@ -62,8 +62,16 @@ the output of each mixer and each MLP (after wo, out_proj, wd or the
 MoE combine) is summed over the model group by `reduce_model` (a Mamba
 mixer also sums its x_proj features, models/mamba.py), a vocabulary
 split over the model axis is looked up masked and summed, and split
-logits are gathered. MLA's latent is whole on every rank. Outside a
-mesh each hook is the identity.
+logits are gathered. MLA's latent is whole on every rank. Where the
+model axis does not divide the KV heads, a rank computes and caches
+every KV head and its query heads read their group's (models/
+attention.py:kv_heads); a dense engine's caches the rule splits along
+the sequence hold the rank's block of positions (attention.py:
+seq_block). Weights sharded over the data axis too (dist/fsdp.py) are
+gathered layer by layer, just before the layer runs (`_layers`); the
+embedding and head are not gathered: the data ranks' activations are
+(`embed_inputs`, `unembed`). Outside a mesh each hook is the
+identity.
 """
 from __future__ import annotations
 
@@ -73,7 +81,9 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import gather_model, model_coords, reduce_model
+from repro_torch.dist.context import (data_coords, gather_fsdp, gather_model,
+                                      model_coords, reduce_fsdp, reduce_model)
+from repro_torch.dist.fsdp import FsdpLeaf, gather_tree
 from repro_torch.hw import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -116,31 +126,50 @@ def require_decoder(cfg) -> None:
 class RankConfig(ModelConfig):
     """The config one rank of a `model_axis`-way model axis runs
     (shard_config): its heads and MLP width are its fields, and d_inner,
-    which the config derives from d_model, is divided here."""
+    which the config derives from d_model, is divided here. `kv_whole`:
+    its n_kv_heads are all of the model's (wk, wv and the cache whole);
+    `dense_len`: the max_len of the dense caches it serves (0: paged),
+    which decides the caches the rule splits along the sequence."""
     model_axis: int = 1
+    kv_whole: bool = False
+    dense_len: int = 0
 
     @property
     def d_inner(self) -> int:
         return super().d_inner // self.model_axis
 
 
-def shard_config(cfg, model: int):
+def shard_config(cfg, model: int, dense_len: int = 0):
     """The config one rank of a `model`-way model axis runs: with
-    attention layers n_heads divided by `model` (and n_kv_heads, which
-    MLA has none of in its cache: its latent replicates), with Mamba
-    layers d_inner, with dense MLP layers d_ff; the experts split
-    through the weights (E / model a rank, models/moe.py), each keeping
-    the single-device capacity. An attention-free pattern keeps its
-    (unused) head counts. A dimension the axis does not divide raises
-    ValueError naming it."""
+    attention layers n_heads divided by `model` (and n_kv_heads where
+    the axis divides them; MLA has none in its cache: its latent
+    replicates), with Mamba layers d_inner, with dense MLP layers d_ff;
+    the experts split through the weights (E / model a rank,
+    models/moe.py), each keeping the single-device capacity. Where the
+    axis does not divide n_kv_heads but each rank's query heads lie in
+    one GQA group, the rank keeps every KV head (`kv_whole`; the rule
+    replicates the pool). `dense_len`: a dense engine's max_len. An
+    attention-free pattern keeps its (unused) head counts. A dimension
+    the axis does not divide, or query heads that straddle two GQA
+    groups, raise ValueError naming them."""
     if model == 1:
         return cfg
     kinds = {s.kind for s in cfg.pattern}
     dims = {}
+    kv_whole = False
     if "attn" in kinds:
         dims["n_heads"] = cfg.n_heads
-        if cfg.mla is None:
+        if cfg.mla is None and cfg.n_kv_heads % model == 0:
             dims["n_kv_heads"] = cfg.n_kv_heads
+        elif cfg.mla is None and cfg.n_heads % model == 0:
+            mine, rep = cfg.n_heads // model, cfg.n_heads // cfg.n_kv_heads
+            if rep % mine:
+                raise ValueError(
+                    f"{cfg.name}: a {model}-way model axis gives each rank "
+                    f"{mine} of n_heads={cfg.n_heads} query heads, which "
+                    f"straddle the GQA groups of n_kv_heads="
+                    f"{cfg.n_kv_heads} ({rep} query heads a KV head)")
+            kv_whole = True
     if "mamba" in kinds:
         dims["d_inner"] = cfg.d_inner
     if any(s.mlp == "dense" for s in cfg.pattern):
@@ -155,7 +184,8 @@ def shard_config(cfg, model: int):
           if k in dims}
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    return RankConfig(**fields, model_axis=model).replace(
+    return RankConfig(**fields, model_axis=model, kv_whole=kv_whole,
+                      dense_len=dense_len).replace(
         head_dim=cfg.resolved_head_dim, **kw)
 
 
@@ -180,13 +210,16 @@ def layer_params(cfg, params) -> list:
 
 
 def _layers(cfg, params):
-    """(spec, layer weights) for every layer; the weights must have the
-    config's depth."""
+    """(spec, layer weights) for every layer, in order; the weights must
+    have the config's depth. A layer's FSDP-sharded leaves are gathered
+    as it is reached (dist/fsdp.py), so one layer's are whole at a
+    time."""
     layers = layer_params(cfg, params)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: params hold {len(layers)} "
                          f"layers, the config {cfg.n_layers}")
-    return zip(cfg.layer_specs(), layers)
+    for spec, lp in zip(cfg.layer_specs(), layers):
+        yield spec, gather_tree(lp)
 
 
 # --------------------------------------------------------------------------
@@ -251,32 +284,69 @@ def init_params(cfg, seed: int = 0, dtype=None, device=None):
 # embedding / unembedding
 # --------------------------------------------------------------------------
 
+def _table_block(leaf):
+    """The plain (V, D) or (D, V) table of an FSDP leaf whose D the data
+    axis cuts, else None (the leaf is gathered whole instead)."""
+    if isinstance(leaf, FsdpLeaf) and not leaf.quantized:
+        return leaf.fields["w"]
+    return None
+
+
 def embed_inputs(cfg, params, inputs):
     """Token ids (B, S) -> their embedding rows; frames (B, S, D) ->
     the learned input projection. On a mesh whose model axis splits the
     vocabulary, each rank looks up the ids in its block of rows (zeros
     for the others) and the model group sums them: exactly one rank
-    adds each row."""
+    adds each row. A table whose d_model the data axis cuts (FSDP) is
+    not gathered: the data ranks' ids are (every data rank runs the
+    same-shaped pass), each rank looks them all up in its columns, and
+    the columns are gathered back to their rows' rank."""
     if cfg.embed_input != "tokens":
-        return linear(inputs, params["embed"])
-    emb = params["embed"]
+        return linear(inputs, gather_tree(params["embed"]))
+    block = _table_block(params["embed"])
+    ids = inputs.long()
+    if block is not None:
+        ids = gather_fsdp(ids, dim=0)                    # every data rank's
+    emb = gather_tree(params["embed"]) if block is None else block
     if emb.shape[0] == cfg.vocab_size:
-        return emb[inputs.long()]
-    m, _ = model_coords()
-    ids = inputs.long() - m * emb.shape[0]
-    mine = (ids >= 0) & (ids < emb.shape[0])
-    rows = emb[ids.clamp(0, emb.shape[0] - 1)]
-    return reduce_model(torch.where(mine[..., None], rows,
-                                    torch.zeros_like(rows)))
+        rows = emb[ids]
+    else:
+        m, _ = model_coords()
+        ids = ids - m * emb.shape[0]
+        rows = emb[ids.clamp(0, emb.shape[0] - 1)]
+        mine = (ids >= 0) & (ids < emb.shape[0])
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    if block is not None:
+        d, _ = data_coords()
+        B = inputs.shape[0]
+        rows = gather_fsdp(rows, dim=-1)[d * B:(d + 1) * B]
+    return rows if emb.shape[0] == cfg.vocab_size else reduce_model(rows)
 
 
 def unembed(cfg, params, x):
     """Logits in the activation dtype (a vocabulary split over the model
-    axis gathered from its ranks)."""
-    if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    axis gathered from its ranks). A head whose d_model the data axis
+    cuts (FSDP) is not gathered: each rank multiplies every data rank's
+    activations (gathered; the ranks run same-shaped passes) by its
+    block of d_model, and the partial logits are summed over the data
+    group, each rank keeping its rows'."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    block = _table_block(params[name])
+    if block is None:
+        w = gather_tree(params[name])
+        xs = x
     else:
-        logits = linear(x, params["lm_head"])
+        d, _ = data_coords()
+        xs = gather_fsdp(x, dim=0)
+        n = block.shape[-1 if cfg.tie_embeddings else 0]
+        xs, w = xs[..., d * n:(d + 1) * n], block
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", xs, w.to(x.dtype))
+    else:
+        logits = linear(xs, w)
+    if block is not None:
+        B = x.shape[0]
+        logits = reduce_fsdp(logits)[d * B:(d + 1) * B]
     if logits.shape[-1] != cfg.vocab_size:
         logits = gather_model(logits, dim=-1)
     return softcap(logits, cfg.final_softcap)
@@ -287,6 +357,8 @@ def unembed(cfg, params, x):
 # --------------------------------------------------------------------------
 
 def _attn_prefill(cfg, spec, p, h, positions, max_len):
+    """(y, the layer's dense cache row block: this rank's positions of
+    the max_len (or window) K/V, attention.py:seq_block)."""
     y, k, v = attn._attend_sequence(cfg, spec, p, h, positions)
     S = h.shape[1]
     ck = k.transpose(1, 2)          # (B, Hkv, S, hd)
@@ -305,14 +377,18 @@ def _attn_prefill(cfg, spec, p, h, positions, max_len):
         buf_k[:, :, slots] = ck[:, :, lo:]
         buf_v[:, :, slots] = cv[:, :, lo:]
         ck, cv = buf_k, buf_v
-    return y, {"k": ck.contiguous(), "v": cv.contiguous()}
+    start, n, _ = attn.seq_block(cfg, spec, max_len)
+    return y, {"k": ck[:, :, start:start + n].contiguous(),
+               "v": cv[:, :, start:start + n].contiguous()}
 
 
 def _mla_prefill(cfg, spec, p, h, positions, max_len):
     y, c_kv, k_pe = mla_mod.mla_prefill(cfg, spec, p, h, positions)
     pad = max_len - h.shape[1]
-    return y, {"c_kv": torch.nn.functional.pad(c_kv, (0, 0, 0, pad)),
-               "k_pe": torch.nn.functional.pad(k_pe, (0, 0, 0, pad))}
+    start, n, _ = attn.seq_block(cfg, spec, max_len)
+    return y, {name: torch.nn.functional.pad(t, (0, 0, 0, pad))[
+        :, start:start + n].contiguous()
+        for name, t in (("c_kv", c_kv), ("k_pe", k_pe))}
 
 
 def _mlp(cfg, spec, lp, x, moe_capacity_factor):
@@ -467,7 +543,7 @@ def init_cache(cfg, batch, max_len, dtype=None, device=None):
             out.append(mam.init_mamba_cache(cfg, batch, dtype, dev))
         elif cfg.mla is not None:
             out.append(mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
-                                              dev))
+                                              dev, spec))
         else:
             out.append(attn.init_kv_cache(cfg, spec, batch, max_len, dtype,
                                           dev))

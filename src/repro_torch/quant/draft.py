@@ -122,13 +122,18 @@ def make_draft_params(params, draft_bits: int, scales_tree=None):
     `scales_tree`, when given, mirrors the tree with {"bits", "alphas",
     "betas"} dicts at QuantizedTensor positions
     (ckpt.packed.load_draft_scales); an entry whose bits disagree with
-    `draft_bits` falls back to the refit."""
+    `draft_bits` falls back to the refit. An FSDP block (dist/fsdp.py)
+    keeps its code block and takes its entry's scales, cut as its
+    own."""
     def walk(node, sc):
-        if isinstance(node, QuantizedTensor):
+        fsdp = getattr(node, "quantized", False)   # dist/fsdp.py FsdpLeaf
+        if isinstance(node, QuantizedTensor) or fsdp:
             use = None
             if isinstance(sc, dict) and "alphas" in sc:
                 if int(sc.get("bits", -1)) == int(draft_bits):
                     use = (sc["alphas"], sc["betas"])
+            if fsdp:
+                return node.draft_view(use)
             return draft_view(node, draft_bits, scales=use)
         if isinstance(node, dict):
             return {k: walk(v, sc.get(k) if isinstance(sc, dict) else None)

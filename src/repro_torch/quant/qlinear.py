@@ -155,9 +155,12 @@ def stack_leaves(items):
 
 def tree_tensors(tree):
     """Every tensor of a tree of dicts, lists and tuples, in order, a
-    QuantizedTensor's codes, alphas and betas included."""
+    QuantizedTensor's codes, alphas and betas (an FSDP leaf's blocks)
+    included."""
     if isinstance(tree, QuantizedTensor):
         yield from (tree.codes, tree.alphas, tree.betas)
+    elif hasattr(tree, "tensors"):              # dist/fsdp.py FsdpLeaf
+        yield from tree.tensors()
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from tree_tensors(v)

@@ -57,7 +57,10 @@ gloo's collectives cannot be captured in a CUDA graph. Capturing them
 with NCCL's is a later PR (ROADMAP Queue 1 item 6). A data-only mesh
 (model axis 1) has no collective inside a step (the engine gathers the
 sampled tokens outside it), so its graphed kinds capture as on one
-device.
+device, unless its weights are sharded over the data axis (FSDP,
+dist/fsdp.py): then every pass gathers them over the data group inside
+the step, and every kind runs eagerly; `get(..., fsdp=True)` keys it
+apart.
 """
 from __future__ import annotations
 
@@ -104,6 +107,8 @@ def _tensors(tree, out: list) -> list:
             _tensors(v, out)
     elif isinstance(tree, QuantizedTensor):
         out += (tree.codes, tree.alphas, tree.betas)
+    elif hasattr(tree, "tensors"):              # dist/fsdp.py FsdpLeaf
+        out += tree.tensors()
     return out
 
 
@@ -270,10 +275,12 @@ class Step:
         return g
 
 
-def _build(kind, cfg, mesh=None):
+def _build(kind, cfg, mesh=None, fsdp=False):
     step = _build_step(kind, cfg)
-    # a model axis > 1 runs its group's collectives inside the steps
-    step._graphed = step._graphed and (mesh is None or mesh.shape[1] == 1)
+    # a model axis > 1 runs its group's collectives inside the steps, and
+    # FSDP its data group's
+    step._graphed = step._graphed and not fsdp and (
+        mesh is None or mesh.shape[1] == 1)
     return step
 
 
@@ -334,13 +341,13 @@ def _build_step(kind, cfg):
     raise KeyError(kind)
 
 
-def get(kind: str, cfg=None, mesh=None):
-    """The shared wrapper for (kind, cfg, mesh): built on first request,
-    borrowed ever after."""
-    key = (kind, cfg, mesh_fingerprint(mesh))
+def get(kind: str, cfg=None, mesh=None, fsdp: bool = False):
+    """The shared wrapper for (kind, cfg, mesh, whether the weights are
+    FSDP-sharded): built on first request, borrowed ever after."""
+    key = (kind, cfg, mesh_fingerprint(mesh)) + (("fsdp",) if fsdp else ())
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _CACHE[key] = _build(kind, cfg, mesh)
+        fn = _CACHE[key] = _build(kind, cfg, mesh, fsdp)
         _STATS["misses"] += 1
     else:
         _STATS["hits"] += 1

@@ -86,10 +86,21 @@ every sequence; a speculative tick all-gathers each row's accepted
 tokens instead (the verify logits are whole on every model rank, so
 every model rank accepts the same). A self-draft refit on a model axis
 refits a row-split per-channel leaf on its gathered rows, so its scales
-are the single device's. Under a model axis > 1 the decode steps run
-eagerly: gloo's collectives cannot be captured in a CUDA graph; a
-data-only mesh replays graphs as one device does
-(serve/compile_cache.py).
+are the single device's. Where the model axis does not divide the KV
+heads, every model rank holds the whole pool (replicated, as the rule
+says) and its query heads read theirs; a dense cache the rule splits
+along the sequence holds the rank's positions (models/attention.py).
+
+Weights sharded over the data axis too (load_packed(mesh=, fsdp=True),
+dist/fsdp.py) are all-gathered over the data group layer by layer
+inside every pass, so the data ranks run their passes in lockstep: a
+rank whose shard holds no row of a pass (another shard's prefill, or a
+decode step with none of its rows ready) joins it with masked rows (the
+same prompt with no page of its own, or every row on the null page) and
+drops the result. Under a model axis > 1, and on an FSDP mesh, the
+decode steps run eagerly: gloo's collectives cannot be captured in a
+CUDA graph; a data-only mesh of replicated weights replays graphs as
+one device does (serve/compile_cache.py).
 """
 from __future__ import annotations
 
@@ -102,8 +113,11 @@ import torch
 
 from repro_torch.dist.context import (broadcast_data, gather_data,
                                       gather_model, mesh_context)
-from repro_torch.dist.sharding import cache_pspec, cuts_k, local_shape
+from repro_torch.dist.fsdp import FsdpLeaf, gather_tree, is_fsdp
+from repro_torch.dist.sharding import (cache_pspec, cut_data, cuts_k,
+                                      local_shape)
 from repro_torch.hw import resolve_device
+from repro_torch.models.attention import seq_block
 from repro_torch.models.model import (init_cache, init_paged_cache,
                                       require_decoder, shard_config)
 from repro_torch.quant.draft import make_draft_params, refit_draft_scales
@@ -136,6 +150,8 @@ def params_to(params, device):
 
 
 def _has_quantized(params) -> bool:
+    if isinstance(params, FsdpLeaf):
+        return params.quantized
     if isinstance(params, dict):
         return any(_has_quantized(v) for v in params.values())
     if isinstance(params, list):
@@ -264,9 +280,12 @@ class ServeEngine:
         self.cfg = cfg
         # the config this rank's steps run: its heads, MLP width and
         # experts of the model axis (cfg itself without a mesh)
-        self.run_cfg = shard_config(cfg, M)
+        self.run_cfg = shard_config(
+            cfg, M, dense_len=max_len if cache_kind == "dense" else 0)
         self.mesh = mesh
         self.params = params_to(params, self.device)
+        # weights sharded over the data axis: passes in lockstep
+        self.fsdp = mesh is not None and is_fsdp(self.params)
         if mesh is not None:
             self._check_local_params()
         self.B = batch_size
@@ -349,14 +368,17 @@ class ServeEngine:
             self._null_row = torch.zeros((self.rows,), dtype=torch.int32,
                                          device=self.device)
             self._bt_update = compile_cache.get("bt_update", None, mesh)
-            self._decode = compile_cache.get("decode_paged", rcfg, mesh)
+            self._decode = compile_cache.get("decode_paged", rcfg, mesh,
+                                             self.fsdp)
             self._scatter = compile_cache.get("scatter_prefill", rcfg, mesh)
-            self._extend = compile_cache.get("extend_paged", rcfg, mesh)
+            self._extend = compile_cache.get("extend_paged", rcfg, mesh,
+                                             self.fsdp)
             self._copy = compile_cache.get("copy_pages", None, mesh)
             if speculate:
-                self._draft_propose = compile_cache.get("draft_propose",
-                                                        rcfg, mesh)
-                self._verify = compile_cache.get("verify_paged", rcfg, mesh)
+                self._draft_propose = compile_cache.get(
+                    "draft_propose", rcfg, mesh, self.fsdp)
+                self._verify = compile_cache.get("verify_paged", rcfg, mesh,
+                                                 self.fsdp)
         else:
             # the dense engine has no pages to share: prefix_sharing is
             # accepted and ignored, as in the reference
@@ -366,7 +388,9 @@ class ServeEngine:
             if mesh is not None:
                 self._check_local_cache(init_cache(
                     cfg, batch_size, max_len, dtype, device="meta"))
-            self._decode = compile_cache.get("decode_dense", rcfg, mesh)
+                self._whole_wkv_b()
+            self._decode = compile_cache.get("decode_dense", rcfg, mesh,
+                                             self.fsdp)
         # spare pages (the watermark) keep a decode tick's growth from
         # starving at once; the dense engine has none
         self.sched = Scheduler(self.kv, watermark=watermark
@@ -375,7 +399,7 @@ class ServeEngine:
                                prefix=self._prefix, slab=self.slab)
         self.pos = np.zeros((batch_size,), np.int32)
         self.cur = np.zeros((batch_size,), np.int32)
-        self._prefill = compile_cache.get("prefill", rcfg, mesh)
+        self._prefill = compile_cache.get("prefill", rcfg, mesh, self.fsdp)
         # self-speculative decoding: built from the params on the
         # device, so a self-draft's codes are the target's tensors and
         # it adds only its re-fit scales (quant/draft.py)
@@ -394,10 +418,12 @@ class ServeEngine:
                         "draft is a code-plane prefix of the target) or "
                         "an explicit draft_params tree")
                 # a model rank holding some rows of a per-channel
-                # leaf refits it whole, as one device does
+                # leaf (or an FSDP block of a leaf) refits it whole, as
+                # one device does
                 draft_params = make_draft_params(
                     self.params, self.draft_bits,
-                    self._whole_row_scales() if M > 1 else None)
+                    self._whole_row_scales()
+                    if M > 1 or self.fsdp else None)
             self.draft_params = params_to(draft_params, self.device)
             self._sync()
             self.draft_build_s = time.time() - t0
@@ -424,7 +450,7 @@ class ServeEngine:
             hd = (rcfg.resolved_head_dim if m is None
                   else m.qk_nope_head_dim + m.qk_rope_head_dim)
             w, want = lp["attn"][name], rcfg.n_heads * hd
-        n = w.n_out if isinstance(w, QuantizedTensor) else w.shape[-1]
+        n = w.shape[-1]
         if n != want:
             raise ValueError(
                 f"{name} has {n} output columns; a rank of this mesh holds "
@@ -436,9 +462,11 @@ class ServeEngine:
         a self-draft must not refit on this rank's slice alone: a
         per-channel leaf whose rows the model axis splits (dist/
         sharding.py:cuts_k) is refit on every model rank's code words,
-        gathered, so its scales are the single device's. None at every
-        other leaf, whose refit on this rank's slice is a column or
-        expert slice of the whole leaf's."""
+        gathered, so its scales are the single device's; an FSDP block
+        (dist/fsdp.py) is refit on its gathered leaf and its scales cut
+        as the leaf's are. None at every other leaf, whose refit on
+        this rank's slice is a column or expert slice of the whole
+        leaf's."""
         M, bits = self.mesh.shape[1], self.draft_bits
 
         def walk(node, names):
@@ -446,23 +474,53 @@ class ServeEngine:
                 return {k: walk(v, names + (k,)) for k, v in node.items()}
             if isinstance(node, (list, tuple)):
                 return [walk(v, names + (i,)) for i, v in enumerate(node)]
-            if (not isinstance(node, QuantizedTensor) or not cuts_k(names)
-                    or node.n_groups > 1 or bits >= node.bits):
+            fsdp = isinstance(node, FsdpLeaf)
+            if fsdp and not node.quantized:
                 return None
-            codes = gather_model(node.codes, dim=-2, mesh=self.mesh)
-            alphas, betas = refit_draft_scales(QuantizedTensor(
-                codes, node.alphas, node.betas, node.k_in * M,
-                node.orig_dtype), bits)
+            qt = node.gather(self.mesh) if fsdp else node
+            if not isinstance(qt, QuantizedTensor) or bits >= qt.bits:
+                return None
+            if M > 1 and cuts_k(names) and qt.n_groups == 1:
+                qt = QuantizedTensor(
+                    gather_model(qt.codes, dim=-2, mesh=self.mesh),
+                    qt.alphas, qt.betas, qt.k_in * M, qt.orig_dtype)
+            elif not fsdp:
+                return None
+            alphas, betas = refit_draft_scales(qt, bits)
+            if fsdp:
+                alphas = cut_data(alphas, node.dims["alphas"], self.mesh)[0]
+                betas = cut_data(betas, node.dims["betas"], self.mesh)[0]
             return {"bits": bits, "alphas": alphas, "betas": betas}
         return walk(self.params, ())
+
+    def _whole_wkv_b(self) -> None:
+        """A dense MLA cache split along the sequence is expanded through
+        every head's wkv_b (models/mla.py): each MLA layer gets its whole
+        wkv_b, gathered once over the model group, as "wkv_b_all"."""
+        rcfg = self.run_cfg
+        if rcfg.mla is None or not any(
+                seq_block(rcfg, spec, self.max_len)[2]
+                for spec in rcfg.pattern if spec.kind == "attn"):
+            return
+        for lp in self.params["layers"]:
+            if "attn" not in lp:
+                continue
+            w = gather_tree(lp["attn"]["wkv_b"], self.mesh)
+            if isinstance(w, QuantizedTensor):
+                w = QuantizedTensor(*(gather_model(t, dim=d, mesh=self.mesh)
+                                      for t, d in ((w.codes, -1),
+                                                   (w.alphas, -2),
+                                                   (w.betas, -1))),
+                                    w.k_in, w.orig_dtype)
+            else:
+                w = gather_model(w, dim=-1, mesh=self.mesh)
+            lp["attn"] = {**lp["attn"], "wkv_b_all": w}
 
     def _check_local_cache(self, whole) -> None:
         """Every leaf of this rank's pool (or dense cache) has the shape
         of its block under the reference's cache rule (dist/sharding.py
-        cache_pspec) of the whole cache `whole` (meta tensors). Where the
-        rule replicates a split the steps need (kv heads the model axis
-        does not divide), it raises: replicated pools are still to do
-        (ROADMAP Queue 1 item 6)."""
+        cache_pspec) of the whole cache `whole` (meta tensors): split
+        where the rule splits, whole where it replicates."""
         for layer, mine in zip(whole, self.cache):
             for name, leaf in layer.items():
                 shape = (1,) + tuple(leaf.shape)
@@ -474,9 +532,7 @@ class ServeEngine:
                         f"cache leaf {name}: the reference's rule places "
                         f"{tuple(leaf.shape)} as {spec[1:]}, a block of "
                         f"{want}, but this rank's config gives "
-                        f"{tuple(mine[name].shape)} (a pool the rule "
-                        f"replicates is still to do, ROADMAP Queue 1 "
-                        f"item 6)")
+                        f"{tuple(mine[name].shape)}")
 
     def _mine(self, slot: int) -> bool:
         """This rank's data shard holds `slot`."""
@@ -532,6 +588,12 @@ class ServeEngine:
         return self._local_pages(
             self.kv.block_tables[slot:slot + 1, :npg]).astype(np.int32)
 
+    def _null_bt(self, n_tokens) -> np.ndarray:
+        """A block-table row of null pages (local 0) as wide as
+        _bt_slice's for n_tokens: an FSDP rank joining another shard's
+        extend pass writes nothing of its own."""
+        return np.zeros((1, self.kv.pages_for(n_tokens)), np.int32)
+
     def _extend_pass(self, tokens, start, bt, n_valid):
         """One extend pass of one sequence: (last valid logits, cache)."""
         logits, self.cache = self._extend(
@@ -550,7 +612,8 @@ class ServeEngine:
 
     def _admit(self, e):
         """Admission's device work (the prompt's prefill into the
-        slot's pages or rows) on the rank that holds the slot; every
+        slot's pages or rows) on the rank that holds the slot (on an
+        FSDP mesh every other data rank joins the pass, masked); every
         rank then takes the first token (_emit_first_token)."""
         t0 = time.time()
         if e.shared_tokens:
@@ -581,6 +644,8 @@ class ServeEngine:
             if mine:
                 logits = self._extend_pass(padded, N,
                                            self._bt_slice(e.slot, L), nv)
+            elif self.fsdp:
+                self._extend_pass(padded, N, self._null_bt(L), 0)
             self.stats["prefill_tokens"] += nv
         elif self._extend_prefill:
             # sliding-window layers: the whole prompt in one extend pass
@@ -591,6 +656,8 @@ class ServeEngine:
             if mine:
                 logits = self._extend_pass(padded, 0,
                                            self._bt_slice(e.slot, L), L)
+            elif self.fsdp:
+                self._extend_pass(padded, 0, self._null_bt(L), 0)
         elif self.cache_kind == "paged":
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
@@ -605,16 +672,22 @@ class ServeEngine:
                 ids = self._local_pages((ids + [0] * npg)[:npg]).tolist()
                 self.cache = self._scatter(self.cache, row_cache, row, ids,
                                            L)
+            elif self.fsdp:
+                self._prefill(self.params, padded[None, :],
+                              np.asarray([L - 1], np.int32), len(padded))
         else:
             padded, L = self._padded_prompt(e.prompt)
             self.stats["prefill_tokens"] += L
-            if mine:
+            if mine or self.fsdp:
                 logits, row_cache = self._prefill(
                     self.params, padded[None, :],
                     np.asarray([L - 1], np.int32), self.max_len)
+            if mine:
                 for layer, one in zip(self.cache, row_cache):
                     for name, leaf in layer.items():
                         leaf[row] = one[name][0].to(leaf.dtype)
+            else:
+                logits = None
         self._emit_first_token(e, logits, L)
         self._sync()
         self.stats["prefill_s"] += time.time() - t0
@@ -688,6 +761,8 @@ class ServeEngine:
         if self._mine(e.slot):
             logits = self._extend_pass(padded, s,
                                        self._bt_slice(e.slot, s + nv), nv)
+        elif self.fsdp:
+            self._extend_pass(padded, s, self._null_bt(s + nv), 0)
         e.prefilled = s + nv
         self.stats["prefill_tokens"] += nv
         if e.prefilled >= len(e.prompt):
@@ -723,14 +798,15 @@ class ServeEngine:
                 return
         t0 = time.time()
         # this rank's rows step; the others' tokens arrive by all-gather
+        # (on an FSDP mesh a rank with no ready row steps all rows dead)
         lo, hi = self.lo, self.lo + self.rows
         mine = [s for s in ready if lo <= s < hi]
         nxt = torch.zeros((self.rows,), dtype=torch.int64)
-        if mine:
+        if mine or self.fsdp:
             if self.cache_kind == "paged":
                 self._sync_block_tables()
                 live = np.zeros((self.rows,), np.int32)
-                live[np.asarray(mine) - lo] = 1   # the others: null page
+                live[np.asarray(mine, np.int64) - lo] = 1   # others: null
                 logits, self.cache = self._decode(
                     self.params, self.cache, self.cur[lo:hi, None],
                     self.pos[lo:hi], self._bt_dev, live, self._null_row)
@@ -738,7 +814,8 @@ class ServeEngine:
                 logits, self.cache = self._decode(
                     self.params, self.cache, self.cur[lo:hi, None],
                     self.pos[lo:hi])
-            nxt = torch.argmax(logits, dim=-1).cpu()
+            if mine:
+                nxt = torch.argmax(logits, dim=-1).cpu()
         nxt = gather_data(nxt, self.mesh).numpy()
         self._sync()
         self.stats["decode_s"] += time.time() - t0
@@ -805,7 +882,7 @@ class ServeEngine:
         lo, hi = self.lo, self.lo + self.rows
         mine = [s for s in ready if lo <= s < hi]
         bursts = torch.full((self.rows, k + 2), -1, dtype=torch.int64)
-        if mine:
+        if mine or self.fsdp:
             bursts = self._propose_verify(mine, k_eff, bursts)
         bursts = gather_data(bursts, self.mesh).numpy()
         self._sync()

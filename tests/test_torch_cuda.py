@@ -422,6 +422,48 @@ def test_paged_attention_quant_matches_plain(cuda, page, ctx, Hkv, rep, hd,
     close(got, want, bf16=dtype == torch.bfloat16)
 
 
+# a rank's KV heads of a pool the model axis replicates: Qwen3-MoE's (one
+# head of a 4-head pool, rep 8, hd 128) at the first, second and last
+# offset, then two heads of three; windowed and capped
+OFFSET_CASES = [
+    # (page, ctx, pool heads, q's heads, rep, hd, window, cap)
+    (64, [50, 80, 110, 131], 4, 1, 8, 128, None, None),
+    (16, [700, 45, 333], 4, 1, 8, 128, 301, 30.0),
+    (16, [40, 23, 9], 3, 2, 2, 64, 8, 5.0),
+]
+
+
+@pytest.mark.parametrize("page,ctx,pool,heads,rep,hd,window,cap",
+                         OFFSET_CASES)
+@pytest.mark.parametrize("where", ["first", "second", "last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernels_read_a_kv_head_offset(
+        cuda, page, ctx, pool, heads, rep, hd, window, cap, where, dtype):
+    """Both kernels with q's KV heads at kv0 of a wider pool against
+    their plain versions: fp pages in q's dtype, and 4-bit pages (G 1)
+    quantized on the card."""
+    kv0 = {"first": 0, "second": 1, "last": pool - heads}[where]
+    q, kp, vp, bt, cl = (t.to(cuda) for t in make_pages(
+        page + sum(ctx) + kv0, page, ctx, pool, rep, hd, ()))
+    q = q[:, :heads].contiguous().to(dtype)
+    kw = dict(window=window, cap=cap, kv0=kv0)
+    fp = (kp.to(dtype), vp.to(dtype))
+    want = paged_attention_ref(q.cpu(), *(t.cpu() for t in fp), bt.cpu(),
+                               cl.cpu(), **kw)
+    before = dict(tpa.LAUNCHES)
+    got = tpa.paged_attention(q, *fp, bt, cl, **kw)
+    pool_q = quant_pool(kp, vp, 4, 0)
+    want_q = paged_attention_quant_ref(q, *pool_q, bt, cl, **kw)
+    got_q = tpa.paged_attention_quant(q, *pool_q, bt, cl, **kw)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert tpa.LAUNCHES["paged_attention_quant"] \
+        == before["paged_attention_quant"] + 1
+    bf16 = dtype == torch.bfloat16
+    close(got, want, bf16)
+    close(got_q, want_q, bf16)
+
+
 def test_paged_attention_quant_refuses_what_the_kernel_does_not_take(cuda):
     q, kp, vp, bt, cl = make_pages(0, 16, [5], 1, 1, 64, ())
     pool = [t.to(cuda) for t in quant_pool(kp, vp, 3, 0)]
@@ -442,6 +484,9 @@ def test_paged_attention_refuses_unsupported_geometry(cuda):
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_attention(*(t.to(cuda) for t in (q, kp, vp)),
                             bt.long().to(cuda), cl.to(cuda))
+    with pytest.raises(ValueError, match="kv0=1"):
+        tpa.paged_attention(*(t.to(cuda) for t in (q, kp, vp, bt, cl)),
+                            kv0=1)
 
 
 # ---------------------------------------------------------------------------

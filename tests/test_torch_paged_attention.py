@@ -4,7 +4,9 @@ in interpret mode and its `paged_attention_ref` oracle, on the same
 numpy inputs: page sizes 4/16/64, ragged contexts and contexts on a
 page boundary, GQA (the tiny-lm-wide geometry), window and cap, tables
 padded with the null page 0, and an inactive row that names only the
-null page.
+null page; and a rank's KV-head offset into a pool of more heads (fp
+and binary-coded pages) against the reference's oracle on the rank's
+head slice of the pool.
 
 On the CPU the wrapper runs its plain version; the CUDA kernel is held
 against it in tests/test_torch_cuda.py. Tolerance: fp32 rtol 1e-5 and
@@ -17,9 +19,12 @@ import pytest
 import torch
 
 from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.ref import paged_attention_quant_ref as jax_quant_ref
 from repro.kernels.ref import paged_attention_ref as jax_paged_ref
+from repro.quant import kv as jkv
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels.ref import paged_attention_ref
+from repro_torch.quant import codes_from_numpy
 
 
 def make(seed, page, ctx, Hkv=2, rep=1, hd=64, inactive=(), spare=2):
@@ -102,6 +107,48 @@ def test_rejects_bad_window_and_cap():
     q, kp, vp, bt, cl = make(0, 16, [5])
     with pytest.raises(ValueError, match="window"):
         tpa.paged_attention(*_torch(q, kp, vp, bt, cl), window=0)
+
+
+# (the pool's KV heads, q's, kv0, window, cap): Qwen3-MoE's rank geometry
+# on a model axis wider than its KV heads (one head of a 4-head pool at
+# the first, a middle and the last offset), and two heads from the middle
+OFFSETS = [(4, 1, 0, None, None), (4, 1, 1, 12, None), (4, 1, 3, None, 30.0),
+           (4, 2, 1, 20, 5.0)]
+
+
+@pytest.mark.parametrize("pool,heads,kv0,window,cap", OFFSETS)
+def test_kv_head_offset_reads_the_rank_s_heads(pool, heads, kv0, window, cap):
+    """q's KV head h reads the pool's kv0 + h: the plain versions equal
+    the reference's oracles on the pool's head slice, over fp pages and
+    4-bit pages (G 1)."""
+    q, kp, vp, bt, cl = make(kv0 + 7 * pool, 8, [20, 9, 33], pool, 8, 32)
+    q = np.ascontiguousarray(q[:, :heads])
+    mine = slice(kv0, kv0 + heads)
+    want = jax_paged_ref(*(jnp.asarray(a) for a in (
+        q, kp[:, :, mine], vp[:, :, mine], bt, cl)), window=window, cap=cap)
+    got = tpa.paged_attention(*_torch(q, kp, vp, bt, cl), window=window,
+                              cap=cap, kv0=kv0)
+    close(got.numpy(), np.asarray(want))
+    codes, alphas, betas = (np.asarray(a) for a in jkv.kv_quantize(
+        jnp.asarray(np.stack([kp, vp])), 4, 0))
+    pool_q = [codes[0], alphas[0], betas[0], codes[1], alphas[1], betas[1]]
+    want = jax_quant_ref(*(jnp.asarray(a) for a in (
+        q, *(t[:, :, mine] for t in pool_q), bt, cl)), window=window,
+        cap=cap)
+    got = tpa.paged_attention_quant(
+        torch.from_numpy(q), *(codes_from_numpy(t) if t.dtype == np.uint32
+                               else torch.from_numpy(t.copy())
+                               for t in pool_q),
+        *_torch(bt, cl), window=window, cap=cap, kv0=kv0)
+    close(got.numpy(), np.asarray(want))
+
+
+def test_rejects_a_kv_head_offset_past_the_pool():
+    q, kp, vp, bt, cl = make(0, 16, [5], Hkv=4)
+    with pytest.raises(ValueError, match="kv0=3"):
+        tpa.paged_attention(*_torch(q[:, :2], kp, vp, bt, cl), kv0=3)
+    with pytest.raises(ValueError, match="kv0=-1"):
+        tpa.paged_attention(*_torch(q[:, :1], kp, vp, bt, cl), kv0=-1)
 
 
 def kernel_partitions(rank, clusters, ctx_raw, window, capacity):

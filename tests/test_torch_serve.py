@@ -437,7 +437,7 @@ def test_later_slices_raise(kw, slice_name):
     cfg, params = _model("w3_pc")
     kw = {"cache_kind": "paged", **kw}
     if kw.get("mesh") == "host":
-        kw["mesh"] = make_host_mesh()
+        kw["mesh"] = make_host_mesh("cpu")
     if slice_name == "quantized-KV":
         with pytest.raises(ValueError, match="kv_bits requires cache_kind"):
             ServeEngine(cfg, params, device="cpu", **kw)
@@ -518,8 +518,15 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert worst_e <= cs.TOL_FP32 and n_exact == 3 * 2 * 2
     quant = cs.summarize_paged_quant(gen, Hkv=2, rep=16, hd=64)
     assert quant["library_full_ms"] > 0 and "G=1," in quant["shape"]
+    # a rank's KV head of a replicated pool (phase 12's (1, 8) geometry)
+    assert max(cs.check_paged_rank(0, hd=32).values()) <= cs.TOL_FP32
+    rank = [cs.summarize_paged(gen, Hkv=1, rep=8, hd=64, pool_heads=4,
+                               kv0=2),
+            cs.summarize_paged_quant(gen, Hkv=1, rep=8, hd=64,
+                                     pool_heads=4, kv0=3)]
+    assert all("of a 4-head pool" in r["shape"] for r in rank)
     for row in (cs.summarize_expert(gen, E=2, K=128, N=64), quant,
-                cs.summarize_paged(gen, Hkv=2, rep=16, hd=64)):
+                cs.summarize_paged(gen, Hkv=2, rep=16, hd=64), *rank):
         assert row["bound_ms"] > 0 and row["max_abs_err"] <= 1e-5
     cs.phase_fixture()
     counts, row, _ = cs.phase_main_path(0, cs.synthetic_llama(0, "tiny-lm"),

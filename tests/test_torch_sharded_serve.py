@@ -7,16 +7,25 @@ and StateSlabPool, state for state after every operation: the
 reference's per-shard cases, then seeded random sequences.
 
 Engine part: spawned gloo ranks (dist/context.py:spawn, one torch thread
-a rank) serve on meshes (2, 1), (1, 2) and (2, 2), each rank loading its
-slice with load_packed(mesh=) (held leaf for leaf to shard_params of
-the whole tree): tiny-lm w3 per-channel and g64 bf16, tiny-lm with 4-bit
-KV pages, tiny-moe (experts on the model axis), shared-prefix waves with
-chunked prefill, and on the data axis the zoo's Mamba, hybrid and MLA
-smoke artifacts. Greedy tokens must equal the reference's single-device
-paged engine's (the committed fixture), logits within 1e-4 x
-max|logit| of the reference's, every shard's pages drained and each
-rank's page ids inside its block. Then the refusals, and chip_smoke's
-phase 12 rehearsed."""
+a rank) serve on meshes (2, 1), (1, 2), (2, 2) and (1, 4), each rank
+loading its slice with load_packed(mesh=) (held leaf for leaf to
+shard_params of the whole tree): tiny-lm w3 per-channel and g64 bf16,
+tiny-lm with 4-bit KV pages, tiny-moe (experts on the model axis),
+shared-prefix waves with chunked prefill, and on the data axis the zoo's
+Mamba, hybrid and MLA smoke artifacts; FSDP-sharded tiny-lm w3
+(load_packed(fsdp=True)) on (2, 1) and (2, 2), plainly and
+speculatively, and tiny-moe, the zoo's quantized MLA and hybrid
+artifacts, MLA's dense latents and a one-KV-head smoke Qwen3-MoE
+(replicated pool, sequence-split dense k/v) FSDP-sharded too; the
+smoke Qwen3-MoE (4 heads, 2 KV heads) on (1, 4) with
+pools replicated over the model axis, fp and 4-bit, with prefix sharing
+and chunked prefill; dense caches split along the sequence (minicpm3-4b's
+latents, qwen3-4b's k/v) on (1, 2) and (1, 4). Greedy tokens must equal
+the reference's single-device engine's (the committed fixture, or the
+reference's engine run here), logits within 1e-4 x max|logit| of the
+reference's (or of the port's single-device engine), every shard's
+pages drained and each rank's page ids inside its block. Then the
+refusals, and chip_smoke's phase 12 rehearsed."""
 import atexit
 import shutil
 import sys
@@ -379,9 +388,12 @@ PREFIX_RUN = "w3_pc/share_chunk5"
 ZOO_DATA_AXIS = ("mamba_fp", "mamba-mix_quant", "mla_fp")
 ZOO_MODEL_AXIS = ("mla_fp", "mla_quant", "mamba_fp", "mamba-mix_fp",
                   "mamba-mix_quant")
+FSDP_FAMILIES = ("w3_moe", "zoo/mla_quant", "zoo/mamba-mix_quant")
 
 
 def _cases(mesh_shape):
+    if mesh_shape == (1, 4):
+        return {**rep_cases(), **dense_cases()}
     art, kv = REF["artifacts"], REF["kv_bits"]
     cases = {name: {"artifact": name, "kv_bits": 0, "page_size": 16,
                     "prompts": art[name]["prompts"],
@@ -401,11 +413,7 @@ def _cases(mesh_shape):
     # every family serves on the data axis; MLA and Mamba on a model
     # axis too
     for name in (ZOO_DATA_AXIS if mesh_shape[1] == 1 else ZOO_MODEL_AXIS):
-        ent = ZOO["artifacts"][name]
-        cases[f"zoo/{name}"] = {"artifact": f"zoo/{name}", "kv_bits": 0,
-                                "page_size": ZOO["page_size"],
-                                "prompts": ent["prompts"],
-                                "max_new": ZOO["max_new"]}
+        cases[f"zoo/{name}"] = _zoo_case(name)
     # self-speculation, k=2 with a w2 draft: refit at boot (greedy), or
     # the v4 draft block of a copy of w3_pc saved with one (typical)
     for rule, art, draft in (("greedy", "w3_pc", None),
@@ -416,7 +424,113 @@ def _cases(mesh_shape):
                                      "prompts"],
                                  "max_new": REF["max_new"], "speculate": 2,
                                  "accept_rule": rule, "draft": draft}
+    if mesh_shape[0] == 2:
+        # weights sharded over the data axis too: plainly, and speculating
+        # with a refit and with the draft block cut as the leaves' scales
+        base = {**cases["w3_pc"], "fsdp": True}
+        cases["fsdp"] = base
+        cases["fsdp_spec"] = {**base, "speculate": 2,
+                              "accept_rule": "greedy"}
+        cases["fsdp_spec_block"] = {**cases["fsdp_spec"],
+                                    "artifact": str(draft_artifact()),
+                                    "draft": "block"}
+        # and every family: tiny-moe's experts, the zoo's quantized MLA
+        # and hybrid (Mamba, attention, MoE) artifacts; MLA's dense
+        # latent cache split along the sequence on (2, 2)
+        for name in FSDP_FAMILIES:
+            case = cases.get(name) or _zoo_case(name[4:])
+            cases[f"fsdp/{name}"] = {**case, "fsdp": True}
+        if mesh_shape[1] == 2:
+            cases["fsdp/dense/mla"] = {**dense_cases()["dense/mla"],
+                                       "fsdp": True}
+            # one KV head, which the model axis does not divide: the
+            # paged pool replicated, the dense k/v split along the
+            # sequence
+            _, cfg1, _, fp1 = rep_model(n_kv_heads=1)
+            mqa = {"cfg": cfg1, "params": fp1, "kv_bits": 0,
+                   "page_size": 8, "prompts": _prompts(14, cfg1.vocab_size),
+                   "max_new": 6, "fsdp": True, "ref_model": (None, 1)}
+            cases["fsdp/rep/mqa"] = mqa
+            cases["fsdp/dense/mqa"] = {**mqa, "cache_kind": "dense"}
+    if mesh_shape == (1, 2):
+        cases.update(dense_cases())
     return cases
+
+
+def _zoo_case(name):
+    ent = ZOO["artifacts"][name]
+    return {"artifact": f"zoo/{name}", "kv_bits": 0,
+            "page_size": ZOO["page_size"], "prompts": ent["prompts"],
+            "max_new": ZOO["max_new"]}
+
+
+def _prompts(seed, vocab, lens=(5, 12, 19)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32).tolist()
+            for n in lens]
+
+
+def rep_model(head_dim=None, n_kv_heads=None):
+    """(jcfg, cfg, reference params, port params) of the smoke Qwen3-MoE
+    (4 heads, 2 KV heads), at `head_dim` (4-bit pages need 32) and
+    `n_kv_heads` (1: one KV head, which no model axis divides)."""
+    from torch_zoo import zoo
+    st = zoo("qwen3-moe-235b-a22b")
+    kw = {k: v for k, v in (("head_dim", head_dim),
+                            ("n_kv_heads", n_kv_heads)) if v is not None}
+    if not kw:
+        return st["jcfg"], st["cfg"], st["jfp"], st["fp"]
+    key = ("rep_model", head_dim, n_kv_heads)
+    if key not in _ONE:
+        import jax
+        from repro.models import init_params as jax_init_params
+        from repro_torch.ckpt import params_from_tree
+        from torch_zoo import KEY
+        jcfg = st["jcfg"].replace(**kw)
+        jp = jax_init_params(jcfg, KEY)
+        _ONE[key] = (jcfg, st["cfg"].replace(**kw), jp,
+                     params_from_tree(jax.tree.map(np.asarray, jp),
+                                      device="cpu"))
+    return _ONE[key]
+
+
+def rep_cases():
+    """The smoke Qwen3-MoE, whose 2 KV heads a 4-way model axis does not
+    divide: fp and 4-bit pages, and shared-prefix waves through 5-token
+    chunks."""
+    _, cfg, _, fp = rep_model()
+    _, cfg32, _, fp32 = rep_model(32)
+    prompts = _prompts(11, cfg.vocab_size)
+    base = {"cfg": cfg, "params": fp, "kv_bits": 0, "page_size": 8,
+            "prompts": prompts, "max_new": 6}
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab_size, 16).tolist()
+    tail = lambda n: rng.integers(0, cfg.vocab_size, n).tolist()
+    waves = [[prefix + tail(3), prefix + tail(5)],
+             [prefix + tail(4), prefix + tail(2)]]
+    return {"rep/fp": base,
+            "rep/kv4": {**base, "cfg": cfg32, "params": fp32, "kv_bits": 4,
+                        "ref_model": (32, None)},
+            "rep/prefix": {**base, "prefix_sharing": True,
+                           "prefill_chunk": 5, "waves": waves}}
+
+
+def dense_cases():
+    """Dense caches: minicpm3-4b's latents (the zoo's MLA artifact, split
+    along the sequence on any model axis) and qwen3-4b's k/v (split along
+    the sequence where the axis does not divide its 2 KV heads)."""
+    from torch_zoo import zoo
+    st = zoo("qwen3-4b")
+    ent = ZOO["artifacts"]["mla_fp"]
+    return {"dense/mla": {"artifact": "zoo/mla_fp", "cache_kind": "dense",
+                          "kv_bits": 0, "page_size": ZOO["page_size"],
+                          "prompts": ent["prompts"],
+                          "max_new": ZOO["max_new"]},
+            "dense/qwen3-4b": {"cfg": st["cfg"], "params": st["fp"],
+                               "cache_kind": "dense", "kv_bits": 0,
+                               "page_size": 8,
+                               "prompts": _prompts(13, st["cfg"].vocab_size),
+                               "max_new": 6}}
 
 
 _ONE: dict = {}
@@ -507,6 +621,80 @@ def reference_typical(case) -> dict:
                      "spec_counts": (int(eng.stats["draft_tokens"]),
                                      int(eng.stats["accepted_tokens"]))}
     return _ONE[key]
+
+
+def reference_tokens(name, case):
+    """The reference's single-device engine on a new case (its params
+    are the reference's own init, the port's copy of which the ranks
+    cut): greedy tokens (of every wave); the zoo's committed dense run
+    for its MLA artifact. Once a case."""
+    if name == "dense/mla":
+        return ZOO["artifacts"]["mla_fp"]["dense"]
+    key = ("reference", name)
+    if key not in _ONE:
+        from repro.serve import Request as JaxRequest
+        from repro.serve import ServeEngine as JaxServeEngine
+        from torch_zoo import zoo
+        if "ref_model" in case or name.startswith("rep/"):
+            jcfg, _, jp, _ = rep_model(*case.get("ref_model", ()))
+        else:
+            st = zoo("qwen3-4b")
+            jcfg, jp = st["jcfg"], st["jfp"]
+        eng = JaxServeEngine(
+            jcfg, jp, batch_size=2, max_len=64, dtype="float32",
+            cache_kind=case.get("cache_kind", "paged"),
+            page_size=case["page_size"], kv_bits=case["kv_bits"],
+            prefix_sharing=case.get("prefix_sharing", False),
+            prefill_chunk=case.get("prefill_chunk"))
+        out = []
+        for wave in case.get("waves") or [case["prompts"]]:
+            reqs = [JaxRequest(prompt=np.asarray(p, np.int32),
+                               max_new_tokens=case["max_new"])
+                    for p in wave]
+            eng.run(reqs)
+            out.append([list(map(int, r.out)) for r in reqs])
+        _ONE[key] = out if case.get("waves") else out[0]
+    return _ONE[key]
+
+
+def port_single(name, case) -> dict:
+    """The port's single-device engine on a new case: tokens and every
+    logits row a token was taken from; once a case."""
+    key = ("port", name)
+    if key not in _ONE:
+        from repro_torch.serve import Request
+        from torch_mesh import _config, record_logits
+        if "params" in case:
+            cfg, params = case["cfg"], case["params"]
+        else:
+            params, _, meta = load_packed(FIXTURE / case["artifact"],
+                                          device="cpu")
+            cfg = _config(case["artifact"], params, meta)
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          dtype="float32",
+                          cache_kind=case.get("cache_kind", "paged"),
+                          page_size=case["page_size"],
+                          kv_bits=case["kv_bits"], prefix_sharing=False,
+                          device="cpu")
+        reqs = [Request(prompt=np.asarray(p, np.int32),
+                        max_new_tokens=case["max_new"])
+                for p in case["prompts"]]
+        log = record_logits(eng, reqs)
+        eng.run(reqs)
+        _ONE[key] = {"tokens": [r.out for r in reqs],
+                     "logits": {(i, t): row.numpy()
+                                for i, t, row, ctx in log if not ctx}}
+    return _ONE[key]
+
+
+def _logits_close(got, want_rows) -> int:
+    """Every logits row of a rank within TOL x max|logit| of the single
+    device's; -> the rows compared."""
+    for i, t, row in got["logits"]:
+        ref = want_rows[(i, t)]
+        np.testing.assert_allclose(row, ref, rtol=0,
+                                   atol=TOL * np.abs(ref).max())
+    return len(got["logits"])
 
 
 _RUNS: dict = {}
@@ -665,11 +853,155 @@ def test_mesh_collectives_and_pool_blocks(mesh_shape):
         assert set(got["pool_pages"]) == {-(-n_pages // D)}
 
 
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
+@pytest.mark.parametrize("case", ["fsdp", "fsdp_spec", "fsdp_spec_block"])
+def test_fsdp_mesh_serves_the_reference_tokens_and_logits(mesh_shape, case):
+    """The reference's acceptance path (tests/test_sharded_serve.py:
+    load_packed(mesh=, fsdp=True), then sharded serving) on the port:
+    every rank holds its data-axis block of each leaf the rule cuts (as
+    shard_params(fsdp=True) cuts it), about 1/D of its slice's bytes;
+    the layers gather their weights over the data group; plain and
+    speculative greedy (a refit on the gathered rows, or the v4 block
+    cut as the leaves' scales) give the reference's tokens, plain
+    logits within 1e-4 x max|logit| of the reference's."""
+    want = REF["artifacts"]["w3_pc"]
+    D, M = mesh_shape
+    counts, rows = set(), 0
+    for r in mesh_run(mesh_shape):
+        got = r[case]
+        assert got["tokens"] == want["tokens"], (mesh_shape, case)
+        assert got["same_as_shard_params"]
+        assert got["drained"] and got["pages_in_own_block"]
+        assert got["collectives"].get("all_gather_data", 0) > 0
+        # the norms replicate; every matrix is cut in D
+        assert got["param_bytes"] < 0.55 * got["slice_bytes"]
+        if case == "fsdp":
+            for i, t, row in got["logits"]:
+                ref = np.asarray(want["prefill_logits"][i] if t == 0
+                                 else want["decode_logits"][i][t - 1])
+                np.testing.assert_allclose(row, ref, rtol=0,
+                                           atol=TOL * np.abs(ref).max())
+                rows += 1
+        else:
+            assert got["draft_scales_err"] <= 1e-5
+            counts.add(tuple(got["spec_counts"]))
+    if case == "fsdp":
+        assert rows == sum(len(t) for t in want["tokens"]) * M
+    else:
+        assert len(counts) == 1 and counts.pop()[0] > 0
+
+
+@pytest.mark.parametrize("mesh_shape,case", [
+    (shape, f"fsdp/{n}") for shape in ((2, 1), (2, 2))
+    for n in FSDP_FAMILIES] + [((2, 2), f"fsdp/{n}") for n in (
+        "dense/mla", "rep/mqa", "dense/mqa")])
+def test_fsdp_serves_every_family(mesh_shape, case):
+    """FSDP beyond tiny-lm: tiny-moe (its expert stacks' codes cut on
+    their packed K), minicpm3's MLA (the latent expansion wkv_b made
+    whole after the gather), jamba's hybrid pattern (Mamba's in_proj by
+    halves and its channel leaves, attention, MoE) and, on (2, 2), the
+    caches the model axis does not split by heads: MLA's dense latents
+    and one KV head's dense k/v split along the sequence, and one KV
+    head's paged pool replicated (the smoke Qwen3-MoE with n_kv_heads
+    1). Every rank holds its data-axis block of each leaf the rule
+    cuts; the reference's tokens, logits within 1e-4 x max|logit| of
+    the reference's (tiny-moe) or of the port's single device."""
+    M = mesh_shape[1]
+    name = case[5:]
+    spec = _cases(mesh_shape)[case]
+    if "params" in spec or name == "dense/mla":
+        want = reference_tokens(name, spec)
+        one = port_single(name, spec)["logits"]
+    elif name == "w3_moe":
+        ref = REF["artifacts"][name]
+        want = ref["tokens"]
+        one = {(i, t): np.asarray(ref["prefill_logits"][i] if t == 0
+                                  else ref["decode_logits"][i][t - 1])
+               for i, toks in enumerate(want) for t in range(len(toks))}
+    else:
+        want = _want(name)["tokens"]
+        one = single_device(spec)["logits"]
+    rows = 0
+    for r in mesh_run(mesh_shape):
+        got = r[case]
+        assert got["tokens"] == want, (mesh_shape, case)
+        assert got["same_as_shard_params"] and got["drained"]
+        assert got["collectives"].get("all_gather_data", 0) > 0
+        # the matrices are cut in D; the norms, routers and expand
+        # leaves' scales (a large share of these tiny models) are whole
+        assert got["param_bytes"] < 0.75 * got["slice_bytes"]
+        if name == "rep/mqa":          # every rank's pool: the one head
+            assert all(c["k_pages"][2] == 1 for c in got["cache_shapes"])
+        if name.startswith("dense/"):  # the rank's block of positions
+            assert {c["c_kv"][1] if "c_kv" in c else c["k"][2]
+                    for c in got["cache_shapes"]} == {64 // M}
+        rows += _logits_close(got, one)
+    assert rows == sum(len(t) for t in want) * M
+
+
+@pytest.mark.parametrize("case", ["rep/fp", "rep/kv4", "rep/prefix"])
+def test_replicated_pools_serve_the_reference_tokens(case):
+    """The smoke Qwen3-MoE on (1, 4): a rank's one query head lies in one
+    of the 2 KV heads' groups, so it keeps wk, wv and the pool whole (the
+    rule replicates a pool the axis does not divide) and reads its
+    group's head, fp or binary-coded, through decode, extend (prefix
+    hits, 5-token chunks) and prefill: the reference's tokens, logits
+    within 1e-4 x max|logit| of the port's single device."""
+    spec = _cases((1, 4))[case]
+    want = reference_tokens(case, spec)
+    one = None if spec.get("waves") else port_single(case, spec)
+    if one is not None:
+        assert one["tokens"] == want
+    pool = "k_codes" if spec["kv_bits"] else "k_pages"
+    rows = 0
+    for r in mesh_run((1, 4)):
+        got = r[case]
+        assert got["tokens"] == want, case
+        assert got["drained"] and got["pages_in_own_block"]
+        assert got["same_as_shard_params"]
+        assert all(c[pool][2] == 2 for c in got["cache_shapes"])
+        if one is not None:
+            rows += _logits_close(got, one["logits"])
+        else:
+            assert got["prefix_hits"] > 0
+    if one is not None:
+        assert rows == sum(len(t) for t in want) * 4
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (1, 4)])
+@pytest.mark.parametrize("case", ["dense/mla", "dense/qwen3-4b"])
+def test_dense_caches_split_the_sequence(mesh_shape, case):
+    """Dense caches on a model axis: MLA's latents, and qwen3-4b's k/v
+    where the axis does not divide its 2 KV heads (on (1, 4)), hold the
+    rank's 64 / M positions; decode gathers every head's query, attends
+    over the rank's positions and merges the heads' partial softmax
+    states over the model group. The reference's dense tokens, logits
+    within 1e-4 x max|logit| of the port's single device."""
+    spec = _cases(mesh_shape)[case]
+    want = reference_tokens(case, spec)
+    one = port_single(case, spec)
+    assert one["tokens"] == want
+    M = mesh_shape[1]
+    split = case == "dense/mla" or M == 4
+    rows = 0
+    for r in mesh_run(mesh_shape):
+        got = r[case]
+        assert got["tokens"] == want, (mesh_shape, case)
+        assert got["drained"] and got["same_as_shard_params"]
+        lens = {c["c_kv"][1] if "c_kv" in c else c["k"][2]
+                for c in got["cache_shapes"]}
+        assert lens == {64 // M if split else 64}
+        rows += _logits_close(got, one["logits"])
+        if split:
+            assert got["collectives"].get("all_gather", 0) > 0
+    assert rows == sum(len(t) for t in want) * M
+
+
 def test_refusals():
-    """Odd batches, fsdp=True, unsliced params, speculation on an MLA or
-    Mamba pattern (as on one device), a d_inner or n_kv_heads the model
-    axis does not divide, and mixed devices raise, naming what
-    remains."""
+    """Odd batches, query heads that straddle two GQA groups, unsliced
+    params, speculation on an MLA or Mamba pattern (as on one device), a
+    d_inner the model axis does not divide, and mixed devices raise,
+    naming what remains."""
     two = ServeMesh(2, 1, ["cpu", "cpu"], rank=0)
     tp2 = ServeMesh(1, 2, ["cpu", "cpu"], rank=0)
     params, _, _ = load_packed(FIXTURE / "w3_pc", device="cpu")
@@ -682,8 +1014,11 @@ def test_refusals():
                            match="attention-only.*MLA drafts"):
             ServeEngine(smoke_config(arch), {}, cache_kind="paged",
                         speculate=2, mesh=tp2)
-    with pytest.raises(NotImplementedError, match="fsdp.*item 6"):
-        load_packed(FIXTURE / "w3_pc", mesh=two, fsdp=True)
+    with pytest.raises(ValueError,
+                       match="3 of n_heads=6.*straddle.*n_kv_heads=3"):
+        # tiny-lm-wide: 6 query heads over 3 KV heads, 3 a rank of 2
+        ServeEngine(get_config("tiny-lm-wide"), {}, cache_kind="paged",
+                    mesh=tp2)
     with pytest.raises(ValueError, match="bound mesh"):
         load_packed(FIXTURE / "w3_pc", mesh=make_serve_mesh(1, 2, "cpu,cpu"))
     with pytest.raises(ValueError, match="output columns"):
@@ -691,9 +1026,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="does not divide d_inner=128"):
         ServeEngine(smoke_config("falcon-mamba-7b"), {}, cache_kind="paged",
                     mesh=ServeMesh(1, 3, ["cpu"] * 3, rank=0))
-    with pytest.raises(ValueError, match="n_kv_heads=2"):
-        ServeEngine(smoke_config("qwen3-4b"), {}, cache_kind="paged",
-                    mesh=ServeMesh(1, 4, ["cpu"] * 4, rank=0))
+    with pytest.raises(ValueError, match="3 of n_heads=6.*n_kv_heads=3"):
+        ServeEngine(get_config("tiny-lm-wide"), {}, cache_kind="dense",
+                    mesh=tp2)
     with pytest.raises(ValueError, match="CPU ranks or CUDA ranks"):
         ServeMesh(1, 2, ["cpu", "cuda:0"])
 
@@ -722,10 +1057,13 @@ def test_a_failing_rank_fails_the_call():
 
 def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
     """chip_smoke's phase 12 end to end on the CPU at tiny size (tiny-lm
-    on its three meshes and speculatively on (2, 1) and (1, 2), tiny-moe
-    on (1, 2), the smoke configs of minicpm3-4b, falcon-mamba-7b and
-    jamba on (1, 2)): every check but the kernel launches (none on the
-    CPU) holds."""
+    on its three meshes, speculatively on (2, 1) and (1, 2), and
+    FSDP-sharded on (2, 1), plainly and speculatively; tiny-moe on (1,
+    2), the smoke configs of minicpm3-4b, falcon-mamba-7b and jamba on
+    (1, 2); the smoke Qwen3-MoE at head_dim 32 on (1, 4), its pools
+    replicated, fp and 4-bit; minicpm3-4b's smoke config through the
+    dense engine on (1, 2)): every check but the kernel launches (none
+    on the CPU) holds."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -739,17 +1077,50 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
                         lambda ok, what: ok or unmet.append(what))
     lines = []
     monkeypatch.setattr(cs, "emit", lines.append)
+    # tiny-lm's per-channel scales of its expand leaves, which stay
+    # whole, weigh ~9 % of its 2 MB (llama2-7b's: ~0.3 %)
+    monkeypatch.setattr(cs, "FSDP_MIN_CUT_SHARE", 0.9)
     zoo = [smoke_config(a).replace(dtype="float32")
            for a, _ in cs.MESH_ZOO]
+    rep = (smoke_config("qwen3-moe-235b-a22b").replace(dtype="float32",
+                                                       head_dim=32), (1, 4))
     counts = cs.phase_mesh(0, cs.synthetic_llama(0, "tiny-lm"), None,
                            max_new=4, moe_arch="tiny-moe", moe_layers=2,
-                           zoo=zoo)
+                           zoo=zoo, rep=rep, dense=zoo[:1])
     assert counts["bcq_plain"] == 0
     paths = [ln for ln in lines if ln["check"] == "mesh_path"]
     assert [p["path"] for p in paths] == [
         "llama_1x2", "llama_2x1", "llama_2x2", "llama_spec_2x1",
-        "llama_spec_1x2", "moe_1x2", "minicpm3_1x2", "falcon_1x2",
-        "jamba_1x2"]
+        "llama_spec_1x2", "llama_fsdp_spec_2x1", "llama_fsdp_2x1",
+        "moe_1x2", "minicpm3_1x2", "falcon_1x2", "jamba_1x2",
+        "moe_rep_1x4", "moe_rep_kv4_1x4", "minicpm3_dense_1x2"]
+    # the two-rank meshes side by side, the larger ones alone; the 4-bit
+    # replicated pool's whole run held to the single device forced onto
+    # rank 0's writes
+    spawn_line = next(ln for ln in lines if ln["check"] == "mesh_path_spawn")
+    assert [len(st) for st in spawn_line["stages"]] == [11, 1, 1, 1]
+    forced = [ln for ln in lines if ln["check"] == "mesh_path_forced_pool"]
+    assert len(forced) == 1 and forced[0]["final_pool_equal"]
+    assert forced[0]["writes"] == forced[0]["writes_forced"] > 0
+    assert forced[0]["max_dx_rel"] <= cs.TOL_LOGITS
+    assert 0 < forced[0]["logit_rows_compared"]
+    assert forced[0]["max_dlogit_rel"] <= cs.TOL_LOGITS
+    for p in paths:
+        fsdp = p["path"].startswith("llama_fsdp")
+        assert all(r["fsdp"] == fsdp for r in p["ranks"])
+        assert p["max_dlogit_rel_gated"] <= cs.TOL_LOGITS
+        if fsdp:
+            for r in p["ranks"]:
+                one = r["single_device_weight_bytes"]
+                cut = r["single_device_fsdp_cut_bytes"]
+                assert 2 * r["param_bytes"] == 2 * one - cut
+                assert r["replicated_weight_bytes"] == one
+                g = r["fsdp_gathers"]
+                assert g["layer_gather_ms"] > 0
+                if p["speculation"] is None:
+                    assert g["activation_side_ms"] > 0
+                    assert g["tables_gathered_ms"] > 0
+                    assert g["designs_max_dlogit_rel"] <= cs.TOL_LOGITS
     for p in paths:
         assert p["tokens_equal"] and p["max_dlogit_rel"] <= cs.TOL_LOGITS
         assert p["backend"] == "gloo"
@@ -759,9 +1130,10 @@ def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
             assert r["logit_rows_compared"] > 0
         assert all((r["all_reduce_ms"] is not None)
                    == (p["mesh"]["model"] > 1) for r in p["ranks"])
-        spec_path = p["path"].startswith("llama_spec")
+        spec_path = "_spec" in p["path"]
         assert (p["speculation"] is not None) == spec_path
         if spec_path:
             assert p["speculation"]["draft_tokens"] > 0
     # no kernel launches on the CPU: the launch-count and shape checks
-    assert unmet and all("launch" in u for u in unmet), unmet
+    assert unmet and all("launch" in u for u in unmet), [
+        u for u in unmet if "launch" not in u]

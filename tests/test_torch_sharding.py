@@ -511,3 +511,152 @@ def _qts(tree):
     if isinstance(tree, list):
         return [q for v in tree for q in _qts(v)]
     return [tree] if isinstance(tree, QuantizedTensor) else []
+
+
+# ---------------------------------------------------------------------------
+# FSDP: a rank's data-axis block of every leaf
+# ---------------------------------------------------------------------------
+
+def _leaf_fields(leaf):
+    """{field: tensor} of a plain, quantized or FSDP leaf."""
+    if hasattr(leaf, "fields"):
+        return dict(leaf.fields)
+    if isinstance(leaf, QuantizedTensor):
+        return {f: getattr(leaf, f) for f in ("codes", "alphas", "betas")}
+    return {"w": leaf}
+
+
+def _per_layer(tree, names=()):
+    """(reference-style names, leaf) of a per-layer tree, layer i of the
+    pattern slot "L{i % P}" (P = 1 for tiny-lm)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _per_layer(tree[k], names + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _per_layer(v, ("blocks", f"L{i}"))
+    else:
+        yield names, tree
+
+
+def _data_block(t, spec, D, d):
+    """Data rank d's block of `t` along the dim the symbolic `spec` puts
+    the data axis on (counted from the end); `t` where it puts none."""
+    dims = [i - len(spec) for i, a in enumerate(spec)
+            if a == "data" or (isinstance(a, tuple) and "data" in a)]
+    if not dims:
+        return t
+    n = t.shape[dims[0]] // D
+    return t.narrow(t.dim() + dims[0], d * n, n)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+@pytest.mark.parametrize("name", ["w3_pc", "fp", "zoo/moe_quant",
+                                  "zoo/mla_quant", "zoo/mamba-mix_quant",
+                                  "zoo/mamba_fp"])
+def test_fsdp_blocks_equal_the_reference_specs(shape, name):
+    """shard_params(fsdp=True) and load_packed(mesh=, fsdp=True): every
+    rank's block of every leaf (fp, and a w3 artifact's codes, alphas
+    and betas) is the block the reference's spec with fsdp=True gives on
+    the mesh (named_pspec, its guard included), the data axis kept; a
+    leaf the data axis cuts is an FSDP block of 1/D of the rank's slice,
+    the others plain. The zoo's smoke MoE (mixtral), MLA (minicpm3),
+    Mamba (falcon-mamba) and hybrid (jamba: Mamba, attention, MoE)
+    configs, whose model-axis cut the port makes its own way on some
+    leaves (experts by E, MLA's latent projections whole, Mamba's
+    in_proj by halves and its channel leaves by rows): the FSDP block
+    is the rank's fsdp=False block cut along the dim where the
+    reference's load_packed(mesh=, fsdp=True) puts the data axis (the
+    manifest's spec, named_pspec at the symbolic mesh, re-guarded by
+    guard_pspec: an expert stack's codes on their packed K, its scales
+    whole)."""
+    from repro_torch.ckpt.packed import load_packed
+    from repro_torch.dist.context import ServeMesh
+    from repro_torch.dist.fsdp import FsdpLeaf
+    from torch_mesh import _config
+    fixture = Path(__file__).resolve().parent / "data" / "torch_port"
+    zoo = name.startswith("zoo/")
+    if name == "fp":
+        cfg = REGISTRY["tiny-lm"].replace(dtype="float32", n_layers=2)
+        whole = init_params(cfg, seed=0, dtype="float32", device="cpu")
+    else:
+        whole, _, meta = load_packed(fixture / name, device="cpu")
+        cfg = _config(name, whole, meta)
+    jcfg = JAX_REGISTRY["tiny-lm"]
+    D, M = shape
+    fake, n, cut = FakeMesh(shape), 0, 0
+    for r in range(D * M):
+        mesh = ServeMesh(D, M, ["cpu"] * (D * M), rank=r)
+        coords = dict(zip(("data", "model"), mesh.coords))
+        mine = dict(_per_layer(sharding.shard_params(cfg, whole, mesh,
+                                                     fsdp=True)))
+        plain = dict(_per_layer(sharding.shard_params(cfg, whole, mesh)))
+        if name != "fp":
+            loaded, _, _ = load_packed(fixture / name, mesh=mesh, fsdp=True)
+            loaded = dict(_per_layer(loaded))
+        for names, leaf in _per_layer(whole):
+            got = _leaf_fields(mine[names])
+            stacked = names[0] == "blocks"
+            for f, t in _leaf_fields(leaf).items():
+                path = list(names) + ([f".{f}"] if f != "w" else [])
+                full = t[None] if stacked else t
+                if zoo:
+                    spec = tuple(jax_sharding.guard_pspec(
+                        full.shape, jax_sharding.named_pspec(
+                            jcfg, path, full, jax_sharding.symbolic_mesh(),
+                            fsdp=True), fake))
+                    want = _data_block(_leaf_fields(plain[names])[f], spec,
+                                       D, coords["data"])
+                else:
+                    spec = tuple(jax_sharding.named_pspec(
+                        jcfg, path, full, fake, fsdp=True))
+                    want = full[sharding.local_slices(full.shape, spec,
+                                                      fake, coords)]
+                    want = want[0] if stacked else want
+                assert torch.equal(got[f], want), (names, f, shape)
+                n += 1
+            if isinstance(mine[names], FsdpLeaf):
+                cut += 1
+                assert any(d is not None for d in mine[names].dims.values())
+            if name != "fp":
+                for f, t in _leaf_fields(loaded[names]).items():
+                    assert torch.equal(t, got[f]), (names, f)
+    assert n > 0 and cut > 0
+
+
+@pytest.mark.parametrize("name", ["w3_pc", "w3_g64_bf16"])
+def test_fsdp_draft_block_is_cut_as_the_leaves_scales(name, tmp_path):
+    """load_draft_scales(mesh=, fsdp=True) gives each rank the draft
+    scales shard_params(fsdp=True) makes of the whole draft tree, on (2,
+    1) and (2, 2): an FSDP draft leaf shares its target's code block."""
+    from repro_torch.ckpt.packed import (load_draft_scales, load_packed,
+                                         save_packed)
+    from repro_torch.dist.context import ServeMesh
+    from repro_torch.quant.draft import make_draft_params
+    fixture = Path(__file__).resolve().parent / "data" / "torch_port"
+    params, spec, meta = load_packed(fixture / name, device="cpu")
+    cfg = REGISTRY[meta["arch"]].replace(dtype="float32",
+                                         n_layers=len(params["layers"]))
+    d = save_packed(tmp_path / name, params, cfg=cfg, spec=spec, meta=meta,
+                    draft_bits=2)
+    whole = make_draft_params(params, 2, load_draft_scales(d, device="cpu"))
+    n = 0
+    for D, M in ((2, 1), (2, 2)):
+        for r in range(D * M):
+            mesh = ServeMesh(D, M, ["cpu"] * (D * M), rank=r)
+            mine, _, _ = load_packed(d, mesh=mesh, fsdp=True)
+            got = dict(_per_layer(make_draft_params(
+                mine, 2, load_draft_scales(d, mesh=mesh, fsdp=True))))
+            want = dict(_per_layer(sharding.shard_params(cfg, whole, mesh,
+                                                         fsdp=True)))
+            blocks = dict(_per_layer(mine))
+            for key, a in got.items():
+                fa, fb = _leaf_fields(a), _leaf_fields(want[key])
+                if "alphas" not in fa:
+                    continue
+                assert fa["alphas"].shape[-1] == 2
+                for f in ("alphas", "betas"):
+                    assert torch.equal(fa[f], fb[f]), (key, f)
+                assert fa["codes"] is _leaf_fields(blocks[key])["codes"]
+                n += 1
+    assert n > 0

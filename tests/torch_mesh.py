@@ -32,7 +32,10 @@ def _config(name, params, meta):
 
 def _same(a, b) -> bool:
     """Two param trees equal leaf for leaf (QuantizedTensors by field and
-    k_in), every leaf of `b` contiguous."""
+    k_in, FSDP blocks by field and cut), every leaf of `b` contiguous."""
+    if hasattr(a, "fields"):
+        return (type(a) is type(b) and a.dims == b.dims
+                and a.k_in == b.k_in and _same(a.fields, b.fields))
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
     if isinstance(a, list):
@@ -47,15 +50,18 @@ def _same(a, b) -> bool:
 
 def scales_err(a, b) -> float:
     """The largest |a - b| / max|b| over the scales (alphas, betas) of two
-    param trees' QuantizedTensors (0 for a tree without any)."""
+    param trees' QuantizedTensors (or FSDP blocks of them; 0 for a tree
+    without any)."""
     if isinstance(a, dict):
         return max((scales_err(a[k], b[k]) for k in a), default=0.0)
     if isinstance(a, list):
         return max(map(scales_err, a, b), default=0.0)
-    if not hasattr(a, "codes"):
+    get = ((lambda t, f: t.fields[f]) if getattr(a, "quantized", False)
+           else getattr if hasattr(a, "codes") else None)
+    if get is None:
         return 0.0
-    return max(float((getattr(a, f) - getattr(b, f)).abs().max()
-                     / getattr(b, f).abs().max().clamp_min(1e-30))
+    return max(float((get(a, f) - get(b, f)).abs().max()
+                     / get(b, f).abs().max().clamp_min(1e-30))
                for f in ("alphas", "betas"))
 
 
@@ -76,28 +82,40 @@ _SMOKE: list = []
 
 
 def serve_case(mesh, case: dict) -> dict:
-    """Serve one fixture case on this rank: its slice loaded by
-    load_packed(mesh=) (and held to shard_params of the whole tree), the
-    requests through the paged engine (speculatively with a w2 self-draft
-    when the case says so: refit at boot, or its artifact's v4 draft
-    block loaded with load_draft_scales(mesh=)), their logits rows
-    recorded. -> tokens, the logits rows this rank computed, the
-    speculation counts, and the allocator's checks."""
+    """Serve one case on this rank: its slice loaded by load_packed(mesh=,
+    fsdp=) from a fixture artifact (and held to shard_params of the whole
+    tree), or cut by shard_params from the case's own whole params; the
+    requests through the paged engine (or the dense one, `cache_kind`),
+    speculatively with a w2 self-draft when the case says so (refit at
+    boot, or its artifact's v4 draft block loaded with
+    load_draft_scales(mesh=, fsdp=)), their logits rows recorded. ->
+    tokens, the logits rows this rank computed, the speculation counts,
+    the allocator's checks and the resident weight bytes."""
     from repro_torch.ckpt.packed import load_draft_scales, load_packed
     from repro_torch.dist.sharding import shard_params
     from repro_torch.quant.draft import make_draft_params
+    from repro_torch.quant.qlinear import tree_tensors
     from repro_torch.serve import Request, ServeEngine
-    art = FIXTURE / case["artifact"]
-    params, _, meta = load_packed(art, mesh=mesh)
-    cfg = _config(case["artifact"], params, meta)
-    whole, _, _ = load_packed(art, device="cpu")
-    same_as_shard_params = _same(shard_params(cfg, whole, mesh), params)
+    fsdp = case.get("fsdp", False)
+    if "params" in case:
+        cfg, whole, art = case["cfg"], case["params"], None
+        params = shard_params(cfg, whole, mesh, fsdp=fsdp)
+        same_as_shard_params = True
+    else:
+        art = FIXTURE / case["artifact"]
+        params, _, meta = load_packed(art, mesh=mesh, fsdp=fsdp)
+        cfg = _config(case["artifact"], params, meta)
+        whole, _, _ = load_packed(art, device="cpu")
+        same_as_shard_params = _same(shard_params(cfg, whole, mesh, fsdp),
+                                     params)
     draft = None
     if case.get("draft") == "block":
-        draft = make_draft_params(params, 2,
-                                  load_draft_scales(art, mesh=mesh))
+        draft = make_draft_params(params, 2, load_draft_scales(
+            art, mesh=mesh, fsdp=fsdp))
+    paged = case.get("cache_kind", "paged") == "paged"
     eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
-                      dtype="float32", cache_kind="paged",
+                      dtype="float32", cache_kind=case.get("cache_kind",
+                                                           "paged"),
                       page_size=case["page_size"], kv_bits=case["kv_bits"],
                       prefix_sharing=case.get("prefix_sharing", False),
                       prefill_chunk=case.get("prefill_chunk"),
@@ -113,7 +131,7 @@ def serve_case(mesh, case: dict) -> dict:
         from repro_torch.ckpt.packed import load_draft_scales as whole_block
         want = shard_params(cfg, make_draft_params(
             whole, 2, whole_block(art, device="cpu") if draft else None),
-            mesh)
+            mesh, fsdp)
         draft_err = scales_err(eng.draft_params, want)
     kv, d = eng.kv, mesh.coords[0]
     # the step that reads the block tables: decode, or speculation's verify
@@ -126,7 +144,8 @@ def serve_case(mesh, case: dict) -> dict:
                                            == d)).all())
         in_block[0] &= int(eng._bt_dev.max()) < kv.pages_per_shard
         return step(*args)
-    setattr(eng, attr, checked)
+    if paged:
+        setattr(eng, attr, checked)
     tokens, log = [], []
     for wave in case.get("waves") or [case["prompts"]]:
         reqs = [Request(prompt=np.asarray(p, np.int32),
@@ -138,6 +157,8 @@ def serve_case(mesh, case: dict) -> dict:
     hits = eng.stats.get("prefix_hits", 0)
     if eng._prefix is not None:
         eng._prefix.clear()
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree_tensors(tree))
     return {"tokens": tokens if case.get("waves") else tokens[0],
             "prefix_hits": hits,
             # the rows whose context is the emitted tokens (a verify
@@ -152,6 +173,8 @@ def serve_case(mesh, case: dict) -> dict:
             "n_shards": kv.n_shards, "rows": eng.rows,
             "pool_pages": [leaf.shape[0] for layer in eng.cache
                            for leaf in layer.values()],
+            "cache_shapes": [{k: tuple(v.shape) for k, v in layer.items()}
+                             for layer in eng.cache],
             "state_shapes": [tuple(leaf.shape) for layer in eng.cache
                              for leaf in layer.values() if leaf.dim() == 3],
             "slabs_drained": (eng.slab is None
@@ -162,6 +185,10 @@ def serve_case(mesh, case: dict) -> dict:
             "spec_counts": (eng.stats["draft_tokens"],
                             eng.stats["accepted_tokens"],
                             eng.stats["ticks"]),
+            # resident weight bytes: this rank's, and its slice's without
+            # the data-axis cut
+            "param_bytes": nbytes(eng.params),
+            "slice_bytes": nbytes(shard_params(cfg, whole, mesh)),
             "collectives": dict(mesh.counts)}
 
 
