@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA
 GPU, from the root of a checkout:
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--seed 0]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--seed 0]
 
 It builds the port's CUDA kernels from `src/repro_torch/csrc/` and runs
-twelve phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11:
-phases 8 and 12 run on phase 3's model before it is freed, and 7, 5, 9
-and 10 each free their own); any failure is a non-zero exit.
+thirteen phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11,
+13: phases 8 and 12 run on phase 3's model before it is freed, and 7,
+5, 9, 10 and 13 each free their own); any failure is a non-zero exit.
 
   1. kernels: each kernel against its plain PyTorch version on the same
      card at the main-path shapes (BCQ GEMV every M in 1..8 and the
@@ -76,7 +76,7 @@ and 10 each free their own); any failure is a non-zero exit.
      engine, launches and page accounting; times TTFT per wave and the
      extend path's share of prefill.
   7. quantize, save, load and serve at full width: seeded fp32
-     llama2-7b (init_params), cut to 8 of 32 layers, calibrated on 24
+     llama2-7b (init_params), cut to 2 of 32 layers, calibrated on 24
      slices of 192 tokens of the port's wiki corpus and quantized by
      quantize_model (GPTQT w3 per-channel, actorder), saved by
      save_packed, loaded by load_packed and served (phase 3's requests)
@@ -108,10 +108,10 @@ and 10 each free their own); any failure is a non-zero exit.
      (one tick of A, propose and verify, beside phase 3's decode step).
   9. the model zoo at full width: seeded synthetic w3 per-channel packs
      (phase 3's requests, fp32 KV, 64-token pages) of minicpm3-4b (MLA
-     on latent pages, 62 layers), falcon-mamba-7b (Mamba with state
-     slabs, 64 layers), gemma2-27b (sandwich norms, caps 50 and 30,
-     alternating window 4096 prefilled through the extend path, 46
-     layers) and jamba-1.5-large-398b (one super-block, 8 of 72 layers:
+     on latent pages, 32 of 62 layers), falcon-mamba-7b (Mamba with
+     state slabs, 32 of 64 layers), gemma2-27b (sandwich norms, caps 50
+     and 30, alternating window 4096 prefilled through the extend path,
+     24 of 46 layers) and jamba-1.5-large-398b (one super-block, 8 of 72 layers:
      7 Mamba, 1 attention, 4 MoE layers of 16 experts), each through the
      paged engine with a `zoo_path` and a `decode_profile` line;
      minicpm3 and falcon-mamba also through the dense engine, whose
@@ -119,10 +119,10 @@ and 10 each free their own); any failure is a non-zero exit.
      Every request finishes, pages and slabs drain, no BCQ call takes
      the plain path, and paged attention launches once a decode tick
      in every attention layer (none under MLA).
- 10. training and perplexity at full width: (a) llama2-7b cut to 4 of
+ 10. training and perplexity at full width: (a) llama2-7b cut to 2 of
      32 layers, fp32, remat full, AdamW (lr 1e-3), wiki batches of 4 x
      512 in 2 microbatches: run A trains 4 steps; run B trains 2, saves
-     a checkpoint (12.86 GB, in a temporary directory the phase
+     a checkpoint (8.0 GB, in a temporary directory the phase
      deletes), and a new Trainer resumes it to 4, landing within 1e-5
      x max|p| of A (`train_path`: ms, tokens/s and model-FLOP share a
      step, peak memory, checkpoint bytes, save and restore seconds);
@@ -144,27 +144,31 @@ and 10 each free their own); any failure is a non-zero exit.
  11. the dry run (launch/dryrun.py) on the meta device: the 32 (arch x
      shape) cells of the ten pool architectures at bf16, then the 22
      inference cells w3 packed, DRYRUN_JOBS at once in worker
-     processes (the longest traces handed out first), a `dryrun` line each (bytes of params, cache and train
-     state, peak of live storages against the card's 80 GB, the three
-     roofline terms and the bound); a cell that fails fails the run.
-     Nothing runs on the card.
+     processes (the longest traces handed out first), a `dryrun` line
+     each (bytes of params, cache and train state, peak of live storages
+     against the card's 80 GB, the three roofline terms and the bound);
+     a cell that fails fails the run. Nothing runs on the card: the
+     cells trace in the background at the least priority from the end
+     of the build on, beside phases 1-8 (BackgroundDryRun), and phase 11
+     waits for them (`dryrun_background` line).
  12. meshes of ranks on the one card (torch.distributed over gloo, the
-     ranks sharing cuda:0, dist/context.py): phase 3's model cut to 8 of
-     its 32 layers, saved by save_packed with a w2 draft block and
-     served (phase 3's prompts, 16 new tokens each) on (data, model)
+     ranks sharing cuda:0, dist/context.py): phase 3's model (32 layers
+     on the data axis, cut to 4 on a model axis and under FSDP), saved
+     by save_packed with a w2 draft block and served (phase 3's
+     prompts, 32 new tokens each; 16 and 8 under FSDP) on (data, model)
      meshes (1, 2), (2, 1) and (2, 2), each rank loading its slice with
      load_packed(mesh=); speculatively (k=4, the draft block cut by
      load_draft_scales(mesh=)) on (2, 1) and (1, 2); FSDP-sharded
      (load_packed(mesh=, fsdp=True): every weight leaf's data-axis block
      a rank, gathered layer by layer) on (2, 1), plainly and
      speculatively (8 new tokens); then Qwen3-MoE cut to 4 of 94 layers
-     with its experts on a (1, 2) model axis, and minicpm3-4b (MLA, 16
-     of 62 layers), falcon-mamba-7b (16 of 64) and jamba-1.5-large (8 of
+     with its experts on a (1, 2) model axis, and minicpm3-4b (MLA, 8
+     of 62 layers), falcon-mamba-7b (8 of 64) and jamba-1.5-large (8 of
      72) on (1, 2), each rank cutting the seeded model with
      shard_params; Qwen3-MoE cut to 2 layers on (1, 8), whose 4 KV heads
      the axis does not divide (wk, wv and the fp or 4-bit pool whole on
      every rank, each rank's 8 query heads reading one KV head), built
-     and cut once and each rank's slice saved; minicpm3-4b (16 layers)
+     and cut once and each rank's slice saved; minicpm3-4b (8 layers)
      through the dense engine on (1, 2), its latent cache split along
      the sequence. One spawn of eight ranks serves the meshes in turn.
      Every mesh must give the single-device engine's greedy tokens (up
@@ -182,6 +186,26 @@ and 10 each free their own); any failure is a non-zero exit.
      device-busy ms, collectives a step, one all-reduce's ms (timed
      alone), one layer's FSDP gather ms, parameter and pool bytes; with
      speculation the acceptance and ticks.
+ 13. training over meshes of ranks on the one card (gloo, the ranks
+     sharing cuda:0): llama2-7b at full width cut to 2 of its 32 layers,
+     fp32, remat full, TF32 off, wiki batches of 4 x 256, 3 steps, on
+     (2, 1) with FSDP and (1, 2) side by side, then (2, 2) with FSDP, 2
+     microbatches and int8 accumulation (make_train_step(mesh=), each
+     rank holding its blocks of the params and AdamW by the reference's
+     rules). Each mesh is held to the single device's run of the same
+     options: losses and gradient norms within TOL_TRAIN_MESH relative,
+     each leaf of AdamW's mu within TOL_TRAIN_MESH x max|mu|, each
+     params leaf within TOL_TRAIN_MESH of its norm (its largest entry
+     error printed beside the one-device noise floor, 2 microbatches
+     against 1); a rank holds exactly the rule's blocks' bytes and peaks
+     below one device. (2, 2) saves its state whole at step 2 and a
+     single-device Trainer resumes it to step 3, held alike. A
+     `train_mesh_path` line a mesh: per rank the wall ms of each step
+     and the device-busy ms of the last (traced), the collectives of a
+     step by kind and direction, one layer's gather and reduce-scatter
+     ms (or an activation's all-reduce), the bytes held beside the whole
+     state's and the specs', one gathered layer's bytes, peak memory,
+     save and restore seconds.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
 propose pass and verify come from serve/compile_cache.py: on the card
@@ -202,10 +226,10 @@ path.
 
 Phases 2-5, 7, 8, 9 and 12 serve without a prefix index
 (prefix_sharing=False), as they did before it existed. Each path
-(phases 3-10 and 12; in phase 8 each engine's run, in phase 10 each
-packed evaluation, in phase 12 each rank's run, its counts summed over
-the ranks) is driven with every launch count set to 0 just before it
-and read just after. Phase 12's steps run eagerly on a model axis > 1
+(phases 3-10, 12 and 13; in phase 8 each engine's run, in phase 10
+each packed evaluation, in phases 12 and 13 each rank's run, its counts
+summed over the ranks) is driven with every launch count set to 0 just
+before it and read just after. Phase 12's steps run eagerly on a model axis > 1
 and under FSDP (gloo's collectives cannot be captured in a CUDA
 graph); the data-only (2, 1) mesh of replicated weights replays graphs
 as one device does.
@@ -2178,10 +2202,11 @@ def phase_prefix(seed: int, model, kv_bits: int = 4, max_new: int = 32):
 # phase 7: quantize full-width llama2-7b, save, load and serve the artifact
 # ---------------------------------------------------------------------------
 
-# the llama2-7b depth quantized in phase 7: for time, not memory (8
-# layers hold ~7.1 GB of Hessians and 6.5 GB of fp32 weights; the column
-# sweep runs ~35.6 k sequential columns a layer)
-QUANT_LAYERS = 8
+# the llama2-7b depth quantized in phase 7: for time, not memory (2
+# layers hold ~1.8 GB of Hessians and 1.6 GB of fp32 weights; the column
+# sweep runs ~35.6 k sequential columns a layer, ~9-10 s on the card; 8
+# layers until phase 13 needed the room)
+QUANT_LAYERS = 2
 # calibration (benchmarks/common.py): 24 slices of 192 tokens of the
 # wiki train split, slice seed 1, batches of 4
 CALIB_SLICES, CALIB_LEN, CALIB_BATCH = 24, 192, 4
@@ -3101,9 +3126,10 @@ def phase_speculative(seed: int, model, baseline=None, max_new=32,
 # a model axis ((1, 2), (2, 2), speculative (1, 2)) and the FSDP meshes
 # serve its first MESH_CUT_LAYERS layers, for time (their steps run
 # eagerly: ~4 ms an all-reduce on the model axis, and an FSDP pass
-# gathers every layer's codes through host memory)
+# gathers every layer's codes through host memory; 8 layers until
+# phase 13 needed the room)
 MESHES = ((1, 2), (2, 1), (2, 2))
-MESH_CUT_LAYERS = 8
+MESH_CUT_LAYERS = 4
 # weights sharded over the data axis too (load_packed(fsdp=True)), plain
 # (FSDP_MAX_NEW tokens) and speculative (FSDP_SPEC_MAX_NEW), for time:
 # ~1 s a pass on one card
@@ -3123,7 +3149,7 @@ REP_LAYERS = 2
 # H100; forced_pool_check holds the run itself)
 NEAR_TIE_WORDS = 64
 # dense caches split along the sequence: minicpm3-4b's latents on (1, 2)
-DENSE_ZOO = (("minicpm3-4b", 16),)
+DENSE_ZOO = (("minicpm3-4b", 8),)
 MOE_MESH = (1, 2)
 # Qwen3-MoE's depth in phase 12: for time (the ranks each build the
 # whole synthetic model before keeping their experts)
@@ -3131,10 +3157,11 @@ MESH_MOE_LAYERS = 4
 # MLA and Mamba on a model axis: (arch, layers) at full width on
 # ZOO_MESH, each rank building the seeded model (synthetic_zoo) and
 # cutting it with shard_params. minicpm3-4b and falcon-mamba-7b are cut
-# to 16 layers for time (eager steps on a model axis pay ~4 ms an
-# all-reduce, two a Mamba layer); jamba-1.5-large to one super-block of
-# 8, as in phase 9 (its 72 layers' w3 codes exceed the card)
-MESH_ZOO = (("minicpm3-4b", 16), ("falcon-mamba-7b", 16),
+# to 8 layers for time (eager steps on a model axis pay ~4 ms an
+# all-reduce, two a Mamba layer; 16 until phase 13 needed the room);
+# jamba-1.5-large to one super-block of 8, as in phase 9 (its 72
+# layers' w3 codes exceed the card)
+MESH_ZOO = (("minicpm3-4b", 8), ("falcon-mamba-7b", 8),
             ("jamba-1.5-large-398b", 8))
 ZOO_MESH = (1, 2)
 # speculation under a mesh: phase 3's model (cut on the model axis)
@@ -4096,10 +4123,13 @@ def phase_mesh(seed: int, model, want_outs=None, max_new: int = 32,
 # ---------------------------------------------------------------------------
 
 # (arch, layers served or None for full depth, also through the dense
-# engine): jamba-1.5-large's 72 layers hold ~149 GB of w3 codes, more
-# than the card's 80 GB; one super-block of 8 holds ~16.5 GB
-ZOO_MODELS = (("minicpm3-4b", None, True), ("falcon-mamba-7b", None, True),
-              ("gemma2-27b", None, False), ("jamba-1.5-large-398b", 8, False))
+# engine): minicpm3-4b, falcon-mamba-7b and gemma2-27b at about half
+# their depth (62, 64, 46 until phase 13 needed the room; 24 keeps
+# gemma2's alternating window pairs whole), for time;
+# jamba-1.5-large's 72 layers hold ~149 GB of w3 codes, more than the
+# card's 80 GB; one super-block of 8 holds ~16.5 GB
+ZOO_MODELS = (("minicpm3-4b", 32, True), ("falcon-mamba-7b", 32, True),
+              ("gemma2-27b", 24, False), ("jamba-1.5-large-398b", 8, False))
 
 
 def _mla_weights(cfg, gen):
@@ -4386,9 +4416,9 @@ def phase_zoo(seed: int, models=None, max_new: int = 32):
 # ---------------------------------------------------------------------------
 
 # (a) llama2-7b at full width cut to TRAIN_LAYERS of 32 layers (for the
-# checkpoint's bytes and time: 4 layers hold 12.86 GB of params and
-# AdamW moments), fp32, remat "full"
-TRAIN_LAYERS = 4
+# checkpoint's bytes and time: 2 layers hold 8.0 GB of params and AdamW
+# moments), fp32, remat "full"
+TRAIN_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SPLIT = 4, 2, 2
 TOL_RESUME = 1e-5      # run B vs run A, of max|p| (atomics in the backward)
@@ -4477,8 +4507,8 @@ def train_path(seed, arch, n_layers, batch, seq, steps=TRAIN_STEPS,
 
     def trainer(name, n_steps, data, write=True):
         """A Trainer checkpointing into root/name; with write=False its
-        end-of-run save is skipped (no run reads it: 20 s of I/O at
-        llama2-7b's 4 layers)."""
+        end-of-run save is skipped (no run reads it: 12-20 s of I/O at
+        llama2-7b's 2-4 layers)."""
         tr = Trainer(cfg, TrainerConfig(
             steps=n_steps, ckpt_every=10 ** 9, ckpt_dir=str(root / name),
             keep_n=1, log_every=10 ** 9, microbatches=TRAIN_MICRO,
@@ -4834,20 +4864,59 @@ def phase_train_eval(seed, arch="llama2-7b", n_layers=TRAIN_LAYERS,
 DRYRUN_JOBS = 8
 
 
-def phase_dryrun(jobs=DRYRUN_JOBS):
+def _dryrun_tasks() -> list:
+    from repro_torch.launch import dryrun
+    return [(arch, shape, {"quant_bits": bits, "probe": False,
+                           "save": False})
+            for bits in (None, 3) for arch, shape in dryrun.cells(bits)]
+
+
+class BackgroundDryRun:
+    """Phase 11's cells traced while the card's phases run: a thread of
+    its own lowers its priority to the least (os.nice acts on the calling
+    thread on Linux) before its pool spawns the workers, which inherit
+    it, so the phases driving the card keep the cores they use; nothing
+    here touches the card. result() waits for the cells."""
+
+    def __init__(self, jobs=DRYRUN_JOBS):
+        import threading
+        self.out = self.error = self.seconds = None
+        self.t0 = time.time()
+        self.thread = threading.Thread(target=self._run, args=(jobs,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, jobs):
+        import os
+        try:
+            os.nice(19)
+            from repro_torch.launch import dryrun
+            self.out = dryrun.run_cells(_dryrun_tasks(), jobs)
+        except Exception as e:          # raised again by result()
+            self.error = e
+        self.seconds = time.time() - self.t0
+
+    def result(self) -> list:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
+def phase_dryrun(jobs=DRYRUN_JOBS, pending=None):
     """launch/dryrun.py's cells on the meta device, sized against the
     card: the 32 (arch x shape) cells at bf16 and the 22 inference cells
-    w3 packed, `jobs` at once, the longest traces handed out first; a
+    w3 packed, `jobs` at once, the longest traces handed out first (or
+    the cells of `pending`, a BackgroundDryRun, once it ends); a
     `dryrun` line each, and a failing cell fails the phase. The costs
     are the full-depth trace's own count, without the 2/3-group probes
     (`python -m repro_torch.launch.dryrun --all` extrapolates them from
     the probes, to the same numbers)."""
     from repro_torch.launch import dryrun
-    tasks = [(arch, shape, {"quant_bits": bits, "probe": False,
-                            "save": False})
-             for bits in (None, 3) for arch, shape in dryrun.cells(bits)]
+    results = (pending.result() if pending is not None
+               else dryrun.run_cells(_dryrun_tasks(), jobs))
     rows = []
-    for r in dryrun.run_cells(tasks, jobs):
+    for r in results:
         row = {"check": "dryrun", "arch": r["arch"], "shape": r["shape"],
                "quant_bits": r["quant_bits"], "ok": r["ok"]}
         if r["ok"]:
@@ -4878,9 +4947,524 @@ def phase_dryrun(jobs=DRYRUN_JOBS):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training over meshes of ranks on the one card
+# ---------------------------------------------------------------------------
+
+# llama2-7b at full width cut to TRAIN_MESH_LAYERS of its 32 layers (for
+# time: each pass gathers a layer's 809.6 MB of fp32 blocks through host
+# memory over gloo, and the whole state is checkpointed), fp32, remat
+# full, TF32 off, wiki batches of 4 x 256, 3 steps
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 4, 256, 3
+TRAIN_MESH_WARMUP, TRAIN_MESH_SAVE_AT = 2, 2
+# (mesh shape, first rank, stage, options): (2, 1) and (1, 2) side by
+# side on ranks 0-1 and 2-3, then (2, 2); the (2, 2) run saves its state
+# at step TRAIN_MESH_SAVE_AT for a single-device Trainer to resume
+TRAIN_MESHES = (
+    ((2, 1), 0, 0, {"fsdp": True}),
+    ((1, 2), 2, 0, {"fsdp": False}),
+    ((2, 2), 0, 1, {"fsdp": True, "microbatches": 2, "grad_compress": "int8",
+                    "save_at": TRAIN_MESH_SAVE_AT}))
+# against the single device's run: losses and the global gradient norm
+# of each step relative; each leaf of AdamW's first moment (a running
+# mean of the gradient) within TOL x max|mu|; each params leaf in
+# norm, ||p - p1|| <= TOL x ||p1|| (p the weight, or 1 + w for a
+# zero-centred norm scale w: what rmsnorm applies). A leaf's largest
+# entry error is printed beside it: Adam moves every entry ~lr a step,
+# whatever its gradient, so an entry whose gradient the reduction order
+# changes in its leading digits (a sum that cancels) moves otherwise by
+# a share of lr (the one-device noise floor line shows the same between
+# 1 and 2 microbatches)
+TOL_TRAIN_MESH = 1e-5
+TRAIN_MESH_TIMEOUT_S = 900
+
+
+def _train_mesh_cfg(arch, n_layers):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(dtype="float32", n_layers=n_layers,
+                                    remat="full")
+
+
+def _train_mesh_opt():
+    from repro_torch.train import AdamWConfig
+    return AdamWConfig(lr=1e-3, master_fp32=False)
+
+
+def _applied(key, w):
+    """What the forward applies of the leaf `w` at `key`: the weight, or
+    1 + w for a zero-centred norm scale (rmsnorm); mu as it is."""
+    from repro_torch.dist.sharding import REPLICATED_LEAVES
+    norm = (key.startswith("['params']")
+            and key.split("'")[-2] in REPLICATED_LEAVES)
+    return (1.0 + w if norm else w).float()
+
+
+def leaf_scales(state: dict) -> dict:
+    """{leaf: max|p|} of a whole state ({keystr: tensor}, p _applied; on
+    the card)."""
+    return {k: float(_applied(k, w.to(DEV)).abs().max())
+            for k, w in state.items()}
+
+
+def block_stats(got: dict, want: dict, scales: dict) -> dict:
+    """Per leaf of two blocks of a state ({keystr: tensor}): max|got -
+    want|, sum (got - want)^2, sum p^2 (p _applied) and the entries
+    beyond TOL_TRAIN_MESH x the whole leaf's max|p| (`scales`); on the
+    card."""
+    out = {}
+    for key, w in want.items():
+        w = w.to(DEV)
+        d = got[key].to(DEV).float() - w.float()
+        p = _applied(key, w)
+        out[key] = {"max": float(d.abs().max()),
+                    "d2": float(d.double().square().sum()),
+                    "p2": float(p.double().square().sum()),
+                    "over": int((d.abs() > TOL_TRAIN_MESH
+                                 * scales[key]).sum())}
+    return out
+
+
+def leaf_errors(stats: list, scales: dict) -> dict:
+    """block_stats of every rank (a leaf a group replicates counted on
+    each, in d and p alike) -> the worst leaf of each measure: params
+    max|d| / max|p| ("params_max") and ||d|| / ||p|| ("params_norm"),
+    mu max|d| / max|mu| ("mu_max"), each with its leaf, and the params
+    entries over TOL_TRAIN_MESH x max|p| in all."""
+    keys = stats[0].keys()
+    per = {k: {"max": max(s[k]["max"] for s in stats)
+               / max(scales[k], 1e-30),
+               "norm": math.sqrt(sum(s[k]["d2"] for s in stats)
+                                 / max(sum(s[k]["p2"] for s in stats),
+                                       1e-60)),
+               "over": sum(s[k]["over"] for s in stats)} for k in keys}
+    out = {}
+    for part, measures in (("params", ("max", "norm")), ("mu", ("max",))):
+        rows = {k: v for k, v in per.items()
+                if k.startswith("['params']") == (part == "params")}
+        for m in measures:
+            key = max(rows, key=lambda k: rows[k][m])
+            out[f"{part}_{m}"] = rows[key][m]
+            out[f"{part}_{m}_leaf"] = key
+    out["params_entries_over_tol_x_max"] = sum(
+        v["over"] for k, v in per.items() if k.startswith("['params']"))
+    return out
+
+
+def _whole_errors(got: dict, want: dict) -> dict:
+    """leaf_errors of two whole states."""
+    scales = leaf_scales(want)
+    return leaf_errors([block_stats(got, want, scales)], scales)
+
+
+def _state_of(params, opt) -> dict:
+    """{keystr: tensor} of the params and AdamW's mu."""
+    from repro_torch.tree import keystr, leaves_with_paths
+    return {keystr(p): a for p, a in
+            leaves_with_paths({"params": params, "opt": {"mu": opt["mu"]}})}
+
+
+def _single_train(cfg, batches, mb, comp):
+    """The single device's run of `batches`: -> (losses, gradient norms,
+    ms a step, peak GB, its params and mu on the host)."""
+    import torch
+    from repro_torch.ckpt import stack_params
+    from repro_torch.models import init_params
+    from repro_torch.train import init_train_state, make_train_step
+    opt_cfg = _train_mesh_opt()
+    params = stack_params(cfg, init_params(cfg, seed=0, device=DEV))
+    opt = init_train_state(cfg, params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, microbatches=mb, grad_compress=comp,
+                           warmup=TRAIN_MESH_WARMUP,
+                           total_steps=len(batches))
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
+    state = {k: a.cpu() for k, a in _state_of(params, opt).items()}
+    del params, opt
+    _free()
+    return losses, norms, ms, peak, state
+
+
+def _spec_local_bytes(cfg, mesh, fsdp) -> int:
+    """The bytes of params, mu and nu (fp32) and the step a rank holds
+    under the rule's specs at the mesh (named_pspec, guarded;
+    local_shape), counted apart from the port's cut."""
+    from repro_torch.ckpt import stack_params
+    from repro_torch.dist.sharding import local_shape, named_pspec
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves_with_paths
+    meta = stack_params(cfg, init_params(cfg, device="meta"))
+    n = sum(math.prod(local_shape(a.shape, named_pspec(cfg, p, a, mesh,
+                                                       fsdp=fsdp), mesh))
+            for p, a in leaves_with_paths(meta))
+    return 3 * 4 * n + 4                # and AdamW's int32 step
+
+
+def _train_mesh_rank(mesh, spec):
+    """One rank of a phase-13 mesh: the seeded whole init cut to its
+    blocks (TrainLayout), `spec["batches"]` through make_train_step(mesh=)
+    with every step timed (the last traced), the (2, 2) state saved at
+    its step, the whole params and mu gathered and (rank 0) held to the
+    single device's, then one layer's gather and its reduce-scatter (or,
+    on a model axis, an activation's all-reduce) timed alone. -> the
+    rank's row."""
+    global DEV
+    DEV = spec["dev"]
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.ckpt import CheckpointManager, stack_params
+    from repro_torch.dist.context import (gather_fsdp, mesh_any,
+                                          mesh_context, reduce_model)
+    from repro_torch.dist.sharding import TrainLayout
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params
+    from repro_torch.roofline.op_profile import (kernel_time_by_name,
+                                                 traced_kernels)
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import keystr, leaves, leaves_with_paths
+    cfg = _train_mesh_cfg(spec["arch"], spec["n_layers"])
+    opt_cfg = _train_mesh_opt()
+    fsdp = spec["fsdp"]
+    cuda = DEV == "cuda"
+    D, M = mesh.shape
+    with mesh_context(mesh):
+        t0 = time.time()
+        layout = TrainLayout(cfg, mesh, fsdp)
+        whole = stack_params(cfg, init_params(cfg, seed=0,
+                                              device=mesh.device))
+        params, _ = layout.shard(whole, {})
+        del whole
+        _free()
+        opt = init_train_state(cfg, params, opt_cfg)
+        step = make_train_step(
+            cfg, opt_cfg, microbatches=spec.get("microbatches", 1),
+            grad_compress=spec.get("grad_compress", "none"),
+            warmup=TRAIN_MESH_WARMUP, total_steps=len(spec["batches"]),
+            mesh=mesh, fsdp=fsdp)
+        sync()
+        init_s = time.time() - t0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, norms, walls, collectives = [], [], [], []
+        busy, save_s = None, None
+        last = len(spec["batches"]) - 1
+        for i, b in enumerate(spec["batches"]):
+            mesh.counts.clear()
+            sync()
+            t = time.perf_counter()
+            if i == last and cuda:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    params, opt, m = step(params, opt, b)
+                    sync()
+                busy = sum(kernel_time_by_name(
+                    traced_kernels(prof)).values()) / 1e3
+            else:
+                params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            walls.append((time.perf_counter() - t) * 1e3)
+            collectives.append(dict(mesh.counts))
+            if spec.get("save_at") == i + 1:
+                t = time.time()
+                CheckpointManager(spec["ckpt"], keep_n=1).save(
+                    i + 1, {"params": params, "opt": opt}, layout=layout)
+                save_s = time.time() - t
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        held = {k: sum(a.numel() * a.element_size() for a in leaves(t))
+                for k, t in (("params", params), ("opt", opt))}
+        # one layer's weights as the forward gathers them (the rank's
+        # model-axis slice, whole on the data axis)
+        layer_bytes = sum(
+            a[0].numel() * a.element_size()
+            * (1 if layout.data_dim(("blocks", "L0") + p) is None else D)
+            for p, a in leaves_with_paths(params["blocks"]["L0"]))
+        # this rank's blocks of the params and mu against its blocks of
+        # the single device's (the parent combines the ranks' sums)
+        want = torch.load(spec["want"], mmap=True)
+        mine = {k: layout.cut(path, want[k]).to(mesh.device)
+                for path, k in ((path, keystr(path)) for path, _ in
+                                leaves_with_paths({"params": params,
+                                                   "opt": {"mu": opt["mu"]}}))}
+        stats = block_stats(_state_of(params, opt), mine, spec["scales"])
+        del want, mine
+        _free()
+        # one layer's collectives alone: a block gathered, then its
+        # gradient reduce-scattered (the gather's backward), or an
+        # activation all-reduced over the model group
+        times = {}
+        if D > 1 and fsdp:
+            x = params["blocks"]["L0"]["mlp"]["wu"][0].detach().clone() \
+                .requires_grad_()
+            sync()
+            mesh_any(False, mesh)        # every rank starts together
+            t = time.perf_counter()
+            y = gather_fsdp(x, -2)
+            sync()
+            times["gather_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            y.backward(torch.ones_like(y))
+            sync()
+            times["reduce_scatter_ms"] = (time.perf_counter() - t) * 1e3
+            times["gather_bytes"] = y.numel() * y.element_size()
+            del x, y
+        if M > 1:
+            act = torch.ones((TRAIN_MESH_BATCH // D, TRAIN_MESH_SEQ,
+                              cfg.d_model), device=mesh.device)
+            reduce_model(act)
+            sync()
+            mesh_any(False, mesh)
+            t = time.perf_counter()
+            reduce_model(act)
+            sync()
+            times["all_reduce_ms"] = (time.perf_counter() - t) * 1e3
+            times["all_reduce_bytes"] = act.numel() * act.element_size()
+    return {"rank": mesh.rank, "coords": list(mesh.coords),
+            "init_s": init_s, "losses": losses, "grad_norms": norms,
+            "wall_ms": walls, "device_busy_ms_last_step": busy,
+            "collectives_by_step": collectives,
+            "held_bytes": held["params"] + held["opt"],
+            "held_params_bytes": held["params"],
+            "spec_local_bytes": _spec_local_bytes(cfg, mesh, fsdp),
+            "gathered_layer_bytes": layer_bytes, "peak_mem_gb": peak,
+            "save_s": save_s, "stats": stats, "launches": launches,
+            **times}
+
+
+def _train_mesh_ranks(world, plan):
+    """Every phase-13 mesh in one spawn: each rank makes every sub-mesh
+    of `plan` ([(mesh shape, first rank, stage, spec)]), in plan order,
+    then stage by stage trains the meshes it belongs to, meshes of one
+    stage side by side, a barrier after each stage. -> a row or None a
+    mesh."""
+    import torch.distributed as dist
+    subs = [world.submesh(*shape, first=first)
+            for shape, first, _, _ in plan]
+    rows = [None] * len(plan)
+    for stage in sorted({p[2] for p in plan}):
+        for j, (_, _, st, spec) in enumerate(plan):
+            if st == stage and subs[j] is not None:
+                rows[j] = _train_mesh_rank(subs[j], spec)
+                _free()
+        dist.barrier()
+    return rows
+
+
+def _directions(counts: dict) -> dict:
+    """A step's collectives by direction: forward, backward (the hooks'
+    "_backward" kinds), step (the gradient and norm reductions)."""
+    out = {"forward": {}, "backward": {}, "step": {}}
+    for k, v in counts.items():
+        d = ("backward" if k.endswith("_backward") else
+             "step" if k.startswith("step_") else "forward")
+        out[d][k] = v
+    return out
+
+
+def _rel(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _param_count(cfg) -> int:
+    """The number of `cfg`'s parameters (shapes only)."""
+    from repro_torch.ckpt import stack_params
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+    return sum(a.numel() for a in leaves(stack_params(
+        cfg, init_params(cfg, device="meta"))))
+
+
+def _resume_single(cfg, spec, bs, single):
+    """A single-device Trainer resuming the mesh's checkpoint (its
+    microbatches and compression) to the end of `bs`: its restore
+    seconds, losses, params and mu against the single device's run."""
+    import torch
+    from repro_torch.train import Trainer, TrainerConfig
+    restores = []
+    tr = Trainer(cfg, TrainerConfig(
+        steps=len(bs), ckpt_every=10 ** 9, ckpt_dir=spec["ckpt"], keep_n=1,
+        log_every=10 ** 9, microbatches=spec.get("microbatches", 1),
+        grad_compress=spec.get("grad_compress", "none"),
+        warmup=TRAIN_MESH_WARMUP, seed=0, opt=_train_mesh_opt()),
+        iter(bs[spec["save_at"]:]), dtype="float32", device=DEV)
+    tr.ckpt.save = lambda *a, **kw: None       # nothing reads its end
+    _timed(tr.ckpt, "restore", restores)
+    out = tr.run()
+    want = torch.load(single["path"], mmap=True)
+    errs = _whole_errors(_state_of(tr.params, tr.opt_state), want)
+    losses = [m["loss"] for m in tr.metrics_log]
+    res = {"resumed": out["resumed"], "from_step": spec["save_at"],
+           "restore_s": restores, "losses": losses,
+           "max_loss_rel_err": _rel(losses,
+                                    single["losses"][spec["save_at"]:]),
+           "errors": errs}
+    del tr, want
+    _free()
+    return res
+
+
+def _errors_ok(errs) -> bool:
+    return (errs["params_norm"] <= TOL_TRAIN_MESH
+            and errs["mu_max"] <= TOL_TRAIN_MESH)
+
+
+def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
+                     batch=TRAIN_MESH_BATCH, seq=TRAIN_MESH_SEQ,
+                     steps=TRAIN_MESH_STEPS, meshes=TRAIN_MESHES):
+    """Phase 13: `arch` cut to `n_layers`, trained `steps` steps on
+    wiki batches of batch x seq on one device (plainly, with 2
+    microbatches, and with the int8 mesh's microbatches and compression)
+    and on each mesh of `meshes` (ranks sharing the card over gloo, one
+    spawn); each mesh held to the single device's run of its options
+    (TOL_TRAIN_MESH); the (2, 2) state saved at step TRAIN_MESH_SAVE_AT
+    and resumed to the end by a single-device Trainer, held alike. A
+    `train_mesh_path` line a mesh, and a `train_mesh_noise_floor` line
+    (one device's 2 microbatches against 1: the same gradient summed in
+    another order). Returns the launches summed over the ranks
+    (training runs no port kernel)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data import batches as make_batches
+    from repro_torch.data import token_stream
+    from repro_torch.dist.context import spawn
+    from repro_torch.launch.mesh import make_serve_mesh
+    cfg = _train_mesh_cfg(arch, n_layers)
+    it = make_batches(token_stream("wiki"), batch, seq, seed=0)
+    bs = [next(it) for _ in range(steps)]
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_mesh_"))
+    total, rows = {}, []
+    try:
+        singles, states, scales = {}, {}, {}
+        used = {(o.get("microbatches", 1), o.get("grad_compress", "none"))
+                for _, _, _, o in meshes}
+        for mb, comp in sorted(used | {(1, "none"), (2, "none")}):
+            losses, norms, ms, peak, states[(mb, comp)] = _single_train(
+                cfg, bs, mb, comp)
+            path = root / f"single_mb{mb}_{comp}.pt"
+            if (mb, comp) in used:          # for the ranks to hold to
+                torch.save(states[(mb, comp)], path)
+                scales[(mb, comp)] = leaf_scales(states[(mb, comp)])
+            singles[(mb, comp)] = {"losses": losses, "grad_norms": norms,
+                                   "ms": ms, "peak_mem_gb": peak,
+                                   "path": str(path)}
+            emit({"check": "train_mesh_single_device", "model": cfg.name,
+                  "layers": n_layers, "microbatches": mb,
+                  "grad_compress": comp, "losses": losses,
+                  "grad_norms": norms, "ms": ms, "peak_mem_gb": peak,
+                  "card": CARD})
+        one, two = singles[(1, "none")], singles[(2, "none")]
+        floor = _whole_errors(states[(2, "none")], states[(1, "none")])
+        emit({"check": "train_mesh_noise_floor", "model": cfg.name,
+              "compared": "one device, 2 microbatches against 1",
+              "max_loss_rel_err": _rel(two["losses"], one["losses"]),
+              "max_grad_norm_rel_err": _rel(two["grad_norms"],
+                                            one["grad_norms"]),
+              **floor, "card": CARD})
+        plan = []
+        for shape, first, stage, opts in meshes:
+            key = (opts.get("microbatches", 1),
+                   opts.get("grad_compress", "none"))
+            plan.append((shape, first, stage, {
+                **opts, "arch": arch, "n_layers": n_layers, "batches": bs,
+                "dev": DEV, "want": singles[key]["path"], "single": key,
+                "scales": scales[key],
+                "ckpt": str(root / f"ckpt_{shape[0]}x{shape[1]}")}))
+        del states
+        n = max(D * M for (D, M), *_ in plan)
+        world = make_serve_mesh(2, n // 2, [f"{DEV}:0" if DEV == "cuda"
+                                            else DEV] * n)
+        print(f"train mesh path: one spawn of {world.describe()}",
+              flush=True)
+        t0 = time.time()
+        ranks_of = spawn(_train_mesh_ranks, world, (plan,),
+                         threads=1 if DEV == "cpu" else None,
+                         timeout_s=TRAIN_MESH_TIMEOUT_S)
+        emit({"check": "train_mesh_spawn", "ranks": n, "card": CARD,
+              "seconds": time.time() - t0,
+              "stages": [[f"{D}x{M}@{first}" for (D, M), first, st, _
+                          in plan if st == s]
+                         for s in sorted({p[2] for p in plan})]})
+        for j, ((D, M), _, _, spec) in enumerate(plan):
+            ranks = [r[j] for r in ranks_of if r[j] is not None]
+            single = singles[spec["single"]]
+            lead = next(r for r in ranks if r["rank"] == 0)
+            row = {"check": "train_mesh_path", "mesh": [D, M],
+                   "model": cfg.name, "layers": n_layers, "card": CARD,
+                   "batch": batch, "seq": seq, "fsdp": spec["fsdp"],
+                   "microbatches": spec.get("microbatches", 1),
+                   "grad_compress": spec.get("grad_compress", "none"),
+                   "losses": lead["losses"],
+                   "single_losses": single["losses"],
+                   "max_loss_rel_err": max(_rel(r["losses"],
+                                                single["losses"])
+                                           for r in ranks),
+                   "max_grad_norm_rel_err": max(
+                       _rel(r["grad_norms"], single["grad_norms"])
+                       for r in ranks),
+                   "errors": leaf_errors([r["stats"] for r in ranks],
+                                         spec["scales"]),
+                   "single_ms": single["ms"],
+                   "single_peak_mem_gb": single["peak_mem_gb"],
+                   # params, mu and nu, fp32
+                   "whole_state_bytes": 12 * _param_count(cfg),
+                   "ranks": [{k: v for k, v in r.items()
+                              if k not in ("stats", "launches",
+                                           "collectives_by_step")}
+                             | {"collectives_last_step": _directions(
+                                 r["collectives_by_step"][-1])}
+                             for r in ranks]}
+            for r in ranks:
+                for k, v in r["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            if spec.get("save_at"):
+                row["resume"] = _resume_single(cfg, spec, bs, single)
+            emit(row)
+            rows.append((row, ranks, single))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for row, ranks, single in rows:
+        name = f"train mesh {row['mesh'][0]}x{row['mesh'][1]}"
+        require(row["max_loss_rel_err"] <= TOL_TRAIN_MESH
+                and row["max_grad_norm_rel_err"] <= TOL_TRAIN_MESH,
+                f"{name}: losses {row['max_loss_rel_err']:.3g}, gradient "
+                f"norms {row['max_grad_norm_rel_err']:.3g} from the single "
+                f"device's")
+        require(_errors_ok(row["errors"]),
+                f"{name}: params or mu off the single device's: "
+                f"{row['errors']}")
+        for r in ranks:
+            require(r["held_bytes"] == r["spec_local_bytes"],
+                    f"{name}: rank {r['rank']} holds {r['held_bytes']} B, "
+                    f"the specs' blocks {r['spec_local_bytes']} B")
+            require(DEV != "cuda"
+                    or r["peak_mem_gb"] < single["peak_mem_gb"],
+                    f"{name}: rank {r['rank']} peaks at {r['peak_mem_gb']} "
+                    f"GB, one device at {single['peak_mem_gb']} GB")
+        resume = row.get("resume")
+        if resume is not None:
+            require(resume["resumed"] and _errors_ok(resume["errors"])
+                    and resume["max_loss_rel_err"] <= TOL_TRAIN_MESH,
+                    f"{name}: the single-device resume of its checkpoint: "
+                    f"{resume}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4921,6 +5505,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # phase 11 runs on the CPU alone: its cells trace from here, beside
+    # the phases that drive the card, and phase 11 waits for them
+    dry = BackgroundDryRun() if 11 in phases else None
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     lines = {k: {"name": k, "route": "cuda", "source": KERNEL_ROWS[k][0],
@@ -5116,8 +5703,15 @@ def main(argv=None) -> int:
             phase_done(10, t0)
         if 11 in phases:
             t0 = time.time()
-            phase_dryrun()
+            phase_dryrun(pending=dry)
+            emit({"check": "dryrun_background",
+                  "seconds_from_start": dry.seconds,
+                  "waited_s": time.time() - t0, "jobs": DRYRUN_JOBS})
             phase_done(11, t0)
+        if 13 in phases:
+            t0 = time.time()
+            count("train_mesh_path", phase_train_mesh(args.seed))
+            phase_done(13, t0)
         torch.cuda.synchronize()
         # every kernel of the served paths ran inside a replayed graph:
         # the GEMV in each decode step, the GEMM in verify (phase 8), the

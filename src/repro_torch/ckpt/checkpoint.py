@@ -18,6 +18,14 @@ cannot cast them back; the port reads their bits), everything else as
 its numpy dtype. A checkpoint written by either package restores in
 the other. `stack_params` stacks the port's per-layer params into that
 layout (`ckpt.packed.unstack_blocks` goes back).
+
+A training state cut over a mesh (dist/sharding.py:TrainLayout, passed
+as `layout`) is saved whole, in the same format: every rank gathers each
+leaf in turn, the mesh's rank 0 copies it to host memory and writes the
+checkpoint, and the other ranks wait at a barrier until it is committed.
+`restore(layout=)` has each rank read the whole tree, one leaf at a
+time, and keep its block, so a checkpoint written on any mesh (or on one
+device) resumes on any other.
 """
 from __future__ import annotations
 
@@ -49,9 +57,19 @@ def _host(t) -> np.ndarray:
     return t.numpy()
 
 
-def _flatten(tree) -> dict:
-    return {keystr(path): _host(leaf)
-            for path, leaf in leaves_with_paths(tree)}
+def _flatten(tree, layout=None) -> dict:
+    """{keystr: host array} of every leaf, whole (each gathered over the
+    mesh of `layout`; kept on its rank 0 only)."""
+    if layout is None:
+        return {keystr(path): _host(leaf)
+                for path, leaf in leaves_with_paths(tree)}
+    out = {}
+    for path, leaf in leaves_with_paths(tree):
+        whole = layout.gather(path, leaf)
+        if layout.mesh.rank == 0:
+            out[keystr(path)] = _host(whole)
+        del whole
+    return out
 
 
 def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -63,13 +81,17 @@ def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _unflatten_into(template, arrays):
+def _unflatten_into(template, arrays, layout=None):
+    """The template's tree from `arrays` (a dict or an open npz: read a
+    leaf at a time), each leaf cut to this rank's block by `layout`."""
     out = []
     for path, leaf in leaves_with_paths(template):
         key = keystr(path)
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
         a = arrays[key]
+        if layout is not None:
+            a = layout.cut(path, a)
         if tuple(a.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {a.shape} != "
                              f"expected {tuple(leaf.shape)}")
@@ -87,13 +109,21 @@ class CheckpointManager:
 
     # ---------------- save ----------------
     def save(self, step: int, tree, metadata: dict | None = None,
-             block: bool = False):
+             block: bool = False, layout=None):
         """Copy `tree` to host memory now; write it on a thread (or here
-        with `block` or async_save=False)."""
-        arrays = _flatten(tree)
+        with `block` or async_save=False). With a TrainLayout `tree` is a
+        rank's blocks: every rank of its mesh calls this; rank 0 writes
+        the whole tree here, and every rank returns once it is
+        committed."""
+        from repro_torch.dist.context import mesh_any
+        arrays = _flatten(tree, layout)
         meta = {"step": int(step), "time": time.time(), **(metadata or {})}
         self.wait()   # never two writers (async then sync same step)
-        if self.async_save and not block:
+        if layout is not None:
+            if layout.mesh.rank == 0:
+                self._write(step, arrays, meta)
+            mesh_any(False, layout.mesh)      # the others wait for it
+        elif self.async_save and not block:
             self._thread = threading.Thread(
                 target=self._write, args=(step, arrays, meta), daemon=True)
             self._thread.start()
@@ -142,15 +172,16 @@ class CheckpointManager:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None):
+    def restore(self, template, step: int | None = None, layout=None):
         """-> (tree matching template, metadata). The template supplies
         structure, shapes, dtypes and devices (e.g. a freshly
-        initialized state)."""
+        initialized state); with a TrainLayout, a rank's blocks, which
+        it cuts from the whole leaves."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         path = self.dir / f"step_{step:08d}"
         with np.load(path / "arrays.npz") as z:
-            arrays = dict(z)
+            tree = _unflatten_into(template, z, layout)
         meta = json.loads((path / "meta.json").read_text())
-        return _unflatten_into(template, arrays), meta
+        return tree, meta

@@ -1,5 +1,6 @@
-"""Meshes of `torch.distributed` ranks for serving (the counterpart of
-the reference's `dist/context.py` and its `jax.sharding.Mesh`).
+"""Meshes of `torch.distributed` ranks for serving and training (the
+counterpart of the reference's `dist/context.py` and its
+`jax.sharding.Mesh`).
 
 One process a mesh position: a (data, model) mesh of D x M ranks, rank
 r at coordinates (d, m) = (r // M, r % M), as a jax mesh orders its
@@ -17,12 +18,28 @@ The backend follows from the devices the caller named, never silently:
 NCCL when every rank has a CUDA device of its own, gloo when the ranks
 are on the CPU or when the caller named one card for several ranks (the
 one-card rehearsal, the counterpart of the reference's `--devices N`
-host devices). Gloo takes CUDA tensors for all_reduce, all_gather and
-broadcast (it stages them through host memory itself).
+host devices). Gloo takes CUDA tensors for all_reduce (sum and max),
+all_gather, reduce_scatter and broadcast (it stages them through host
+memory itself).
 
-`reduce_model`, `gather_model` and `gather_data` are the model-side
-hooks: exact no-ops outside a mesh or over an axis of size 1, as the
-reference's `constrain_batch` is, so models/ calls them unconditionally.
+`reduce_model`, `copy_to_model`, `gather_model` and `gather_data` are
+the model-side hooks: exact no-ops outside a mesh or over an axis of
+size 1, as the reference's `constrain_batch` is, so models/ calls them
+unconditionally. While autograd records on a mesh, the device hooks are
+autograd Functions with the backward the SPMD semantics need (training,
+train/train_step.py):
+
+    hook            forward                 backward
+    reduce_model    all-reduce over model   identity (the loss is the
+                                            same on every model rank)
+    copy_to_model   identity                all-reduce over model
+    gather_model    all-gather over model   this rank's slice
+    gather_fsdp     all-gather over data    reduce-scatter (sum) over data
+    reduce_fsdp     all-reduce over data    all-reduce over data (each
+                                            data rank keeps other rows)
+
+A backward collective is counted under a kind of its own ("..._backward");
+`sync_grads` and `reduce_max` count theirs as "step_...".
 `spawn(fn, mesh)` runs `fn(bound_mesh, *args)` on every rank of a mesh
 in processes of its own (spawned, rendezvous through a file store in a
 temporary directory) and returns each rank's result; a rank that raises
@@ -193,17 +210,119 @@ def model_coords() -> tuple:
     return mesh.coords[1], mesh.shape[1]
 
 
+def _records(x) -> bool:
+    """Whether autograd records through `x`: a hook then runs as its
+    autograd Function."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _reduce_scatter(x, group, n, dim):
+    """This rank's 1/n block along `dim` of the sum of `x` over `group`."""
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    # torch 2.13 renames reduce_scatter_tensor (same arguments)
+    (getattr(dist, "reduce_scatter_single", None)
+     or dist.reduce_scatter_tensor)(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_reduce(x, mesh, group, kind, op=None):
+    """`x` summed (or `op`) over `group`, in place on a contiguous copy
+    of a non-contiguous `x`; counted as `kind`."""
+    x = x.contiguous()
+    if op is None:
+        dist.all_reduce(x, group=mesh.group(group))
+    else:
+        dist.all_reduce(x, op=op, group=mesh.group(group))
+    mesh._count(kind)
+    return x
+
+
+class _ReduceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh):
+        return _all_reduce(y.clone(), mesh, "model", "all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.mesh, "model",
+                           "all_reduce_backward"), None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.m, ctx.n = dim, mesh.coords[1], x.shape[dim]
+        mesh._count("all_gather")
+        return _gather(x.contiguous(), mesh.group("model"), mesh.shape[1],
+                       dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.m * ctx.n, ctx.n), None, None
+
+
+class _GatherFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        mesh._count("all_gather_data")
+        return _gather(x.contiguous(), mesh.group("data"), mesh.shape[0],
+                       dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        mesh._count("reduce_scatter_data_backward")
+        return _reduce_scatter(g, mesh.group("data"), mesh.shape[0],
+                               ctx.dim), None, None
+
+
+class _ReduceFsdp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(x.clone(), mesh, "data", "all_reduce_data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.mesh, "data",
+                           "all_reduce_data_backward"), None
+
+
 def reduce_model(y: torch.Tensor) -> torch.Tensor:
     """Sum the partial outputs of a contracting projection over the
-    model group (in place); the identity outside a mesh or when the
-    model axis has size 1."""
+    model group (in place, or into a new tensor while autograd records);
+    the identity outside a mesh or when the model axis has size 1."""
     mesh = current_mesh()
     if mesh is None or mesh.shape[1] == 1:
         return y
-    y = y.contiguous()
-    dist.all_reduce(y, group=mesh.group("model"))
-    mesh._count("all_reduce")
-    return y
+    if _records(y):
+        return _ReduceModel.apply(y, mesh)
+    return _all_reduce(y, mesh, "model", "all_reduce")
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """`x`, the replicated input of a column-parallel projection (each
+    model rank applies its block of heads, MLP width or vocabulary): the
+    identity forward; while autograd records on a model axis, its
+    gradient (each rank's partial) is summed over the model group."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape[1] == 1 or not _records(x):
+        return x
+    return _CopyToModel.apply(x, mesh)
 
 
 def _gather(x, group, n, dim):
@@ -219,6 +338,8 @@ def gather_model(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     mesh = mesh or current_mesh()
     if mesh is None or mesh.shape[1] == 1:
         return x
+    if _records(x):
+        return _GatherModel.apply(x, mesh, dim % x.dim())
     mesh._count("all_gather")
     return _gather(x.contiguous(), mesh.group("model"), mesh.shape[1], dim)
 
@@ -231,21 +352,64 @@ def gather_fsdp(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
     mesh = mesh or current_mesh()
     if mesh is None or mesh.shape[0] == 1:
         return x
+    if _records(x):
+        return _GatherFsdp.apply(x, mesh, dim % x.dim())
     mesh._count("all_gather_data")
     return _gather(x.contiguous(), mesh.group("data"), mesh.shape[0], dim)
 
 
 def reduce_fsdp(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Sum the device tensor `x` over the data group, in place (FSDP: the
-    partial products of a weight's data-rank blocks of K); the identity
-    outside a mesh."""
+    """Sum the device tensor `x` over the data group, in place (or into a
+    new tensor while autograd records) (FSDP: the partial products of a
+    weight's data-rank blocks of K); the identity outside a mesh."""
     mesh = mesh or current_mesh()
     if mesh is None or mesh.shape[0] == 1:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, group=mesh.group("data"))
-    mesh._count("all_reduce_data")
+    if _records(x):
+        return _ReduceFsdp.apply(x, mesh)
+    return _all_reduce(x, mesh, "data", "all_reduce_data")
+
+
+def sync_grads(tensors, axis: str, mesh=None) -> list:
+    """The device tensors `tensors` each summed over the `axis` ("data" or
+    "model") group, in one all-reduce of their concatenation (counted as
+    "step_all_reduce_<axis>"); as they are outside a mesh or over an
+    axis of size 1."""
+    mesh = mesh or current_mesh()
+    n = mesh.shape[0 if axis == "data" else 1] if mesh is not None else 1
+    if n == 1 or not tensors:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    _all_reduce(flat, mesh, axis, f"step_all_reduce_{axis}")
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def reduce_max(x: torch.Tensor, mesh=None,
+               kind: str = "step_all_reduce_max") -> torch.Tensor:
+    """The elementwise maximum of the device tensor `x` over the whole
+    mesh (over the data group, then the model group; counted as
+    "<kind>_<axis>"); `x` outside a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return x
+    for axis, n in zip(("data", "model"), mesh.shape):
+        if n > 1:
+            x = _all_reduce(x, mesh, axis, f"{kind}_{axis}",
+                            dist.ReduceOp.MAX)
     return x
+
+
+def mesh_any(flag: bool, mesh=None) -> bool:
+    """Whether `flag` holds on any rank of the mesh: every rank waits
+    for every other here (a barrier: each rank's data group, then each
+    model group, which holds a rank of every data group); `flag` outside
+    a mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.size == 1:
+        return bool(flag)
+    x = torch.tensor([float(flag)], device=mesh.device)
+    return bool(reduce_max(x, mesh, "barrier").item())
 
 
 def gather_data(x: torch.Tensor, mesh=None) -> torch.Tensor:

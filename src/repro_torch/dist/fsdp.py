@@ -8,6 +8,12 @@ block of each field (a plain weight's one tensor, or a QuantizedTensor's
 codes, alphas and betas) and the dim the data axis cuts it along (None
 for a field it leaves whole, like an expand leaf's scales).
 
+Training keeps a rank's blocks as plain tensors (the optimizer and the
+checkpoints walk them) and wraps the data-cut ones as FsdpLeafs for the
+forward (`fsdp_view`); while autograd records, the gather's backward
+reduce-scatters each block's gradient over the data group
+(dist/context.py).
+
 Serving runs the unchanged layer code and kernels on whole (model-
 slice) weights: models/model.py gathers each layer's leaves over the
 data group just before the layer runs (`gather_tree`), and the gathered
@@ -91,6 +97,16 @@ class FsdpLeaf:
         return QuantizedTensor(out["codes"], out["alphas"], out["betas"],
                                self.k_in, self.orig_dtype)
 
+    def unbind(self, dim: int = 0) -> list:
+        """A stacked leaf's blocks, one FsdpLeaf a group (dim 0 is the
+        stack's group axis, which no cut dim, counted from the end,
+        names)."""
+        parts = {f: t.unbind(dim) for f, t in self.fields.items()}
+        n = len(next(iter(parts.values())))
+        return [FsdpLeaf({f: p[g] for f, p in parts.items()}, self.dims,
+                         self.parts, self.k_in, self.orig_dtype)
+                for g in range(n)]
+
     def draft_view(self, scales):
         """The draft of this leaf (quant/draft.py): the same code block,
         the draft's `scales` (alphas, betas), already cut as this leaf's
@@ -118,6 +134,18 @@ def fsdp_leaf(fields, dims, parts, k_in=None, orig_dtype=None):
         return fields["w"]
     return QuantizedTensor(*(fields[f] for f in _QT_FIELDS), k_in,
                            orig_dtype)
+
+
+def fsdp_view(tree, dims, parts: int):
+    """A tree of plain tensors (a rank's blocks of the training state's
+    params, dist/sharding.py:TrainLayout) with each leaf that `dims` (a
+    tree of the same keys: the dim, from the end, the data axis cuts, or
+    None) marks cut wrapped as an FsdpLeaf, for the forward to gather;
+    the others are the same tensors."""
+    if isinstance(tree, dict):
+        return {k: fsdp_view(v, dims[k], parts) for k, v in tree.items()}
+    return tree if dims is None else FsdpLeaf({"w": tree}, {"w": dims},
+                                              parts)
 
 
 def gather_tree(tree, mesh=None):

@@ -653,3 +653,159 @@ def shard_params(cfg, params, mesh, fsdp: bool = False):
     out["layers"] = [walk(lp, ("blocks", f"L{i % P}"), True)
                      for i, lp in enumerate(params["layers"])]
     return out
+
+
+# --------------------------------------------------------------------------
+# the training state on a mesh
+# --------------------------------------------------------------------------
+# Training keeps the reference's stacked layout ({"blocks": {"L{i}":
+# (n_groups, ...) leaves}}, models/model.py) and cuts it as the
+# reference's params_shardings / opt_state_shardings place it: each
+# params leaf by named_pspec at the mesh (fsdp as the caller says), each
+# AdamW moment and the fp32 master copy as the param it mirrors, the
+# step replicated. A rank holds plain tensors, its block of every leaf
+# (local_slices); the forward gathers the data-cut ones layer by layer
+# (dist/fsdp.py:fsdp_view). The port's one departure is serving's: wk
+# and wv stay whole where the model axis does not divide the KV heads
+# (whole_kv_leaves).
+
+class TrainLayout:
+    """How the training state of `cfg` is cut over the bound `mesh`, with
+    or without the data axis on the weights (`fsdp`). Paths are key
+    tuples of the state {"params": ..., "opt": {"mu", "nu", ["master"],
+    "step"}} or of the params tree alone. Dense attention decoders only:
+    MoE, MLA and Mamba raise (ROADMAP Queue 1 item 6.1)."""
+
+    def __init__(self, cfg, mesh, fsdp: bool = True):
+        from repro_torch.ckpt.checkpoint import stack_params
+        from repro_torch.models.model import (init_params, refuse_train_mesh,
+                                              shard_config)
+        from repro_torch.tree import leaves_with_paths
+        refuse_train_mesh(cfg)
+        sizes = mesh_axis_sizes(mesh)
+        self.cfg, self.mesh, self.fsdp = cfg, mesh, bool(fsdp)
+        self.D, self.M = sizes["data"], sizes["model"]
+        self.rank_cfg = shard_config(cfg, self.M, train=True)
+        whole = whole_kv_leaves(cfg, mesh)
+        sym = symbolic_mesh()
+        self.shapes, self.specs = {}, {}
+        meta = stack_params(cfg, init_params(cfg, device="meta"))
+        for path, leaf in leaves_with_paths(meta):
+            spec = named_pspec(cfg, path, leaf, mesh, fsdp=fsdp)
+            want = named_pspec(cfg, path, leaf, sym, fsdp=fsdp)
+            if path[-1] in whole:
+                spec = drop_axes(spec, ("model",))
+            elif ("model" in _axes(want) and "model" not in _axes(spec)
+                  and path[-1] not in _VOCAB):
+                raise ValueError(
+                    f"{'/'.join(path)} {tuple(leaf.shape)}: the {self.M}-"
+                    f"way model axis does not divide the dim the rule "
+                    f"{tuple(want)} splits")
+            self.shapes[path] = tuple(leaf.shape)
+            # an axis of one rank cuts nothing
+            self.specs[path] = drop_axes(spec, [a for a, n in sizes.items()
+                                                if n == 1])
+
+    @staticmethod
+    def param_path(path) -> tuple:
+        """The params path a state path mirrors; None for the step."""
+        path = tuple(path)
+        if path[:1] == ("params",):
+            return path[1:]
+        if path[:1] == ("opt",):
+            return None if path[1:2] == ("step",) else path[2:]
+        return path
+
+    def spec(self, path) -> tuple:
+        p = self.param_path(path)
+        return () if p is None else self.specs[p]
+
+    def axes(self, path) -> set:
+        """The mesh axes that cut the leaf at `path`."""
+        return _axes(self.spec(path))
+
+    def data_dim(self, path):
+        """The dim, counted from the end, the data axis cuts, or None."""
+        spec = self.spec(path)
+        return next((i - len(spec) for i, a in enumerate(spec)
+                     if a == "data"), None)
+
+    def model_partial(self, path) -> bool:
+        """Whether a rank's gradient of the leaf at `path` is its share of
+        a sum over the model group: an attention leaf the model axis
+        leaves whole (wk and wv of `whole_kv_leaves`, the qk-norm scales)
+        feeds only the rank's heads. Norm scales on the residual stream
+        are whole and equal on every model rank."""
+        p = self.param_path(path)
+        return (self.M > 1 and p is not None and "attn" in p
+                and "model" not in self.axes(p))
+
+    def data_dims(self) -> dict:
+        """The params tree of `data_dim`s (dist/fsdp.py:fsdp_view)."""
+        out: dict = {}
+        for path in self.specs:
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self.data_dim(path)
+        return out
+
+    def cut(self, path, a):
+        """This rank's block (numpy or torch, contiguous) of the whole
+        leaf `a` at `path`."""
+        p = self.param_path(path)
+        if p is None:
+            return a
+        if tuple(a.shape) != self.shapes[p]:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, "
+                             f"the config's {self.shapes[p]}")
+        d, m = self.mesh.coords
+        return _contiguous(a[local_slices(a.shape, self.specs[p], self.mesh,
+                                          {"data": d, "model": m})])
+
+    def gather(self, path, t):
+        """The whole leaf at `path` from each rank's block `t` (every rank
+        of the mesh calls it, in one order; no autograd)."""
+        import torch
+        from repro_torch.dist.context import gather_fsdp, gather_model
+        spec = self.spec(path)
+        with torch.no_grad():
+            for dim, ax in enumerate(spec):
+                if ax == "model":
+                    t = gather_model(t, dim, self.mesh)
+                elif ax == "data":
+                    t = gather_fsdp(t, dim, self.mesh)
+        return t
+
+    def shard(self, params, opt_state) -> tuple:
+        """(params, opt_state) whole -> this rank's blocks of them."""
+        state = _map_state(self.cut, {"params": params, "opt": opt_state})
+        return state["params"], state["opt"]
+
+    def gather_state(self, params, opt_state) -> tuple:
+        """This rank's blocks -> the whole (params, opt_state)."""
+        state = _map_state(self.gather, {"params": params,
+                                         "opt": opt_state})
+        return state["params"], state["opt"]
+
+
+def _map_state(fn, tree, prefix=()):
+    """fn(path, leaf) over a nested dict, keys sorted at every level (the
+    order every rank calls a collective in)."""
+    if isinstance(tree, dict):
+        return {k: _map_state(fn, tree[k], prefix + (k,))
+                for k in sorted(tree)}
+    return fn(prefix, tree)
+
+
+def shard_train_state(cfg, params, opt_state, mesh, fsdp: bool = True):
+    """(params, opt_state) whole, in the stacked layout -> this rank's
+    blocks of them (TrainLayout: the reference's params_shardings /
+    opt_state_shardings)."""
+    return TrainLayout(cfg, mesh, fsdp).shard(params, opt_state)
+
+
+def gather_train_state(cfg, params, opt_state, mesh, fsdp: bool = True):
+    """The inverse of shard_train_state: each rank's blocks -> the whole
+    (params, opt_state) on every rank (every rank calls it)."""
+    return TrainLayout(cfg, mesh, fsdp).gather_state(params, opt_state)

@@ -24,7 +24,7 @@ the config's depth (`_extrapolate`); the full-depth trace validates the
 cell and sizes its memory, and its own count stands beside the
 extrapolation. On one device there are no collectives; the pod meshes
 (--multipod, and the reference's FSDP switch --no-fsdp) and their
-collective term are still to do (ROADMAP Queue 1 item 6).
+collective term are still to do (ROADMAP Queue 1 item 6.3).
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def _refuse_meshes(multi_pod: bool, fsdp: bool) -> None:
     if multi_pod or not fsdp:
         raise NotImplementedError(
             f"{'--multipod' if multi_pod else '--no-fsdp'}: the pod meshes' "
-            f"sharded cells are still to do (ROADMAP Queue 1 item 6); the "
+            f"sharded cells are still to do (ROADMAP Queue 1 item 6.3); the "
             f"port's dry run sizes one device")
 
 

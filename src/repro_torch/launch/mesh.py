@@ -1,6 +1,7 @@
 """Mesh construction (the reference's `launch/mesh.py`). Functions, not
 module state: importing this module touches no device and starts no
-process."""
+process. The meshes are dist/context.py's ServeMesh, which serves
+(launch/serve.py) and trains (launch/train.py) alike."""
 from __future__ import annotations
 
 import torch
@@ -9,14 +10,34 @@ from repro_torch.dist.context import ServeMesh
 from repro_torch.hw import resolve_device
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 (2x16x16 multi-pod) TPU meshes: training's
-    FSDP over them is still to do (ROADMAP Queue 1 item 6, its training
-    part)."""
-    raise NotImplementedError(
-        "the pod meshes wait on FSDP training (--mesh pod|multipod: "
-        "ROADMAP Queue 1 item 6, still to do); serving meshes come from "
-        "make_serve_mesh")
+def make_production_mesh(*, multi_pod: bool = False, model: int = 1,
+                         devices=None):
+    """The reference's training mesh (its 16x16 "pod": data = FSDP/ZeRO
+    and batch, model = TP) over the visible cards: (N / `model`,
+    `model`), one card a rank (unbound: spawn its ranks with
+    dist.context.spawn or launch/train.py). `devices` names the ranks'
+    devices instead ("cuda:0,cuda:0" rehearses two ranks on one card).
+    Too few cards raise, as in make_serve_mesh. The multi-pod mesh's
+    third, pure data-parallel "pod" axis is ROADMAP Queue 1 item 6.2,
+    still to do."""
+    if multi_pod:
+        raise NotImplementedError(
+            "the multi-pod mesh (a third, pure data-parallel \"pod\" axis; "
+            "--mesh multipod) is ROADMAP Queue 1 item 6.2, still to do")
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n < model or n % model:
+            raise ValueError(f"a pod mesh with a {model}-way model axis "
+                             f"needs a multiple of {model} cards, {n} "
+                             f"visible (name the devices to share one: "
+                             f"--devices cuda:0,cuda:0,...)")
+        devices = [f"cuda:{i}" for i in range(n)]
+    elif isinstance(devices, str):
+        devices = devices.split(",")
+    if len(devices) % model:
+        raise ValueError(f"{len(devices)} devices do not split into a "
+                         f"{model}-way model axis")
+    return ServeMesh(len(devices) // model, model, devices)
 
 
 def make_host_mesh(device=None):

@@ -14,7 +14,9 @@ On a model axis (models/model.py:shard_config) a rank holds its query
 heads. Where the axis divides the KV heads it holds theirs too; where
 it does not, its wk and wv are whole, it computes and caches every KV
 head (the rule replicates the pool), and its query heads, which lie in
-one GQA group, read that group's KV head (`kv_heads`). A dense cache of
+one GQA group, read that group's KV head (`kv_heads`). A training rank's
+query heads may straddle groups (shard_config(train=True)): the
+full-sequence path then reads one KV head a query head (`_rank_kv`). A dense cache of
 such a rank (and MLA's latent cache on any model axis) is split along
 the sequence instead when the axis divides its length (`seq_block`):
 decode then all-gathers every head's query over the model group, each
@@ -57,12 +59,29 @@ def init_attn(cfg, gen, dtype, device):
 def kv_heads(cfg) -> tuple:
     """(first, count) of the cfg.n_kv_heads KV heads (those wk and wv
     compute and the cache holds) that this rank's query heads read: all
-    of them, or on a rank whose wk and wv are whole (cfg.kv_whole) the
-    one KV head of its query heads' GQA group."""
+    of them, or on a rank whose wk and wv are whole (cfg.kv_whole) those
+    of its query heads' GQA groups (one, but where a training rank's
+    heads straddle groups)."""
     if not getattr(cfg, "kv_whole", False):
         return 0, cfg.n_kv_heads
-    m = model_coords()[0]
-    return m * cfg.n_kv_heads // cfg.model_axis, 1
+    m, H = model_coords()[0], cfg.n_heads
+    rep = H * cfg.model_axis // cfg.n_kv_heads
+    first = m * H // rep
+    return first, ((m + 1) * H - 1) // rep - first + 1
+
+
+def _rank_kv(cfg, k, v):
+    """The K/V heads (B, S, Hkv, hd) that this rank's query heads read, in
+    the grouped form of `_group_q`: kv_heads' block, or, where a rank's
+    query heads straddle GQA groups, one KV head a query head (rep 1)."""
+    lo, n = kv_heads(cfg)
+    k, v = k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    if n == 1 or not getattr(cfg, "kv_whole", False):
+        return k, v
+    H = cfg.n_heads
+    rep = H * cfg.model_axis // cfg.n_kv_heads
+    idx = (model_coords()[0] * H + torch.arange(H, device=k.device)) // rep
+    return k[:, :, idx - lo], v[:, :, idx - lo]
 
 
 def seq_block(cfg, spec, max_len) -> tuple:
@@ -195,9 +214,9 @@ def _attend_sequence(cfg, spec, p, x, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     fn = _attend_chunked if x.shape[1] > CHUNKED_THRESHOLD else _attend_dense
-    lo, n = kv_heads(cfg)
-    out = fn(q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], causal=cfg.causal,
-             window=spec.window, cap=cfg.attn_softcap, scale=hd ** -0.5)
+    kr, vr = _rank_kv(cfg, k, v)
+    out = fn(q, kr, vr, causal=cfg.causal, window=spec.window,
+             cap=cfg.attn_softcap, scale=hd ** -0.5)
     y = linear(out.reshape(*x.shape[:2], cfg.n_heads * hd), p["wo"])
     return y, k, v
 

@@ -71,7 +71,14 @@ seq_block). Weights sharded over the data axis too (dist/fsdp.py) are
 gathered layer by layer, just before the layer runs (`_layers`); the
 embedding and head are not gathered: the data ranks' activations are
 (`embed_inputs`, `unembed`). Outside a mesh each hook is the
-identity.
+identity. Training on a mesh (train/train_step.py) runs the same code
+under autograd: the hooks' backwards sum each rank's gradient of the
+replicated input of every column-parallel projection (`copy_to_model`:
+the normed input of each mixer and MLP, the head's input) and
+reduce-scatter the gathered weights'; `forward` gathers a layer's FSDP
+leaves inside its activation checkpoint, so the backward gathers them
+again and no layer's stay. MoE, MLA and Mamba layers refuse a training
+mesh (`require_train_mesh`).
 """
 from __future__ import annotations
 
@@ -81,7 +88,8 @@ import functools
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import (data_coords, gather_fsdp, gather_model,
+from repro_torch.dist.context import (copy_to_model, current_mesh,
+                                      data_coords, gather_fsdp, gather_model,
                                       model_coords, reduce_fsdp, reduce_model)
 from repro_torch.dist.fsdp import FsdpLeaf, gather_tree
 from repro_torch.hw import resolve_device, torch_dtype
@@ -139,7 +147,7 @@ class RankConfig(ModelConfig):
         return super().d_inner // self.model_axis
 
 
-def shard_config(cfg, model: int, dense_len: int = 0):
+def shard_config(cfg, model: int, dense_len: int = 0, train: bool = False):
     """The config one rank of a `model`-way model axis runs: with
     attention layers n_heads divided by `model` (and n_kv_heads where
     the axis divides them; MLA has none in its cache: its latent
@@ -151,7 +159,9 @@ def shard_config(cfg, model: int, dense_len: int = 0):
     replicates the pool). `dense_len`: a dense engine's max_len. An
     attention-free pattern keeps its (unused) head counts. A dimension
     the axis does not divide, or query heads that straddle two GQA
-    groups, raise ValueError naming them."""
+    groups, raise ValueError naming them; with `train` (the training
+    forward, which reads a KV head a query head, attention.py:_rank_kv)
+    straddling heads keep every KV head too."""
     if model == 1:
         return cfg
     kinds = {s.kind for s in cfg.pattern}
@@ -163,7 +173,7 @@ def shard_config(cfg, model: int, dense_len: int = 0):
             dims["n_kv_heads"] = cfg.n_kv_heads
         elif cfg.mla is None and cfg.n_heads % model == 0:
             mine, rep = cfg.n_heads // model, cfg.n_heads // cfg.n_kv_heads
-            if rep % mine:
+            if rep % mine and not train:
                 raise ValueError(
                     f"{cfg.name}: a {model}-way model axis gives each rank "
                     f"{mine} of n_heads={cfg.n_heads} query heads, which "
@@ -190,7 +200,8 @@ def shard_config(cfg, model: int, dense_len: int = 0):
 
 
 def _unbind_tree(tree):
-    """A slot's stacked weight dict -> one dict of views per group."""
+    """A slot's stacked weight dict -> one dict of views per group (an
+    FsdpLeaf's blocks unbound field by field)."""
     if not isinstance(tree, dict):
         return list(tree.unbind(0))
     parts = {k: _unbind_tree(v) for k, v in tree.items()}
@@ -209,17 +220,18 @@ def layer_params(cfg, params) -> list:
     return [slots[i][g] for g in range(len(slots[0])) for i in range(P)]
 
 
-def _layers(cfg, params):
+def _layers(cfg, params, gather: bool = True):
     """(spec, layer weights) for every layer, in order; the weights must
     have the config's depth. A layer's FSDP-sharded leaves are gathered
     as it is reached (dist/fsdp.py), so one layer's are whole at a
-    time."""
+    time; with gather=False the caller gathers them (the training
+    forward, inside the layer's activation checkpoint)."""
     layers = layer_params(cfg, params)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: params hold {len(layers)} "
                          f"layers, the config {cfg.n_layers}")
     for spec, lp in zip(cfg.layer_specs(), layers):
-        yield spec, gather_tree(lp)
+        yield spec, gather_tree(lp) if gather else lp
 
 
 # --------------------------------------------------------------------------
@@ -331,6 +343,9 @@ def unembed(cfg, params, x):
     block of d_model, and the partial logits are summed over the data
     group, each rank keeping its rows'."""
     name = "embed" if cfg.tie_embeddings else "lm_head"
+    if params[name].shape[0 if cfg.tie_embeddings else -1] \
+            != cfg.vocab_size:
+        x = copy_to_model(x)          # each model rank's vocabulary block
     block = _table_block(params[name])
     if block is None:
         w = gather_tree(params[name])
@@ -397,7 +412,7 @@ def _mlp(cfg, spec, lp, x, moe_capacity_factor):
     config has sandwich norms."""
     if spec.mlp == "none":
         return x, None
-    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    h = copy_to_model(rmsnorm(x, lp["ln2"], cfg.norm_eps))
     aux = None
     if spec.mlp == "moe":
         y, aux = moe_forward(cfg, lp["moe"], h,
@@ -414,7 +429,7 @@ def _apply_layer(cfg, spec, lp, x, mixer, moe_capacity_factor):
     """One layer: norm, the mixer (attention, MLA or Mamba; `mixer(spec,
     lp, h)` -> (y, cache)), post-norm, residual, then the MLP. Returns
     (x, the mixer's cache, the MoE aux loss or None)."""
-    h = rmsnorm(x, lp["ln"], cfg.norm_eps)
+    h = copy_to_model(rmsnorm(x, lp["ln"], cfg.norm_eps))
     y, c = mixer(spec, lp, h)
     y = reduce_model(y)               # after wo
     if cfg.post_block_norms:
@@ -458,6 +473,7 @@ def forward(cfg, params, inputs, *, remat=None):
     `remat` (default cfg.remat) while autograd records. `params` in
     either layout (`layer_params`)."""
     check_config(cfg)
+    require_train_mesh(cfg)
     x = embed_inputs(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
     cf = cfg.moe.capacity_factor if cfg.moe else None
@@ -472,13 +488,38 @@ def forward(cfg, params, inputs, *, remat=None):
         return attn.attn_forward(cfg, spec, lp["attn"], h, positions), None
 
     def layer(spec, lp, x, aux):
-        x, _, a = _apply_layer(cfg, spec, lp, x, mixer, cf)
+        # gathered inside the checkpoint: the backward gathers again, so
+        # no layer's gathered weights outlive its pass
+        x, _, a = _apply_layer(cfg, spec, gather_tree(lp), x, mixer, cf)
         return x, aux if a is None else aux + a
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, lp in _layers(cfg, params):
+    for spec, lp in _layers(cfg, params, gather=False):
         x, aux = _remat(functools.partial(layer, spec, lp), policy)(x, aux)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), aux
+
+
+def refuse_train_mesh(cfg) -> None:
+    """Training on a mesh takes dense attention decoders: MoE, MLA and
+    Mamba layers there are ROADMAP Queue 1 item 6.1, still to do."""
+    kinds = [name for name, has in (
+        ("MoE", any(s.mlp == "moe" for s in cfg.pattern)),
+        ("MLA", cfg.mla is not None and any(s.kind == "attn"
+                                            for s in cfg.pattern)),
+        ("Mamba", any(s.kind == "mamba" for s in cfg.pattern))) if has]
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: training {', '.join(kinds)} layers on a mesh is "
+            f"ROADMAP Queue 1 item 6.1, still to do; the port trains dense "
+            f"attention decoders on a mesh, and every family on one device")
+
+
+def require_train_mesh(cfg) -> None:
+    """refuse_train_mesh while autograd records with a mesh of more than
+    one rank installed."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1 and torch.is_grad_enabled():
+        refuse_train_mesh(cfg)
 
 
 def loss_fn(cfg, params, batch, *, aux_coef=0.01, remat=None):

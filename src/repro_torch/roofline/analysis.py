@@ -8,7 +8,7 @@
 On one card the collective term is 0: nothing crosses a link. The
 reference reads its collectives from compiled HLO text
 (`parse_collectives`); the port has no HLO, and a mesh's collective
-term is still to do (ROADMAP Queue 1 item 6).
+term is still to do (ROADMAP Queue 1 item 6.3).
 
 Beside the cell terms, one formula for a kernel's bound (`bound_ms`:
 the larger of its bytes over the HBM rate and its operations over the

@@ -36,10 +36,13 @@ Capture. A graph is captured after one warm-up run on a side stream
 in place; a warm-up's K/V (and MLA latent) writes repeat exactly what
 the first replay writes, but a Mamba layer's state rows would advance
 twice, so the warm-up saves those rows and restores them. The capture
-runs nothing. The kernel wrappers count launches when they are called,
-which a replay does not do: the counts a capture traces are recorded,
-left out of the totals (nothing ran), and added once per replay, so
-`kernels.launch_counts()` keeps counting the launches the device ran.
+runs nothing, with Python's cyclic collector held off (a dead engine
+in a reference cycle would otherwise have its graphs destroyed in the
+middle of the capture, which invalidates it). The kernel wrappers
+count launches when they are called, which a replay does not do: the
+counts a capture traces are recorded, left out of the totals (nothing
+ran), and added once per replay, so `kernels.launch_counts()` keeps
+counting the launches the device ran.
 A capture that fails raises with the reason; nothing falls back to the
 eager step.
 
@@ -54,7 +57,7 @@ reference (the config a rank runs is its shard config, so the key
 differs from a single device's anyway). Under a model axis > 1 every
 kind runs eagerly: the steps hold the model group's collectives, and
 gloo's collectives cannot be captured in a CUDA graph. Capturing them
-with NCCL's is a later PR (ROADMAP Queue 1 item 6). A data-only mesh
+with NCCL's is a later PR (ROADMAP Queue 1 item 6.4). A data-only mesh
 (model axis 1) has no collective inside a step (the engine gathers the
 sampled tokens outside it), so its graphed kinds capture as on one
 device, unless its weights are sharded over the data axis (FSDP,
@@ -64,6 +67,7 @@ apart.
 """
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 
@@ -251,6 +255,11 @@ class Step:
                 torch.cuda.current_stream(dev).wait_stream(side)
                 del saved
                 traced = kernels.launch_counts()
+                # no cyclic collection while capturing: it may free a
+                # dead engine's graphs, whose destruction invalidates
+                # the capture in progress
+                collecting = gc.isenabled()
+                gc.disable()
                 try:
                     with torch.cuda.graph(g.graph, pool=_POOL[0],
                                           stream=side):
@@ -258,6 +267,9 @@ class Step:
                 except Exception as e:
                     raise RuntimeError(f"{self.kind}: CUDA graph capture "
                                        f"failed: {e}") from e
+                finally:
+                    if collecting:
+                        gc.enable()
                 captured = kernels.launch_counts()
         finally:
             kernels.set_launch_counts(before)

@@ -10,6 +10,12 @@ norms and Mamba's conv_b, dt_b and D are (n_groups, d) matrices there
 and are decayed, as in the reference; only the top-level final_ln is
 not. The global norm sums the leaves in the reference's flattening
 order (tree.py).
+
+On a mesh (dist/sharding.py:TrainLayout) a rank holds its block of each
+leaf of the params, the moments and the master copy, and updates only
+those (the update is elementwise); the global norm is the whole tree's,
+each leaf's sum of squares summed over the groups that cut it, a leaf a
+group replicates counted once.
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.dist.context import sync_grads
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 @dataclass(frozen=True)
@@ -54,19 +61,35 @@ def adamw_init(params, cfg: AdamWConfig):
     return state
 
 
-def global_norm(tree):
+def global_norm(tree, layout=None):
     """sqrt of the sum of squares of every leaf, in fp32, leaf by leaf in
-    the reference's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(a.float()))
-                          for a in leaves(tree)))
+    the reference's order; with a TrainLayout, of the whole tree whose
+    blocks `tree` holds on this rank (each leaf's sum over the groups
+    that cut it: one all-reduce over each axis of more than one rank)."""
+    if layout is None:
+        return torch.sqrt(sum(torch.sum(torch.square(a.float()))
+                              for a in leaves(tree)))
+    paths, flat = zip(*leaves_with_paths(tree))
+    sums = torch.stack([torch.sum(torch.square(a.float())) for a in flat])
+    for axis in ("data", "model"):
+        cut = torch.tensor([axis in layout.axes(p) for p in paths],
+                           device=sums.device)
+        if cut.any():
+            whole, = sync_grads([torch.where(cut, sums, 0.0)], axis,
+                                layout.mesh)
+            sums = torch.where(cut, whole, sums)
+    return torch.sqrt(sum(sums.unbind()))
 
 
-def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0,
+                 layout=None):
     """Returns (new_params, new_state, metrics): global-norm clipping,
     bias-corrected moments, decoupled weight decay on leaves of stacked
-    rank >= 2, all in fp32; new params in their own dtypes."""
+    rank >= 2, all in fp32; new params in their own dtypes. With a
+    TrainLayout the trees are a rank's blocks and the norm the whole
+    tree's."""
     _stacked(params)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)

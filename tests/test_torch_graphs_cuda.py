@@ -319,3 +319,50 @@ def test_dropped_engine_frees_its_pool_and_graphs(cuda):
     assert compile_cache.graph_stats()["live"] == 1
     compile_cache.clear()
     assert compile_cache.graph_stats()["live"] == 0
+
+
+
+def test_capture_holds_off_collecting_a_dead_engine(cuda, monkeypatch):
+    """An engine dropped in a reference cycle keeps its graphs until the
+    cyclic collector runs, which it may do from any allocation, the
+    next engine's capture included; destroying a graph mid-capture
+    invalidates that capture. The capture holds the collector off: the
+    engine becomes garbage during the next engine's capture, the
+    collection that an allocation would then trigger does not run (it
+    runs only where collection is enabled), the capture succeeds, and
+    the dead engine goes at the next collection."""
+    from repro_torch.serve import Request, ServeEngine, compile_cache
+    cfg, params = _model("w3_pc", cuda)
+
+    def run():
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          dtype="float32", cache_kind="paged",
+                          page_size=16, prefix_sharing=False)
+        reqs = [Request(prompt=np.arange(9, dtype=np.int32),
+                        max_new_tokens=4)]
+        eng.run(reqs)
+        return eng, reqs[0].out
+
+    compile_cache.clear()
+    dead, want = run()
+    dead.cycle = dead
+    held = [dead]                   # the one reference outside the cycle
+    leaf = weakref.ref(dead.cache[0]["k_pages"])
+    step = dead._decode
+    del dead
+    fn, collected = step._fn, []
+
+    def collecting(*args):
+        if torch.cuda.is_current_stream_capturing():
+            held.clear()
+            if gc.isenabled():
+                collected.append(gc.collect())
+        return fn(*args)
+    monkeypatch.setattr(step, "_fn", collecting)
+    before = compile_cache.graph_stats()["captured"]
+    _, out = run()
+    assert compile_cache.graph_stats()["captured"] == before + 1
+    assert collected == [] and out == want
+    assert leaf() is not None and gc.isenabled()
+    gc.collect()
+    assert leaf() is None

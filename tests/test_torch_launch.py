@@ -46,8 +46,92 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
     # a second launch resumes at step 3 and has nothing left to run
     _, _, more = train_launch.main(argv)
     assert more == [] and "resumed from step 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_launch.main(argv + ["--mesh", "pod"])
+    with pytest.raises(NotImplementedError, match="item 6.2"):
+        train_launch.main(argv + ["--mesh", "multipod"])
+
+
+def test_train_launcher_trains_on_a_mesh(tmp_path, capfd):
+    """--mesh 2,1 --devices cpu,cpu spawns two gloo ranks (FSDP on the
+    data axis) whose losses are --mesh host's within 1e-5 relative, and
+    whose whole trained params (gathered) are the host run's within 1e-5
+    x max|p| a leaf (1 + w for a norm scale). --devices needs a mesh."""
+    common = ["--arch", "tiny-lm", "--steps", "2", "--batch", "4", "--seq",
+              "32", "--ckpt-every", "100"]
+    params, _, want = train_launch.main(common + [
+        "--device", "cpu", "--ckpt-dir", str(tmp_path / "host")])
+    got_params, opt, got = train_launch.main(common + [
+        "--mesh", "2,1", "--devices", "cpu,cpu", "--ckpt-dir",
+        str(tmp_path / "mesh")])
+    assert np.allclose(got, want, rtol=1e-5, atol=0), (got, want)
+    assert int(opt["step"]) == 2
+    mine = dict(leaves_with_paths(got_params))
+    for path, w in leaves_with_paths(params):
+        scale = (1 + w if w.ndim < 3 and "ln" in path[-1] else w).abs().max()
+        assert (mine[path] - w).abs().max() <= 1e-5 * scale, keystr(path)
+    out = capfd.readouterr().out
+    assert "mesh (data=2, model=1) backend=gloo devices=cpu,cpu" in out
+    assert out.count("training complete") == 2       # host, then rank 0
+    # the mesh's checkpoint is whole: the host launcher resumes it
+    _, _, more = train_launch.main(common + [
+        "--device", "cpu", "--ckpt-dir", str(tmp_path / "mesh")])
+    assert more == [] and "resumed from step 2" in capfd.readouterr().out
+    with pytest.raises(SystemExit):
+        train_launch.main(common + ["--devices", "cpu,cpu"])
+
+
+def test_chip_smoke_train_mesh_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 13 of chip_smoke.py end to end on the CPU at tiny size
+    (tiny-lm cut to 2 layers, batches of 4 x 32, 3 steps) on its three
+    meshes: every check holds (no peak-memory gate off the card), the
+    (2, 2) checkpoint resumes on one device, and each line carries the
+    collectives of a step by direction."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(root))
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    unmet, rows = [], []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    monkeypatch.setattr(cs, "emit", rows.append)
+    counts = cs.phase_train_mesh(0, "tiny-lm", 2, 4, 32)
+    assert unmet == [] and not any(counts.values())
+    paths = [r for r in rows if r["check"] == "train_mesh_path"]
+    assert [p["mesh"] for p in paths] == [[2, 1], [1, 2], [2, 2]]
+    spawn = next(r for r in rows if r["check"] == "train_mesh_spawn")
+    assert spawn["stages"] == [["2x1@0", "1x2@2"], ["2x2@0"]]
+    floor = next(r for r in rows if r["check"] == "train_mesh_noise_floor")
+    assert floor["params_norm"] <= cs.TOL_TRAIN_MESH
+    for p in paths:
+        assert p["max_loss_rel_err"] <= cs.TOL_TRAIN_MESH
+        assert p["max_grad_norm_rel_err"] <= cs.TOL_TRAIN_MESH
+        # at tiny size even the largest entry error is within the bound
+        assert p["errors"]["params_max"] <= cs.TOL_TRAIN_MESH
+        assert p["errors"]["mu_max"] <= cs.TOL_TRAIN_MESH
+        n = p["mesh"][0] * p["mesh"][1]
+        assert len(p["ranks"]) == n
+        for r in p["ranks"]:
+            assert r["held_bytes"] == r["spec_local_bytes"]
+            # a rank holds 1/n of the state, but the replicated norm
+            # scales (0.2 % of tiny-lm's state on (2, 2))
+            assert r["held_bytes"] <= 1.01 * p["whole_state_bytes"] / n
+            assert len(r["wall_ms"]) == 3
+        last = p["ranks"][0]["collectives_last_step"]
+        assert ("reduce_scatter_data_backward" in last["backward"]) \
+            == p["fsdp"]
+        assert ("all_reduce_backward" in last["backward"]) \
+            == (p["mesh"][1] > 1)
+    resume = paths[2]["resume"]
+    assert resume["resumed"] and resume["from_step"] == 2
+    assert len(resume["losses"]) == 1 and len(resume["restore_s"]) == 1
+    assert resume["errors"]["params_max"] <= cs.TOL_TRAIN_MESH
+    assert paths[2]["ranks"][0]["save_s"] is not None
 
 
 def test_serve_launcher_quantizes_saves_and_boots(tmp_path, monkeypatch,

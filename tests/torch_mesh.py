@@ -1,6 +1,6 @@
-"""Rank bodies of the port's mesh tests (tests/test_torch_sharded_serve.py):
-module-level functions that repro_torch.dist.context.spawn runs in each
-rank's process. This module imports torch, the port and chip_smoke.py
+"""Rank bodies of the port's mesh tests (tests/test_torch_sharded_serve.py,
+tests/test_torch_train_mesh.py): module-level functions that
+repro_torch.dist.context.spawn runs in each rank's process. This module imports torch, the port and chip_smoke.py
 (whose record_logits it shares), never JAX, so a spawned rank starts in
 a few seconds."""
 import importlib.util
@@ -208,3 +208,144 @@ def fail_on_rank_1(mesh):
         raise ValueError("rank 1 refuses")
     from repro_torch.dist.context import gather_data
     return gather_data(torch.zeros(1), mesh)
+
+
+# --------------------------------------------------------------------------
+# training on a mesh (tests/test_torch_train_mesh.py)
+# --------------------------------------------------------------------------
+
+def train_config(case):
+    """The case's config: 2 layers, fp32, remat full."""
+    from repro_torch.configs import get_config
+    return get_config(case["arch"]).replace(
+        dtype="float32", n_layers=2, remat="full", **case.get("kw", {}))
+
+
+def train_case(mesh, case: dict) -> dict:
+    """Train one case on this rank of the bound `mesh`: the seeded whole
+    init (seed 0) cut by shard_train_state, `case["batches"]` (numpy)
+    through make_train_step(mesh=, fsdp=), or through a Trainer
+    (`ckpt`: resume from the directory's checkpoint, and with `save_at`
+    save there at that step). -> the losses, the whole trained state
+    (gather_train_state, numpy), the shapes this rank held and the
+    collectives of its steps."""
+    from repro_torch.ckpt import stack_params
+    from repro_torch.dist.context import mesh_context
+    from repro_torch.dist.sharding import gather_train_state, shard_train_state
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, Trainer, TrainerConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.tree import keystr, leaves_with_paths
+    cfg = train_config(case)
+    opt_cfg = AdamWConfig(lr=1e-3, master_fp32=case.get("master", False))
+    fsdp, mb = case.get("fsdp", True), case.get("microbatches", 1)
+    batches = case["batches"]
+    mesh.counts.clear()
+    with mesh_context(mesh):
+        if "ckpt" in case:
+            steps = case.get("save_at") or len(batches)
+            tr = Trainer(cfg, TrainerConfig(
+                steps=steps, ckpt_every=10 ** 9, ckpt_dir=case["ckpt"],
+                log_every=10 ** 9, microbatches=mb, warmup=case["warmup"],
+                opt=opt_cfg), iter(batches[case.get("start", 0):]),
+                dtype="float32", device="cpu", mesh=mesh, fsdp=fsdp)
+            out = tr.run()
+            params, opt = tr.params, tr.opt_state
+            losses = [m["loss"] for m in tr.metrics_log]
+            norms, resumed = None, out["resumed"]
+        else:
+            whole = stack_params(cfg, init_params(cfg, seed=0, device="cpu"))
+            params, opt = shard_train_state(
+                cfg, whole, init_train_state(cfg, whole, opt_cfg), mesh, fsdp)
+            step = make_train_step(
+                cfg, opt_cfg, microbatches=mb, warmup=case["warmup"],
+                grad_compress=case.get("grad_compress", "none"), mesh=mesh,
+                fsdp=fsdp)
+            losses, norms = [], []
+            for b in batches:
+                params, opt, m = step(params, opt, b)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            resumed = False
+        counts = dict(mesh.counts)
+        held = {"params": {k: tuple(v.shape)
+                           for k, v in leaves_with_paths(params)},
+                "opt": {k: tuple(v.shape)
+                        for k, v in leaves_with_paths(opt)}}
+        P, O = gather_train_state(cfg, params, opt, mesh, fsdp)
+    to_np = {keystr(k): v.detach().numpy() for k, v in leaves_with_paths(
+        {"params": P, "opt": O})}
+    return {"losses": losses, "grad_norms": norms,
+            "state": to_np if mesh.rank == 0 else None,
+            "held": held, "counts": counts, "resumed": resumed,
+            "coords": mesh.coords}
+
+
+def gathered_alive(mesh, case: dict) -> dict:
+    """How many weights the FSDP forward gathered (FsdpLeaf.gather's
+    outputs) are still alive once the training forward has run (its
+    loss recorded by autograd), and once the backward has: the gather
+    runs inside each layer's activation checkpoint, so neither should
+    keep any (a gather outside it would keep every layer's until the
+    backward)."""
+    import gc
+    import weakref
+    from repro_torch.ckpt import stack_params
+    from repro_torch.dist.context import mesh_context
+    from repro_torch.dist.fsdp import FsdpLeaf, fsdp_view
+    from repro_torch.dist.sharding import TrainLayout
+    from repro_torch.models import init_params
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import leaves, tree_map
+    cfg = train_config(case)
+    lay = TrainLayout(cfg, mesh)
+    params, _ = lay.shard(stack_params(cfg, init_params(cfg, device="cpu")),
+                          {})
+    live = tree_map(lambda a: a.detach().requires_grad_(), params)
+    refs, gather = [], FsdpLeaf.gather
+
+    def recorded(self, mesh=None):
+        out = gather(self, mesh)
+        refs.append(weakref.ref(out))
+        return out
+    b = case["batches"][0]
+    batch = {k: torch.from_numpy(v[:2]) for k, v in b.items()}
+    FsdpLeaf.gather = recorded
+    try:
+        with mesh_context(mesh):
+            loss, _ = loss_fn(lay.rank_cfg, fsdp_view(
+                live, lay.data_dims(), lay.D), batch)
+            gc.collect()
+            after_forward = sum(r() is not None for r in refs)
+            n_forward = len(refs)
+            loss.backward()
+    finally:
+        FsdpLeaf.gather = gather
+    gc.collect()
+    return {"gathered": n_forward, "alive_after_forward": after_forward,
+            "gathered_in_backward": len(refs) - n_forward,
+            "alive_after_backward": sum(r() is not None for r in refs),
+            "grads": sum(a.grad is not None for a in leaves(live))}
+
+
+def train_meshes(world, plan) -> list:
+    """Every training mesh of `plan` ([(mesh shape, first rank, stage,
+    cases)]) in one spawn: each rank makes every sub-mesh, in plan
+    order, then stage by stage trains the cases of the meshes it
+    belongs to (meshes of one stage on disjoint ranks side by side) and
+    waits at a barrier after each stage. -> {(shape, case id): result}
+    of this rank's cases."""
+    import torch.distributed as dist
+    subs = [world.submesh(*shape, first=first) for shape, first, _, _
+            in plan]
+    out = {}
+    for stage in sorted({p[2] for p in plan}):
+        for sub, (shape, _, st, cases) in zip(subs, plan):
+            if st != stage or sub is None:
+                continue
+            for key, case in cases.items():
+                fn = gathered_alive if case.get("alive") else train_case
+                out[(shape, key)] = fn(sub, case)
+        dist.barrier()
+    return out
+
