@@ -76,7 +76,7 @@ thirteen phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11,
      engine, launches and page accounting; times TTFT per wave and the
      extend path's share of prefill.
   7. quantize, save, load and serve at full width: seeded fp32
-     llama2-7b (init_params), cut to 2 of 32 layers, calibrated on 24
+     llama2-7b (init_params), cut to 1 of 32 layers, calibrated on 24
      slices of 192 tokens of the port's wiki corpus and quantized by
      quantize_model (GPTQT w3 per-channel, actorder), saved by
      save_packed, loaded by load_packed and served (phase 3's requests)
@@ -119,7 +119,7 @@ thirteen phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11,
      Every request finishes, pages and slabs drain, no BCQ call takes
      the plain path, and paged attention launches once a decode tick
      in every attention layer (none under MLA).
- 10. training and perplexity at full width: (a) llama2-7b cut to 2 of
+ 10. training and perplexity at full width: (a) llama2-7b cut to 1 of
      32 layers, fp32, remat full, AdamW (lr 1e-3), wiki batches of 4 x
      512 in 2 microbatches: run A trains 4 steps; run B trains 2, saves
      a checkpoint (8.0 GB, in a temporary directory the phase
@@ -187,25 +187,36 @@ thirteen phases (in the order 1, 2, 3, 4, 6, 8, 12, 7, 5, 9, 10, 11,
      alone), one layer's FSDP gather ms, parameter and pool bytes; with
      speculation the acceptance and ticks.
  13. training over meshes of ranks on the one card (gloo, the ranks
-     sharing cuda:0): llama2-7b at full width cut to 2 of its 32 layers,
+     sharing cuda:0): llama2-7b at full width cut to 1 of its 32 layers,
      fp32, remat full, TF32 off, wiki batches of 4 x 256, 3 steps, on
      (2, 1) with FSDP and (1, 2) side by side, then (2, 2) with FSDP, 2
      microbatches and int8 accumulation (make_train_step(mesh=), each
      rank holding its blocks of the params and AdamW by the reference's
      rules). Each mesh is held to the single device's run of the same
      options: losses and gradient norms within TOL_TRAIN_MESH relative,
-     each leaf of AdamW's mu within TOL_TRAIN_MESH x max|mu|, each
-     params leaf within TOL_TRAIN_MESH of its norm (its largest entry
-     error printed beside the one-device noise floor, 2 microbatches
-     against 1); a rank holds exactly the rule's blocks' bytes and peaks
+     each leaf of AdamW's mu within TOL_TRAIN_MESH x max|mu| (or, for a
+     model whose gradients cancel, TRAIN_MESH_FLOOR_X x its one-device
+     noise floor, 2 microbatches against 1), each params leaf within
+     TOL_TRAIN_MESH of its norm (its largest entry error printed beside
+     the floor); a rank holds exactly the bytes of the rule's blocks
+     (shard_params' for the leaves the port cuts otherwise) and peaks
      below one device. (2, 2) saves its state whole at step 2 and a
-     single-device Trainer resumes it to step 3, held alike. A
-     `train_mesh_path` line a mesh: per rank the wall ms of each step
-     and the device-busy ms of the last (traced), the collectives of a
-     step by kind and direction, one layer's gather and reduce-scatter
-     ms (or an activation's all-reduce), the bytes held beside the whole
-     state's and the specs', one gathered layer's bytes, peak memory,
-     save and restore seconds.
+     single-device Trainer resumes it to step 3, held alike. Then, alike
+     and with four ranks, the other families (TRAIN_MESH_FAMILIES):
+     mixtral-8x7b cut to 1 of 32 layers with its experts on the model
+     axis, 2 microbatches, on (1, 2) and on (2, 2) with FSDP, each data
+     rank routing the whole microbatch (every mesh drops the single
+     device's (token, choice) pairs a step, its aux loss beside them);
+     minicpm3-4b (MLA) cut to 2 of 62 layers on (1, 2) and (2, 2) with
+     FSDP;
+     falcon-mamba-7b cut to 2 of 64 layers on (1, 2) and (2, 2) with
+     FSDP, 2 microbatches and int8. A `train_mesh_path` line a mesh: per
+     rank the wall ms of each step and the device-busy ms of the last
+     (traced), the collectives of a step by kind and direction, one
+     layer's gather and reduce-scatter ms (or an activation's
+     all-reduce), the bytes held beside the whole state's, shard_params'
+     and the reference's specs', one gathered layer's bytes, peak
+     memory, save and restore seconds.
 
 Phases 2-9 serve through ServeEngine, whose decode step, draft
 propose pass and verify come from serve/compile_cache.py: on the card
@@ -2202,11 +2213,12 @@ def phase_prefix(seed: int, model, kv_bits: int = 4, max_new: int = 32):
 # phase 7: quantize full-width llama2-7b, save, load and serve the artifact
 # ---------------------------------------------------------------------------
 
-# the llama2-7b depth quantized in phase 7: for time, not memory (2
-# layers hold ~1.8 GB of Hessians and 1.6 GB of fp32 weights; the column
+# the llama2-7b depth quantized in phase 7: for time, not memory (a
+# layer holds ~0.9 GB of Hessians and 0.8 GB of fp32 weights; the column
 # sweep runs ~35.6 k sequential columns a layer, ~9-10 s on the card; 8
-# layers until phase 13 needed the room)
-QUANT_LAYERS = 2
+# layers until phase 13 needed the room, 2 until its other families
+# did)
+QUANT_LAYERS = 1
 # calibration (benchmarks/common.py): 24 slices of 192 tokens of the
 # wiki train split, slice seed 1, batches of 4
 CALIB_SLICES, CALIB_LEN, CALIB_BATCH = 24, 192, 4
@@ -4416,9 +4428,10 @@ def phase_zoo(seed: int, models=None, max_new: int = 32):
 # ---------------------------------------------------------------------------
 
 # (a) llama2-7b at full width cut to TRAIN_LAYERS of 32 layers (for the
-# checkpoint's bytes and time: 2 layers hold 8.0 GB of params and AdamW
-# moments), fp32, remat "full"
-TRAIN_LAYERS = 2
+# checkpoint's bytes and time: 1 layer and the embedding and head hold
+# 5.6 GB of params and AdamW moments; 2 until phase 13's other families
+# needed the room), fp32, remat "full"
+TRAIN_LAYERS = 1
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SPLIT = 4, 2, 2
 TOL_RESUME = 1e-5      # run B vs run A, of max|p| (atomics in the backward)
@@ -4953,9 +4966,10 @@ def phase_dryrun(jobs=DRYRUN_JOBS, pending=None):
 
 # llama2-7b at full width cut to TRAIN_MESH_LAYERS of its 32 layers (for
 # time: each pass gathers a layer's 809.6 MB of fp32 blocks through host
-# memory over gloo, and the whole state is checkpointed), fp32, remat
-# full, TF32 off, wiki batches of 4 x 256, 3 steps
-TRAIN_MESH_LAYERS = 2
+# memory over gloo, and the whole state is checkpointed; 2 until the
+# other families needed the room), fp32, remat full, TF32 off, wiki
+# batches of 4 x 256, 3 steps
+TRAIN_MESH_LAYERS = 1
 TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 4, 256, 3
 TRAIN_MESH_WARMUP, TRAIN_MESH_SAVE_AT = 2, 2
 # (mesh shape, first rank, stage, options): (2, 1) and (1, 2) side by
@@ -4977,7 +4991,44 @@ TRAIN_MESHES = (
 # a share of lr (the one-device noise floor line shows the same between
 # 1 and 2 microbatches)
 TOL_TRAIN_MESH = 1e-5
+# A model whose noise floor moves a leaf of mu by TOL / 2 or more in
+# norm (a gradient that cancels: one reordering moves the whole leaf, not
+# a few entries; falcon-mamba-7b's dt_w, 6.4e-6 on an H100) holds mu's
+# largest entry to TRAIN_MESH_FLOOR_X x the floor's, where that is above
+# TOL: a (2, 2) step reorders several sums at once (its token sums split
+# over data ranks, a contraction over model ranks, the microbatches)
+# where the floor reorders one, and independent rounding errors add in
+# quadrature (sqrt 2-4)
+TRAIN_MESH_FLOOR_X = 2
 TRAIN_MESH_TIMEOUT_S = 900
+# the other families, at full width with 4 ranks sharing the card, each
+# mesh held to the single device's run of its options: (arch, layers,
+# meshes). mixtral-8x7b 1 of 32 layers (1713.4 M params) with its 8
+# experts on the model axis, 2 microbatches on both meshes (one
+# single-device state, 13.7 GB on disk, serves both), on (2, 2) each
+# routed over the data ranks, with FSDP: a step holds the old and new
+# params, mu and nu beside the gradients (7 copies of a rank's 3.43 GB
+# of params without FSDP, 96 GB for four ranks; one device peaks at
+# 54.3 GB), 1/4 of that with it;
+# minicpm3-4b (MLA) 2 of 62 layers, (2, 2) FSDP;
+# falcon-mamba-7b 2 of 64 layers, (2, 2) FSDP, 2 microbatches, int8.
+# All join llama2-7b's spawn, a model's meshes after the one's before;
+# the one-device noise floor (1 against 2 microbatches) is measured for
+# every model but a MoE config (whose microbatches route apart)
+# qwen3-moe-235b-a22b's layer (~60 GB with AdamW) and jamba's MoE layer
+# (38.7 GB of experts) do not fit beside their state: they train on the
+# CPU only (tests/test_torch_train_mesh_families.py)
+TRAIN_MESH_FAMILIES = (
+    ("mixtral-8x7b", 1, (
+        ((1, 2), 0, 0, {"fsdp": False, "microbatches": 2}),
+        ((2, 2), 0, 1, {"fsdp": True, "microbatches": 2}))),
+    ("minicpm3-4b", 2, (
+        ((1, 2), 0, 0, {"fsdp": False}),
+        ((2, 2), 0, 1, {"fsdp": True}))),
+    ("falcon-mamba-7b", 2, (
+        ((1, 2), 0, 0, {"fsdp": False}),
+        ((2, 2), 0, 1, {"fsdp": True, "microbatches": 2,
+                        "grad_compress": "int8"}))))
 
 
 def _train_mesh_cfg(arch, n_layers):
@@ -5012,14 +5063,17 @@ def block_stats(got: dict, want: dict, scales: dict) -> dict:
     want|, sum (got - want)^2, sum p^2 (p _applied) and the entries
     beyond TOL_TRAIN_MESH x the whole leaf's max|p| (`scales`); on the
     card."""
+    def sq(t):
+        # in fp64, 2^26 entries at a time (a mixtral expert stack is 1.9
+        # GB in fp64 whole, on four ranks at once)
+        return float(sum(c.double().square().sum()
+                         for c in t.reshape(-1).split(1 << 26)))
     out = {}
     for key, w in want.items():
         w = w.to(DEV)
         d = got[key].to(DEV).float() - w.float()
         p = _applied(key, w)
-        out[key] = {"max": float(d.abs().max()),
-                    "d2": float(d.double().square().sum()),
-                    "p2": float(p.double().square().sum()),
+        out[key] = {"max": float(d.abs().max()), "d2": sq(d), "p2": sq(p),
                     "over": int((d.abs() > TOL_TRAIN_MESH
                                  * scales[key]).sum())}
     return out
@@ -5029,7 +5083,7 @@ def leaf_errors(stats: list, scales: dict) -> dict:
     """block_stats of every rank (a leaf a group replicates counted on
     each, in d and p alike) -> the worst leaf of each measure: params
     max|d| / max|p| ("params_max") and ||d|| / ||p|| ("params_norm"),
-    mu max|d| / max|mu| ("mu_max"), each with its leaf, and the params
+    mu's alike ("mu_max", "mu_norm"), each with its leaf, and the params
     entries over TOL_TRAIN_MESH x max|p| in all."""
     keys = stats[0].keys()
     per = {k: {"max": max(s[k]["max"] for s in stats)
@@ -5039,7 +5093,8 @@ def leaf_errors(stats: list, scales: dict) -> dict:
                                        1e-60)),
                "over": sum(s[k]["over"] for s in stats)} for k in keys}
     out = {}
-    for part, measures in (("params", ("max", "norm")), ("mu", ("max",))):
+    for part, measures in (("params", ("max", "norm")),
+                           ("mu", ("max", "norm"))):
         rows = {k: v for k, v in per.items()
                 if k.startswith("['params']") == (part == "params")}
         for m in measures:
@@ -5066,7 +5121,8 @@ def _state_of(params, opt) -> dict:
 
 def _single_train(cfg, batches, mb, comp):
     """The single device's run of `batches`: -> (losses, gradient norms,
-    ms a step, peak GB, its params and mu on the host)."""
+    ms a step, peak GB, its params and mu on the host, a MoE config's
+    (aux, dropped pairs) a step)."""
     import torch
     from repro_torch.ckpt import stack_params
     from repro_torch.models import init_params
@@ -5079,7 +5135,7 @@ def _single_train(cfg, batches, mb, comp):
                            total_steps=len(batches))
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    losses, norms, ms = [], [], []
+    losses, norms, ms, moe = [], [], [], []
     for b in batches:
         sync()
         t0 = time.perf_counter()
@@ -5087,26 +5143,76 @@ def _single_train(cfg, batches, mb, comp):
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         ms.append((time.perf_counter() - t0) * 1e3)
+        moe.append(_moe_metrics(m))
     peak = torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None
     state = {k: a.cpu() for k, a in _state_of(params, opt).items()}
-    del params, opt
+    del params, opt, step
     _free()
-    return losses, norms, ms, peak, state
+    return losses, norms, ms, peak, state, moe
 
 
-def _spec_local_bytes(cfg, mesh, fsdp) -> int:
-    """The bytes of params, mu and nu (fp32) and the step a rank holds
-    under the rule's specs at the mesh (named_pspec, guarded;
-    local_shape), counted apart from the port's cut."""
+def _moe_metrics(m):
+    """A step's (aux loss, dropped (token, choice) pairs) of a MoE
+    config, else None."""
+    if "moe_dropped" not in m:
+        return None
+    return float(m["aux"]), int(m["moe_dropped"])
+
+
+# the leaves the port cuts otherwise than the rule's spec
+# (dist/sharding.py:_local_spec): the router and MLA's latent projections
+# whole on the model axis; Mamba's in_proj by halves, x_proj by rows and
+# its per-channel leaves (which the rule replicates) on d_inner. A rank's
+# bytes of these are shard_params' blocks, of every other leaf the spec's
+PORT_CUT = frozenset({"router", "wq_a", "wkv_a"})
+PORT_CUT_MAMBA = frozenset({"in_proj", "x_proj", "conv_w", "conv_b", "dt_b",
+                            "D", "A_log"})
+
+
+def _port_cut(names) -> bool:
+    return names[-1] in (PORT_CUT_MAMBA if "mamba" in names else PORT_CUT)
+
+
+def _cut_numel(cfg, mesh, fsdp) -> int:
+    """The entries of the PORT_CUT leaves a rank holds under shard_params'
+    cut of the whole tree (the model axis by the port's local spec, the
+    data axis with fsdp), counted on the meta device."""
+    from repro_torch.dist.fsdp import FsdpLeaf
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.models import init_params
+
+    def numel(t, names):
+        if isinstance(t, dict):
+            return sum(numel(v, names + (k,)) for k, v in t.items())
+        if isinstance(t, list):
+            return sum(numel(v, names + (i,)) for i, v in enumerate(t))
+        if not _port_cut(names):
+            return 0
+        if isinstance(t, FsdpLeaf):
+            return sum(f.numel() for f in t.fields.values())
+        return t.numel()
+    return numel(shard_params(cfg, init_params(cfg, device="meta"), mesh,
+                              fsdp=fsdp), ())
+
+
+def _spec_numel(cfg, mesh, fsdp, keep=lambda names: True) -> int:
+    """The entries of the leaves `keep` names that a rank holds under the
+    rule's specs at the mesh (named_pspec, guarded; local_shape),
+    counted apart from the port's cut."""
     from repro_torch.ckpt import stack_params
     from repro_torch.dist.sharding import local_shape, named_pspec
     from repro_torch.models import init_params
     from repro_torch.tree import leaves_with_paths
     meta = stack_params(cfg, init_params(cfg, device="meta"))
-    n = sum(math.prod(local_shape(a.shape, named_pspec(cfg, p, a, mesh,
-                                                       fsdp=fsdp), mesh))
-            for p, a in leaves_with_paths(meta))
-    return 3 * 4 * n + 4                # and AdamW's int32 step
+    return sum(math.prod(local_shape(a.shape, named_pspec(cfg, p, a, mesh,
+                                                          fsdp=fsdp), mesh))
+               for p, a in leaves_with_paths(meta) if keep(p))
+
+
+def _state_bytes(n) -> int:
+    """The bytes of params, mu and nu (fp32) of n entries and AdamW's
+    int32 step."""
+    return 3 * 4 * n + 4
 
 
 def _train_mesh_rank(mesh, spec):
@@ -5157,7 +5263,7 @@ def _train_mesh_rank(mesh, spec):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        losses, norms, walls, collectives = [], [], [], []
+        losses, norms, walls, collectives, moe = [], [], [], [], []
         busy, save_s = None, None
         last = len(spec["batches"]) - 1
         for i, b in enumerate(spec["batches"]):
@@ -5176,6 +5282,7 @@ def _train_mesh_rank(mesh, spec):
             norms.append(float(m["grad_norm"]))
             walls.append((time.perf_counter() - t) * 1e3)
             collectives.append(dict(mesh.counts))
+            moe.append(_moe_metrics(m))
             if spec.get("save_at") == i + 1:
                 t = time.time()
                 CheckpointManager(spec["ckpt"], keep_n=1).save(
@@ -5194,24 +5301,29 @@ def _train_mesh_rank(mesh, spec):
         # this rank's blocks of the params and mu against its blocks of
         # the single device's (the parent combines the ranks' sums)
         want = torch.load(spec["want"], mmap=True)
-        mine = {k: layout.cut(path, want[k]).to(mesh.device)
-                for path, k in ((path, keystr(path)) for path, _ in
-                                leaves_with_paths({"params": params,
-                                                   "opt": {"mu": opt["mu"]}}))}
-        stats = block_stats(_state_of(params, opt), mine, spec["scales"])
-        del want, mine
+        got, stats = _state_of(params, opt), {}
+        for path, _ in leaves_with_paths({"params": params,
+                                          "opt": {"mu": opt["mu"]}}):
+            k = keystr(path)      # leaf by leaf: four ranks share the card
+            stats |= block_stats({k: got[k]}, {k: layout.cut(path, want[k])},
+                                 spec["scales"])
+        del want, got
         _free()
         # one layer's collectives alone: a block gathered, then its
         # gradient reduce-scattered (the gather's backward), or an
         # activation all-reduced over the model group
         times = {}
         if D > 1 and fsdp:
-            x = params["blocks"]["L0"]["mlp"]["wu"][0].detach().clone() \
-                .requires_grad_()
+            # the first layer's largest data-cut leaf
+            _, path, x = max((a[0].numel(), p, a[0]) for p, a in
+                             leaves_with_paths(params["blocks"]["L0"])
+                             if layout.data_dim(("blocks", "L0") + p)
+                             is not None)
+            x = x.detach().clone().requires_grad_()
             sync()
             mesh_any(False, mesh)        # every rank starts together
             t = time.perf_counter()
-            y = gather_fsdp(x, -2)
+            y = gather_fsdp(x, layout.data_dim(("blocks", "L0") + path))
             sync()
             times["gather_ms"] = (time.perf_counter() - t) * 1e3
             t = time.perf_counter()
@@ -5219,6 +5331,7 @@ def _train_mesh_rank(mesh, spec):
             sync()
             times["reduce_scatter_ms"] = (time.perf_counter() - t) * 1e3
             times["gather_bytes"] = y.numel() * y.element_size()
+            times["gather_leaf"] = "/".join(path)
             del x, y
         if M > 1:
             act = torch.ones((TRAIN_MESH_BATCH // D, TRAIN_MESH_SEQ,
@@ -5234,10 +5347,16 @@ def _train_mesh_rank(mesh, spec):
     return {"rank": mesh.rank, "coords": list(mesh.coords),
             "init_s": init_s, "losses": losses, "grad_norms": norms,
             "wall_ms": walls, "device_busy_ms_last_step": busy,
-            "collectives_by_step": collectives,
+            "collectives_by_step": collectives, "moe": moe,
             "held_bytes": held["params"] + held["opt"],
             "held_params_bytes": held["params"],
-            "spec_local_bytes": _spec_local_bytes(cfg, mesh, fsdp),
+            # the specs' blocks of every leaf, and the bytes a rank must
+            # hold: those, but shard_params' blocks of the PORT_CUT leaves
+            "spec_local_bytes": _state_bytes(_spec_numel(cfg, mesh, fsdp)),
+            "rule_local_bytes": _state_bytes(
+                _spec_numel(cfg, mesh, fsdp,
+                            lambda names: not _port_cut(names))
+                + _cut_numel(cfg, mesh, fsdp)),
             "gathered_layer_bytes": layer_bytes, "peak_mem_gb": peak,
             "save_s": save_s, "stats": stats, "launches": launches,
             **times}
@@ -5250,8 +5369,13 @@ def _train_mesh_ranks(world, plan):
     stage side by side, a barrier after each stage. -> a row or None a
     mesh."""
     import torch.distributed as dist
+    from repro_torch.dist.context import mesh_any
     subs = [world.submesh(*shape, first=first)
             for shape, first, _, _ in plan]
+    # every rank's first collective on a device tensor, all at once: a
+    # rank's first costs seconds, paid once and not inside a timed step
+    # of a mesh it joins late
+    mesh_any(False, world)
     rows = [None] * len(plan)
     for stage in sorted({p[2] for p in plan}):
         for j, (_, _, st, spec) in enumerate(plan):
@@ -5315,25 +5439,84 @@ def _resume_single(cfg, spec, bs, single):
     return res
 
 
-def _errors_ok(errs) -> bool:
+def _mu_gate(floor) -> float:
+    """The bound on mu's largest entry error (of max|mu|) for a model with
+    the noise floor line `floor` (None without one): TOL_TRAIN_MESH, or
+    TRAIN_MESH_FLOOR_X x the floor's where a leaf's gradient cancels."""
+    if floor is None or floor["mu_norm"] < TOL_TRAIN_MESH / 2:
+        return TOL_TRAIN_MESH
+    return max(TOL_TRAIN_MESH, TRAIN_MESH_FLOOR_X * floor["mu_max"])
+
+
+def _errors_ok(errs, mu_gate) -> bool:
     return (errs["params_norm"] <= TOL_TRAIN_MESH
-            and errs["mu_max"] <= TOL_TRAIN_MESH)
+            and errs["mu_max"] <= mu_gate)
+
+
+def _singles(cfg, bs, meshes, root, floor):
+    """The single device's runs of `cfg` for the options of `meshes`
+    (each saved under `root` for the ranks to hold to, with its leaves'
+    scales) and, with `floor`, of 1 and 2 microbatches, whose difference
+    a `train_mesh_noise_floor` line prints. -> ({(microbatches,
+    compression): run}, that line or None)."""
+    import torch
+    moe = cfg.moe is not None and any(s.mlp == "moe" for s in cfg.pattern)
+    singles, states = {}, {}
+    used = {(o.get("microbatches", 1), o.get("grad_compress", "none"))
+            for _, _, _, o in meshes}
+    for mb, comp in sorted(used | ({(1, "none"), (2, "none")} if floor
+                                   else set())):
+        losses, norms, ms, peak, state, drops = _single_train(
+            cfg, bs, mb, comp)
+        run = {"losses": losses, "grad_norms": norms, "ms": ms,
+               "peak_mem_gb": peak, "moe": drops}
+        if (mb, comp) in used:              # for the ranks to hold to
+            run["path"] = str(root / f"single_{cfg.name}_mb{mb}_{comp}.pt")
+            torch.save(state, run["path"])
+            run["scales"] = leaf_scales(state)
+        if floor and (mb, comp) in ((1, "none"), (2, "none")):
+            states[mb] = state
+        del state
+        singles[(mb, comp)] = run
+        emit({"check": "train_mesh_single_device", "model": cfg.name,
+              "layers": cfg.n_layers, "microbatches": mb,
+              "grad_compress": comp, "losses": losses,
+              "grad_norms": norms, "ms": ms, "peak_mem_gb": peak,
+              **({"aux": [a for a, _ in drops],
+                  "dropped_pairs": [d for _, d in drops]} if moe else {}),
+              "card": CARD})
+    line = None
+    if floor:
+        one, two = singles[(1, "none")], singles[(2, "none")]
+        line = {"check": "train_mesh_noise_floor", "model": cfg.name,
+                "compared": "one device, 2 microbatches against 1",
+                "max_loss_rel_err": _rel(two["losses"], one["losses"]),
+                "max_grad_norm_rel_err": _rel(two["grad_norms"],
+                                              one["grad_norms"]),
+                **_whole_errors(states[2], states[1]), "card": CARD}
+        emit(line)
+    return singles, line
 
 
 def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
                      batch=TRAIN_MESH_BATCH, seq=TRAIN_MESH_SEQ,
-                     steps=TRAIN_MESH_STEPS, meshes=TRAIN_MESHES):
-    """Phase 13: `arch` cut to `n_layers`, trained `steps` steps on
-    wiki batches of batch x seq on one device (plainly, with 2
-    microbatches, and with the int8 mesh's microbatches and compression)
-    and on each mesh of `meshes` (ranks sharing the card over gloo, one
-    spawn); each mesh held to the single device's run of its options
-    (TOL_TRAIN_MESH); the (2, 2) state saved at step TRAIN_MESH_SAVE_AT
-    and resumed to the end by a single-device Trainer, held alike. A
-    `train_mesh_path` line a mesh, and a `train_mesh_noise_floor` line
-    (one device's 2 microbatches against 1: the same gradient summed in
-    another order). Returns the launches summed over the ranks
-    (training runs no port kernel)."""
+                     steps=TRAIN_MESH_STEPS, meshes=TRAIN_MESHES, others=()):
+    """Phase 13: `arch` cut to `n_layers` and each model of `others`
+    ((arch, layers, meshes), ...), trained `steps` steps on wiki batches
+    of batch x seq on one device (with each mesh's microbatches and
+    compression) and on each of its meshes (ranks sharing the card over
+    gloo, one spawn for every model, a model's stages after the one's
+    before); each mesh held to the single device's run of its options
+    (TOL_TRAIN_MESH); a mesh with `save_at` saves its state whole at
+    that step and a single-device Trainer resumes it to the end, held
+    alike. A MoE config's mesh drops the single device's (token, choice)
+    pairs at every step (its aux loss beside them). A `train_mesh_path`
+    line a mesh, and for a model without MoE layers (whose microbatches
+    route apart) a `train_mesh_noise_floor` line (one device's 2
+    microbatches against 1: the same gradient summed in another order),
+    which sets the model's mu gate (_mu_gate).
+    Returns the launches summed over the ranks (training runs no port
+    kernel)."""
     import shutil
     import tempfile
     import torch
@@ -5341,48 +5524,30 @@ def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
     from repro_torch.data import token_stream
     from repro_torch.dist.context import spawn
     from repro_torch.launch.mesh import make_serve_mesh
-    cfg = _train_mesh_cfg(arch, n_layers)
     it = make_batches(token_stream("wiki"), batch, seq, seed=0)
     bs = [next(it) for _ in range(steps)]
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_mesh_"))
-    total, rows = {}, []
+    total, rows, plan, models = {}, [], [], []
     try:
-        singles, states, scales = {}, {}, {}
-        used = {(o.get("microbatches", 1), o.get("grad_compress", "none"))
-                for _, _, _, o in meshes}
-        for mb, comp in sorted(used | {(1, "none"), (2, "none")}):
-            losses, norms, ms, peak, states[(mb, comp)] = _single_train(
-                cfg, bs, mb, comp)
-            path = root / f"single_mb{mb}_{comp}.pt"
-            if (mb, comp) in used:          # for the ranks to hold to
-                torch.save(states[(mb, comp)], path)
-                scales[(mb, comp)] = leaf_scales(states[(mb, comp)])
-            singles[(mb, comp)] = {"losses": losses, "grad_norms": norms,
-                                   "ms": ms, "peak_mem_gb": peak,
-                                   "path": str(path)}
-            emit({"check": "train_mesh_single_device", "model": cfg.name,
-                  "layers": n_layers, "microbatches": mb,
-                  "grad_compress": comp, "losses": losses,
-                  "grad_norms": norms, "ms": ms, "peak_mem_gb": peak,
-                  "card": CARD})
-        one, two = singles[(1, "none")], singles[(2, "none")]
-        floor = _whole_errors(states[(2, "none")], states[(1, "none")])
-        emit({"check": "train_mesh_noise_floor", "model": cfg.name,
-              "compared": "one device, 2 microbatches against 1",
-              "max_loss_rel_err": _rel(two["losses"], one["losses"]),
-              "max_grad_norm_rel_err": _rel(two["grad_norms"],
-                                            one["grad_norms"]),
-              **floor, "card": CARD})
-        plan = []
-        for shape, first, stage, opts in meshes:
-            key = (opts.get("microbatches", 1),
-                   opts.get("grad_compress", "none"))
-            plan.append((shape, first, stage, {
-                **opts, "arch": arch, "n_layers": n_layers, "batches": bs,
-                "dev": DEV, "want": singles[key]["path"], "single": key,
-                "scales": scales[key],
-                "ckpt": str(root / f"ckpt_{shape[0]}x{shape[1]}")}))
-        del states
+        for m_arch, m_layers, m_meshes in ((arch, n_layers, meshes),
+                                           *others):
+            cfg = _train_mesh_cfg(m_arch, m_layers)
+            moe = cfg.moe is not None and any(s.mlp == "moe"
+                                              for s in cfg.pattern)
+            singles, floor = _singles(cfg, bs, m_meshes, root,
+                                      floor=not moe)
+            first_stage = 1 + max((p[2] for p in plan), default=-1)
+            for shape, first, stage, opts in m_meshes:
+                key = (opts.get("microbatches", 1),
+                       opts.get("grad_compress", "none"))
+                plan.append((shape, first, first_stage + stage, {
+                    **opts, "arch": m_arch, "n_layers": m_layers,
+                    "batches": bs, "dev": DEV, "model": len(models),
+                    "want": singles[key]["path"], "single": key,
+                    "scales": singles[key]["scales"],
+                    "ckpt": str(root / f"ckpt_{cfg.name}_{shape[0]}x"
+                                f"{shape[1]}")}))
+            models.append((cfg, m_layers, moe, singles, _mu_gate(floor)))
         n = max(D * M for (D, M), *_ in plan)
         world = make_serve_mesh(2, n // 2, [f"{DEV}:0" if DEV == "cuda"
                                             else DEV] * n)
@@ -5398,11 +5563,12 @@ def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
                           in plan if st == s]
                          for s in sorted({p[2] for p in plan})]})
         for j, ((D, M), _, _, spec) in enumerate(plan):
+            cfg, m_layers, moe, singles, mu_gate = models[spec["model"]]
             ranks = [r[j] for r in ranks_of if r[j] is not None]
             single = singles[spec["single"]]
             lead = next(r for r in ranks if r["rank"] == 0)
             row = {"check": "train_mesh_path", "mesh": [D, M],
-                   "model": cfg.name, "layers": n_layers, "card": CARD,
+                   "model": cfg.name, "layers": m_layers, "card": CARD,
                    "batch": batch, "seq": seq, "fsdp": spec["fsdp"],
                    "microbatches": spec.get("microbatches", 1),
                    "grad_compress": spec.get("grad_compress", "none"),
@@ -5416,12 +5582,26 @@ def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
                        for r in ranks),
                    "errors": leaf_errors([r["stats"] for r in ranks],
                                          spec["scales"]),
+                   "mu_gate": mu_gate,
+                   **({"aux": [a for a, _ in lead["moe"]],
+                       "single_aux": [a for a, _ in single["moe"]],
+                       "dropped_pairs": [d for _, d in lead["moe"]],
+                       "single_dropped_pairs": [d for _, d in
+                                                single["moe"]],
+                       "max_aux_rel_err": max(
+                           _rel([a for a, _ in r["moe"]],
+                                [a for a, _ in single["moe"]])
+                           for r in ranks),
+                       "drops_equal": all([d for _, d in r["moe"]]
+                                          == [d for _, d in single["moe"]]
+                                          for r in ranks)}
+                      if moe else {}),
                    "single_ms": single["ms"],
                    "single_peak_mem_gb": single["peak_mem_gb"],
                    # params, mu and nu, fp32
                    "whole_state_bytes": 12 * _param_count(cfg),
                    "ranks": [{k: v for k, v in r.items()
-                              if k not in ("stats", "launches",
+                              if k not in ("stats", "launches", "moe",
                                            "collectives_by_step")}
                              | {"collectives_last_step": _directions(
                                  r["collectives_by_step"][-1])}
@@ -5436,26 +5616,34 @@ def phase_train_mesh(seed, arch="llama2-7b", n_layers=TRAIN_MESH_LAYERS,
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for row, ranks, single in rows:
-        name = f"train mesh {row['mesh'][0]}x{row['mesh'][1]}"
+        name = (f"train mesh {row['model']} "
+                f"{row['mesh'][0]}x{row['mesh'][1]}")
         require(row["max_loss_rel_err"] <= TOL_TRAIN_MESH
                 and row["max_grad_norm_rel_err"] <= TOL_TRAIN_MESH,
                 f"{name}: losses {row['max_loss_rel_err']:.3g}, gradient "
                 f"norms {row['max_grad_norm_rel_err']:.3g} from the single "
                 f"device's")
-        require(_errors_ok(row["errors"]),
+        require(_errors_ok(row["errors"], row["mu_gate"]),
                 f"{name}: params or mu off the single device's: "
                 f"{row['errors']}")
+        if "drops_equal" in row:
+            require(row["drops_equal"]
+                    and row["max_aux_rel_err"] <= TOL_TRAIN_MESH,
+                    f"{name}: dropped pairs {row['dropped_pairs']} and aux "
+                    f"{row['aux']}, one device's "
+                    f"{row['single_dropped_pairs']} and {row['single_aux']}")
         for r in ranks:
-            require(r["held_bytes"] == r["spec_local_bytes"],
+            require(r["held_bytes"] == r["rule_local_bytes"],
                     f"{name}: rank {r['rank']} holds {r['held_bytes']} B, "
-                    f"the specs' blocks {r['spec_local_bytes']} B")
+                    f"the rule's blocks {r['rule_local_bytes']} B")
             require(DEV != "cuda"
                     or r["peak_mem_gb"] < single["peak_mem_gb"],
                     f"{name}: rank {r['rank']} peaks at {r['peak_mem_gb']} "
                     f"GB, one device at {single['peak_mem_gb']} GB")
         resume = row.get("resume")
         if resume is not None:
-            require(resume["resumed"] and _errors_ok(resume["errors"])
+            require(resume["resumed"]
+                    and _errors_ok(resume["errors"], row["mu_gate"])
                     and resume["max_loss_rel_err"] <= TOL_TRAIN_MESH,
                     f"{name}: the single-device resume of its checkpoint: "
                     f"{resume}")
@@ -5710,7 +5898,8 @@ def main(argv=None) -> int:
             phase_done(11, t0)
         if 13 in phases:
             t0 = time.time()
-            count("train_mesh_path", phase_train_mesh(args.seed))
+            count("train_mesh_path", phase_train_mesh(
+                args.seed, others=TRAIN_MESH_FAMILIES))
             phase_done(13, t0)
         torch.cuda.synchronize()
         # every kernel of the served paths ran inside a replayed graph:

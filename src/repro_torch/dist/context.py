@@ -36,8 +36,14 @@ train/train_step.py):
     gather_model    all-gather over model   this rank's slice
     gather_fsdp     all-gather over data    reduce-scatter (sum) over data
     reduce_fsdp     all-reduce over data    all-reduce over data (each
-                                            data rank keeps other rows)
+                                            data rank keeps other rows;
+                                            the MoE routing's mean over
+                                            the data group)
 
+copy_to_model(reduce_model(y)) sums partial outputs that every rank then
+uses whole (Mamba's x_proj features) forward and backward.
+`gather_counts` all-gathers a small int tensor over the data group (a
+training MoE layer's routing counts, models/moe.py), with no gradient.
 A backward collective is counted under a kind of its own ("..._backward");
 `sync_grads` and `reduce_max` count theirs as "step_...".
 `spawn(fn, mesh)` runs `fn(bound_mesh, *args)` on every rank of a mesh
@@ -323,6 +329,28 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     if mesh is None or mesh.shape[1] == 1 or not _records(x):
         return x
     return _CopyToModel.apply(x, mesh)
+
+
+def routes_over_data(x: torch.Tensor) -> bool:
+    """Whether autograd records through `x` on a mesh whose data axis
+    has more than one rank: a training step's MoE layer then routes the
+    whole microbatch of every data rank (models/moe.py)."""
+    mesh = current_mesh()
+    return mesh is not None and mesh.shape[0] > 1 and _records(x)
+
+
+def gather_counts(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Every data rank's copy of the small device tensor `x` (an int
+    tensor: a MoE layer's routing counts), stacked along a new dim 0 in
+    data-rank order, over the data group of the mesh's backend (counted
+    as "all_gather_counts"); x[None] outside a mesh or on a data axis
+    of 1."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.shape[0] == 1:
+        return x[None]
+    mesh._count("all_gather_counts")
+    return _gather(x.contiguous()[None], mesh.group("data"), mesh.shape[0],
+                   0)
 
 
 def _gather(x, group, n, dim):

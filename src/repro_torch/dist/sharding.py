@@ -31,6 +31,8 @@ block leaves); `local_slices` cuts one rank's block of a leaf by a spec.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 
 # projections whose *input* dim carries the model axis (the output of a
@@ -375,7 +377,9 @@ def local_shape(shape, spec, mesh) -> tuple:
 #   - wk and wv stay whole where the model axis does not divide the KV
 #     heads (`whole_kv_leaves`): every rank computes every KV head into
 #     its replica of the pool (or of the dense cache), which the rule
-#     replicates over the model axis, and its query heads read theirs.
+#     replicates over the model axis, and its query heads read theirs;
+#   - a frame-input config's input projection "embed" stays whole
+#     (`_frame_embed`).
 #
 # With fsdp=True a rank also keeps only its block of the dim the rule
 # puts the data axis on (`data_dims`, `cut_data`), as the reference's
@@ -419,6 +423,15 @@ def whole_kv_leaves(cfg, mesh) -> frozenset:
             or cfg.n_kv_heads % M == 0:
         return frozenset()
     return frozenset({"wk", "wv"})
+
+
+def _frame_embed(cfg) -> frozenset:
+    """{"embed"} for a frame-input config: its "embed" is the (D, D)
+    input projection, which the rule cuts as a vocabulary (rows on the
+    model axis); every rank needs its whole output, so it stays whole on
+    the model axis."""
+    return frozenset({"embed"}) if cfg.embed_input != "tokens" \
+        else frozenset()
 
 
 def _local_spec(names, ndim, symbolic, field=None, whole=()) -> tuple:
@@ -612,7 +625,7 @@ def shard_params(cfg, params, mesh, fsdp: bool = False):
 
     sym = symbolic_mesh()
     P = len(cfg.pattern)
-    whole = whole_kv_leaves(cfg, mesh)
+    whole = whole_kv_leaves(cfg, mesh) | _frame_embed(cfg)
     D = mesh_axis_sizes(mesh)["data"]
 
     def data_cut(names, fields, specs):
@@ -659,52 +672,80 @@ def shard_params(cfg, params, mesh, fsdp: bool = False):
 # the training state on a mesh
 # --------------------------------------------------------------------------
 # Training keeps the reference's stacked layout ({"blocks": {"L{i}":
-# (n_groups, ...) leaves}}, models/model.py) and cuts it as the
-# reference's params_shardings / opt_state_shardings place it: each
-# params leaf by named_pspec at the mesh (fsdp as the caller says), each
-# AdamW moment and the fp32 master copy as the param it mirrors, the
-# step replicated. A rank holds plain tensors, its block of every leaf
-# (local_slices); the forward gathers the data-cut ones layer by layer
-# (dist/fsdp.py:fsdp_view). The port's one departure is serving's: wk
-# and wv stay whole where the model axis does not divide the KV heads
-# (whole_kv_leaves).
+# (n_groups, ...) leaves}}, models/model.py) and cuts each params leaf as
+# shard_params cuts it for serving: on the model axis as `_local_spec`
+# reads the reference's spec (the router, MLA's wq_a / wkv_a and, where
+# the axis does not divide the KV heads, wk / wv whole; Mamba's in_proj
+# by halves, x_proj by rows, the per-channel leaves on d_inner), on the
+# data axis (with fsdp) where the reference's spec puts it (`data_dims`),
+# inside the model block where both cut one dim (x_proj's rows). Each
+# AdamW moment and the fp32 master copy is cut as the param it mirrors,
+# the step replicated. A rank holds plain tensors, its block of every
+# leaf; the forward gathers the data-cut ones layer by layer
+# (dist/fsdp.py:fsdp_view). `axes`, the gradient sums, the global norm
+# and the int8 scale read the cut a rank really holds; `gather` rebuilds
+# the reference's whole leaf (in_proj's [x | z] order).
+
+def require_expert_parallel(cfg, M: int) -> None:
+    """A training mesh splits a MoE config's experts over its model axis
+    (expert parallelism); where the `M`-way axis does not divide them,
+    the reference cuts inside each expert (TP-in-expert), which the port
+    does not: ValueError naming the ROADMAP item that takes it."""
+    if (M > 1 and cfg.moe is not None
+            and any(s.mlp == "moe" for s in cfg.pattern)
+            and cfg.moe.n_experts % M):
+        raise ValueError(
+            f"{cfg.name}: a {M}-way model axis does not divide its "
+            f"{cfg.moe.n_experts} experts; training with the model axis "
+            f"inside each expert is ROADMAP Queue 1 item 6.5, still to do")
+
+
+class _Cut(NamedTuple):
+    """How TrainLayout cuts a params leaf: its whole shape, the guarded
+    model-axis spec (no data axis) and the parts its model dim splits
+    into first (shard_params' `_cut`), and the dim, from the end, the
+    data axis then cuts (or None)."""
+    shape: tuple
+    model: tuple
+    parts: int
+    data: Optional[int]
+
 
 class TrainLayout:
     """How the training state of `cfg` is cut over the bound `mesh`, with
     or without the data axis on the weights (`fsdp`). Paths are key
     tuples of the state {"params": ..., "opt": {"mu", "nu", ["master"],
-    "step"}} or of the params tree alone. Dense attention decoders only:
-    MoE, MLA and Mamba raise (ROADMAP Queue 1 item 6.1)."""
+    "step"}} or of the params tree alone. Every family: dense, MoE (with
+    its experts on the model axis), MLA, Mamba and hybrids."""
 
     def __init__(self, cfg, mesh, fsdp: bool = True):
         from repro_torch.ckpt.checkpoint import stack_params
-        from repro_torch.models.model import (init_params, refuse_train_mesh,
-                                              shard_config)
+        from repro_torch.models.model import init_params, shard_config
         from repro_torch.tree import leaves_with_paths
-        refuse_train_mesh(cfg)
         sizes = mesh_axis_sizes(mesh)
         self.cfg, self.mesh, self.fsdp = cfg, mesh, bool(fsdp)
         self.D, self.M = sizes["data"], sizes["model"]
+        require_expert_parallel(cfg, self.M)
         self.rank_cfg = shard_config(cfg, self.M, train=True)
-        whole = whole_kv_leaves(cfg, mesh)
+        whole = whole_kv_leaves(cfg, mesh) | _frame_embed(cfg)
         sym = symbolic_mesh()
-        self.shapes, self.specs = {}, {}
+        # params path -> _Cut
+        self.cuts = {}
         meta = stack_params(cfg, init_params(cfg, device="meta"))
         for path, leaf in leaves_with_paths(meta):
-            spec = named_pspec(cfg, path, leaf, mesh, fsdp=fsdp)
-            want = named_pspec(cfg, path, leaf, sym, fsdp=fsdp)
-            if path[-1] in whole:
-                spec = drop_axes(spec, ("model",))
-            elif ("model" in _axes(want) and "model" not in _axes(spec)
-                  and path[-1] not in _VOCAB):
-                raise ValueError(
-                    f"{'/'.join(path)} {tuple(leaf.shape)}: the {self.M}-"
-                    f"way model axis does not divide the dim the rule "
-                    f"{tuple(want)} splits")
-            self.shapes[path] = tuple(leaf.shape)
-            # an axis of one rank cuts nothing
-            self.specs[path] = drop_axes(spec, [a for a, n in sizes.items()
-                                                if n == 1])
+            shape = tuple(leaf.shape)
+            want = named_pspec(cfg, path, leaf, sym)
+            local, parts = ((None,) * len(shape), 1) \
+                if path[-1] == "router" else \
+                _local_spec(path, len(shape), want, whole=whole)
+            spec = _serving_spec(path, shape, local, mesh)
+            if self.M == 1 or "model" not in spec:
+                spec, parts = (None,) * len(shape), 1
+            dim = data_dims(path, {"w": want})["w"] if self.fsdp else None
+            if dim is not None and (self.D == 1 or local_shape(
+                    shape, spec, mesh)[dim] % self.D):
+                dim = None
+            self.cuts[path] = _Cut(shape, spec, parts, dim)
 
     @staticmethod
     def param_path(path) -> tuple:
@@ -716,26 +757,27 @@ class TrainLayout:
             return None if path[1:2] == ("step",) else path[2:]
         return path
 
-    def spec(self, path) -> tuple:
-        p = self.param_path(path)
-        return () if p is None else self.specs[p]
-
     def axes(self, path) -> set:
         """The mesh axes that cut the leaf at `path`."""
-        return _axes(self.spec(path))
+        p = self.param_path(path)
+        if p is None:
+            return set()
+        c = self.cuts[p]
+        return _axes(c.model) | ({"data"} if c.data is not None else set())
 
     def data_dim(self, path):
         """The dim, counted from the end, the data axis cuts, or None."""
-        spec = self.spec(path)
-        return next((i - len(spec) for i, a in enumerate(spec)
-                     if a == "data"), None)
+        p = self.param_path(path)
+        return None if p is None else self.cuts[p].data
 
     def model_partial(self, path) -> bool:
         """Whether a rank's gradient of the leaf at `path` is its share of
         a sum over the model group: an attention leaf the model axis
-        leaves whole (wk and wv of `whole_kv_leaves`, the qk-norm scales)
-        feeds only the rank's heads. Norm scales on the residual stream
-        are whole and equal on every model rank."""
+        leaves whole feeds only the rank's heads (wk and wv of
+        `whole_kv_leaves`, the qk-norm scales, MLA's latent projections
+        wq_a and wkv_a and their norms). Norm scales on the residual
+        stream and a MoE router (replicated compute, models/moe.py) are
+        whole and equal on every model rank."""
         p = self.param_path(path)
         return (self.M > 1 and p is not None and "attn" in p
                 and "model" not in self.axes(p))
@@ -743,7 +785,7 @@ class TrainLayout:
     def data_dims(self) -> dict:
         """The params tree of `data_dim`s (dist/fsdp.py:fsdp_view)."""
         out: dict = {}
-        for path in self.specs:
+        for path in self.cuts:
             node = out
             for k in path[:-1]:
                 node = node.setdefault(k, {})
@@ -756,25 +798,36 @@ class TrainLayout:
         p = self.param_path(path)
         if p is None:
             return a
-        if tuple(a.shape) != self.shapes[p]:
+        c = self.cuts[p]
+        if tuple(a.shape) != c.shape:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(a.shape)}, "
-                             f"the config's {self.shapes[p]}")
-        d, m = self.mesh.coords
-        return _contiguous(a[local_slices(a.shape, self.specs[p], self.mesh,
-                                          {"data": d, "model": m})])
+                             f"the config's {c.shape}")
+        a = _cut(a, c.model, self.mesh, c.parts, "/".join(p))
+        return cut_data(a, c.data, self.mesh)[0]
 
     def gather(self, path, t):
         """The whole leaf at `path` from each rank's block `t` (every rank
-        of the mesh calls it, in one order; no autograd)."""
+        of the mesh calls it, in one order; no autograd): the data
+        blocks, then the model blocks, each part of a leaf cut by parts
+        put back in order."""
         import torch
         from repro_torch.dist.context import gather_fsdp, gather_model
-        spec = self.spec(path)
+        p = self.param_path(path)
+        if p is None:
+            return t
+        c = self.cuts[p]
         with torch.no_grad():
-            for dim, ax in enumerate(spec):
-                if ax == "model":
-                    t = gather_model(t, dim, self.mesh)
-                elif ax == "data":
-                    t = gather_fsdp(t, dim, self.mesh)
+            if c.data is not None:
+                t = gather_fsdp(t, c.data % t.dim(), self.mesh)
+            if "model" in c.model:
+                dim = c.model.index("model")
+                t = gather_model(t, dim, self.mesh)
+                if c.parts > 1:
+                    # [rank 0: part 0, part 1 | rank 1: ...] -> by part
+                    lead, rest = t.shape[:dim], t.shape[dim + 1:]
+                    t = t.reshape(*lead, self.M, c.parts, -1, *rest) \
+                        .transpose(dim, dim + 1).reshape(
+                            *lead, -1, *rest).contiguous()
         return t
 
     def shard(self, params, opt_state) -> tuple:

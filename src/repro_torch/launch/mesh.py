@@ -9,6 +9,10 @@ import torch
 from repro_torch.dist.context import ServeMesh
 from repro_torch.hw import resolve_device
 
+# a card a rank, the collectives over NCCL: never run yet
+NCCL_ITEM = ("a mesh of a card a rank over NCCL is ROADMAP Queue 1 item "
+             "6.4, never run yet")
+
 
 def make_production_mesh(*, multi_pod: bool = False, model: int = 1,
                          devices=None):
@@ -30,7 +34,7 @@ def make_production_mesh(*, multi_pod: bool = False, model: int = 1,
             raise ValueError(f"a pod mesh with a {model}-way model axis "
                              f"needs a multiple of {model} cards, {n} "
                              f"visible (name the devices to share one: "
-                             f"--devices cuda:0,cuda:0,...)")
+                             f"--devices cuda:0,cuda:0,...; {NCCL_ITEM})")
         devices = [f"cuda:{i}" for i in range(n)]
     elif isinstance(devices, str):
         devices = devices.split(",")
@@ -61,7 +65,8 @@ def make_serve_mesh(data: int = 1, model: int = 1, devices=None):
         if n > visible:
             raise ValueError(f"mesh {data}x{model} needs {n} devices, only "
                              f"{visible} visible (name the devices to "
-                             f"share one: --devices cuda:0,cuda:0,...)")
+                             f"share one: --devices cuda:0,cuda:0,...; "
+                             f"{NCCL_ITEM})")
         devices = [f"cuda:{i}" for i in range(n)]
     elif isinstance(devices, str):
         devices = devices.split(",")

@@ -21,9 +21,10 @@ axis unless --no-fsdp; dist/sharding.py:TrainLayout) and takes its rows
 of each global batch. `--devices` names each rank's device (default one
 card a rank; "cuda:0,cuda:0" rehearses two ranks on one card, "cpu,cpu"
 on the CPU); `--mesh pod` is make_production_mesh over the visible cards
-(or --devices), all on the data axis. Dense attention decoders only
-(MoE, MLA and Mamba on a mesh: ROADMAP Queue 1 item 6.1); `--mesh
-multipod` is item 6.2. Rank 0 prints.
+(or --devices), all on the data axis. Every family trains on a mesh
+(dense, MoE with its experts on the model axis, MLA, Mamba, hybrids);
+a model axis that does not divide a MoE config's experts is ROADMAP
+Queue 1 item 6.5, `--mesh multipod` item 6.2. Rank 0 prints.
 """
 from __future__ import annotations
 

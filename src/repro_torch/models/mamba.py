@@ -22,7 +22,8 @@ everything: its columns of each half of in_proj, of dt_w and of the
 per-channel leaves, its rows of x_proj and out_proj, and its channels
 of the state; `cfg` is the rank's (models/model.py:shard_config), whose
 d_inner is the rank's. x_proj's features (dt rank + 2 d_state) are
-summed over the model group before they split, and the caller sums the
+summed over the model group before they split (in training their
+gradient too: copy_to_model), and the caller sums the
 out_proj partials: two all-reduces a layer.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.context import reduce_model
+from repro_torch.dist.context import copy_to_model, reduce_model
 from repro_torch.hw import torch_dtype
 from repro_torch.models.layers import init_linear, linear
 
@@ -82,8 +83,10 @@ def _ssm_features(cfg, p, xc):
     mc = cfg.mamba
     dtr = mc.resolved_dt_rank(cfg.d_model)
     # a rank's x_proj rows give partial features: summed over the model
-    # group before the split (the identity off a model axis)
-    feats = reduce_model(linear(xc, p["x_proj"]))
+    # group before the split (the identity off a model axis); every rank
+    # uses the whole features, so in training their gradient is summed
+    # over the group too
+    feats = copy_to_model(reduce_model(linear(xc, p["x_proj"])))
     dt_r, Bm, Cm = torch.split(feats, [dtr, mc.d_state, mc.d_state], dim=-1)
     dt = linear(dt_r, p["dt_w"])
     dt = F.softplus(dt.float() + p["dt_b"])

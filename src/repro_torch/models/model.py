@@ -74,11 +74,16 @@ embedding and head are not gathered: the data ranks' activations are
 identity. Training on a mesh (train/train_step.py) runs the same code
 under autograd: the hooks' backwards sum each rank's gradient of the
 replicated input of every column-parallel projection (`copy_to_model`:
-the normed input of each mixer and MLP, the head's input) and
+the normed input of each mixer and dense MLP, a MoE layer's dispatched
+tokens and top-k weights, the head's input; a Mamba mixer's x_proj
+features are summed forward and backward) and
 reduce-scatter the gathered weights'; `forward` gathers a layer's FSDP
 leaves inside its activation checkpoint, so the backward gathers them
-again and no layer's stay. MoE, MLA and Mamba layers refuse a training
-mesh (`require_train_mesh`).
+again and no layer's stay. Every family trains so: dense, MoE (experts
+on the model axis; on a data axis the step routes the whole
+microbatch, models/moe.py), MLA (each rank's heads on the whole latent,
+whose leaves' gradients train/train_step.py sums over the model group)
+and Mamba.
 """
 from __future__ import annotations
 
@@ -412,13 +417,15 @@ def _mlp(cfg, spec, lp, x, moe_capacity_factor):
     config has sandwich norms."""
     if spec.mlp == "none":
         return x, None
-    h = copy_to_model(rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     aux = None
     if spec.mlp == "moe":
+        # routing is replicated compute on h; moe_forward copies only its
+        # expert path's inputs to the model group
         y, aux = moe_forward(cfg, lp["moe"], h,
                              capacity_factor=moe_capacity_factor)
     else:
-        y = swiglu(lp["mlp"], h)
+        y = swiglu(lp["mlp"], copy_to_model(h))
     y = reduce_model(y)               # after wd / the MoE combine
     if cfg.post_block_norms:
         y = rmsnorm(y, lp["post_ln2"], cfg.norm_eps)
@@ -473,7 +480,6 @@ def forward(cfg, params, inputs, *, remat=None):
     `remat` (default cfg.remat) while autograd records. `params` in
     either layout (`layer_params`)."""
     check_config(cfg)
-    require_train_mesh(cfg)
     x = embed_inputs(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
     cf = cfg.moe.capacity_factor if cfg.moe else None
@@ -497,29 +503,6 @@ def forward(cfg, params, inputs, *, remat=None):
         x, aux = _remat(functools.partial(layer, spec, lp), policy)(x, aux)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     return unembed(cfg, params, x), aux
-
-
-def refuse_train_mesh(cfg) -> None:
-    """Training on a mesh takes dense attention decoders: MoE, MLA and
-    Mamba layers there are ROADMAP Queue 1 item 6.1, still to do."""
-    kinds = [name for name, has in (
-        ("MoE", any(s.mlp == "moe" for s in cfg.pattern)),
-        ("MLA", cfg.mla is not None and any(s.kind == "attn"
-                                            for s in cfg.pattern)),
-        ("Mamba", any(s.kind == "mamba" for s in cfg.pattern))) if has]
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training {', '.join(kinds)} layers on a mesh is "
-            f"ROADMAP Queue 1 item 6.1, still to do; the port trains dense "
-            f"attention decoders on a mesh, and every family on one device")
-
-
-def require_train_mesh(cfg) -> None:
-    """refuse_train_mesh while autograd records with a mesh of more than
-    one rank installed."""
-    mesh = current_mesh()
-    if mesh is not None and mesh.size > 1 and torch.is_grad_enabled():
-        refuse_train_mesh(cfg)
 
 
 def loss_fn(cfg, params, batch, *, aux_coef=0.01, remat=None):

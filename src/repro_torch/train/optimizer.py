@@ -14,8 +14,10 @@ order (tree.py).
 On a mesh (dist/sharding.py:TrainLayout) a rank holds its block of each
 leaf of the params, the moments and the master copy, and updates only
 those (the update is elementwise); the global norm is the whole tree's,
-each leaf's sum of squares summed over the groups that cut it, a leaf a
-group replicates counted once.
+each leaf's sum of squares summed over the groups that cut the block the
+rank really holds (TrainLayout.axes: a Mamba per-channel leaf on the
+model axis, MLA's whole latent leaves on none), a leaf a group
+replicates counted once.
 """
 from __future__ import annotations
 

@@ -11,21 +11,31 @@ held as int8 + one fp32 scale per stacked leaf with an error-feedback
 residual, as in the reference (round half to even in both packages).
 
 On a (data, model) mesh (`mesh=`, bound, dist/context.py) the step
-computes what the reference's sharded step computes. Every rank takes
-the global batch; microbatch i is its rows [i B/mb, (i+1) B/mb), split
-over the data ranks, as the reference's reshape of a batch-sharded array
-gives. A rank holds its blocks of the params and the AdamW state
+computes what the reference's sharded step computes, for every family
+(dense, MoE, MLA, Mamba, hybrids). Every rank takes the global batch;
+microbatch i is its rows [i B/mb, (i+1) B/mb), split over the data
+ranks, as the reference's reshape of a batch-sharded array gives. A rank
+holds its blocks of the params and the AdamW state
 (dist/sharding.py:TrainLayout) and runs the shard-local config
 (models/model.py:shard_config); the forward gathers each layer's
-data-cut blocks inside its activation checkpoint, and the hooks' backward
-(dist/context.py) sums each block's gradient over the data group
-(reduce-scatter) and each column-parallel input's over the model group.
-Each rank's loss is scaled by 1/D. Then, a microbatch at a time: the
-leaves the data axis leaves whole are all-reduced over the data group,
-and the attention leaves the model axis leaves whole (wk and wv of
-whole_kv_leaves, the qk-norm scales) over the model group, where each
-rank's gradient is its heads' share. The int8 scale max|g| / 127 is the
-whole leaf's, an all-reduce MAX over the mesh.
+data-cut blocks inside its activation checkpoint, and the hooks'
+backward (dist/context.py) sums each block's gradient over the data
+group (reduce-scatter) and each column-parallel input's over the model
+group. A MoE layer routes the whole microbatch over the data ranks
+(models/moe.py), so every data rank's aux loss is the global one. Each
+rank's loss is scaled by 1/D. Then, a microbatch at a time: the leaves
+the data axis leaves whole are all-reduced over the data group, and the
+attention leaves the model axis leaves whole (TrainLayout.model_partial:
+wk and wv of whole_kv_leaves, the qk-norm scales, MLA's latent
+projections and norms) over the model group, where each rank's gradient
+is its heads' share. The int8 scale max|g| / 127 is the whole leaf's, an
+all-reduce MAX over the mesh.
+
+A MoE config's metrics also hold "aux" (the step's aux loss, the mean
+over microbatches) and "moe_dropped" (the (token, choice) pairs past
+their expert's capacity, summed over the MoE layers, microbatches and
+data ranks; models/moe.py:count_drops), summed over the data group with
+the loss.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 from repro_torch.dist.context import mesh_context, reduce_max, sync_grads
 from repro_torch.dist.fsdp import fsdp_view
 from repro_torch.models.model import loss_fn
+from repro_torch.models.moe import count_drops
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.train.schedule import cosine_with_warmup
 from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
@@ -54,7 +65,9 @@ def _quantize_leaf(g, amax=None):
 def _quantize(fulls, mesh=None):
     """_quantize_leaf of each fp32 leaf of `fulls`, each scale the whole
     leaf's (its maximum over the mesh: one all-reduce MAX a mesh axis
-    for every leaf at once)."""
+    for every leaf at once; after `sync` the ranks that hold one block
+    hold one gradient, so this is the MAX over the axes that cut the
+    leaf, and replicas keep one scale)."""
     amax = torch.stack([torch.amax(torch.abs(g)) for g in fulls])
     if mesh is not None:
         amax = reduce_max(amax, mesh)
@@ -110,12 +123,18 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                    else mesh_context(mesh))
         with on_mesh:
             view = live if layout is None else fsdp_view(live, data_dims, D)
-            loss, met = loss_fn(run_cfg, view, batch, aux_coef=aux_coef)
+            # the forward's drops (the backward's recompute runs outside)
+            with count_drops() as drops:
+                loss, met = loss_fn(run_cfg, view, batch, aux_coef=aux_coef)
             flat = leaves(live)
             gs = torch.autograd.grad(loss / D, flat, allow_unused=True)
         gs = [torch.zeros_like(a) if g is None else g
               for a, g in zip(flat, gs)]
-        return loss.detach(), met, unflatten(params, sync(params, gs))
+        moe = None
+        if drops:
+            moe = torch.stack([met["aux"].detach().float(),
+                               sum(x.sum() for x in drops).float()])
+        return loss.detach(), moe, unflatten(params, sync(params, gs))
 
     def rows(batch):
         """This rank's rows of each microbatch of the global batch."""
@@ -128,12 +147,15 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                  for k, v in batch.items()} for i in range(mb)]
 
     def accumulate(params, batch):
+        """-> (the loss, [aux, dropped pairs] of a MoE config or None,
+        both summed over microbatches, and the gradients)."""
         if mb == 1 and layout is None:
             return grads_of(params, batch)
         micro = rows(batch)
         if mb == 1:
             return grads_of(params, micro[0])
-        loss_sum = 0.0
+        loss_sum, moe_sum = 0.0, None
+        add = lambda a, b: b if a is None else a + b      # noqa: E731
         if grad_compress == "int8":
             acc = tree_map(lambda a: (torch.zeros(a.shape, dtype=torch.int8,
                                                   device=a.device),
@@ -142,7 +164,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             resid = tree_map(lambda a: torch.zeros(
                 a.shape, dtype=torch.float32, device=a.device), params)
             for mb_batch in micro:
-                loss, _, g = grads_of(params, mb_batch)
+                loss, moe, g = grads_of(params, mb_batch)
                 # dequant + add + requant with error feedback
                 fulls = [q.float() * s + r + gl.float() for (q, s), r, gl
                          in zip(leaves(acc), leaves(resid), leaves(g))]
@@ -151,31 +173,41 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                 resid = unflatten(params, [f - q.float() * s for f, (q, s)
                                            in zip(fulls, qs)])
                 loss_sum = loss_sum + loss
+                moe_sum = None if moe is None else add(moe_sum, moe)
             grads = tree_map(lambda a, r: (a[0].float() * a[1] + r) / mb,
                              acc, resid)
-            return loss_sum / mb, {}, grads
+            return loss_sum / mb, moe_sum, grads
 
         acc = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32,
                                              device=a.device), params)
         for mb_batch in micro:
-            loss, _, g = grads_of(params, mb_batch)
+            loss, moe, g = grads_of(params, mb_batch)
             acc = tree_map(lambda a, b: a + b.float(), acc, g)
             loss_sum = loss_sum + loss
+            moe_sum = None if moe is None else add(moe_sum, moe)
         grads = tree_map(lambda a: a / mb, acc)
-        return loss_sum / mb, {}, grads
+        return loss_sum / mb, moe_sum, grads
 
     def train_step(params, opt_state, batch):
         batch = _to_device(batch, leaves(params)[0].device)
-        loss, met, grads = accumulate(params, batch)
+        loss, moe, grads = accumulate(params, batch)
         if layout is not None:
-            # the global batch's loss: the mean of the data ranks' means
-            loss, = sync_grads([loss.reshape(1)], "data", mesh)
-            loss = loss[0] / D
+            # the global batch's loss: the mean of the data ranks' means;
+            # a MoE config's drops summed with it (its aux is the global
+            # one on every data rank already)
+            vals = loss.reshape(1) if moe is None else torch.cat([
+                loss.reshape(1), moe[1:]])
+            vals, = sync_grads([vals], "data", mesh)
+            loss = vals[0] / D
+            if moe is not None:
+                moe = torch.stack([moe[0], vals[1]])
         lr_scale = cosine_with_warmup(opt_state["step"], warmup=warmup,
                                       total=total_steps)
         params, opt_state, om = adamw_update(grads, opt_state, params,
                                              opt_cfg, lr_scale, layout)
         metrics = {"loss": loss, **om}
+        if moe is not None:
+            metrics.update(aux=moe[0] / mb, moe_dropped=moe[1])
         return params, opt_state, metrics
 
     return train_step

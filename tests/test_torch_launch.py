@@ -50,6 +50,71 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path, capsys):
         train_launch.main(argv + ["--mesh", "multipod"])
 
 
+def test_chip_smoke_train_mesh_phase_rehearses_moe_on_cpu(monkeypatch):
+    """Phase 13's MoE and MLA meshes (mixtral-8x7b's and minicpm3-4b's
+    plans) in one spawn on the CPU at tiny size, tiny-moe then tiny-mla:
+    every check holds, each MoE mesh drops the single device's (token,
+    choice) pairs a step beside its aux loss, the noise-floor line is
+    tiny-mla's alone (a MoE config's microbatches route apart), and a
+    rank holds the specs' blocks but shard_params' of the router and the
+    latent projections (whole on the model axis)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(root))
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    unmet, rows = [], []
+    monkeypatch.setattr(cs, "require",
+                        lambda ok, what: ok or unmet.append(what))
+    monkeypatch.setattr(cs, "emit", rows.append)
+    plans = {a: rest for a, _, *rest in cs.TRAIN_MESH_FAMILIES}
+    counts = cs.phase_train_mesh(
+        0, "tiny-moe", 2, 4, 32, meshes=plans["mixtral-8x7b"][0],
+        others=(("tiny-mla", 2, *plans["minicpm3-4b"]),))
+    assert unmet == [] and not any(counts.values())
+    assert [r["model"] for r in rows
+            if r["check"] == "train_mesh_noise_floor"] == ["tiny-mla"]
+    spawn = next(r for r in rows if r["check"] == "train_mesh_spawn")
+    assert spawn["stages"] == [["1x2@0"], ["2x2@0"], ["1x2@0"], ["2x2@0"]]
+    paths = [r for r in rows if r["check"] == "train_mesh_path"]
+    assert [(p["model"], p["mesh"]) for p in paths] == [
+        ("tiny-moe", [1, 2]), ("tiny-moe", [2, 2]), ("tiny-mla", [1, 2]),
+        ("tiny-mla", [2, 2])]
+    assert sum(paths[0]["single_dropped_pairs"]) > 0
+    for p in paths:
+        assert ("drops_equal" in p) == (p["model"] == "tiny-moe")
+        if p["model"] == "tiny-moe":
+            assert p["drops_equal"] and len(p["dropped_pairs"]) == 3
+        assert p["mu_gate"] == cs.TOL_TRAIN_MESH
+        for r in p["ranks"]:
+            assert r["held_bytes"] == r["rule_local_bytes"]
+            if p["mesh"][1] > 1:      # the whole router or latent
+                assert r["held_bytes"] > r["spec_local_bytes"]
+
+
+def test_train_launcher_trains_moe_on_a_model_axis(tmp_path, capfd):
+    """--arch tiny-moe --mesh 1,2 --devices cpu,cpu: two gloo ranks, each
+    with 2 of the 4 experts (expert parallelism), whose losses are --mesh
+    host's within 1e-5 relative."""
+    common = ["--arch", "tiny-moe", "--steps", "2", "--batch", "4",
+              "--seq", "32", "--ckpt-every", "100"]
+    _, _, want = train_launch.main(common + [
+        "--device", "cpu", "--ckpt-dir", str(tmp_path / "host")])
+    _, opt, got = train_launch.main(common + [
+        "--mesh", "1,2", "--devices", "cpu,cpu", "--ckpt-dir",
+        str(tmp_path / "mesh")])
+    assert np.allclose(got, want, rtol=1e-5, atol=0), (got, want)
+    assert int(opt["step"]) == 2
+    assert "mesh (data=1, model=2) backend=gloo devices=cpu,cpu" in \
+        capfd.readouterr().out
+
+
 def test_train_launcher_trains_on_a_mesh(tmp_path, capfd):
     """--mesh 2,1 --devices cpu,cpu spawns two gloo ranks (FSDP on the
     data axis) whose losses are --mesh host's within 1e-5 relative, and
@@ -117,7 +182,8 @@ def test_chip_smoke_train_mesh_phase_rehearses_on_cpu(monkeypatch):
         n = p["mesh"][0] * p["mesh"][1]
         assert len(p["ranks"]) == n
         for r in p["ranks"]:
-            assert r["held_bytes"] == r["spec_local_bytes"]
+            assert r["held_bytes"] == r["rule_local_bytes"] \
+                == r["spec_local_bytes"]
             # a rank holds 1/n of the state, but the replicated norm
             # scales (0.2 % of tiny-lm's state on (2, 2))
             assert r["held_bytes"] <= 1.01 * p["whole_state_bytes"] / n

@@ -47,7 +47,6 @@ from repro_torch.dist.sharding import (REPLICATED_LEAVES, TrainLayout,
                                        local_shape, whole_kv_leaves)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import init_params
-from repro_torch.models.model import loss_fn
 from repro_torch.train import (AdamWConfig, Trainer, TrainerConfig,
                                init_train_state, make_train_step)
 from repro_torch.tree import keystr, leaves_with_paths
@@ -317,27 +316,26 @@ def test_mesh_step_collectives():
 
 
 def test_training_mesh_refusals():
-    """MoE, MLA and Mamba on a training mesh, a multi-pod mesh and a mesh
-    of more cards than are visible raise, citing the ROADMAP item."""
+    """MoE, MLA and Mamba train on a mesh (tests/test_torch_train_mesh_
+    families.py); a model axis that does not divide a MoE config's
+    experts (the reference cuts inside each expert), a multi-pod mesh and
+    a mesh of more cards than are visible raise, citing the ROADMAP
+    item."""
     mesh = ServeMesh(2, 1, ["cpu", "cpu"], rank=0)
     for arch in ("tiny-moe", "tiny-mla", "falcon-mamba-7b"):
         cfg = smoke_config(arch) if arch.startswith("falcon") else \
             get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 6.1"):
-            TrainLayout(cfg.replace(n_layers=2), mesh)
-        with pytest.raises(NotImplementedError, match="item 6.1"):
-            make_train_step(cfg, AdamWConfig(), mesh=mesh)
-        # the forward itself, while autograd records on a mesh
-        p = init_params(cfg.replace(n_layers=1, dtype="float32"),
-                        device="cpu")
-        ids = torch.zeros((1, 4), dtype=torch.int32)
-        with context.mesh_context(mesh), pytest.raises(
-                NotImplementedError, match="item 6.1"):
-            loss_fn(cfg.replace(n_layers=1), p,
-                    {"inputs": ids, "labels": ids})
+        TrainLayout(cfg.replace(n_layers=2), mesh)
+        make_train_step(cfg, AdamWConfig(), mesh=mesh)
+    three = ServeMesh(1, 3, ["cpu"] * 3, rank=0)
+    cfg = get_config("tiny-moe").replace(n_layers=2)
+    with pytest.raises(ValueError, match="item 6.5"):
+        TrainLayout(cfg, three)
+    with pytest.raises(ValueError, match="item 6.5"):
+        make_train_step(cfg, AdamWConfig(), mesh=three)
     with pytest.raises(NotImplementedError, match="item 6.2"):
         make_production_mesh(multi_pod=True)
-    with pytest.raises(ValueError, match="visible"):
+    with pytest.raises(ValueError, match="visible.*item 6.4"):
         make_production_mesh(model=2, devices=None)
 
 
@@ -351,6 +349,9 @@ def test_hooks_outside_a_mesh_return_their_input():
                 contextlib.nullcontext():
             assert context.reduce_model(x) is x
             assert context.copy_to_model(x) is x
+            assert not context.routes_over_data(x)
+            c = torch.arange(3)
+            assert torch.equal(context.gather_counts(c), c[None])
             assert context.gather_model(x, -1) is x
             assert context.gather_fsdp(x, 0) is x
             assert context.reduce_fsdp(x) is x

@@ -215,20 +215,27 @@ def fail_on_rank_1(mesh):
 # --------------------------------------------------------------------------
 
 def train_config(case):
-    """The case's config: 2 layers, fp32, remat full."""
-    from repro_torch.configs import get_config
+    """The case's config, fp32, remat full: the registry's cut to 2
+    layers, or with `smoke` the reduced config of its family (one
+    super-block of depth)."""
+    from repro_torch.configs import get_config, smoke_config
+    if case.get("smoke"):
+        return smoke_config(case["arch"]).replace(
+            dtype="float32", remat="full", **case.get("kw", {}))
     return get_config(case["arch"]).replace(
         dtype="float32", n_layers=2, remat="full", **case.get("kw", {}))
 
 
 def train_case(mesh, case: dict) -> dict:
     """Train one case on this rank of the bound `mesh`: the seeded whole
-    init (seed 0) cut by shard_train_state, `case["batches"]` (numpy)
+    init (seed 0) cut by shard_train_state, `case["batches"]` (numpy: token
+    ids, or frames of a frame-input config)
     through make_train_step(mesh=, fsdp=), or through a Trainer
     (`ckpt`: resume from the directory's checkpoint, and with `save_at`
-    save there at that step). -> the losses, the whole trained state
-    (gather_train_state, numpy), the shapes this rank held and the
-    collectives of its steps."""
+    save there at that step). -> the losses, a MoE config's (aux loss,
+    dropped pairs) a step, the whole trained state (gather_train_state,
+    numpy), the shapes this rank held and the collectives of its
+    steps."""
     from repro_torch.ckpt import stack_params
     from repro_torch.dist.context import mesh_context
     from repro_torch.dist.sharding import gather_train_state, shard_train_state
@@ -252,7 +259,7 @@ def train_case(mesh, case: dict) -> dict:
             out = tr.run()
             params, opt = tr.params, tr.opt_state
             losses = [m["loss"] for m in tr.metrics_log]
-            norms, resumed = None, out["resumed"]
+            norms, resumed, moe = None, out["resumed"], []
         else:
             whole = stack_params(cfg, init_params(cfg, seed=0, device="cpu"))
             params, opt = shard_train_state(
@@ -261,11 +268,13 @@ def train_case(mesh, case: dict) -> dict:
                 cfg, opt_cfg, microbatches=mb, warmup=case["warmup"],
                 grad_compress=case.get("grad_compress", "none"), mesh=mesh,
                 fsdp=fsdp)
-            losses, norms = [], []
+            losses, norms, moe = [], [], []
             for b in batches:
                 params, opt, m = step(params, opt, b)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
+                if "moe_dropped" in m:
+                    moe.append((float(m["aux"]), float(m["moe_dropped"])))
             resumed = False
         counts = dict(mesh.counts)
         held = {"params": {k: tuple(v.shape)
@@ -275,7 +284,7 @@ def train_case(mesh, case: dict) -> dict:
         P, O = gather_train_state(cfg, params, opt, mesh, fsdp)
     to_np = {keystr(k): v.detach().numpy() for k, v in leaves_with_paths(
         {"params": P, "opt": O})}
-    return {"losses": losses, "grad_norms": norms,
+    return {"losses": losses, "grad_norms": norms, "moe": moe,
             "state": to_np if mesh.rank == 0 else None,
             "held": held, "counts": counts, "resumed": resumed,
             "coords": mesh.coords}
